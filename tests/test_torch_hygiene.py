@@ -1,0 +1,120 @@
+"""Hygiene of the PyTorch port: it never imports JAX or the JAX package, its
+entry points do not fall back to the CPU, and its kernel wrappers and build
+refuse what they cannot run."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "tf_geometric_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tf_geometric_tpu")
+
+
+def _is_forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top.startswith("jax") or top in FORBIDDEN
+
+
+def test_importing_the_port_loads_no_jax():
+    code = textwrap.dedent("""
+        import sys
+        import tf_geometric_tpu_torch, tf_geometric_tpu_torch.bench
+        import tf_geometric_tpu_torch.entry, chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0].startswith("jax") or m.split(".")[0] in
+                     ("flax", "optax", "tf_geometric_tpu"))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_file_of_the_port_imports_jax():
+    """Also catches imports inside functions, which the subprocess misses."""
+    offenders = []
+    for path in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.name}:{node.lineno} {n}" for n in names
+                          if _is_forbidden(n)]
+    assert not offenders, offenders
+
+
+def test_entry_points_raise_without_cuda():
+    """Called with no device, bench.main() and entry() ask for the card and
+    raise here instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.entry import entry
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench.main(num_nodes=200, num_edges=600, steps=1)
+    with pytest.raises((AssertionError, RuntimeError)):
+        entry()
+    with pytest.raises(ValueError):
+        bench.main(num_nodes=200, num_edges=600, steps=1, device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without a card,
+    and when it is alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    for cwd in (REPO, tmp_path):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from tf_geometric_tpu_torch.ops.csr_spmm import CsrAdj, launch_csr_spmm
+    from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
+    adj = CsrAdj.from_coo([[0, 1], [1, 0]], None, (2, 2), device="cpu")
+    side, h = adj.fwd, torch.ones(2, 3)
+    before = launch_csr_spmm.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_csr_spmm(side.row_ptr, side.col, side.val, h, None, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_sorted_segment_sum(h, torch.tensor([0, 1, 2], dtype=torch.int32),
+                                  torch.empty(2, 3), True)
+    assert launch_csr_spmm.launches == before
+
+
+def test_build_is_keyed_by_source_and_raises_without_nvcc(tmp_path, monkeypatch):
+    from tf_geometric_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// one")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    first = _build._digest()
+    (csrc / "a.cu").write_text("// two")
+    assert _build._digest() != first
+    monkeypatch.setattr(_build, "SOURCES", ("a.cu",))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-such-nvcc"))
+    with pytest.raises((RuntimeError, OSError)):
+        _build.build_all()
+    # a compiler that fails raises with its output
+    fake = tmp_path / "fake_nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: refused' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="refused"):
+        _build.build_all()
+    assert not list((tmp_path / "build").rglob("*.so"))

@@ -1,0 +1,281 @@
+"""GCN training-step benchmark on the ogbn-arxiv-shaped graph (the port's
+twin of workloads 1 and 1b of the repository's ``bench.py``).
+
+Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
+
+1. ``gcn_arxiv_fwd_bwd``: a full training step (forward, backward, Adam) of
+   the 2-layer GCN, HIDDEN 256, with the full-batch precompute ``P = Â·x``
+   (layer 1's SpMM operand never changes), so the step runs one SpMM at
+   width 40 and its transpose in the backward.
+2. ``gcn_arxiv_canonical_fwd_bwd``: the same model without the precompute:
+   SpMMs at widths 256 and 40, each with its transpose in the backward.
+
+Both use bf16 SpMM compute and a bf16 ``x @ W0`` by default, as ``bench.py``
+does; weights come from ``np.random.default_rng(0)`` at scale 0.05; Adam at
+lr 1e-2; mean softmax cross-entropy. The dense products are ``torch.matmul``.
+
+Timing: CUDA events around ``steps`` steps after 3 warm-up steps, so the
+time is the device's, not the host's enqueue. There is no CPU path: a
+measurement on the CPU would not be a device number.
+
+vs_baseline = (least time of the step's SpMM passes) / (measured step time).
+The least time of one pass is its least bytes over the H100's 3.35 TB/s:
+h read once and the output written once (N·F elements each, in the compute
+dtype), row_ptr, col and val read once (4 + 8·nnz bytes, nnz without the
+diagonal) and the diagonal read once (4·N bytes). Dense products, the loss
+and Adam are not charged, so the ratio is the share of the step that the
+sparse products' minimum traffic would fill.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .convert import bench_params_from_numpy
+from .datasets.synthetic_citation import synthetic_ogbn_arxiv_like
+from .nn.conv.gcn import (compute_cache_key, gcn_norm_adj, maybe_compile_ell,
+                          precompute_propagated_features)
+from .ops import config as kernel_config
+from .ops.csr_spmm import CsrAdj, CsrSide, csr_spmm
+from .sparse.matrix import SparseMatrix
+
+__all__ = ["GcnProblem", "build_problem", "init_params", "precomputed_loss",
+           "canonical_loss", "make_step", "run_workload", "profile_workload",
+           "WORKLOADS", "main"]
+
+NUM_CLASSES, HIDDEN = 40, 256
+ARXIV_NODES, ARXIV_EDGES = 169_343, 1_166_243
+H100_HBM_BYTES_PER_S = 3.35e12
+WARMUP_STEPS = 3
+PROFILE_STEPS, PROFILE_TOP = 5, 12  # steps traced, kernels listed per workload
+PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel")  # csrc/*.cu
+
+
+class GcnProblem(NamedTuple):
+    adj: CsrAdj
+    x: torch.Tensor                    # [N, 128] float32
+    px: torch.Tensor                   # [N, 128] float32, Â·x
+    y: torch.Tensor                    # [N] int64
+    num_edges_normed: int              # nnz of Â, self-loops included
+    spmm_dtype: Optional[torch.dtype]  # SpMM compute dtype (None: float32)
+
+
+@contextlib.contextmanager
+def _spmm_compute_dtype(dtype):
+    prev = kernel_config.ell_compute_dtype
+    kernel_config.set_ell_compute_dtype(dtype)
+    try:
+        yield
+    finally:
+        kernel_config.set_ell_compute_dtype(prev)
+
+
+def build_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
+                  device="cuda", spmm_bf16: bool = True) -> GcnProblem:
+    """The synthetic arxiv graph, its normalized CSR adjacency and ``P = Â·x``
+    (computed in the SpMM compute dtype, as ``bench.py`` does)."""
+    graph = synthetic_ogbn_arxiv_like(num_nodes=num_nodes, num_edges=num_edges)
+    n = graph.num_nodes
+    coo = SparseMatrix(graph.edge_index, graph.edge_weight, (n, n), device=device)
+    cache = {}
+    normed = gcn_norm_adj(coo, cache=cache)
+    adj = maybe_compile_ell(normed, cache, compute_cache_key("both", True, True, True, False))
+    x = torch.as_tensor(graph.x, device=device)
+    spmm_dtype = torch.bfloat16 if spmm_bf16 else None
+    with _spmm_compute_dtype(spmm_dtype):
+        px = precompute_propagated_features(x, coo, cache=cache)
+    y = torch.as_tensor(graph.y, device=device).long()
+    return GcnProblem(adj, x, px, y, normed.nnz, spmm_dtype)
+
+
+def init_params(num_features: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """``bench.py``'s weights: ``default_rng(0)`` normals at scale 0.05, zero biases."""
+    rng = np.random.default_rng(0)
+    return bench_params_from_numpy({
+        "w0": rng.normal(scale=0.05, size=(num_features, HIDDEN)),
+        "b0": np.zeros(HIDDEN),
+        "w1": rng.normal(scale=0.05, size=(HIDDEN, NUM_CLASSES)),
+        "b1": np.zeros(NUM_CLASSES),
+    }, device=device)
+
+
+def _dense_first_layer(a, w0, dense_bf16: bool):
+    if dense_bf16:
+        return (a.to(torch.bfloat16) @ w0.to(torch.bfloat16)).float()
+    return a @ w0
+
+
+def precomputed_loss(p, problem: GcnProblem, dense_bf16: bool = True,
+                     spmm: Callable = csr_spmm):
+    """Workload 1: ``relu(P W0 + b0)``, then one SpMM at width 40."""
+    h = torch.relu(_dense_first_layer(problem.px, p["w0"], dense_bf16) + p["b0"])
+    logits = spmm(problem.adj, h @ p["w1"], compute_dtype=problem.spmm_dtype) + p["b1"]
+    return F.cross_entropy(logits, problem.y)
+
+
+def canonical_loss(p, problem: GcnProblem, dense_bf16: bool = True,
+                   spmm: Callable = csr_spmm):
+    """Workload 1b: both SpMMs in the step (widths 256 and 40)."""
+    xw = _dense_first_layer(problem.x, p["w0"], dense_bf16)
+    h = torch.relu(spmm(problem.adj, xw, compute_dtype=problem.spmm_dtype) + p["b0"])
+    logits = spmm(problem.adj, h @ p["w1"], compute_dtype=problem.spmm_dtype) + p["b1"]
+    return F.cross_entropy(logits, problem.y)
+
+
+def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor]) -> Callable:
+    """One Adam(lr=1e-2) step per call (optax.adam's defaults: b1 0.9,
+    b2 0.999, eps 1e-8 outside the sqrt); returns the pre-update loss."""
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def _spmm_pass_bytes(side: CsrSide, has_diag: bool, num_src: int, width: int,
+                    elt_bytes: int) -> int:
+    """Least bytes of one SpMM pass ``A_side · h`` (see the module docstring)."""
+    nnz = int(side.col.shape[0])
+    return ((num_src + side.num_rows) * width * elt_bytes
+            + 4 * (side.row_ptr.shape[0]) + 8 * nnz
+            + (4 * side.num_rows if has_diag else 0))
+
+
+# name -> (loss function, SpMM widths run forward and transposed per step)
+WORKLOADS = {
+    "gcn_arxiv_fwd_bwd": (precomputed_loss, (NUM_CLASSES,)),
+    "gcn_arxiv_canonical_fwd_bwd": (canonical_loss, (HIDDEN, NUM_CLASSES)),
+}
+
+
+def _step_bound_s(problem: GcnProblem, widths) -> float:
+    adj = problem.adj
+    elt = 2 if problem.spmm_dtype == torch.bfloat16 else 4
+    has_diag = adj.diag_val is not None
+    total = 0
+    for width in widths:
+        total += _spmm_pass_bytes(adj.fwd, has_diag, adj.shape[1], width, elt)
+        total += _spmm_pass_bytes(adj.bwd, has_diag, adj.shape[0], width, elt)
+    return total / H100_HBM_BYTES_PER_S
+
+
+def run_workload(problem: GcnProblem, name: str, steps: int = 20,
+                 dense_bf16: bool = True) -> dict:
+    """Train ``WARMUP_STEPS + steps`` Adam steps of workload ``name`` from
+    ``init_params`` and time the last ``steps`` with CUDA events. Returns the
+    JSON line (``line``), the step time, the losses of every step and the
+    number of steps taken."""
+    device = problem.x.device
+    if device.type != "cuda":
+        raise ValueError(f"the bench times on a CUDA device, got {device}")
+    loss_fn, widths = WORKLOADS[name]
+    params = init_params(problem.x.shape[1], device=device)
+    step = make_step(lambda p: loss_fn(p, problem, dense_bf16), params)
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [step() for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    step_s = start.elapsed_time(end) / 1e3 / steps
+    edges_per_s = problem.num_edges_normed / step_s
+    line = {
+        "metric": f"{name}_edges_per_sec_per_chip",
+        "value": round(edges_per_s, 1),
+        "unit": "edges/s",
+        "vs_baseline": round(_step_bound_s(problem, widths) / step_s, 4),
+    }
+    return {"line": line, "step_ms": step_s * 1e3,
+            "losses": torch.stack(losses).float().cpu().tolist(),
+            "steps_taken": WARMUP_STEPS + steps}
+
+
+def profile_workload(problem: GcnProblem, name: str, dense_bf16: bool = True) -> dict:
+    """Device time by kernel over ``PROFILE_STEPS`` steps of workload
+    ``name`` (``torch.profiler``): the step's wall time, the device's busy
+    time (sum of kernel self times; the step's kernels run on one stream, so
+    they do not overlap), the ``PROFILE_TOP`` kernels by device time and the
+    port's own kernels (``PORT_KERNELS``) wherever they rank, all per step."""
+    from torch.profiler import ProfilerActivity, profile
+    device = problem.x.device
+    if device.type != "cuda":
+        raise ValueError(f"the profile reads device time, got {device}")
+    loss_fn, _ = WORKLOADS[name]
+    params = init_params(problem.x.shape[1], device=device)
+    step = make_step(lambda p: loss_fn(p, problem, dense_bf16), params)
+    for _ in range(WARMUP_STEPS):
+        step()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PROFILE_STEPS):
+            step()
+        end.record()
+        end.synchronize()
+    # device-side events only; a user annotation (Optimizer.step#Adam.step)
+    # spans kernels already counted
+    kernels = [(e.key, e.self_device_time_total / 1e3 / PROFILE_STEPS,
+                e.count / PROFILE_STEPS)
+               for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda k: -k[1])
+    step_ms = start.elapsed_time(end) / PROFILE_STEPS
+    busy_ms = sum(k[1] for k in kernels)
+    return {"profile": name, "step_ms": step_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / step_ms if step_ms else None,
+            "kernels_per_step": sum(k[2] for k in kernels),
+            "top": [[k[0][:90], round(k[1], 5), k[2]] for k in kernels[:PROFILE_TOP]],
+            "port": [[k[0][:90], round(k[1], 5), k[2]] for k in kernels
+                     if any(p in k[0] for p in PORT_KERNELS)]}
+
+
+def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
+         device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
+         profile: bool = False) -> list:
+    """Run both workloads on ``device`` and print their JSON lines; with
+    ``profile``, also print each workload's per-kernel device time."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the bench times on a CUDA device, got {device}")
+    problem = build_problem(num_nodes, num_edges, device=device, spmm_bf16=spmm_bf16)
+    results = []
+    for name in WORKLOADS:
+        res = run_workload(problem, name, steps=steps, dense_bf16=dense_bf16)
+        print(json.dumps(res["line"]), flush=True)
+        results.append(res)
+        if profile:
+            print(json.dumps(profile_workload(problem, name, dense_bf16=dense_bf16)),
+                  flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--num-nodes", type=int, default=ARXIV_NODES)
+    parser.add_argument("--num-edges", type=int, default=ARXIV_EDGES)
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--no-spmm-bf16", action="store_true")
+    parser.add_argument("--no-dense-bf16", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="also print per-kernel device time (torch.profiler)")
+    args = parser.parse_args()
+    main(args.num_nodes, args.num_edges, args.steps, args.device,
+         spmm_bf16=not args.no_spmm_bf16, dense_bf16=not args.no_dense_bf16,
+         profile=args.profile)

@@ -1,0 +1,43 @@
+"""Shared plumbing for the layer modules (JAX counterpart:
+``tf_geometric_tpu/layers/base.py``).
+
+Layers keep the reference's input contract: ``[x, SparseMatrix]``,
+``[x, edge_index]`` or ``[x, edge_index, edge_weight]``. Kernels keep the
+JAX layout ``[in, units]`` (``x @ kernel``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Tuple
+
+import torch
+
+from ..sparse.matrix import SparseMatrix
+
+__all__ = ["unpack_inputs", "glorot_uniform"]
+
+
+def unpack_inputs(inputs) -> Tuple[Any, SparseMatrix]:
+    """Normalize layer inputs to (x, sparse_adj); edge arrays follow x's device."""
+    if isinstance(inputs, (list, tuple)):
+        if len(inputs) == 2:
+            x, adj = inputs
+            if not isinstance(adj, SparseMatrix):
+                n = x.shape[0]
+                adj = SparseMatrix(adj, None, (n, n), device=x.device)
+            return x, adj
+        if len(inputs) == 3:
+            x, edge_index, edge_weight = inputs
+            n = x.shape[0]
+            return x, SparseMatrix(edge_index, edge_weight, (n, n), device=x.device)
+    raise ValueError(
+        "layer inputs must be [x, SparseMatrix] or [x, edge_index(, edge_weight)]")
+
+
+def glorot_uniform(shape, generator=None, dtype=torch.float32):
+    """Glorot/Xavier uniform draw on the CPU (flax's ``glorot_uniform``:
+    U(-l, l) with l = sqrt(6 / (fan_in + fan_out)) for a [fan_in, fan_out]
+    kernel); the caller moves it to its device."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=dtype).uniform_(-limit, limit, generator=generator)
