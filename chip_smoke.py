@@ -19,17 +19,29 @@ Phases, each of which raises (non-zero exit) on failure:
    composed product against ``torch.sparse.mm`` in float32. Time each
    kernel, its plain version and ``torch.sparse.mm`` (the library yardstick,
    never called by the port) with CUDA events, beside its byte bound.
-4. Main path: zero the launch counters, build the bench problem and train
-   ``bench`` workloads 1 and 1b at full arxiv size; check that the loss is
-   finite and falls and that each kernel ran exactly as often as the
-   ``CsrAdj`` implies. Then train 3 steps at a small size through the
-   kernels and through the plain versions on the card and compare the
-   losses, and run ``entry()`` on the card against its CPU run.
+4. GAT kernels: on the self-looped arxiv graph's ``CsrGatLayout``, at
+   H = 8, d = 32, at the odd shape H = 2, d = 20, at one wide head
+   (H = 1, d = 256) and at (H, d) = (4, 8), (8, 4), (4, 64), which give
+   every other lane-group size (1, 2 and 16 lanes per head), in float32 and
+   bfloat16, with no dropout and with a 0.3 keep mask, hold the forward
+   kernel and both backward kernels against their plain versions on the
+   same inputs (float32: rtol = atol = 1e-4 for out and lse, 1e-3 for the
+   gradients and D, whose sums chain through a recomputed softmax; bfloat16:
+   2e-2). Time each kernel and its plain version with CUDA events beside
+   its bound; print the destination side's hub rows and longest row.
+5. Main path: zero the launch counters, build the bench problem and train
+   ``bench`` workloads 1, 1b and 3 (the 8-head GAT) at full arxiv size;
+   check that the loss is finite and falls and that each kernel ran
+   exactly as often as the layouts imply (GAT: one forward and two
+   backward launches per step). Then train 3 steps of each workload at a
+   small size through the kernels and through the plain versions on the
+   card and compare the losses, and run ``entry()`` on the card against
+   its CPU run.
 
 The second-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
-import functools
+import contextlib
 import json
 import math
 import subprocess
@@ -37,7 +49,13 @@ import sys
 import time
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
+F32_GRAD_TOL = dict(rtol=1e-3, atol=1e-3)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# (heads, head width): the bench's, an odd width, one head over two slices,
+# and the lane groups the others miss (float32 / bfloat16 lanes per head:
+# (4, 8) 2 / 1, (8, 4) 1 / 1, (4, 64) 16 / 8)
+GAT_SHAPES = ((8, 32), (2, 20), (1, 256), (4, 8), (8, 4), (4, 64))
+GAT_KEEP_RATE = 0.3
 WIDTHS = (40, 128, 256)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -193,21 +211,116 @@ def kernel_phase(problem, normed):
     return rows
 
 
-def _launch_counts():
+def gat_kernel_phase(layout, edges):
+    """The three attention kernels against their plain versions at each GAT
+    shape, dtype and dropout setting; returns one row per kernel and case.
+    Also times the bench-shape forward and destination-side backward on the
+    same graph with every row walked by one warp (no hub blocks), which
+    shows what the hub rows would cost without them."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    deg = layout.dst.row_ptr.diff()
+    hub_cost = None
+    print(f"gat layout: {layout}; destination side: {int(layout.dst.hubs.shape[0])} hub rows "
+          f"(> {layout.dst.hub_degree} edges), longest row {int(deg.max())}; source side: "
+          f"{int(layout.src.hubs.shape[0])} hub rows, longest row "
+          f"{int(layout.src.row_ptr.diff().max())}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, rows = layout.num_nodes, []
+    for heads, width in GAT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            fwd_tol, grad_tol = (F32_TOL, F32_GRAD_TOL) if f32 else (BF16_TOL, BF16_TOL)
+            Q, K, V, dy = (torch.randn(n, heads * width, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            for with_keep in (False, True):
+                keep = None
+                if with_keep:
+                    keep = ((torch.rand(layout.num_edges, heads, generator=gen, device="cuda")
+                             >= GAT_KEEP_RATE).float() / (1.0 - GAT_KEEP_RATE))
+                tag = (f"H={heads} d={width} {str(dtype)[6:]} "
+                       f"{'keep 0.7' if with_keep else 'no dropout'}")
+                fwd_args = (layout.dst, Q, K, V, heads, keep)
+                out, lse = ga.launch_gat_forward(*fwd_args)
+                out_p, lse_p = ga.gat_forward_plain(*fwd_args)
+                dst_args = (layout.dst, Q, K, V, out, lse, dy, heads, keep)
+                dQ, D = ga.launch_gat_backward_dst(*dst_args)
+                dQ_p, D_p = ga.gat_backward_dst_plain(*dst_args)
+                src_args = (layout.src, Q, K, V, dy, lse, D, heads, keep)
+                dK, dV = ga.launch_gat_backward_src(*src_args)
+                dK_p, dV_p = ga.gat_backward_src_plain(*src_args)
+                torch.cuda.synchronize()
+                errs = (
+                    max(_max_err(out, out_p, fwd_tol, f"gat forward out {tag}"),
+                        _max_err(lse, lse_p, fwd_tol, f"gat forward lse {tag}")),
+                    max(_max_err(dQ, dQ_p, grad_tol, f"gat backward dQ {tag}"),
+                        _max_err(D, D_p, grad_tol, f"gat backward D {tag}")),
+                    max(_max_err(dK, dK_p, grad_tol, f"gat backward dK {tag}"),
+                        _max_err(dV, dV_p, grad_tol, f"gat backward dV {tag}")))
+                del out_p, lse_p, dQ_p, D_p, dK_p, dV_p
+                timed = heads == bench.GAT_HEADS and width == bench.GAT_UNITS // bench.GAT_HEADS
+                calls = ((ga.launch_gat_forward, ga.gat_forward_plain, fwd_args),
+                         (ga.launch_gat_backward_dst, ga.gat_backward_dst_plain, dst_args),
+                         (ga.launch_gat_backward_src, ga.gat_backward_src_plain, src_args))
+                for kind, ((kernel, plain, args), err) in enumerate(zip(calls, errs)):
+                    nbytes = bench.gat_pass_bytes(layout, kind, heads, width, 2 if not f32 else 4,
+                                                  with_keep)
+                    flops = bench.gat_pass_flops(layout, kind, heads, width)
+                    rows.append(dict(
+                        name=("gat_forward", "gat_backward_dst", "gat_backward_src")[kind],
+                        heads=heads, width=width, dtype=str(dtype)[6:], keep=with_keep,
+                        max_abs_err=err,
+                        ms=_cuda_ms(lambda: kernel(*args)) if timed else None,
+                        plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+                        if timed else None,
+                        library_ms=None,
+                        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S),
+                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+                        else "operations"))
+                if timed and not f32 and not with_keep:
+                    flat = ga.CsrGatLayout.build(edges, n, hub_degree=n + 1, device="cuda")
+                    hub_cost = (_cuda_ms(lambda: ga.launch_gat_forward(flat.dst, Q, K, V, heads)),
+                                _cuda_ms(lambda: ga.launch_gat_backward_dst(
+                                    flat.dst, Q, K, V, out, lse, dy, heads)))
+                    del flat
+                torch.cuda.empty_cache()
+    print(f"gat hub rows walked by single warps (H=8, d=32, bfloat16): forward "
+          f"{hub_cost[0]:.4f} ms, backward dst {hub_cost[1]:.4f} ms", flush=True)
+    print("gat kernel check (name H d dtype dropout: max_abs_err, ms, plain_ms, bound_ms)")
+    for r in rows:
+        times = (f"{r['ms']:.4f}, {r['plain_ms']:.4f}" if r["ms"] is not None
+                 else "not timed, not timed")
+        print(f"  {r['name']} H={r['heads']} d={r['width']} {r['dtype']} "
+              f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {times}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+# every kernel wrapper of the main path, in the order of the counts below
+_KERNELS = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
+            "gat_backward_src")
+
+
+def _wrappers():
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
     from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm
     from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
-    return launch_csr_spmm.launches, launch_sorted_segment_sum.launches
+    return (launch_csr_spmm, launch_sorted_segment_sum, ga.launch_gat_forward,
+            ga.launch_gat_backward_dst, ga.launch_gat_backward_src)
+
+
+def _launch_counts():
+    return [w.launches for w in _wrappers()]
 
 
 def _zero_launch_counts():
-    from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm
-    from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
-    launch_csr_spmm.launches = 0
-    launch_sorted_segment_sum.launches = 0
+    for w in _wrappers():
+        w.launches = 0
 
 
 def main_path_phase(gpu):
-    """Workloads 1 and 1b at full arxiv size through the kernels; returns
+    """Workloads 1, 1b and 3 at full arxiv size through the kernels; returns
     the launch totals of the run and the bench results."""
     from tf_geometric_tpu_torch import bench
     _zero_launch_counts()
@@ -215,18 +328,25 @@ def main_path_phase(gpu):
     adj = problem.adj
     hubs = int(adj.fwd.num_virtual > 0) + int(adj.bwd.num_virtual > 0)
     # the precompute P = Â·x is one forward product
-    expected = [1, int(adj.fwd.num_virtual > 0)]
-    _check(list(_launch_counts()) == expected,
+    expected = [1, int(adj.fwd.num_virtual > 0), 0, 0, 0]
+    _check(_launch_counts() == expected,
            f"precompute launches {_launch_counts()} != {expected}")
-    totals = list(_launch_counts())
+    totals = _launch_counts()
     results = {}
-    # per step and SpMM: Kernel A forward + backward, Kernel B per split side
-    for name, spmms in (("gcn_arxiv_fwd_bwd", 1), ("gcn_arxiv_canonical_fwd_bwd", 2)):
+    for name in bench.WORKLOADS:
         _zero_launch_counts()
         res = bench.run_workload(problem, name)
         counts = _launch_counts()
-        expected = [res["steps_taken"] * spmms * 2, res["steps_taken"] * spmms * hubs]
-        _check(list(counts) == expected, f"{name}: launches {counts} != expected {expected}")
+        steps = res["steps_taken"]
+        if name in bench.GCN_WORKLOADS:
+            # per step and SpMM: Kernel A forward + backward, Kernel B per split side
+            spmms = 1 if name == "gcn_arxiv_fwd_bwd" else 2
+            expected = [steps * spmms * 2, steps * spmms * hubs, 0, 0, 0]
+        else:
+            # per step: one forward and two backward attention launches (hub
+            # rows are blocks of the same launches)
+            expected = [0, 0, steps, steps, steps]
+        _check(counts == expected, f"{name}: launches {counts} != expected {expected}")
         losses = res["losses"]
         _check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
         _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
@@ -234,31 +354,32 @@ def main_path_phase(gpu):
         results[name] = res
         print(f"{name}: step {res['step_ms']:.4f} ms, {res['line']['value']} edges/s, "
               f"vs_baseline {res['line']['vs_baseline']}, loss {losses[0]:.5f} -> "
-              f"{losses[-1]:.5f}, launches A={counts[0]} B={counts[1]} on {gpu}", flush=True)
+              f"{losses[-1]:.5f}, launches {dict(zip(_KERNELS, counts))} on {gpu}", flush=True)
         print(json.dumps(res["line"]), flush=True)
     return totals, results
 
 
 def small_plain_phase():
-    """3 steps at a small size through the kernels and through the plain
-    versions on the card: the losses must agree."""
+    """3 steps of each workload at a small size through the kernels and
+    through the plain versions on the card: the losses must agree."""
     import torch
     from tf_geometric_tpu_torch import bench
-    from tf_geometric_tpu_torch.ops.csr_spmm import csr_spmm, side_matmul_plain
-    plain = functools.partial(csr_spmm, side_fn=side_matmul_plain)
+    from tf_geometric_tpu_torch.ops import config as kernel_config
     for spmm_bf16, tol in ((False, F32_TOL), (True, BF16_TOL)):
         problem = bench.build_problem(20_000, 140_000, device="cuda", spmm_bf16=spmm_bf16)
         _check(problem.adj.fwd.num_virtual > 0, "small problem has no hub rows")
-        for name, (loss_fn, _) in bench.WORKLOADS.items():
+        _check(problem.gat_layout.dst.hubs.numel() > 0, "small GAT layout has no hub rows")
+        for name, wl in bench.WORKLOADS.items():
             losses = {}
-            for label, spmm in (("kernel", csr_spmm), ("plain", plain)):
-                params = bench.init_params(problem.x.shape[1], device="cuda")
-                step = bench.make_step(
-                    lambda p: loss_fn(p, problem, spmm_bf16, spmm), params)
-                losses[label] = torch.stack([step() for _ in range(3)])
+            for label in ("kernel", "plain"):
+                params = wl.init(problem.x.shape[1], device="cuda")
+                step = bench.make_step(lambda p: wl.loss(p, problem, spmm_bf16), params, wl.lr)
+                with (kernel_config.use_plain_versions() if label == "plain"
+                      else contextlib.nullcontext()):
+                    losses[label] = torch.stack([step() for _ in range(3)])
             err = _max_err(losses["kernel"], losses["plain"], tol,
-                           f"3-step losses {name} spmm_bf16={spmm_bf16}")
-            print(f"small {name} spmm_bf16={spmm_bf16}: kernel "
+                           f"3-step losses {name} bf16={spmm_bf16}")
+            print(f"small {name} bf16={spmm_bf16}: kernel "
                   f"{losses['kernel'].tolist()} plain {losses['plain'].tolist()} "
                   f"max abs err {err:.3e}", flush=True)
 
@@ -306,32 +427,42 @@ def main():
     print(f"arxiv problem built in {time.perf_counter() - t0:.1f} s: {problem.adj}",
           flush=True)
     rows = kernel_phase(problem, normed)
-    del problem, normed
+    del normed
+    rows += gat_kernel_phase(problem.gat_layout, problem.gat_edges)
+    del problem
     torch.cuda.empty_cache()
 
     totals, results = main_path_phase(gpu)
     small_plain_phase()
     entry_phase()
 
-    # one entry per kernel, at its heaviest main-path call: the forward side
-    # at F=256 in bfloat16 (the canonical step's first layer)
+    # one entry per kernel, at its heaviest main-path call: the SpMM kernels
+    # on the forward side at F=256 in bfloat16 (the canonical step's first
+    # layer), the attention kernels at the bench's H=8, d=32 in bfloat16
+    spmm_rep = dict(side="fwd", width=256, dtype="bfloat16")
+    gat_rep = dict(heads=8, width=32, dtype="bfloat16", keep=False)
+    gat_src = ("tf_geometric_tpu_torch/csrc/gat_attention.cu",
+               "tf_geometric_tpu/ops/ell_attention_bucketed.py:933")
     source = {"csr_spmm": ("tf_geometric_tpu_torch/csrc/csr_spmm.cu",
-                           "tf_geometric_tpu/ops/ell_bucketed.py:214"),
+                           "tf_geometric_tpu/ops/ell_bucketed.py:214", spmm_rep,
+                           "fwd side, F=256, bfloat16"),
               "sorted_segment_sum": ("tf_geometric_tpu_torch/csrc/sorted_segment.cu",
-                                     "tf_geometric_tpu/ops/pallas_segment.py:84")}
+                                     "tf_geometric_tpu/ops/pallas_segment.py:84", spmm_rep,
+                                     "fwd side, F=256, bfloat16"),
+              "gat_forward": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
+              "gat_backward_dst": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
+              "gat_backward_src": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout")}
     kernels = []
-    for i, name in enumerate(("csr_spmm", "sorted_segment_sum")):
+    for name, launches in zip(_KERNELS, totals):
+        path, replaces, rep_key, shape = source[name]
         mine = [r for r in rows if r["name"] == name]
-        rep = next(r for r in mine if r["side"] == "fwd" and r["width"] == 256
-                   and r["dtype"] == "bfloat16")
-        _check(totals[i] > 0, f"{name} was not launched on the main path")
+        rep = next(r for r in mine if all(r[k] == v for k, v in rep_key.items()))
+        _check(launches > 0, f"{name} was not launched on the main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": source[name][0],
-            "replaces": source[name][1], "launches": totals[i],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "name": name, "route": "cuda", "source": path, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-            "shape": "fwd side, F=256, bfloat16"})
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "shape": shape})
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} edges/s "
               f"({gpu})", flush=True)

@@ -1,0 +1,167 @@
+"""The port's fused GAT attention (``ops/gat_attention.py``: ``CsrGatLayout``,
+the plain versions of the three passes, the autograd function) against the
+JAX package's ``gat_attention_bucketed`` and its custom VJP, on the CPU.
+
+Tolerances, as the JAX package's own tests of that kernel use: forward
+rtol = atol = 1e-4 and gradients 2e-3 in float32 (same formulas, summed in
+another order; the backward recomputes the weights from lse); bfloat16
+compute 2e-2 (the JAX kernel rounds products and sums to bfloat16, the port
+sums in float32).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_geometric_tpu.ops import ell_attention_bucketed as jatt
+from tf_geometric_tpu_torch.nn.conv.gat import _segment_attention
+from tf_geometric_tpu_torch.ops.gat_attention import CsrGatLayout, gat_attention_csr
+
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-3)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _skewed_graph(rng, n, H, d, hub_deg=40, num_pad=3):
+    """tests/test_ell_attention_bucketed.py's mix: one hub destination,
+    empty rows (n-2, n-1), self-loops on a prefix; plus padding edges
+    (row = col = n) at the end."""
+    rows = np.concatenate([np.full(hub_deg, 2), rng.integers(3, n - 2, 60),
+                           np.arange(min(5, n))])
+    cols = np.concatenate([rng.integers(0, n, hub_deg + 60), np.arange(min(5, n))])
+    order = np.argsort(rows, kind="stable")
+    ei = np.stack([rows, cols])[:, order]
+    ei = np.concatenate([ei, np.full((2, num_pad), n)], axis=1).astype(np.int32)
+    Q, K, V, dy = (rng.normal(size=(n, H * d)).astype(np.float32) for _ in range(4))
+    return ei, Q, K, V, dy
+
+
+def _jax_grads(fn, Q, K, V, dy):
+    """(out, dQ, dK, dV) of ``fn`` under one jit (faster to compile than
+    the JAX kernel's unrolled slot loops run op by op)."""
+    @jax.jit
+    def run(q, k, v, g):
+        out, vjp = jax.vjp(fn, q, k, v)
+        return (out,) + vjp(g.astype(out.dtype))
+
+    return [np.asarray(t, np.float32) for t in run(*map(jnp.asarray, (Q, K, V, dy)))]
+
+
+def _port_grads(layout, Q, K, V, dy, H, **kwargs):
+    q, k, v = (torch.tensor(a, requires_grad=True) for a in (Q, K, V))
+    out = gat_attention_csr(layout, q, k, v, H, **kwargs)
+    out.backward(torch.as_tensor(dy).to(out.dtype))
+    return [t.detach().float().numpy() for t in (out, q.grad, k.grad, v.grad)]
+
+
+def _assert_all(got, want, fwd_tol, grad_tol):
+    for name, g, w, tol in zip(("out", "dQ", "dK", "dV"), got, want,
+                               (fwd_tol, grad_tol, grad_tol, grad_tol)):
+        np.testing.assert_allclose(g, w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("layout_mode,H,d", [("auto", 4, 8), ("bucketed", 4, 8),
+                                             ("classic", 4, 8), ("classic", 2, 20)])
+def test_attention_matches_jax_bucketed(rng, layout_mode, H, d):
+    n = 25
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d)
+    jlayout = jatt.build_gat_layout_bucketed(ei, n, layout=layout_mode)
+    want = _jax_grads(lambda q, k, v: jatt.gat_attention_bucketed(jlayout, q, k, v, H),
+                      Q, K, V, dy)
+    layout = CsrGatLayout.build(ei, n, device="cpu")
+    got = _port_grads(layout, Q, K, V, dy, H)
+    _assert_all(got, want, F32_TOL, GRAD_TOL)
+    assert np.abs(got[0][-2:]).max() == 0.0  # empty rows aggregate to exactly zero
+    assert all(np.isfinite(g).all() for g in got)
+
+
+def test_attention_bf16_compute_matches_jax(rng):
+    n, H, d = 25, 4, 8
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d)
+    jlayout = jatt.build_gat_layout_bucketed(ei, n, layout="bucketed")
+    want = _jax_grads(lambda q, k, v: jatt.gat_attention_bucketed(
+        jlayout, q, k, v, H, compute_dtype=jnp.bfloat16), Q, K, V, dy)
+    got = _port_grads(CsrGatLayout.build(ei, n, device="cpu"), Q, K, V, dy, H,
+                      compute_dtype=torch.bfloat16)
+    _assert_all(got, want, BF16_TOL, BF16_TOL)
+
+
+def test_dropout_mask_matches_jax_fused_vjp(rng):
+    """One [E, H] edge-order mask, handed to JAX's custom VJP through its
+    slot and tail lanes (sentinel lanes read 0) and to the port as is."""
+    n, H, d, rate = 21, 2, 4, 0.3
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d, hub_deg=30)
+    E = ei.shape[1]
+    mask = (rng.random((E, H)) < 1 - rate).astype(np.float32) / (1 - rate)
+    # small caps so that the hub overflows into the JAX layout's tail lanes
+    jlayout = jatt.build_gat_layout_bucketed(ei, n, caps=[2, 8], layout="bucketed")
+    assert jlayout.fwd.tail_prow.shape[0] > 0
+    padded = np.concatenate([mask, np.zeros((1, H), np.float32)])
+    keep_slots = tuple(jnp.asarray(padded[np.asarray(g.slot_eid)]) for g in jlayout.fwd.groups)
+    keep_tail = jnp.asarray(padded[np.asarray(jlayout.fwd.tail_eid)])
+    want = _jax_grads(lambda q, k, v: jatt._fused_vjp(
+        jlayout, H, d, q, k, v, keep_slots, keep_tail, jnp.ones((), jnp.float32),
+        jnp.zeros((0,), jnp.int32)), Q, K, V, dy)
+    layout = CsrGatLayout.build(ei, n, device="cpu")
+    got = _port_grads(layout, Q, K, V, dy, H, edge_drop_rate=rate, training=True,
+                      keep_mask=torch.as_tensor(mask))
+    _assert_all(got, want, F32_TOL, GRAD_TOL)
+    # a mask is drawn from a generator; without either, training raises
+    q = torch.as_tensor(Q)
+    drawn = gat_attention_csr(layout, q, q, q, H, edge_drop_rate=rate, training=True,
+                              generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(drawn).all()
+    with pytest.raises(ValueError):
+        gat_attention_csr(layout, q, q, q, H, edge_drop_rate=rate, training=True)
+    with pytest.raises(ValueError, match="keep_mask"):
+        gat_attention_csr(layout, q, q, q, H, edge_drop_rate=rate, training=True,
+                          keep_mask=torch.ones(E - 1, H))
+
+
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_plain_backward_matches_autograd_of_segment_path(rng, with_keep):
+    """The plain backward formulas (weights recomputed from lse, D = <dy,
+    out>) against torch autograd of the segment path on the same edges."""
+    n, H, d = 19, 2, 4
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d, hub_deg=25)
+    E = ei.shape[1]
+    keep = (torch.as_tensor(rng.random((E, H)) < 0.7).float() / 0.7) if with_keep else None
+    layout = CsrGatLayout.build(ei, n, device="cpu")
+    got = _port_grads(layout, Q, K, V, dy, H, training=with_keep,
+                      edge_drop_rate=0.3 if with_keep else 0.0, keep_mask=keep)
+    q, k, v = (torch.tensor(a, requires_grad=True) for a in (Q, K, V))
+    eit = torch.as_tensor(ei).long()
+    out = _segment_attention(q, k, v, eit[0], eit[1], n, H, keep).reshape(n, H * d)
+    out.backward(torch.as_tensor(dy))
+    want = [t.detach().numpy() for t in (out, q.grad, k.grad, v.grad)]
+    _assert_all(got, want, F32_TOL, GRAD_TOL)
+
+
+def test_layout_drops_padding_and_splits_hubs():
+    ei = np.array([[0, 0, 0, 1, 3, 2], [1, 2, 0, 0, 3, 9]])  # (3, 3) and (2, 9) pad
+    layout = CsrGatLayout.build(ei, 3, hub_degree=2, device="cpu")
+    assert layout.num_edges == 6 and layout.num_nodes == 3
+    np.testing.assert_array_equal(layout.dst.row_ptr.numpy(), [0, 3, 4, 4])
+    np.testing.assert_array_equal(layout.dst.nbr.numpy(), [1, 2, 0, 0])
+    np.testing.assert_array_equal(layout.dst.eid.numpy(), [0, 1, 2, 3])
+    np.testing.assert_array_equal(layout.dst.hubs.numpy(), [0])
+    np.testing.assert_array_equal(layout.src.row_ptr.numpy(), [0, 2, 3, 4])
+    np.testing.assert_array_equal(layout.src.nbr.numpy(), [0, 1, 0, 0])
+    np.testing.assert_array_equal(layout.src.eid.numpy(), [2, 3, 0, 1])
+    assert layout.src.hubs.numel() == 0
+    assert all(t.dtype == torch.int32 for t in layout.dst[:4] + layout.src[:4])
+
+
+def test_contract_errors():
+    layout = CsrGatLayout.build(np.array([[0, 1], [1, 0]]), 2, device="cpu")
+    q = torch.ones(2, 8)
+    with pytest.raises(NotImplementedError):
+        gat_attention_csr(layout, q, q, torch.ones(2, 4), 2)
+    with pytest.raises(ValueError):
+        gat_attention_csr(layout, torch.ones(3, 8), torch.ones(3, 8), torch.ones(3, 8), 2)
+    with pytest.raises(ValueError):
+        gat_attention_csr(layout, q, q, q, 3)
+    # the passes take their plain versions on CPU tensors only
+    with pytest.raises(NotImplementedError, match="no GAT attention kernel"):
+        gat_attention_csr(layout, q.to("meta"), q.to("meta"), q.to("meta"), 2)

@@ -170,7 +170,7 @@ def test_gcn_layer_with_flax_weights(with_cache):
                                                    jnp.asarray(ew)])
     want = layer.apply(variables, [jnp.asarray(x), jnp.asarray(ei), jnp.asarray(ew)],
                        cache={} if with_cache else None)
-    tlayer = TorchGCN(x.shape[1], 7, activation=torch.relu)
+    tlayer = TorchGCN(x.shape[1], 7, activation=torch.relu, device="cpu")
     tlayer.load_state_dict(gcn_state_dict_from_flax(variables))
     got = tlayer([torch.as_tensor(x), torch.as_tensor(ei), torch.as_tensor(ew)],
                  cache={} if with_cache else None)
@@ -180,19 +180,19 @@ def test_gcn_layer_with_flax_weights(with_cache):
 def test_gcn_layer_init_and_gradients():
     x, ei, ew, _ = _graph(6)
     gen = torch.Generator().manual_seed(0)
-    layer = TorchGCN(6, 9, generator=gen)
+    layer = TorchGCN(6, 9, generator=gen, device="cpu")
     limit = np.sqrt(6.0 / (6 + 9))
     k = layer.kernel.detach().numpy()
     assert k.shape == (6, 9) and np.abs(k).max() <= limit and np.abs(k).max() > limit / 2
     assert torch.equal(layer.bias, torch.zeros(9))
-    again = TorchGCN(6, 9, generator=torch.Generator().manual_seed(0))
+    again = TorchGCN(6, 9, generator=torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again.kernel, layer.kernel)
     cache = {}
     layer.build_cache_by_adj(_t(x.shape[0], ei, ew), cache=cache)
     layer([torch.as_tensor(x), _t(x.shape[0], ei, ew)], cache=cache).sum().backward()
     assert layer.kernel.grad is not None and layer.bias.grad is not None
     assert KEY + ":ell" in cache
-    dropping = TorchGCN(6, 9, edge_drop_rate=0.5)
+    dropping = TorchGCN(6, 9, edge_drop_rate=0.5, device="cpu")
     with pytest.raises(ValueError):
         dropping([torch.as_tensor(x), torch.as_tensor(ei)], cache={})
     dropping.eval()

@@ -118,3 +118,55 @@ def test_build_is_keyed_by_source_and_raises_without_nvcc(tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="refused"):
         _build.build_all()
     assert not list((tmp_path / "build").rglob("*.so"))
+
+
+def test_gat_kernel_wrappers_refuse_cpu_tensors():
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    layout = ga.CsrGatLayout.build([[0, 1, 1], [1, 0, 1]], 2, device="cpu")
+    q = torch.ones(2, 8)
+    stats = torch.zeros(2, 2)
+    wrappers = (ga.launch_gat_forward, ga.launch_gat_backward_dst, ga.launch_gat_backward_src)
+    before = [w.launches for w in wrappers]
+    with pytest.raises(ValueError, match="CUDA"):
+        ga.launch_gat_forward(layout.dst, q, q, q, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ga.launch_gat_backward_dst(layout.dst, q, q, q, q, stats, q, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ga.launch_gat_backward_src(layout.src, q, q, q, q, stats, stats, 2)
+    assert [w.launches for w in wrappers] == before
+
+
+def test_gat_unequal_head_widths_raise_off_the_cpu():
+    """On a device other than the CPU, gat() with d_q != d_v raises instead
+    of running the segment path there (meta tensors stand in for CUDA)."""
+    from tf_geometric_tpu_torch.nn import gat
+    x = torch.ones(4, 3, device="meta")
+    wq, wv = torch.ones(3, 4, device="meta"), torch.ones(3, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gat(x, [[0, 1], [1, 2]], wq, torch.zeros(4, device="meta"), None,
+            wq, torch.zeros(4, device="meta"), None, wv, num_heads=2)
+
+
+def test_layers_ask_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tf_geometric_tpu_torch.layers import GAT, GCN
+    for make in (lambda: GAT(4, 8, num_heads=2), lambda: GCN(4, 8)):
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
+
+
+def test_plain_versions_switch_is_scoped():
+    """``use_plain_versions`` holds only within its block, also when the
+    block raises; on CPU tensors the ops give the same result either way."""
+    from tf_geometric_tpu_torch.ops import config
+    from tf_geometric_tpu_torch.ops.gat_attention import CsrGatLayout, gat_attention_csr
+    layout = CsrGatLayout.build([[0, 1, 1], [1, 0, 1]], 2, device="cpu")
+    q = torch.arange(16, dtype=torch.float32).reshape(2, 8) / 16
+    want = gat_attention_csr(layout, q, q, q, 2)
+    with pytest.raises(KeyError):
+        with config.use_plain_versions():
+            assert config.plain_versions
+            assert torch.equal(gat_attention_csr(layout, q, q, q, 2), want)
+            raise KeyError
+    assert not config.plain_versions

@@ -1,5 +1,5 @@
-"""The slice end to end: the port's bench workloads 1 and 1b against a
-JAX/optax step written as ``bench.py`` writes it, from the same numpy
+"""The slices end to end: the port's bench workloads 1, 1b and 3 (GAT)
+against a JAX/optax step written as ``bench.py`` writes it, from the same numpy
 weights, on the same synthetic arxiv-shaped graph (shrunk), on the CPU, in
 float32, over 3 Adam steps.
 
@@ -90,7 +90,7 @@ def _jax_run(workload, monkeypatch):
     return trace, {k: np.array(v) for k, v in params.items()}
 
 
-@pytest.mark.parametrize("workload", sorted(bench.WORKLOADS))
+@pytest.mark.parametrize("workload", sorted(bench.GCN_WORKLOADS))
 def test_workload_matches_jax_optax(workload, monkeypatch):
     trace, want_final = _jax_run(workload, monkeypatch)
     problem = bench.build_problem(N, E, device="cpu", spmm_bf16=False)
@@ -166,3 +166,87 @@ def test_bench_params_from_numpy():
     np.testing.assert_array_equal(p["w1"].detach().numpy(), raw["w1"].astype(np.float32))
     with pytest.raises(KeyError):
         bench_params_from_numpy({"w0": raw["w0"]}, device="cpu")
+
+
+def _jax_gat_run():
+    """bench.py:343-384 (workload 3) in float32, 3 Adam(1e-3) steps."""
+    from tf_geometric_tpu.nn.conv.gat import _gat_edge_cache, gat as jax_gat
+    graph = jax_arxiv(num_nodes=N, num_edges=E)
+    n, f = graph.x.shape
+    sorted_ei, _, layout = _gat_edge_cache(jnp.asarray(graph.edge_index), n, {})
+    x, y = jnp.asarray(graph.x), jnp.asarray(graph.y)
+    rng = np.random.default_rng(0)
+    rng.normal(scale=0.05, size=(f, bench.HIDDEN))           # the GCN's w0
+    rng.normal(scale=0.05, size=(bench.HIDDEN, bench.NUM_CLASSES))  # and w1
+    units = bench.GAT_UNITS
+    params = {
+        "wq": jnp.asarray(rng.normal(scale=0.05, size=(f, units)), jnp.float32),
+        "bq": jnp.zeros(units),
+        "wk": jnp.asarray(rng.normal(scale=0.05, size=(f, units)), jnp.float32),
+        "bk": jnp.zeros(units),
+        "wv": jnp.asarray(rng.normal(scale=0.05, size=(f, units)), jnp.float32),
+        "wd": jnp.asarray(rng.normal(scale=0.05, size=(units, bench.NUM_CLASSES)),
+                          jnp.float32),
+        "bd": jnp.zeros(bench.NUM_CLASSES),
+    }
+
+    def loss_fn(p):
+        h = jax_gat(x, None, p["wq"], p["bq"], jax.nn.relu, p["wk"], p["bk"], jax.nn.relu,
+                    p["wv"], num_heads=bench.GAT_HEADS, num_nodes=n, ell_layout=layout,
+                    sorted_edge_index=sorted_ei)
+        logits = h @ p["wd"] + p["bd"]
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y).mean()
+
+    optimizer = optax.adam(1e-3)
+    state = optimizer.init(params)
+    trace = []
+    value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    for _ in range(STEPS):
+        loss, grads = value_and_grad(params)
+        trace.append(({k: np.array(v) for k, v in params.items()},
+                      {k: np.array(v) for k, v in grads.items()}, float(loss)))
+        updates, state = optimizer.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    return trace, {k: np.array(v) for k, v in params.items()}
+
+
+def test_gat_workload_matches_jax_optax(monkeypatch):
+    """The GAT bench step in float32 at 2,000 nodes: free-running losses
+    within 1e-5, the gradient at each step's JAX parameters within 2e-3
+    (rtol, and atol 2e-3 of the largest entry; the backward recomputes the
+    softmax weights from lse), and the port's Adam fed JAX's gradients."""
+    monkeypatch.setattr(jconfig, "ell_compute_dtype", None)
+    trace, want_final = _jax_gat_run()
+    problem = bench.build_problem(N, E, device="cpu", spmm_bf16=False)
+    assert problem.gat_layout.num_edges == E + N
+    wl = bench.WORKLOADS["gat_arxiv_fwd_bwd"]
+
+    params = wl.init(problem.x.shape[1], device="cpu")
+    for k, v in trace[0][0].items():
+        np.testing.assert_array_equal(params[k].detach().numpy(), v, err_msg=k)
+    step = bench.make_step(lambda p: wl.loss(p, problem), params, wl.lr)
+    losses = [float(step()) for _ in range(STEPS)]
+    np.testing.assert_allclose(losses, [t[2] for t in trace], rtol=0, atol=1e-5)
+    assert losses[-1] < losses[0]
+
+    for t, (jparams, jgrads, jloss) in enumerate(trace):
+        p = bench.bench_params_from_numpy(jparams, device="cpu",
+                                          names=bench.GAT_BENCH_PARAM_NAMES)
+        loss = wl.loss(p, problem)
+        loss.backward()
+        np.testing.assert_allclose(float(loss.detach()), jloss, rtol=0, atol=1e-5)
+        for k, g in jgrads.items():
+            np.testing.assert_allclose(p[k].grad.numpy(), g, rtol=2e-3,
+                                       atol=2e-3 * np.abs(g).max(), err_msg=f"step {t} {k}")
+
+    params = bench.bench_params_from_numpy(trace[0][0], device="cpu",
+                                           names=bench.GAT_BENCH_PARAM_NAMES)
+    grads = {}
+    step = bench.make_step(
+        lambda p: sum((p[k] * torch.as_tensor(grads[k])).sum() for k in p), params, wl.lr)
+    for _, jgrads, _ in trace:
+        grads.update(jgrads)
+        step()
+    for k, v in want_final.items():
+        np.testing.assert_allclose(params[k].detach().numpy(), v, rtol=1e-4, atol=1e-6,
+                                   err_msg=k)

@@ -1,5 +1,5 @@
-"""GCN training-step benchmark on the ogbn-arxiv-shaped graph (the port's
-twin of workloads 1 and 1b of the repository's ``bench.py``).
+"""Training-step benchmark on the ogbn-arxiv-shaped graph (the port's twin
+of workloads 1, 1b and 3 of the repository's ``bench.py``).
 
 Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
 
@@ -9,22 +9,39 @@ Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
    width 40 and its transpose in the backward.
 2. ``gcn_arxiv_canonical_fwd_bwd``: the same model without the precompute:
    SpMMs at widths 256 and 40, each with its transpose in the backward.
+3. ``gat_arxiv_fwd_bwd``: a full training step of the 8-head GAT (8 × 32 =
+   256 units) over the self-looped graph, then a dense layer to the 40
+   classes: Q = relu(x Wq + bq), K = relu(x Wk + bk), V = x Wv, the fused
+   attention (forward kernel, two backward kernels), ``h Wd + bd``.
 
-Both use bf16 SpMM compute and a bf16 ``x @ W0`` by default, as ``bench.py``
-does; weights come from ``np.random.default_rng(0)`` at scale 0.05; Adam at
-lr 1e-2; mean softmax cross-entropy. The dense products are ``torch.matmul``.
+The GCN workloads use bf16 SpMM compute and a bf16 ``x @ W0`` by default,
+the GAT workload bf16 attention compute and float32 dense products, as
+``bench.py`` does; weights come from ``np.random.default_rng(0)`` normals at
+scale 0.05 (GAT: drawn after the GCN's w0 and w1, in the order wq, wk, wv,
+wd), biases are zeros; Adam at lr 1e-2 (GCN) and 1e-3 (GAT); mean softmax
+cross-entropy. The dense products are ``torch.matmul``.
 
 Timing: CUDA events around ``steps`` steps after 3 warm-up steps, so the
 time is the device's, not the host's enqueue. There is no CPU path: a
-measurement on the CPU would not be a device number.
+measurement on the CPU would not be a device number. edges/s counts the
+nonzeros of Â (GCN) or the self-looped edges (GAT), 1,335,586 each at full
+size, per step.
 
-vs_baseline = (least time of the step's SpMM passes) / (measured step time).
-The least time of one pass is its least bytes over the H100's 3.35 TB/s:
-h read once and the output written once (N·F elements each, in the compute
-dtype), row_ptr, col and val read once (4 + 8·nnz bytes, nnz without the
-diagonal) and the diagonal read once (4·N bytes). Dense products, the loss
-and Adam are not charged, so the ratio is the share of the step that the
-sparse products' minimum traffic would fill.
+vs_baseline = (least time of the step's sparse passes) / (measured step
+time), the least time being the passes' least bytes over the H100's
+3.35 TB/s, each operand read once and each output written once:
+- one SpMM pass ``A_side · h``: h read and the output written (N·F elements
+  each, in the compute dtype), row_ptr, col and val (4 + 8·nnz bytes, nnz
+  without the diagonal) and the diagonal (4·N bytes);
+- the three attention passes, at N rows of H·d elements in the compute
+  dtype: forward reads Q, K, V and writes out and lse; the destination-side
+  backward reads Q, K, V, out, dy and lse and writes dQ and D; the
+  source-side backward reads Q, K, V, dy, lse and D and writes dK and dV;
+  each pass also reads its side's row pointers and neighbour ids
+  (4·(N + 1) + 4·nnz bytes) and, under dropout, the edge ids that index
+  the mask (4·nnz) and the [E, H] float32 mask (``gat_pass_bytes``).
+Dense products, the loss and Adam are not charged, so the ratio is the
+share of the step that the sparse passes' minimum traffic would fill.
 """
 from __future__ import annotations
 
@@ -37,33 +54,40 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .convert import bench_params_from_numpy
+from .convert import GAT_BENCH_PARAM_NAMES, bench_params_from_numpy
 from .datasets.synthetic_citation import synthetic_ogbn_arxiv_like
+from .nn.conv.gat import _gat_edge_cache, gat
 from .nn.conv.gcn import (compute_cache_key, gcn_norm_adj, maybe_compile_ell,
                           precompute_propagated_features)
 from .ops import config as kernel_config
 from .ops.csr_spmm import CsrAdj, CsrSide, csr_spmm
+from .ops.gat_attention import CsrGatLayout
 from .sparse.matrix import SparseMatrix
 
-__all__ = ["GcnProblem", "build_problem", "init_params", "precomputed_loss",
-           "canonical_loss", "make_step", "run_workload", "profile_workload",
-           "WORKLOADS", "main"]
+__all__ = ["ArxivProblem", "build_problem", "init_params", "init_gat_params",
+           "precomputed_loss", "canonical_loss", "gat_loss", "make_step", "run_workload",
+           "profile_workload", "gat_pass_bytes", "gat_pass_flops", "Workload",
+           "WORKLOADS", "GCN_WORKLOADS", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
+GAT_HEADS, GAT_UNITS = 8, 256
 ARXIV_NODES, ARXIV_EDGES = 169_343, 1_166_243
 H100_HBM_BYTES_PER_S = 3.35e12
 WARMUP_STEPS = 3
 PROFILE_STEPS, PROFILE_TOP = 5, 12  # steps traced, kernels listed per workload
-PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel")  # csrc/*.cu
+PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel", "gat_forward_kernel",
+                "gat_backward_dst_kernel", "gat_backward_src_kernel")  # csrc/*.cu
 
 
-class GcnProblem(NamedTuple):
+class ArxivProblem(NamedTuple):
     adj: CsrAdj
     x: torch.Tensor                    # [N, 128] float32
     px: torch.Tensor                   # [N, 128] float32, Â·x
     y: torch.Tensor                    # [N] int64
     num_edges_normed: int              # nnz of Â, self-loops included
-    spmm_dtype: Optional[torch.dtype]  # SpMM compute dtype (None: float32)
+    spmm_dtype: Optional[torch.dtype]  # SpMM and attention compute dtype (None: float32)
+    gat_layout: CsrGatLayout           # the self-looped graph's attention layout
+    gat_edges: torch.Tensor            # [2, E + N] the self-looped list, row-sorted
 
 
 @contextlib.contextmanager
@@ -77,9 +101,10 @@ def _spmm_compute_dtype(dtype):
 
 
 def build_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
-                  device="cuda", spmm_bf16: bool = True) -> GcnProblem:
-    """The synthetic arxiv graph, its normalized CSR adjacency and ``P = Â·x``
-    (computed in the SpMM compute dtype, as ``bench.py`` does)."""
+                  device="cuda", spmm_bf16: bool = True) -> ArxivProblem:
+    """The synthetic arxiv graph, its normalized CSR adjacency, ``P = Â·x``
+    (computed in the SpMM compute dtype, as ``bench.py`` does) and the GAT
+    edge cache of the self-looped graph."""
     graph = synthetic_ogbn_arxiv_like(num_nodes=num_nodes, num_edges=num_edges)
     n = graph.num_nodes
     coo = SparseMatrix(graph.edge_index, graph.edge_weight, (n, n), device=device)
@@ -91,11 +116,12 @@ def build_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
     with _spmm_compute_dtype(spmm_dtype):
         px = precompute_propagated_features(x, coo, cache=cache)
     y = torch.as_tensor(graph.y, device=device).long()
-    return GcnProblem(adj, x, px, y, normed.nnz, spmm_dtype)
+    gat_edges, _, gat_layout = _gat_edge_cache(graph.edge_index, n, {}, device)
+    return ArxivProblem(adj, x, px, y, normed.nnz, spmm_dtype, gat_layout, gat_edges)
 
 
 def init_params(num_features: int, device="cuda") -> Dict[str, torch.Tensor]:
-    """``bench.py``'s weights: ``default_rng(0)`` normals at scale 0.05, zero biases."""
+    """``bench.py``'s GCN weights: ``default_rng(0)`` normals at scale 0.05, zero biases."""
     rng = np.random.default_rng(0)
     return bench_params_from_numpy({
         "w0": rng.normal(scale=0.05, size=(num_features, HIDDEN)),
@@ -105,33 +131,57 @@ def init_params(num_features: int, device="cuda") -> Dict[str, torch.Tensor]:
     }, device=device)
 
 
+def init_gat_params(num_features: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """``bench.py``'s GAT weights: the same generator, after the GCN's w0 and
+    w1, normals at scale 0.05 in the order wq, wk, wv, wd; zero biases."""
+    rng = np.random.default_rng(0)
+    rng.normal(scale=0.05, size=(num_features, HIDDEN))   # w0
+    rng.normal(scale=0.05, size=(HIDDEN, NUM_CLASSES))    # w1
+    wq, wk, wv = (rng.normal(scale=0.05, size=(num_features, GAT_UNITS)) for _ in range(3))
+    return bench_params_from_numpy({
+        "wq": wq, "bq": np.zeros(GAT_UNITS), "wk": wk, "bk": np.zeros(GAT_UNITS), "wv": wv,
+        "wd": rng.normal(scale=0.05, size=(GAT_UNITS, NUM_CLASSES)),
+        "bd": np.zeros(NUM_CLASSES),
+    }, device=device, names=GAT_BENCH_PARAM_NAMES)
+
+
 def _dense_first_layer(a, w0, dense_bf16: bool):
     if dense_bf16:
         return (a.to(torch.bfloat16) @ w0.to(torch.bfloat16)).float()
     return a @ w0
 
 
-def precomputed_loss(p, problem: GcnProblem, dense_bf16: bool = True,
-                     spmm: Callable = csr_spmm):
+def precomputed_loss(p, problem: ArxivProblem, dense_bf16: bool = True):
     """Workload 1: ``relu(P W0 + b0)``, then one SpMM at width 40."""
     h = torch.relu(_dense_first_layer(problem.px, p["w0"], dense_bf16) + p["b0"])
-    logits = spmm(problem.adj, h @ p["w1"], compute_dtype=problem.spmm_dtype) + p["b1"]
+    logits = csr_spmm(problem.adj, h @ p["w1"], problem.spmm_dtype) + p["b1"]
     return F.cross_entropy(logits, problem.y)
 
 
-def canonical_loss(p, problem: GcnProblem, dense_bf16: bool = True,
-                   spmm: Callable = csr_spmm):
+def canonical_loss(p, problem: ArxivProblem, dense_bf16: bool = True):
     """Workload 1b: both SpMMs in the step (widths 256 and 40)."""
     xw = _dense_first_layer(problem.x, p["w0"], dense_bf16)
-    h = torch.relu(spmm(problem.adj, xw, compute_dtype=problem.spmm_dtype) + p["b0"])
-    logits = spmm(problem.adj, h @ p["w1"], compute_dtype=problem.spmm_dtype) + p["b1"]
+    h = torch.relu(csr_spmm(problem.adj, xw, problem.spmm_dtype) + p["b0"])
+    logits = csr_spmm(problem.adj, h @ p["w1"], problem.spmm_dtype) + p["b1"]
     return F.cross_entropy(logits, problem.y)
 
 
-def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor]) -> Callable:
-    """One Adam(lr=1e-2) step per call (optax.adam's defaults: b1 0.9,
-    b2 0.999, eps 1e-8 outside the sqrt); returns the pre-update loss."""
-    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+def gat_loss(p, problem: ArxivProblem):
+    """Workload 3: ``gat`` with 8 heads over the cached layout (no bias or
+    activation on its output), then ``h Wd + bd``. The dense products stay
+    float32 as in ``bench.py``; the attention computes in
+    ``problem.spmm_dtype``."""
+    with _spmm_compute_dtype(problem.spmm_dtype):
+        h = gat(problem.x, None, p["wq"], p["bq"], torch.relu, p["wk"], p["bk"], torch.relu,
+                p["wv"], num_heads=GAT_HEADS, num_nodes=problem.x.shape[0],
+                ell_layout=problem.gat_layout, sorted_edge_index=problem.gat_edges)
+    return F.cross_entropy(h @ p["wd"] + p["bd"], problem.y)
+
+
+def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor], lr: float = 1e-2) -> Callable:
+    """One Adam(lr) step per call (optax.adam's defaults: b1 0.9, b2 0.999,
+    eps 1e-8 outside the sqrt); returns the pre-update loss."""
+    opt = torch.optim.Adam(list(params.values()), lr=lr)
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -152,36 +202,83 @@ def _spmm_pass_bytes(side: CsrSide, has_diag: bool, num_src: int, width: int,
             + (4 * side.num_rows if has_diag else 0))
 
 
-# name -> (loss function, SpMM widths run forward and transposed per step)
-WORKLOADS = {
-    "gcn_arxiv_fwd_bwd": (precomputed_loss, (NUM_CLASSES,)),
-    "gcn_arxiv_canonical_fwd_bwd": (canonical_loss, (HIDDEN, NUM_CLASSES)),
-}
-
-
-def _step_bound_s(problem: GcnProblem, widths) -> float:
+def _spmm_step_bytes(problem: ArxivProblem, widths) -> int:
     adj = problem.adj
     elt = 2 if problem.spmm_dtype == torch.bfloat16 else 4
     has_diag = adj.diag_val is not None
-    total = 0
-    for width in widths:
-        total += _spmm_pass_bytes(adj.fwd, has_diag, adj.shape[1], width, elt)
-        total += _spmm_pass_bytes(adj.bwd, has_diag, adj.shape[0], width, elt)
-    return total / H100_HBM_BYTES_PER_S
+    return sum(_spmm_pass_bytes(adj.fwd, has_diag, adj.shape[1], w, elt)
+               + _spmm_pass_bytes(adj.bwd, has_diag, adj.shape[0], w, elt) for w in widths)
 
 
-def run_workload(problem: GcnProblem, name: str, steps: int = 20,
+# per attention pass (0 forward, 1 backward destination side, 2 backward
+# source side): dense [N, H·d] operands read + written, [N, H] float32
+# statistics read + written, flops per stored edge and feature
+_GAT_PASS_DENSE = (4, 6, 6)
+_GAT_PASS_STATS = (1, 2, 2)
+_GAT_PASS_FLOPS = (4, 6, 8)
+
+
+def gat_pass_bytes(layout: CsrGatLayout, kind: int, num_heads: int, head_width: int,
+                   elt_bytes: int, with_keep: bool = False) -> int:
+    """Least bytes of attention pass ``kind`` (see the module docstring)."""
+    n, nnz = layout.num_nodes, int(layout.dst.nbr.shape[0])
+    return (_GAT_PASS_DENSE[kind] * n * num_heads * head_width * elt_bytes
+            + _GAT_PASS_STATS[kind] * 4 * n * num_heads
+            + 4 * (n + 1) + 4 * nnz
+            + (4 * nnz + 4 * layout.num_edges * num_heads if with_keep else 0))
+
+
+def gat_pass_flops(layout: CsrGatLayout, kind: int, num_heads: int, head_width: int) -> int:
+    """Flops of attention pass ``kind`` on these edges: 2 per multiply-add
+    of each per-edge dot product and each weighted row sum."""
+    return _GAT_PASS_FLOPS[kind] * int(layout.dst.nbr.shape[0]) * num_heads * head_width
+
+
+def _gat_step_bytes(problem: ArxivProblem) -> int:
+    elt = 2 if problem.spmm_dtype == torch.bfloat16 else 4
+    d = GAT_UNITS // GAT_HEADS
+    return sum(gat_pass_bytes(problem.gat_layout, k, GAT_HEADS, d, elt) for k in range(3))
+
+
+class Workload(NamedTuple):
+    loss: Callable          # (params, problem, dense_bf16) -> scalar loss
+    init: Callable          # (num_features, device) -> params
+    lr: float               # Adam learning rate
+    bound_bytes: Callable   # problem -> least bytes of the step's sparse passes
+    edges: Callable         # problem -> edges per step
+
+
+WORKLOADS = {
+    "gcn_arxiv_fwd_bwd": Workload(
+        precomputed_loss, init_params, 1e-2,
+        lambda pr: _spmm_step_bytes(pr, (NUM_CLASSES,)), lambda pr: pr.num_edges_normed),
+    "gcn_arxiv_canonical_fwd_bwd": Workload(
+        canonical_loss, init_params, 1e-2,
+        lambda pr: _spmm_step_bytes(pr, (HIDDEN, NUM_CLASSES)), lambda pr: pr.num_edges_normed),
+    "gat_arxiv_fwd_bwd": Workload(
+        # the GAT's dense products stay float32 (bench.py): dense_bf16 does not apply
+        lambda p, pr, dense_bf16=True: gat_loss(p, pr), init_gat_params, 1e-3, _gat_step_bytes,
+        lambda pr: pr.gat_layout.num_edges),
+}
+GCN_WORKLOADS = ("gcn_arxiv_fwd_bwd", "gcn_arxiv_canonical_fwd_bwd")
+
+
+def _workload_step(problem: ArxivProblem, name: str, dense_bf16: bool):
+    wl = WORKLOADS[name]
+    params = wl.init(problem.x.shape[1], device=problem.x.device)
+    return make_step(lambda p: wl.loss(p, problem, dense_bf16), params, wl.lr)
+
+
+def run_workload(problem: ArxivProblem, name: str, steps: int = 20,
                  dense_bf16: bool = True) -> dict:
-    """Train ``WARMUP_STEPS + steps`` Adam steps of workload ``name`` from
-    ``init_params`` and time the last ``steps`` with CUDA events. Returns the
-    JSON line (``line``), the step time, the losses of every step and the
-    number of steps taken."""
+    """Train ``WARMUP_STEPS + steps`` Adam steps of workload ``name`` from its
+    initial weights and time the last ``steps`` with CUDA events. Returns
+    the JSON line (``line``), the step time, the losses of every step and
+    the number of steps taken."""
     device = problem.x.device
     if device.type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
-    loss_fn, widths = WORKLOADS[name]
-    params = init_params(problem.x.shape[1], device=device)
-    step = make_step(lambda p: loss_fn(p, problem, dense_bf16), params)
+    step = _workload_step(problem, name, dense_bf16)
     losses = [step() for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
@@ -191,19 +288,19 @@ def run_workload(problem: GcnProblem, name: str, steps: int = 20,
     end.record()
     end.synchronize()
     step_s = start.elapsed_time(end) / 1e3 / steps
-    edges_per_s = problem.num_edges_normed / step_s
+    wl = WORKLOADS[name]
     line = {
         "metric": f"{name}_edges_per_sec_per_chip",
-        "value": round(edges_per_s, 1),
+        "value": round(wl.edges(problem) / step_s, 1),
         "unit": "edges/s",
-        "vs_baseline": round(_step_bound_s(problem, widths) / step_s, 4),
+        "vs_baseline": round(wl.bound_bytes(problem) / H100_HBM_BYTES_PER_S / step_s, 4),
     }
     return {"line": line, "step_ms": step_s * 1e3,
             "losses": torch.stack(losses).float().cpu().tolist(),
             "steps_taken": WARMUP_STEPS + steps}
 
 
-def profile_workload(problem: GcnProblem, name: str, dense_bf16: bool = True) -> dict:
+def profile_workload(problem: ArxivProblem, name: str, dense_bf16: bool = True) -> dict:
     """Device time by kernel over ``PROFILE_STEPS`` steps of workload
     ``name`` (``torch.profiler``): the step's wall time, the device's busy
     time (sum of kernel self times; the step's kernels run on one stream, so
@@ -213,9 +310,7 @@ def profile_workload(problem: GcnProblem, name: str, dense_bf16: bool = True) ->
     device = problem.x.device
     if device.type != "cuda":
         raise ValueError(f"the profile reads device time, got {device}")
-    loss_fn, _ = WORKLOADS[name]
-    params = init_params(problem.x.shape[1], device=device)
-    step = make_step(lambda p: loss_fn(p, problem, dense_bf16), params)
+    step = _workload_step(problem, name, dense_bf16)
     for _ in range(WARMUP_STEPS):
         step()
     torch.cuda.synchronize(device)
@@ -249,7 +344,7 @@ def profile_workload(problem: GcnProblem, name: str, dense_bf16: bool = True) ->
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run both workloads on ``device`` and print their JSON lines; with
+    """Run the three workloads on ``device`` and print their JSON lines; with
     ``profile``, also print each workload's per-kernel device time."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")

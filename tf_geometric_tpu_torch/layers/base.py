@@ -14,7 +14,7 @@ import torch
 
 from ..sparse.matrix import SparseMatrix
 
-__all__ = ["unpack_inputs", "glorot_uniform"]
+__all__ = ["unpack_inputs", "unpack_edge_inputs", "glorot_uniform"]
 
 
 def unpack_inputs(inputs) -> Tuple[Any, SparseMatrix]:
@@ -32,6 +32,22 @@ def unpack_inputs(inputs) -> Tuple[Any, SparseMatrix]:
             return x, SparseMatrix(edge_index, edge_weight, (n, n), device=x.device)
     raise ValueError(
         "layer inputs must be [x, SparseMatrix] or [x, edge_index(, edge_weight)]")
+
+
+def unpack_edge_inputs(inputs):
+    """Normalize layer inputs to (x, edge_index, edge_weight) for ops that
+    work on raw edge lists; a SparseMatrix gives its index and value, and
+    ``[x, edge_index]`` gives a None weight."""
+    if isinstance(inputs, (list, tuple)):
+        if len(inputs) == 2:
+            x, second = inputs
+            if isinstance(second, SparseMatrix):
+                return x, second.index, second.value
+            return x, second, None
+        if len(inputs) == 3:
+            return inputs[0], inputs[1], inputs[2]
+    raise ValueError(
+        "layer inputs must be [x, edge_index(, edge_weight)] or [x, SparseMatrix]")
 
 
 def glorot_uniform(shape, generator=None, dtype=torch.float32):

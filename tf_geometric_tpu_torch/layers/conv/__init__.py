@@ -1,3 +1,4 @@
+from .gat import GAT
 from .gcn import GCN
 
-__all__ = ["GCN"]
+__all__ = ["GAT", "GCN"]

@@ -27,7 +27,7 @@ class GCN(nn.Module):
                  renorm: bool = True, improved: bool = False,
                  edge_drop_rate: float = 0.0, num_or_size_splits=None,
                  use_kernel: bool = True, generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         self.units = units
         self.activation = activation

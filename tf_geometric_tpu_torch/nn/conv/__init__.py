@@ -1,1 +1,2 @@
+from .gat import *  # noqa: F401,F403
 from .gcn import *  # noqa: F401,F403

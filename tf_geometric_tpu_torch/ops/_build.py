@@ -28,7 +28,7 @@ _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_ROOT = _PACKAGE_DIR / "_build"
 
-SOURCES = ("csr_spmm.cu", "sorted_segment.cu")
+SOURCES = ("csr_spmm.cu", "sorted_segment.cu", "gat_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _BUILD_TIMEOUT_S = 600
@@ -103,15 +103,15 @@ def build_all() -> Dict[str, Path]:
         return paths
 
 
-def kernel_function(source: str, symbol: str, argtypes: Sequence):
+def kernel_function(source: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
     """The C entry ``symbol`` of ``source``'s library, with argtypes set
     (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)
-    and an int return (the ``cudaError_t`` of the launch)."""
+    and, by default, an int return (the ``cudaError_t`` of the launch)."""
     lib = _libraries.get(source)
     if lib is None:
         lib = ctypes.CDLL(str(build_all()[source]))
         _libraries[source] = lib
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

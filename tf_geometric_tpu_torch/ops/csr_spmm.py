@@ -217,14 +217,14 @@ class _CsrSpmm(torch.autograd.Function):
         return ctx.side_fn(ctx.adj.bwd, dy.contiguous(), ctx.adj.diag_val), None, None
 
 
-def csr_spmm(adj: "CsrAdj", h, compute_dtype=None, side_fn=side_matmul):
+def csr_spmm(adj: "CsrAdj", h, compute_dtype=None):
     """``A @ h`` for a ``CsrAdj``. Values are constants for autograd.
 
     ``h`` is cast to ``compute_dtype`` (default ``ops.config.ell_compute_dtype``)
     for the product and the result is cast back, as ``bucketed_spmm`` does;
-    so in bfloat16 mode the backward's ``dy`` is bfloat16 as well.
-    ``side_fn=side_matmul_plain`` runs the same autograd structure through
-    the plain versions (the on-card reference).
+    so in bfloat16 mode the backward's ``dy`` is bfloat16 as well. Inside
+    ``ops.config.use_plain_versions()`` both directions run
+    ``side_matmul_plain`` on any device (the on-card reference).
     """
     from . import config as _config
     if h.dim() != 2 or h.shape[0] != adj.shape[1]:
@@ -233,6 +233,7 @@ def csr_spmm(adj: "CsrAdj", h, compute_dtype=None, side_fn=side_matmul):
     orig_dtype = h.dtype
     if cd is not None and orig_dtype != cd:
         h = h.to(cd)
+    side_fn = side_matmul_plain if _config.plain_versions else side_matmul
     out = _CsrSpmm.apply(h, adj, side_fn)
     if cd is not None and orig_dtype != cd:
         out = out.to(orig_dtype)
