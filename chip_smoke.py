@@ -29,14 +29,28 @@ Phases, each of which raises (non-zero exit) on failure:
    gradients and D, whose sums chain through a recomputed softmax; bfloat16:
    2e-2). Time each kernel and its plain version with CUDA events beside
    its bound; print the destination side's hub rows and longest row.
-5. Main path: zero the launch counters, build the bench problem and train
-   ``bench`` workloads 1, 1b and 3 (the 8-head GAT) at full arxiv size;
-   check that the loss is finite and falls and that each kernel ran
-   exactly as often as the layouts imply (GAT: one forward and two
-   backward launches per step). Then train 3 steps of each workload at a
-   small size through the kernels and through the plain versions on the
-   card and compare the losses, and run ``entry()`` on the card against
-   its CPU run.
+5. SAGE kernels: on the Reddit-shaped graph's device sampler (232,965
+   nodes, 11,606,919 edges), hold the draw kernel against its plain
+   version at k = 25 on the same random integers, exactly (the main path's
+   unweighted draw, and a draw with a weight table and self ids), and the
+   fixed-k aggregation forward and backward kernels against their plain
+   versions at (k, F) in {(25, 128), (10, 128), (25, 602), (4, 41)}, float32
+   (rtol = atol = 1e-4: order of summation) and bfloat16 (2e-2), on draws
+   made by the draw kernel, and the backward against its own second run,
+   bit for bit (its sums run in slot order). Time each kernel and
+   its plain version, and the aggregations' library yardstick
+   ``torch.sparse.mm`` (a CSR matrix of k entries per row built from the
+   draw, and its transpose, in the case's dtype), beside the bound.
+6. Main path: zero the launch counters, build the bench problem and train
+   ``bench`` workloads 1, 1b and 3 (the 8-head GAT) at full arxiv size and
+   workload 4 (the sampled GraphSAGE) at full Reddit size; check that the
+   loss is finite and falls and that each kernel ran exactly as often as
+   the layouts imply (GAT: one forward and two backward launches per step;
+   SAGE: two draws, two aggregations forward and two backward calls per
+   step, each backward call launching its sort's kernels and the gather).
+   Then train 3 steps of each workload at a small size through the kernels
+   and through the plain versions on the card and compare the losses, and
+   run ``entry()`` on the card against its CPU run.
 
 The second-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +71,10 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 GAT_SHAPES = ((8, 32), (2, 20), (1, 256), (4, 8), (8, 4), (4, 64))
 GAT_KEEP_RATE = 0.3
 WIDTHS = (40, 128, 256)
+# SAGE aggregation cases (k, F): both layers of the bench (128-wide after the
+# projection), the gather-first width of x, and a narrow odd width
+SAGE_SHAPES = ((25, 128), (10, 128), (25, 602), (4, 41))
+SAGE_DRAW_K = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TIMED_ITERS = 20
@@ -297,17 +315,129 @@ def gat_kernel_phase(layout, edges):
     return rows
 
 
+def _sparse_library(idx, w, num_src):
+    """The draw as torch CSR matrices, ``[S, n]`` (k entries per row, ids
+    clipped) and its transpose ``[n, S]``, for the ``torch.sparse.mm``
+    yardstick of the aggregation forward and backward."""
+    import torch
+    k, S = idx.shape
+    cols = idx.t().reshape(-1).long().clamp(0, num_src - 1)
+    vals = w.t().reshape(-1)
+    crow = torch.arange(0, k * S + 1, k, device=idx.device)
+    fwd = torch.sparse_csr_tensor(crow, cols, vals, (S, num_src))
+    rows = torch.arange(S, device=idx.device).repeat_interleave(k)
+    bwd = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals,
+                                  (num_src, S)).coalesce().to_sparse_csr()
+    return fwd, bwd
+
+
+def sage_kernel_phase(sage_problem):
+    """The draw kernel and both aggregation kernels against their plain
+    versions on the Reddit-shaped graph; returns one row per kernel and
+    case."""
+    import torch
+    from tf_geometric_tpu_torch.nn.sampling.device_sampler import _random_ints
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    sampler = sage_problem.sampler
+    csr = sampler.csr()
+    n, nnz = sampler.num_nodes, int(sampler.sorted_col.shape[0])
+    deg = sampler.degree
+    print(f"reddit sampler: {n} rows, {nnz} edges, {int((deg == 0).sum())} rows without "
+          f"edges, largest degree {int(deg.max())}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, draws = [], {}
+    weighted = dict(csr, sorted_weight=torch.rand(nnz, generator=gen, device="cuda"))
+    self_ids = torch.randperm(n, generator=gen, device="cuda").int()
+    for k in sorted({k for k, _ in SAGE_SHAPES}, reverse=True):
+        r = _random_ints(gen, k, n, "cuda")
+        idx, w = fk.launch_draw_fixed_k(r, csr["row_start"], deg, csr["sorted_col"])
+        idx_p, w_p = fk.draw_fixed_k_plain(r, csr["row_start"], deg, csr["sorted_col"])
+        widx, ww = fk.launch_draw_fixed_k(r, weighted["row_start"], deg, weighted["sorted_col"],
+                                          weighted["sorted_weight"], self_ids)
+        widx_p, ww_p = fk.draw_fixed_k_plain(r, weighted["row_start"], deg,
+                                             weighted["sorted_col"],
+                                             weighted["sorted_weight"], self_ids)
+        torch.cuda.synchronize()
+        for got, want, what in ((idx, idx_p, "idx"), (w, w_p, "weight"), (widx, widx_p, "idx"),
+                                (ww, ww_p, "weight")):
+            _check(torch.equal(got, want), f"fixed_k draw k={k}: {what} differs from plain")
+        draws[k] = (idx, w)
+        if k == SAGE_DRAW_K:
+            args = (r, csr["row_start"], deg, csr["sorted_col"])
+            nbytes = fk.draw_pass_bytes(k, n, nnz, False)
+            rows.append(dict(name="fixed_k_draw", k=k, weighted=False, max_abs_err=0.0,
+                             ms=_cuda_ms(lambda: fk.launch_draw_fixed_k(*args)),
+                             plain_ms=_cuda_ms(lambda: fk.draw_fixed_k_plain(*args), iters=3,
+                                               warmup=1),
+                             library_ms=None, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                             bound_by="bytes"))
+        del r, widx, ww, widx_p, ww_p, idx_p, w_p
+    for k, width in SAGE_SHAPES:
+        idx, w = draws[k]
+        libs = _sparse_library(idx, w, n)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
+            fwd_lib, bwd_lib = (m.to(dtype) for m in libs)
+            src = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+            out = fk.launch_fixed_k_forward(src, idx, w)
+            d_src = fk.launch_fixed_k_backward(dy, idx, w, n)
+            torch.cuda.synchronize()
+            tag = f"k={k} F={width} {str(dtype)[6:]}"
+            _check(torch.equal(d_src, fk.launch_fixed_k_backward(dy, idx, w, n)),
+                   f"fixed_k backward {tag}: two runs on the same inputs differ")
+            errs = (_max_err(out, fk.fixed_k_forward_plain(src, idx, w), tol,
+                             f"fixed_k forward {tag}"),
+                    _max_err(d_src, fk.fixed_k_backward_plain(dy, idx, w, n), tol,
+                             f"fixed_k backward {tag}"))
+            if f32:
+                errs = (max(errs[0], _max_err(out, torch.sparse.mm(fwd_lib, src), tol,
+                                              f"fixed_k forward vs torch.sparse.mm {tag}")),
+                        max(errs[1], _max_err(d_src, torch.sparse.mm(bwd_lib, dy), tol,
+                                              f"fixed_k backward vs torch.sparse.mm {tag}")))
+            flops = fk.aggregate_pass_flops(k, n, width)
+            calls = ((fk.launch_fixed_k_forward, fk.fixed_k_forward_plain, (src, idx, w),
+                      fwd_lib, src),
+                     (fk.launch_fixed_k_backward, fk.fixed_k_backward_plain, (dy, idx, w, n),
+                      bwd_lib, dy))
+            for backward, ((kernel, plain, args, lib, dense), err) in enumerate(zip(calls, errs)):
+                nbytes = fk.aggregate_pass_bytes(n, k, n, width, elt, backward=bool(backward))
+                byte_s, flop_s = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+                rows.append(dict(
+                    name="fixed_k_backward" if backward else "fixed_k_forward", k=k,
+                    width=width, dtype=str(dtype)[6:], max_abs_err=err,
+                    ms=_cuda_ms(lambda: kernel(*args)),
+                    plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1),
+                    library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, dense)),
+                    bound_ms=1e3 * max(byte_s, flop_s),
+                    bound_by="bytes" if byte_s >= flop_s else "operations"))
+            del src, dy, out, d_src
+            del fwd_lib, bwd_lib
+        del libs
+        torch.cuda.empty_cache()
+    print("sage kernel check (name k F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['name']} k={r['k']} F={r.get('width', '-')} {r.get('dtype', 'int32')}: "
+              f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
 # every kernel wrapper of the main path, in the order of the counts below
 _KERNELS = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
-            "gat_backward_src")
+            "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward")
 
 
 def _wrappers():
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
     from tf_geometric_tpu_torch.ops import gat_attention as ga
     from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm
     from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
     return (launch_csr_spmm, launch_sorted_segment_sum, ga.launch_gat_forward,
-            ga.launch_gat_backward_dst, ga.launch_gat_backward_src)
+            ga.launch_gat_backward_dst, ga.launch_gat_backward_src, fk.launch_draw_fixed_k,
+            fk.launch_fixed_k_forward, fk.launch_fixed_k_backward)
 
 
 def _launch_counts():
@@ -315,73 +445,98 @@ def _launch_counts():
 
 
 def _zero_launch_counts():
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
     for w in _wrappers():
         w.launches = 0
+    fk.launch_fixed_k_backward.calls = 0
 
 
-def main_path_phase(gpu):
-    """Workloads 1, 1b and 3 at full arxiv size through the kernels; returns
-    the launch totals of the run and the bench results."""
+def main_path_phase(gpu, sage_problem):
+    """Workloads 1, 1b and 3 at full arxiv size and 4 (SAGE) at full Reddit
+    size through the kernels; returns the launch totals of the run and the
+    bench results."""
     from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
     _zero_launch_counts()
     problem = bench.build_problem(device="cuda")
     adj = problem.adj
     hubs = int(adj.fwd.num_virtual > 0) + int(adj.bwd.num_virtual > 0)
     # the precompute P = Â·x is one forward product
-    expected = [1, int(adj.fwd.num_virtual > 0), 0, 0, 0]
+    expected = [1, int(adj.fwd.num_virtual > 0), 0, 0, 0, 0, 0, 0]
     _check(_launch_counts() == expected,
            f"precompute launches {_launch_counts()} != {expected}")
     totals = _launch_counts()
     results = {}
-    for name in bench.WORKLOADS:
+    for name, wl in bench.WORKLOADS.items():
         _zero_launch_counts()
-        res = bench.run_workload(problem, name)
+        res = bench.run_workload(problem if wl.problem == "arxiv" else sage_problem, name)
         counts = _launch_counts()
         steps = res["steps_taken"]
         if name in bench.GCN_WORKLOADS:
             # per step and SpMM: Kernel A forward + backward, Kernel B per split side
             spmms = 1 if name == "gcn_arxiv_fwd_bwd" else 2
-            expected = [steps * spmms * 2, steps * spmms * hubs, 0, 0, 0]
-        else:
+            expected = [steps * spmms * 2, steps * spmms * hubs, 0, 0, 0, 0, 0, 0]
+        elif wl.problem == "arxiv":
             # per step: one forward and two backward attention launches (hub
             # rows are blocks of the same launches)
-            expected = [0, 0, steps, steps, steps]
+            expected = [0, 0, steps, steps, steps, 0, 0, 0]
+        else:
+            # per step and layer: one draw, one aggregation forward, one
+            # backward call (its sort's launches and the gather)
+            layers = len(sage_problem.fanouts)
+            per_call = fk.fixed_k_backward_launches(sage_problem.sampler.num_nodes)
+            expected = [0, 0, 0, 0, 0, steps * layers, steps * layers, steps * layers * per_call]
+            calls = fk.launch_fixed_k_backward.calls
+            _check(calls == steps * layers,
+                   f"{name}: {calls} backward calls != expected {steps * layers}")
         _check(counts == expected, f"{name}: launches {counts} != expected {expected}")
         losses = res["losses"]
         _check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
         _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
         totals = [t + c for t, c in zip(totals, counts)]
         results[name] = res
-        print(f"{name}: step {res['step_ms']:.4f} ms, {res['line']['value']} edges/s, "
+        print(f"{name}: step {res['step_ms']:.4f} ms, {res['line']['value']} "
+              f"{res['line']['unit']}, "
               f"vs_baseline {res['line']['vs_baseline']}, loss {losses[0]:.5f} -> "
               f"{losses[-1]:.5f}, launches {dict(zip(_KERNELS, counts))} on {gpu}", flush=True)
         print(json.dumps(res["line"]), flush=True)
     return totals, results
 
 
-def small_plain_phase():
-    """3 steps of each workload at a small size through the kernels and
-    through the plain versions on the card: the losses must agree."""
+def _kernel_vs_plain_losses(wl, problem, spmm_bf16, tol, what):
     import torch
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import config as kernel_config
+    losses = {}
+    for label in ("kernel", "plain"):
+        step = bench.make_step(lambda p: wl.loss(p, problem, spmm_bf16), wl.init(problem),
+                               wl.lr)
+        with (kernel_config.use_plain_versions() if label == "plain"
+              else contextlib.nullcontext()):
+            losses[label] = torch.stack([step() for _ in range(3)])
+    err = _max_err(losses["kernel"], losses["plain"], tol, f"3-step losses {what}")
+    print(f"small {what}: kernel {losses['kernel'].tolist()} plain "
+          f"{losses['plain'].tolist()} max abs err {err:.3e}", flush=True)
+
+
+def small_plain_phase():
+    """3 steps of each workload at a small size through the kernels and
+    through the plain versions on the card: the losses must agree (SAGE:
+    both runs draw from the same integers, the generator being reseeded
+    with the weights)."""
+    from tf_geometric_tpu_torch import bench
     for spmm_bf16, tol in ((False, F32_TOL), (True, BF16_TOL)):
         problem = bench.build_problem(20_000, 140_000, device="cuda", spmm_bf16=spmm_bf16)
         _check(problem.adj.fwd.num_virtual > 0, "small problem has no hub rows")
         _check(problem.gat_layout.dst.hubs.numel() > 0, "small GAT layout has no hub rows")
         for name, wl in bench.WORKLOADS.items():
-            losses = {}
-            for label in ("kernel", "plain"):
-                params = wl.init(problem.x.shape[1], device="cuda")
-                step = bench.make_step(lambda p: wl.loss(p, problem, spmm_bf16), params, wl.lr)
-                with (kernel_config.use_plain_versions() if label == "plain"
-                      else contextlib.nullcontext()):
-                    losses[label] = torch.stack([step() for _ in range(3)])
-            err = _max_err(losses["kernel"], losses["plain"], tol,
-                           f"3-step losses {name} bf16={spmm_bf16}")
-            print(f"small {name} bf16={spmm_bf16}: kernel "
-                  f"{losses['kernel'].tolist()} plain {losses['plain'].tolist()} "
-                  f"max abs err {err:.3e}", flush=True)
+            if wl.problem == "arxiv":
+                _kernel_vs_plain_losses(wl, problem, spmm_bf16, tol,
+                                        f"{name} bf16={spmm_bf16}")
+    sage = bench.build_sage_problem(20_000, 1_000_000, device="cuda")
+    for name, wl in bench.WORKLOADS.items():
+        if wl.problem == "reddit":
+            _kernel_vs_plain_losses(wl, sage, False, F32_TOL, f"{name} (20,000 nodes)")
 
 
 def entry_phase():
@@ -431,15 +586,26 @@ def main():
     rows += gat_kernel_phase(problem.gat_layout, problem.gat_edges)
     del problem
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sage_problem = bench.build_sage_problem(device="cuda")
+    print(f"reddit problem built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rows += sage_kernel_phase(sage_problem)
+    torch.cuda.empty_cache()
 
-    totals, results = main_path_phase(gpu)
+    totals, results = main_path_phase(gpu, sage_problem)
+    del sage_problem
+    torch.cuda.empty_cache()
     small_plain_phase()
     entry_phase()
 
     # one entry per kernel, at its heaviest main-path call: the SpMM kernels
     # on the forward side at F=256 in bfloat16 (the canonical step's first
-    # layer), the attention kernels at the bench's H=8, d=32 in bfloat16
+    # layer), the attention kernels at the bench's H=8, d=32 in bfloat16,
+    # the SAGE kernels at the first layer's k=25 (aggregations: F=128, float32)
     spmm_rep = dict(side="fwd", width=256, dtype="bfloat16")
+    sage_rep = dict(k=25, width=128, dtype="float32")
+    sage_src = ("tf_geometric_tpu_torch/csrc/fixed_k.cu",
+                "tf_geometric_tpu/nn/conv/graph_sage.py:67", sage_rep, "k=25, F=128, float32")
     gat_rep = dict(heads=8, width=32, dtype="bfloat16", keep=False)
     gat_src = ("tf_geometric_tpu_torch/csrc/gat_attention.cu",
                "tf_geometric_tpu/ops/ell_attention_bucketed.py:933")
@@ -451,7 +617,12 @@ def main():
                                      "fwd side, F=256, bfloat16"),
               "gat_forward": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
               "gat_backward_dst": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
-              "gat_backward_src": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout")}
+              "gat_backward_src": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
+              "fixed_k_draw": ("tf_geometric_tpu_torch/csrc/fixed_k.cu",
+                               "tf_geometric_tpu/nn/sampling/device_sampler.py:33",
+                               dict(k=25, weighted=False), "k=25, no weight table"),
+              "fixed_k_forward": sage_src,
+              "fixed_k_backward": sage_src}
     kernels = []
     for name, launches in zip(_KERNELS, totals):
         path, replaces, rep_key, shape = source[name]
@@ -464,8 +635,8 @@ def main():
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "shape": shape})
     for name, res in results.items():
-        print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} edges/s "
-              f"({gpu})", flush=True)
+        print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
+              f"{res['line']['unit']} ({gpu})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,10 +150,51 @@ def test_gat_unequal_head_widths_raise_off_the_cpu():
 def test_layers_ask_for_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    from tf_geometric_tpu_torch.layers import GAT, GCN
-    for make in (lambda: GAT(4, 8, num_heads=2), lambda: GCN(4, 8)):
+    from tf_geometric_tpu_torch import layers
+    for make in (lambda: layers.GAT(4, 8, num_heads=2), lambda: layers.GCN(4, 8),
+                 lambda: layers.MeanGraphSage(4, 8), lambda: layers.SumGraphSage(4, 8),
+                 lambda: layers.GCNGraphSage(4, 8), lambda: layers.MeanPoolGraphSage(4, 8),
+                 lambda: layers.MaxPoolGraphSage(4, 8), lambda: layers.LSTMGraphSage(4, 8)):
         with pytest.raises((AssertionError, RuntimeError)):
             make()
+
+
+def test_sampler_and_sage_bench_ask_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.nn import DeviceNeighborSampler
+    with pytest.raises((AssertionError, RuntimeError)):
+        DeviceNeighborSampler([[0, 1], [1, 0]])
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench.build_sage_problem(50, 200, 4)
+
+
+def test_fixed_k_kernel_wrappers_refuse_cpu_tensors():
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    wrappers = (fk.launch_draw_fixed_k, fk.launch_fixed_k_forward, fk.launch_fixed_k_backward)
+    before = [w.launches for w in wrappers]
+    ints = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.launch_draw_fixed_k(ints, ints[0], ints[0], ints[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.launch_fixed_k_forward(torch.ones(3, 4), ints, torch.ones(2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.launch_fixed_k_backward(torch.ones(3, 4), ints, torch.ones(2, 3), 3)
+    assert [w.launches for w in wrappers] == before
+
+
+def test_fixed_k_ops_raise_off_the_cpu():
+    """On a device with no kernel (meta tensors stand in for one), the
+    draw and the aggregation raise instead of running the plain versions."""
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    ints = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    csr = {"row_start": ints[0], "degree": ints[0], "sorted_col": ints[0]}
+    with pytest.raises(NotImplementedError, match="draw"):
+        fk.draw_fixed_k_from_ints(ints, csr)
+    with pytest.raises(NotImplementedError, match="aggregation"):
+        fk.fixed_k_aggregate(torch.ones(3, 4, device="meta"), ints,
+                             torch.ones(2, 3, device="meta"))
 
 
 def test_plain_versions_switch_is_scoped():

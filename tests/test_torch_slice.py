@@ -1,7 +1,9 @@
 """The slices end to end: the port's bench workloads 1, 1b and 3 (GAT)
 against a JAX/optax step written as ``bench.py`` writes it, from the same numpy
-weights, on the same synthetic arxiv-shaped graph (shrunk), on the CPU, in
-float32, over 3 Adam steps.
+weights, on the same synthetic arxiv-shaped graph (shrunk), and workload 4
+(the sampled GraphSAGE) against the step of
+``benchmarks/sage_sampling_throughput.py`` on its Reddit-shaped graph
+(shrunk) with the same draws, on the CPU, in float32, over 3 Adam steps.
 
 Tolerance rtol = 1e-4 throughout; the two sides differ only in the order of
 float32 sums. The free-running parameters are not compared element by
@@ -221,7 +223,7 @@ def test_gat_workload_matches_jax_optax(monkeypatch):
     assert problem.gat_layout.num_edges == E + N
     wl = bench.WORKLOADS["gat_arxiv_fwd_bwd"]
 
-    params = wl.init(problem.x.shape[1], device="cpu")
+    params = wl.init(problem)
     for k, v in trace[0][0].items():
         np.testing.assert_array_equal(params[k].detach().numpy(), v, err_msg=k)
     step = bench.make_step(lambda p: wl.loss(p, problem), params, wl.lr)
@@ -250,3 +252,145 @@ def test_gat_workload_matches_jax_optax(monkeypatch):
     for k, v in want_final.items():
         np.testing.assert_allclose(params[k].detach().numpy(), v, rtol=1e-4, atol=1e-6,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the sampled GraphSAGE step (benchmarks/sage_sampling_throughput.py, device mode)
+# ---------------------------------------------------------------------------
+
+SAGE_N, SAGE_E, SAGE_F, SAGE_FANOUTS = 2000, 20000, 64, (5, 3)
+
+
+def _sage_ints(step):
+    """The random integers of each step's two draws, made with numpy."""
+    rng = np.random.default_rng(1000 + step)
+    return [rng.integers(0, np.iinfo(np.int32).max, (k, SAGE_N)).astype(np.int32)
+            for k in SAGE_FANOUTS]
+
+
+def _jax_sage_run(monkeypatch):
+    """sage_sampling_throughput.py:37-84 (device mode) at a small size, the
+    draws' ``jax.random.randint`` returning ``_sage_ints(step)``, 3 Adam
+    steps."""
+    from tf_geometric_tpu.nn import DeviceNeighborSampler, mean_graph_sage_fixed_k
+    rng = np.random.default_rng(0)
+    edge_index = np.stack([rng.integers(0, SAGE_N, SAGE_E),
+                           rng.integers(0, SAGE_N, SAGE_E)]).astype(np.int32)
+    x = jnp.asarray(rng.normal(size=(SAGE_N, SAGE_F)).astype(np.float32))
+    y = jnp.asarray(rng.integers(0, 41, SAGE_N).astype(np.int32))
+    h, half = bench.SAGE_HIDDEN, bench.SAGE_HIDDEN // 2
+    params = {
+        "s0": jnp.asarray(rng.normal(scale=0.05, size=(SAGE_F, half)), jnp.float32),
+        "n0": jnp.asarray(rng.normal(scale=0.05, size=(SAGE_F, half)), jnp.float32),
+        "s1": jnp.asarray(rng.normal(scale=0.05, size=(h, half)), jnp.float32),
+        "n1": jnp.asarray(rng.normal(scale=0.05, size=(h, half)), jnp.float32),
+        "wd": jnp.asarray(rng.normal(scale=0.05, size=(h, 41)), jnp.float32),
+    }
+    sampler = DeviceNeighborSampler(edge_index, num_nodes=SAGE_N)
+    queue = []
+    monkeypatch.setattr(jax.random, "randint",
+                        lambda key, shape, minval, maxval, dtype=jnp.int32:
+                        jnp.asarray(queue.pop(0), dtype))
+
+    def loss_fn(p, e0, w0, e1, w1):
+        hh = mean_graph_sage_fixed_k(x, e0, w0, p["s0"], p["n0"], activation=jax.nn.relu)
+        hh = mean_graph_sage_fixed_k(hh, e1, w1, p["s1"], p["n1"], activation=jax.nn.relu)
+        return optax.softmax_cross_entropy_with_integer_labels(hh @ p["wd"], y).mean()
+
+    optimizer = optax.adam(1e-2)
+    state = optimizer.init(params)
+    value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    trace = []
+    for t in range(STEPS):
+        queue[:] = _sage_ints(t)
+        draws = [sampler.sample(jax.random.PRNGKey(t), k) for k in SAGE_FANOUTS]
+        loss, grads = value_and_grad(params, *draws[0], *draws[1])
+        trace.append(({k: np.array(v) for k, v in params.items()},
+                      {k: np.array(v) for k, v in grads.items()}, float(loss)))
+        updates, state = optimizer.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    return trace, {k: np.array(v) for k, v in params.items()}
+
+
+def test_synthetic_reddit_is_bit_identical_to_the_benchmark_graph():
+    from tf_geometric_tpu_torch.datasets import synthetic_reddit_like
+    rng = np.random.default_rng(0)
+    edge_index = np.stack([rng.integers(0, 500, 3000),
+                           rng.integers(0, 500, 3000)]).astype(np.int32)
+    x = rng.normal(size=(500, 12)).astype(np.float32)
+    y = rng.integers(0, 41, 500).astype(np.int32)
+    graph = synthetic_reddit_like(500, 3000, 12)
+    for want, got in ((edge_index, graph.edge_index), (x, graph.x), (y, graph.y)):
+        assert want.dtype == got.dtype and np.array_equal(want, got)
+    # the benchmark's weights come next from the same generator
+    problem = bench.build_sage_problem(500, 3000, 12, device="cpu")
+    np.testing.assert_array_equal(problem.params0["s0"], rng.normal(scale=0.05, size=(12, 128)))
+
+
+def test_sage_workload_matches_jax_optax(monkeypatch):
+    """Three SAGE steps in float32 at 2,000 nodes, both packages drawing
+    from the same integers: free-running losses within rtol 1e-4, the
+    gradient at each step's JAX parameters within rtol 1e-4 (atol 1e-4 of
+    the largest entry), and the port's Adam fed JAX's gradients."""
+    trace, want_final = _jax_sage_run(monkeypatch)
+    problem = bench.build_sage_problem(SAGE_N, SAGE_E, SAGE_F, device="cpu",
+                                       fanouts=SAGE_FANOUTS)
+    wl = bench.WORKLOADS["sage_reddit_fwd_bwd"]
+    assert wl.edges(problem) == SAGE_N * sum(SAGE_FANOUTS)
+    tds = importlib.import_module("tf_geometric_tpu_torch.nn.sampling.device_sampler")
+    queue = []
+
+    def fixed_ints(generator, k, num_rows, device):
+        r = queue.pop(0)
+        assert r.shape == (k, num_rows)
+        return torch.as_tensor(r)
+
+    monkeypatch.setattr(tds, "_random_ints", fixed_ints)
+
+    params = wl.init(problem)
+    for k, v in trace[0][0].items():
+        np.testing.assert_array_equal(params[k].detach().numpy(), v, err_msg=k)
+    step = bench.make_step(lambda p: wl.loss(p, problem), params, wl.lr)
+    losses = []
+    for t in range(STEPS):
+        queue[:] = _sage_ints(t)
+        losses.append(float(step()))
+    np.testing.assert_allclose(losses, [t[2] for t in trace], rtol=1e-4, atol=1e-6)
+    assert losses[-1] < losses[0]
+
+    for t, (jparams, jgrads, jloss) in enumerate(trace):
+        p = bench.bench_params_from_numpy(jparams, device="cpu",
+                                          names=bench.SAGE_BENCH_PARAM_NAMES)
+        queue[:] = _sage_ints(t)
+        loss = wl.loss(p, problem)
+        loss.backward()
+        np.testing.assert_allclose(float(loss.detach()), jloss, rtol=1e-4)
+        for k, g in jgrads.items():
+            np.testing.assert_allclose(p[k].grad.numpy(), g, rtol=1e-4,
+                                       atol=1e-4 * np.abs(g).max(), err_msg=f"step {t} {k}")
+
+    params = bench.bench_params_from_numpy(trace[0][0], device="cpu",
+                                           names=bench.SAGE_BENCH_PARAM_NAMES)
+    grads = {}
+    step = bench.make_step(
+        lambda p: sum((p[k] * torch.as_tensor(grads[k])).sum() for k in p), params, wl.lr)
+    for _, jgrads, _ in trace:
+        grads.update(jgrads)
+        step()
+    for k, v in want_final.items():
+        np.testing.assert_allclose(params[k].detach().numpy(), v, rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_sage_step_draws_fresh_and_reseeds_at_init():
+    """Each step draws anew from the problem's generator, and making the
+    initial weights reseeds it, so two runs from them see the same draws."""
+    problem = bench.build_sage_problem(300, 2000, 8, device="cpu", fanouts=(4, 2))
+    wl = bench.WORKLOADS["sage_reddit_fwd_bwd"]
+    runs = []
+    for _ in range(2):
+        step = bench.make_step(lambda p: wl.loss(p, problem), wl.init(problem), wl.lr)
+        runs.append([float(step()) for _ in range(3)])
+    assert runs[0] == runs[1] and np.isfinite(runs[0]).all()
+    first = problem.sampler.sample(problem.generator, 4)[0]
+    assert not torch.equal(first, problem.sampler.sample(problem.generator, 4)[0])

@@ -1,5 +1,7 @@
 """Training-step benchmark on the ogbn-arxiv-shaped graph (the port's twin
-of workloads 1, 1b and 3 of the repository's ``bench.py``).
+of workloads 1, 1b and 3 of the repository's ``bench.py``) and on the
+Reddit-shaped graph (the twin of ``benchmarks/sage_sampling_throughput.py``
+in its ``device`` mode).
 
 Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
 
@@ -13,6 +15,18 @@ Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
    256 units) over the self-looped graph, then a dense layer to the 40
    classes: Q = relu(x Wq + bq), K = relu(x Wk + bk), V = x Wv, the fused
    attention (forward kernel, two backward kernels), ``h Wd + bd``.
+4. ``sage_reddit_fwd_bwd``: a full training step of the sampled GraphSAGE on
+   the Reddit-shaped graph (232,965 nodes, 11,606,919 edges, 602 features,
+   41 classes): a fresh fixed-k draw for every node at each layer (k = 25,
+   then 10: the draw kernel after ``torch.randint``), two
+   ``mean_graph_sage_fixed_k`` layers (self and neighbour kernels to 128
+   each, concatenated to 256, ReLU, no bias; both narrow the width, so each
+   layer projects first and aggregates 128-wide rows through the fixed-k
+   kernel and its backward), a dense layer to the classes, mean softmax
+   cross-entropy over all nodes, Adam at 1e-2. Weights are the JAX
+   benchmark's: ``default_rng(0)`` normals at scale 0.05 drawn after the
+   graph (s0, n0, s1, n1, wd). The draws come from a ``torch.Generator``
+   seeded with 0 when the weights are made.
 
 The GCN workloads use bf16 SpMM compute and a bf16 ``x @ W0`` by default,
 the GAT workload bf16 attention compute and float32 dense products, as
@@ -25,7 +39,8 @@ Timing: CUDA events around ``steps`` steps after 3 warm-up steps, so the
 time is the device's, not the host's enqueue. There is no CPU path: a
 measurement on the CPU would not be a device number. edges/s counts the
 nonzeros of Â (GCN) or the self-looped edges (GAT), 1,335,586 each at full
-size, per step.
+size, per step; the SAGE line counts sampled edges, N·(25 + 10) =
+8,153,775 per step.
 
 vs_baseline = (least time of the step's sparse passes) / (measured step
 time), the least time being the passes' least bytes over the H100's
@@ -39,7 +54,13 @@ time), the least time being the passes' least bytes over the H100's
   source-side backward reads Q, K, V, dy, lse and D and writes dK and dV;
   each pass also reads its side's row pointers and neighbour ids
   (4·(N + 1) + 4·nnz bytes) and, under dropout, the edge ids that index
-  the mask (4·nnz) and the [E, H] float32 mask (``gat_pass_bytes``).
+  the mask (4·nnz) and the [E, H] float32 mask (``gat_pass_bytes``);
+- the SAGE step's two draws (the random integers read, idx and weight
+  written, row starts and degrees, the picked column entries;
+  ``ops.fixed_k.draw_pass_bytes``) and its two aggregations forward (the
+  128-wide float32 source read, the output written, idx and weight) and
+  backward (dy read, the float32 source gradient written, idx and weight;
+  ``ops.fixed_k.aggregate_pass_bytes``).
 Dense products, the loss and Adam are not charged, so the ratio is the
 share of the step that the sparse passes' minimum traffic would fill.
 """
@@ -48,26 +69,32 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .convert import GAT_BENCH_PARAM_NAMES, bench_params_from_numpy
+from .convert import GAT_BENCH_PARAM_NAMES, SAGE_BENCH_PARAM_NAMES, bench_params_from_numpy
 from .datasets.synthetic_citation import synthetic_ogbn_arxiv_like
+from .datasets.synthetic_reddit import (REDDIT_CLASSES, REDDIT_EDGES, REDDIT_FEATURES,
+                                        REDDIT_NODES, synthetic_reddit_like)
 from .nn.conv.gat import _gat_edge_cache, gat
 from .nn.conv.gcn import (compute_cache_key, gcn_norm_adj, maybe_compile_ell,
                           precompute_propagated_features)
+from .nn.conv.graph_sage import mean_graph_sage_fixed_k
+from .nn.sampling.device_sampler import DeviceNeighborSampler
 from .ops import config as kernel_config
 from .ops.csr_spmm import CsrAdj, CsrSide, csr_spmm
+from .ops.fixed_k import aggregate_pass_bytes, draw_pass_bytes
 from .ops.gat_attention import CsrGatLayout
 from .sparse.matrix import SparseMatrix
 
-__all__ = ["ArxivProblem", "build_problem", "init_params", "init_gat_params",
-           "precomputed_loss", "canonical_loss", "gat_loss", "make_step", "run_workload",
-           "profile_workload", "gat_pass_bytes", "gat_pass_flops", "Workload",
-           "WORKLOADS", "GCN_WORKLOADS", "main"]
+__all__ = ["ArxivProblem", "SageProblem", "build_problem", "build_sage_problem",
+           "init_params", "init_gat_params", "init_sage_params", "precomputed_loss",
+           "canonical_loss", "gat_loss", "sage_loss", "make_step", "run_workload",
+           "profile_workload", "gat_pass_bytes", "gat_pass_flops", "sage_step_bytes",
+           "Workload", "WORKLOADS", "GCN_WORKLOADS", "SAGE_FANOUTS", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -75,8 +102,12 @@ ARXIV_NODES, ARXIV_EDGES = 169_343, 1_166_243
 H100_HBM_BYTES_PER_S = 3.35e12
 WARMUP_STEPS = 3
 PROFILE_STEPS, PROFILE_TOP = 5, 12  # steps traced, kernels listed per workload
+# the port's kernels (csrc/*.cu), matched as substrings of the profiler's
+# names; "fixed_k_" covers the draw, the gather and the backward's sort
 PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel", "gat_forward_kernel",
-                "gat_backward_dst_kernel", "gat_backward_src_kernel")  # csrc/*.cu
+                "gat_backward_dst_kernel", "gat_backward_src_kernel", "fixed_k_")
+SAGE_FANOUTS, SAGE_HIDDEN = (25, 10), 256
+SAGE_DRAW_SEED = 0  # the draws' torch.Generator seed at the initial weights
 
 
 class ArxivProblem(NamedTuple):
@@ -118,6 +149,66 @@ def build_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
     y = torch.as_tensor(graph.y, device=device).long()
     gat_edges, _, gat_layout = _gat_edge_cache(graph.edge_index, n, {}, device)
     return ArxivProblem(adj, x, px, y, normed.nnz, spmm_dtype, gat_layout, gat_edges)
+
+
+class SageProblem(NamedTuple):
+    sampler: DeviceNeighborSampler     # the graph's CSR on the device
+    x: torch.Tensor                    # [N, 602] float32
+    y: torch.Tensor                    # [N] int64
+    params0: Dict[str, np.ndarray]     # the benchmark's initial weights
+    generator: torch.Generator         # the draws' random integers, on x's device
+    fanouts: Tuple[int, ...]           # k of each layer's draw
+
+
+def build_sage_problem(num_nodes: int = REDDIT_NODES, num_edges: int = REDDIT_EDGES,
+                       num_features: int = REDDIT_FEATURES, num_classes: int = REDDIT_CLASSES,
+                       device="cuda", fanouts: Tuple[int, ...] = SAGE_FANOUTS) -> SageProblem:
+    """The Reddit-shaped graph, its device sampler and the initial weights,
+    drawn from one ``default_rng(0)`` in the JAX benchmark's order."""
+    rng = np.random.default_rng(0)
+    graph = synthetic_reddit_like(num_nodes, num_edges, num_features, num_classes, rng=rng)
+    sampler = DeviceNeighborSampler(graph.edge_index, num_nodes=num_nodes, device=device)
+    half = SAGE_HIDDEN // 2
+    params0 = {"s0": rng.normal(scale=0.05, size=(num_features, half)),
+               "n0": rng.normal(scale=0.05, size=(num_features, half)),
+               "s1": rng.normal(scale=0.05, size=(SAGE_HIDDEN, half)),
+               "n1": rng.normal(scale=0.05, size=(SAGE_HIDDEN, half)),
+               "wd": rng.normal(scale=0.05, size=(SAGE_HIDDEN, num_classes))}
+    return SageProblem(sampler, torch.as_tensor(graph.x, device=device),
+                       torch.as_tensor(graph.y, device=device).long(), params0,
+                       torch.Generator(device=device), tuple(fanouts))
+
+
+def init_sage_params(problem: SageProblem) -> Dict[str, torch.Tensor]:
+    """The SAGE benchmark's initial weights; also reseeds the draws, so
+    every run from these weights sees the same sequence of draws."""
+    problem.generator.manual_seed(SAGE_DRAW_SEED)
+    return bench_params_from_numpy(problem.params0, device=problem.x.device,
+                                   names=SAGE_BENCH_PARAM_NAMES)
+
+
+def sage_loss(p, problem: SageProblem):
+    """Workload 4: a fresh draw per layer, two ``mean_graph_sage_fixed_k``
+    layers with ReLU, ``h Wd``, mean cross-entropy (all in float32)."""
+    csr = problem.sampler.csr()
+    e0, w0 = problem.sampler.sample(problem.generator, problem.fanouts[0], csr)
+    e1, w1 = problem.sampler.sample(problem.generator, problem.fanouts[1], csr)
+    h = mean_graph_sage_fixed_k(problem.x, e0, w0, p["s0"], p["n0"], activation=torch.relu)
+    h = mean_graph_sage_fixed_k(h, e1, w1, p["s1"], p["n1"], activation=torch.relu)
+    return F.cross_entropy(h @ p["wd"], problem.y)
+
+
+def sage_step_bytes(problem: SageProblem) -> int:
+    """Least bytes of the SAGE step's sparse passes: both draws, and both
+    layers' 128-wide float32 aggregations forward and backward."""
+    n = problem.x.shape[0]
+    nnz = int(problem.sampler.sorted_col.shape[0])
+    weighted = problem.sampler.sorted_weight is not None
+    width = SAGE_HIDDEN // 2
+    return sum(draw_pass_bytes(k, n, nnz, weighted)
+               + aggregate_pass_bytes(n, k, n, width, 4)
+               + aggregate_pass_bytes(n, k, n, width, 4, backward=True)
+               for k in problem.fanouts)
 
 
 def init_params(num_features: int, device="cuda") -> Dict[str, torch.Tensor]:
@@ -242,34 +333,48 @@ def _gat_step_bytes(problem: ArxivProblem) -> int:
 
 class Workload(NamedTuple):
     loss: Callable          # (params, problem, dense_bf16) -> scalar loss
-    init: Callable          # (num_features, device) -> params
+    init: Callable          # problem -> params
     lr: float               # Adam learning rate
     bound_bytes: Callable   # problem -> least bytes of the step's sparse passes
     edges: Callable         # problem -> edges per step
+    problem: str = "arxiv"  # the problem it runs on: "arxiv" or "reddit"
+    counts: str = "edges"   # what edges/s counts, in the metric's name
+
+
+def _arxiv_init(pr: ArxivProblem):
+    return init_params(pr.x.shape[1], device=pr.x.device)
+
+
+def _no_dense_bf16(loss: Callable) -> Callable:
+    """Workloads whose dense products stay float32 as their JAX twins
+    write them: ``dense_bf16`` does not apply."""
+    return lambda p, pr, dense_bf16=True: loss(p, pr)
 
 
 WORKLOADS = {
     "gcn_arxiv_fwd_bwd": Workload(
-        precomputed_loss, init_params, 1e-2,
+        precomputed_loss, _arxiv_init, 1e-2,
         lambda pr: _spmm_step_bytes(pr, (NUM_CLASSES,)), lambda pr: pr.num_edges_normed),
     "gcn_arxiv_canonical_fwd_bwd": Workload(
-        canonical_loss, init_params, 1e-2,
+        canonical_loss, _arxiv_init, 1e-2,
         lambda pr: _spmm_step_bytes(pr, (HIDDEN, NUM_CLASSES)), lambda pr: pr.num_edges_normed),
     "gat_arxiv_fwd_bwd": Workload(
-        # the GAT's dense products stay float32 (bench.py): dense_bf16 does not apply
-        lambda p, pr, dense_bf16=True: gat_loss(p, pr), init_gat_params, 1e-3, _gat_step_bytes,
-        lambda pr: pr.gat_layout.num_edges),
+        _no_dense_bf16(gat_loss), lambda pr: init_gat_params(pr.x.shape[1], device=pr.x.device),
+        1e-3, _gat_step_bytes, lambda pr: pr.gat_layout.num_edges),
+    "sage_reddit_fwd_bwd": Workload(
+        _no_dense_bf16(sage_loss), init_sage_params, 1e-2, sage_step_bytes,
+        lambda pr: pr.x.shape[0] * sum(pr.fanouts), problem="reddit", counts="sampled_edges"),
 }
 GCN_WORKLOADS = ("gcn_arxiv_fwd_bwd", "gcn_arxiv_canonical_fwd_bwd")
 
 
-def _workload_step(problem: ArxivProblem, name: str, dense_bf16: bool):
+def _workload_step(problem, name: str, dense_bf16: bool):
     wl = WORKLOADS[name]
-    params = wl.init(problem.x.shape[1], device=problem.x.device)
+    params = wl.init(problem)
     return make_step(lambda p: wl.loss(p, problem, dense_bf16), params, wl.lr)
 
 
-def run_workload(problem: ArxivProblem, name: str, steps: int = 20,
+def run_workload(problem, name: str, steps: int = 20,
                  dense_bf16: bool = True) -> dict:
     """Train ``WARMUP_STEPS + steps`` Adam steps of workload ``name`` from its
     initial weights and time the last ``steps`` with CUDA events. Returns
@@ -290,9 +395,9 @@ def run_workload(problem: ArxivProblem, name: str, steps: int = 20,
     step_s = start.elapsed_time(end) / 1e3 / steps
     wl = WORKLOADS[name]
     line = {
-        "metric": f"{name}_edges_per_sec_per_chip",
+        "metric": f"{name}_{wl.counts}_per_sec_per_chip",
         "value": round(wl.edges(problem) / step_s, 1),
-        "unit": "edges/s",
+        "unit": wl.counts.replace("_", " ") + "/s",
         "vs_baseline": round(wl.bound_bytes(problem) / H100_HBM_BYTES_PER_S / step_s, 4),
     }
     return {"line": line, "step_ms": step_s * 1e3,
@@ -300,7 +405,7 @@ def run_workload(problem: ArxivProblem, name: str, steps: int = 20,
             "steps_taken": WARMUP_STEPS + steps}
 
 
-def profile_workload(problem: ArxivProblem, name: str, dense_bf16: bool = True) -> dict:
+def profile_workload(problem, name: str, dense_bf16: bool = True) -> dict:
     """Device time by kernel over ``PROFILE_STEPS`` steps of workload
     ``name`` (``torch.profiler``): the step's wall time, the device's busy
     time (sum of kernel self times; the step's kernels run on one stream, so
@@ -344,13 +449,19 @@ def profile_workload(problem: ArxivProblem, name: str, dense_bf16: bool = True) 
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the three workloads on ``device`` and print their JSON lines; with
-    ``profile``, also print each workload's per-kernel device time."""
+    """Run the four workloads on ``device`` and print their JSON lines; with
+    ``profile``, also print each workload's per-kernel device time.
+    ``num_nodes``/``num_edges`` size the arxiv graph; the Reddit graph is
+    built at its full size."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
-    problem = build_problem(num_nodes, num_edges, device=device, spmm_bf16=spmm_bf16)
+    problems = {"arxiv": build_problem(num_nodes, num_edges, device=device,
+                                       spmm_bf16=spmm_bf16)}
     results = []
-    for name in WORKLOADS:
+    for name, wl in WORKLOADS.items():
+        if wl.problem not in problems:
+            problems[wl.problem] = build_sage_problem(device=device)
+        problem = problems[wl.problem]
         res = run_workload(problem, name, steps=steps, dense_bf16=dense_bf16)
         print(json.dumps(res["line"]), flush=True)
         results.append(res)

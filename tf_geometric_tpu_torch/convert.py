@@ -11,16 +11,22 @@ import numpy as np
 import torch
 
 __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dict_from_flax",
-           "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES"]
+           "sage_state_dict_from_flax", "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES",
+           "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
 GAT_BENCH_PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "wd", "bd")
+# benchmarks/sage_sampling_throughput.py's params: self and neighbour kernels
+# of both layers, then the dense layer to the classes (no biases)
+SAGE_BENCH_PARAM_NAMES = ("s0", "n0", "s1", "n1", "wd")
+# flax OptimizedLSTMCell gates, in torch.nn.LSTM's row-block order (i, f, g, o)
+_LSTM_GATES = ("i", "f", "g", "o")
 
 
 def bench_params_from_numpy(params: Mapping, device="cuda",
                             names: Sequence[str] = BENCH_PARAM_NAMES) -> Dict[str, torch.Tensor]:
     """A bench parameter dict (the GCN's ``w0 b0 w1 b1`` by default, or
-    ``GAT_BENCH_PARAM_NAMES``) as float32 leaf tensors on ``device`` that
+    ``GAT_BENCH_PARAM_NAMES``, ``SAGE_BENCH_PARAM_NAMES``) as float32 leaf tensors on ``device`` that
     require grad (ready for ``torch.optim``), in the order of ``names``."""
     missing = set(names) - set(params)
     if missing:
@@ -48,3 +54,30 @@ def gat_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``state_dict`` for the port's ``layers.GAT``, whose parameters carry the
     same names and shapes."""
     return _state_dict_from_flax(variables)
+
+
+def sage_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax GraphSAGE layer's params as a ``state_dict`` for the port's
+    layer of the same name. The kernels and biases keep their names and
+    [in, out] layout. ``LSTMGraphSage``'s cell (``OptimizedLSTMCell_0``: input
+    kernels ``ii if ig io`` [in, H] without bias, hidden kernels ``hi hf hg
+    ho`` [H, H] with bias) becomes ``lstm.weight_ih_l0`` [4H, in],
+    ``lstm.weight_hh_l0`` [4H, H], ``lstm.bias_hh_l0`` [4H] and a zero
+    ``lstm.bias_ih_l0``."""
+    params = variables["params"]
+    out = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in params.items()
+           if not isinstance(v, Mapping)}
+    cells = [v for v in params.values() if isinstance(v, Mapping)]
+    if cells:
+        cell = cells[0]
+
+        def gates(prefix, leaf):
+            blocks = [np.asarray(cell[prefix + g][leaf], np.float32) for g in _LSTM_GATES]
+            return np.concatenate([b.T if leaf == "kernel" else b for b in blocks], axis=0)
+
+        bias_hh = gates("h", "bias")
+        out.update({"lstm.weight_ih_l0": torch.tensor(gates("i", "kernel")),
+                    "lstm.weight_hh_l0": torch.tensor(gates("h", "kernel")),
+                    "lstm.bias_ih_l0": torch.zeros(bias_hh.shape[0]),
+                    "lstm.bias_hh_l0": torch.tensor(bias_hh)})
+    return out

@@ -1,3 +1,4 @@
 from .synthetic_citation import synthetic_ogbn_arxiv_like
+from .synthetic_reddit import synthetic_reddit_like
 
-__all__ = ["synthetic_ogbn_arxiv_like"]
+__all__ = ["synthetic_ogbn_arxiv_like", "synthetic_reddit_like"]

@@ -1,5 +1,7 @@
 from .base import glorot_uniform, unpack_edge_inputs, unpack_inputs
-from .conv.gat import GAT
-from .conv.gcn import GCN
+from .conv import (GAT, GCN, GCNGraphSage, LSTMGraphSage, MaxPoolGraphSage, MeanGraphSage,
+                   MeanPoolGraphSage, SumGraphSage)
 
-__all__ = ["GAT", "GCN", "glorot_uniform", "unpack_edge_inputs", "unpack_inputs"]
+__all__ = ["GAT", "GCN", "MeanGraphSage", "SumGraphSage", "GCNGraphSage", "MeanPoolGraphSage",
+           "MaxPoolGraphSage", "LSTMGraphSage", "glorot_uniform", "unpack_edge_inputs",
+           "unpack_inputs"]

@@ -1,16 +1,28 @@
 from .conv.gat import gat
 from .conv.gcn import (compile_and_dropout, compute_cache_key, gcn,
                        gcn_build_cache_by_adj, gcn_build_cache_for_graph,
-                       gcn_cache_normed_edge, gcn_mapper, gcn_norm_adj,
+                       gcn_cache_normed_edge, gcn_norm_adj,
                        gcn_norm_edge, maybe_compile_ell,
                        precompute_propagated_features)
+from .conv.graph_sage import (gcn_graph_sage, lstm_graph_sage, max_pool_graph_sage,
+                              mean_graph_sage, mean_graph_sage_fixed_k, mean_pool_graph_sage,
+                              sum_graph_sage, sum_graph_sage_fixed_k)
+from .kernel.map_reduce import (aggregate_neighbors, gcn_mapper, identity_mapper,
+                                identity_updater, max_reducer, mean_reducer, min_reducer,
+                                neighbor_count_mapper, sum_reducer, sum_updater)
 from .kernel.segment import (segment_count, segment_max, segment_mean, segment_min,
                              segment_normalize, segment_op_with_pad,
                              segment_softmax, segment_sum)
+from .sampling import DeviceNeighborSampler, draw_fixed_k
 
 __all__ = ["gat", "gcn", "gcn_norm_adj", "gcn_build_cache_by_adj", "gcn_build_cache_for_graph",
            "gcn_norm_edge", "gcn_cache_normed_edge", "gcn_mapper", "compute_cache_key",
            "compile_and_dropout", "precompute_propagated_features", "maybe_compile_ell",
-           "segment_sum", "segment_mean", "segment_max", "segment_min",
+           "mean_graph_sage", "sum_graph_sage", "gcn_graph_sage", "mean_pool_graph_sage",
+           "max_pool_graph_sage", "lstm_graph_sage", "mean_graph_sage_fixed_k",
+           "sum_graph_sage_fixed_k", "aggregate_neighbors", "identity_mapper",
+           "neighbor_count_mapper", "sum_reducer", "mean_reducer", "max_reducer",
+           "min_reducer", "identity_updater", "sum_updater", "DeviceNeighborSampler",
+           "draw_fixed_k", "segment_sum", "segment_mean", "segment_max", "segment_min",
            "segment_softmax", "segment_count", "segment_normalize",
            "segment_op_with_pad"]

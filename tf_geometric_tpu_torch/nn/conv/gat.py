@@ -126,7 +126,7 @@ def gat(x, edge_index,
     if d_q != d_v and V.device.type != "cpu":
         raise NotImplementedError(
             "gat with unequal query and value head widths has no CUDA kernel yet "
-            "(ROADMAP §2 item 3, ops/ell.py ell_spmm_multihead); run it on CPU "
+            "(ROADMAP §2.3, ops/ell.py ell_spmm_multihead); run it on CPU "
             "tensors or use equal head widths")
     if d_q == d_v and (ell_layout is not None or V.is_cuda):
         if ell_layout is None:

@@ -15,6 +15,7 @@ import torch
 
 from ...ops.csr_spmm import CsrAdj
 from ...sparse.matrix import SparseMatrix
+from ..kernel.map_reduce import gcn_mapper
 
 __all__ = [
     "gcn",
@@ -207,11 +208,6 @@ def precompute_propagated_features(x, sparse_adj: SparseMatrix, norm="both",
     if cache is not None:
         cache[cache_key] = propagated
     return propagated
-
-
-def gcn_mapper(repeated_x, neighbor_x, edge_weight=None):
-    """Edge-weight scaling mapper."""
-    return neighbor_x * edge_weight.unsqueeze(-1)
 
 
 def maybe_compile_ell(normed_adj, cache: Optional[dict], cache_key: str):
