@@ -41,16 +41,46 @@ Phases, each of which raises (non-zero exit) on failure:
    its plain version, and the aggregations' library yardstick
    ``torch.sparse.mm`` (a CSR matrix of k entries per row built from the
    draw, and its transpose, in the case's dtype), beside the bound.
-6. Main path: zero the launch counters, build the bench problem and train
-   ``bench`` workloads 1, 1b and 3 (the 8-head GAT) at full arxiv size and
-   workload 4 (the sampled GraphSAGE) at full Reddit size; check that the
-   loss is finite and falls and that each kernel ran exactly as often as
-   the layouts imply (GAT: one forward and two backward launches per step;
-   SAGE: two draws, two aggregations forward and two backward calls per
-   step, each backward call launching its sort's kernels and the gather).
-   Then train 3 steps of each workload at a small size through the kernels
-   and through the plain versions on the card and compare the losses, and
-   run ``entry()`` on the card against its CPU run.
+6. COO SpMM kernels (``csrc/spmm_heads.cu``, one head): on the arxiv
+   graph's normalized COO, its edges shuffled by a seeded permutation, 1%
+   sink edges (row = col = N) and a few in-range rows with out-of-range
+   columns appended, at F in {4, 64, 128} with ``h`` float32 and bfloat16
+   (values float32, so the result and ``dy`` are float32): the forward and
+   ``dh`` SpMM and the ``dv`` SDDMM against their plain versions (float32
+   1e-4, bfloat16 2e-2), the forward and ``dh`` against a second run of the
+   same call, bit for bit. Time each kernel, its plain version and the
+   library yardsticks the port never calls (``torch.sparse.mm`` on a
+   prebuilt CSR, ``torch.sparse.sampled_addmm`` in float32), and print the
+   views' build (the stable sorts) beside the bounds.
+7. Multi-head SpMM kernels: on the self-looped arxiv ``CsrGatLayout`` at
+   (H, d_v) in {(8, 8), (8, 32), (4, 64)} (the first is workload 5's),
+   float32 and bfloat16: the forward (SpMM, destination side), ``dV``
+   (SpMM, source side) and ``d_att`` (SDDMM) against their plain versions,
+   timed beside their bounds and, in float32, beside the library
+   yardsticks the port never calls (``torch.bmm`` of the layout's
+   [H, N, N] sparse COO with the values viewed [H, N, d] for the forward and
+   ``dV``, a batched ``torch.sparse.sampled_addmm`` on its [H, N, N] CSR
+   pattern for ``d_att``), whose results are held against the kernels'
+   (1e-4). PyTorch has no bfloat16 kernel for either call.
+8. GIN kernels: on the GIN batch's own padded edge list (values one, as
+   ``gin`` makes them), the COO SpMM forward at widths 4 and 64 and its
+   ``dh`` at 64 against their plain versions and ``torch.sparse.mm``
+   (float32, 1e-4), timed.
+9. Main path: zero the launch counters, build the bench problem and train
+   ``bench`` workloads 1, 1b, 3 (the 8-head GAT) and 5 (the GAT with
+   d_q = 1, d_v = 8, the merged-head branch) at full arxiv size, workload 4
+   (the sampled GraphSAGE) at full Reddit size and workloads 6 and 7 (GIN
+   with the sum-pool and the SortPool readout) on the benchmark's batch of
+   128 graphs; check that the loss is finite and falls and that each
+   kernel ran exactly as often as the layouts imply (GAT: one forward and
+   two backward launches per step; SAGE: two draws, two aggregations
+   forward and two backward calls per step, each backward call launching
+   its sort's kernels and the gather; merged-head GAT: two SpMM and one
+   SDDMM launches per step; GIN: five SpMM launches per step, three forward
+   and two ``dh``). Then train 3 steps of each arxiv workload at a small
+   size and of each GIN workload on its batch through the kernels and
+   through the plain versions on the card and compare the losses, and run
+   ``entry()`` on the card against its CPU run.
 
 The second-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +105,10 @@ WIDTHS = (40, 128, 256)
 # projection), the gather-first width of x, and a narrow odd width
 SAGE_SHAPES = ((25, 128), (10, 128), (25, 602), (4, 41))
 SAGE_DRAW_K = 25
+X6_WIDTHS = (4, 64, 128)              # GIN's first layer, its hidden width, and wider
+X6_SINK_SHARE, X6_BAD_COLS = 0.01, 8  # appended sink edges, in-range rows with bad cols
+# (H, d_v): workload 5's (d_q = 1), the 8-head GAT's width, and wide heads
+X3_SHAPES = ((8, 8), (8, 32), (4, 64))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TIMED_ITERS = 20
@@ -425,19 +459,276 @@ def sage_kernel_phase(sage_problem):
     return rows
 
 
+def _bound(nbytes, flops):
+    byte_ms, flop_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+
+
+def _x6_edges(normed, num_nodes):
+    """The normalized COO with its edges shuffled by a seeded permutation,
+    1% sink edges (row = col = N) and a few in-range rows with out-of-range
+    columns appended."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    index, value = normed.index, normed.value.float()
+    perm = torch.randperm(index.shape[1], generator=gen, device="cuda")
+    sinks = int(index.shape[1] * X6_SINK_SHARE)
+    bad = torch.stack([torch.randint(0, num_nodes, (X6_BAD_COLS,), generator=gen, device="cuda"),
+                       num_nodes + torch.randint(0, 5, (X6_BAD_COLS,), generator=gen,
+                                                 device="cuda")])
+    index = torch.cat([index[:, perm], torch.full((2, sinks), num_nodes, device="cuda"), bad],
+                      dim=1)
+    value = torch.cat([value[perm], torch.rand(sinks + X6_BAD_COLS, generator=gen,
+                                               device="cuda")])
+    return index, value
+
+
+def _x6_library(view, value, num_rows, num_cols):
+    """A view's matrix as a torch CSR tensor (duplicates summed), for the
+    ``torch.sparse.mm`` and ``sampled_addmm`` yardsticks."""
+    import torch
+    from tf_geometric_tpu_torch.ops.spmm_heads import view_entries
+    rows, nbr, eid = view_entries(view)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, nbr]), value[eid], (num_rows, num_cols))
+    return coo.coalesce().to_sparse_csr()
+
+
+def spmm_kernel_phase(normed, num_nodes):
+    """The one-head SpMM (forward and ``dh``) and SDDMM (``dv``) of the COO
+    SpMM against their plain versions on the arxiv COO with shuffled,
+    padded and out-of-range edges; returns one row per kernel and case."""
+    import torch
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    n = num_nodes
+    index, value = _x6_edges(normed, n)
+    w = value[:, None].contiguous()
+    views = {"fwd": lambda: sh.build_csr_view(index[0], index[1], n, n),
+             "dh": lambda: sh.build_csr_view(index[1], index[0], n, n)}
+    view_ms = {k: _cuda_ms(f, iters=5, warmup=1) for k, f in views.items()}
+    fwd, bwd = views["fwd"](), views["dh"]()
+    nnz_f, nnz_b = int(fwd.row_ptr[-1]), int(bwd.row_ptr[-1])
+    print(f"x6 edges: {index.shape[1]} ({int(index.shape[1] * X6_SINK_SHARE)} sinks, "
+          f"{X6_BAD_COLS} out-of-range cols); forward view {nnz_f} entries, dh view {nnz_b}",
+          flush=True)
+    lib_fwd = _x6_library(fwd, value, n, n)
+    lib_bwd = _x6_library(bwd, value, n, n)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
+        lib_h = lib_fwd.to(dtype)
+        for width in X6_WIDTHS:
+            tag = f"F={width} {str(dtype)[6:]}"
+            h = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(n, width, generator=gen, device="cuda")  # float32, as the result
+            h32 = h.float()
+            cases = (
+                ("spmm_heads", "x6 forward", nnz_f,
+                 lambda: sh.launch_spmm_heads(fwd, w, h, 1, torch.float32),
+                 lambda: sh.spmm_heads_plain(fwd, w, h, 1, torch.float32),
+                 lambda: torch.sparse.mm(lib_h, h),
+                 sh.spmm_pass_bytes(nnz_f, n, n, width, 1, elt, 4)),
+                ("spmm_heads", "x6 dh", nnz_b,
+                 lambda: sh.launch_spmm_heads(bwd, w, dy, 1),
+                 lambda: sh.spmm_heads_plain(bwd, w, dy, 1),
+                 lambda: torch.sparse.mm(lib_bwd, dy),
+                 sh.spmm_pass_bytes(nnz_b, n, n, width, 1, 4, 4)),
+                ("sddmm_heads", "x6 dv", nnz_f,
+                 lambda: sh.launch_sddmm_heads(fwd, dy, h32, 1, torch.zeros_like(w)),
+                 lambda: sh.sddmm_heads_plain(fwd, dy, h32, 1, torch.zeros_like(w)),
+                 (lambda: torch.sparse.sampled_addmm(lib_fwd, dy, h32.t(), beta=0.0))
+                 if f32 else None,
+                 sh.sddmm_pass_bytes(nnz_f, n, n, width, 1, 4)))
+            bounds = []
+            for name, case, nnz, kernel, plain, library, nbytes in cases:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err = _max_err(got, want, tol, f"{name} {case} {tag}")
+                if name == "spmm_heads":
+                    _check(torch.equal(got, kernel()),
+                           f"{name} {case} {tag}: two runs on the same inputs differ")
+                bound_ms, bound_by = _bound(nbytes, sh.pass_flops(nnz, width))
+                bounds.append(f"{case} {bound_ms:.4f} ms")
+                rows.append(dict(
+                    name=name, case=case, width=width, dtype=str(dtype)[6:], heads=1,
+                    max_abs_err=err, ms=_cuda_ms(kernel),
+                    plain_ms=_cuda_ms(plain, iters=3, warmup=1),
+                    library_ms=None if library is None else _cuda_ms(library),
+                    bound_ms=bound_ms, bound_by=bound_by))
+                del got, want
+            print(f"x6 {tag}: view build {view_ms['fwd']:.4f} ms (forward, dv), "
+                  f"{view_ms['dh']:.4f} ms (dh); bounds {', '.join(bounds)}", flush=True)
+    del lib_fwd, lib_bwd, lib_h
+    torch.cuda.empty_cache()
+    print("x6 kernel check (name case F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['name']} {r['case']} F={r['width']} {r['dtype']}: {r['max_abs_err']:.3e}, "
+              f"{r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def _x3_library(layout, w, heads):
+    """The layout's per-head matrices for the library yardsticks: the
+    forward's [H, N, N] sparse COO (values ``w[:, h]``, duplicate edges
+    summed) and its transpose (``dV``) for ``torch.bmm``, the [H, N, N]
+    batched CSR pattern for ``torch.sparse.sampled_addmm`` (``d_att``), and
+    each stored entry's position in that pattern and its edge id."""
+    import torch
+    from tf_geometric_tpu_torch.ops.spmm_heads import view_entries
+    n, dev = layout.num_nodes, w.device
+    rows, nbr, eid = view_entries(layout.dst)
+    uniq, pos = torch.unique(rows * n + nbr, return_inverse=True)
+    m = uniq.shape[0]
+    urow, ucol = uniq // n, uniq % n
+    vals = torch.zeros(m, heads, device=dev).index_add_(0, pos, w[eid]).t().reshape(-1)
+    hh = torch.arange(heads, device=dev).repeat_interleave(m)
+    fwd = torch.sparse_coo_tensor(torch.stack([hh, urow.repeat(heads), ucol.repeat(heads)]),
+                                  vals, (heads, n, n), is_coalesced=True)
+    bwd = torch.sparse_coo_tensor(torch.stack([hh, ucol.repeat(heads), urow.repeat(heads)]),
+                                  vals, (heads, n, n)).coalesce()
+    crow = torch.searchsorted(urow, torch.arange(n + 1, device=dev))
+    pattern = torch.sparse_csr_tensor(crow.expand(heads, -1).contiguous(),
+                                      ucol.expand(heads, -1).contiguous(),
+                                      torch.ones(heads, m, device=dev), (heads, n, n))
+    return fwd, bwd, pattern, pos, eid
+
+
+def multihead_kernel_phase(layout):
+    """The multi-head SpMM (forward on the destination side, ``dV`` on the
+    source side) and SDDMM (``d_att``) against their plain versions on the
+    self-looped arxiv layout, and in float32 against the library calls;
+    returns one row per kernel and case."""
+    import torch
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    n, E = layout.num_nodes, layout.num_edges
+    nnz = int(layout.dst.nbr.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for heads, d in X3_SHAPES:
+        width = heads * d
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
+            tag = f"H={heads} d_v={d} {str(dtype)[6:]}"
+            att = torch.rand(E, heads, generator=gen, device="cuda")
+            w = att.to(dtype).float()  # the weights in v's dtype, as the op casts them
+            v = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+            # per head, [H, N, d]: the library calls' dense operands
+            v3, dy3 = (t.view(n, heads, d).transpose(0, 1).contiguous() for t in (v, dy))
+            lib = _x3_library(layout, w, heads) if f32 else None
+
+            def heads_last(got, res):  # [H, N, d] back to [N, H·d]
+                return got, res.transpose(0, 1).reshape(n, width)
+
+            def by_edge(got, res):  # the pattern's entries back to edge ids
+                return got[lib[4]], res.values()[:, lib[3]].t()
+
+            cases = (
+                ("spmm_heads", "x3 forward", lambda: sh.launch_spmm_heads(layout.dst, w, v, heads),
+                 lambda: sh.spmm_heads_plain(layout.dst, w, v, heads),
+                 (lambda: torch.bmm(lib[0], v3)) if f32 else None, heads_last,
+                 sh.spmm_pass_bytes(nnz, n, n, width, heads, elt, elt)),
+                ("spmm_heads", "x3 dV", lambda: sh.launch_spmm_heads(layout.src, w, dy, heads),
+                 lambda: sh.spmm_heads_plain(layout.src, w, dy, heads),
+                 (lambda: torch.bmm(lib[1], dy3)) if f32 else None, heads_last,
+                 sh.spmm_pass_bytes(nnz, n, n, width, heads, elt, elt)),
+                ("sddmm_heads", "x3 d_att",
+                 lambda: sh.launch_sddmm_heads(layout.dst, dy, v, heads, torch.zeros_like(w)),
+                 lambda: sh.sddmm_heads_plain(layout.dst, dy, v, heads, torch.zeros_like(w)),
+                 (lambda: torch.sparse.sampled_addmm(lib[2], dy3, v3.transpose(1, 2), beta=0.0))
+                 if f32 else None, by_edge,
+                 sh.sddmm_pass_bytes(nnz, n, n, width, heads, elt)))
+            for name, case, kernel, plain, library, align, nbytes in cases:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err = _max_err(got, want, tol, f"{name} {case} {tag}")
+                if library is not None:
+                    err = max(err, _max_err(*align(got, library()), F32_TOL,
+                                            f"{name} {case} {tag} vs the library call"))
+                del got, want
+                bound_ms, bound_by = _bound(nbytes, sh.pass_flops(nnz, width))
+                rows.append(dict(
+                    name=name, case=case, width=d, dtype=str(dtype)[6:], heads=heads,
+                    max_abs_err=err, ms=_cuda_ms(kernel),
+                    plain_ms=_cuda_ms(plain, iters=3, warmup=1),
+                    library_ms=None if library is None else _cuda_ms(library),
+                    bound_ms=bound_ms, bound_by=bound_by))
+            del att, w, v, dy, v3, dy3, lib
+            torch.cuda.empty_cache()
+    print("x3 kernel check (name case H d_v dtype: max_abs_err, ms, plain_ms, library_ms, "
+          "bound_ms; library: torch.bmm / sampled_addmm, float32 only)")
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['name']} {r['case']} H={r['heads']} d_v={r['width']} {r['dtype']}: "
+              f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def gin_kernel_phase(graph_problem):
+    """The COO SpMM kernel at the GIN step's own calls: the batch's padded
+    edge list with values one (sink edges dropped by the views), the forward
+    at the input width and at ``GIN_UNITS``, ``dh`` at ``GIN_UNITS``, against
+    the plain version and ``torch.sparse.mm`` (float32); returns one row per
+    call."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    index, n = graph_problem.edge_index, graph_problem.x.shape[0]
+    w = torch.ones(index.shape[1], 1, device="cuda")
+    fwd = sh.build_csr_view(index[0], index[1], n, n)
+    bwd = sh.build_csr_view(index[1], index[0], n, n)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    hidden, dy = (torch.randn(n, bench.GIN_UNITS, generator=gen, device="cuda")
+                  for _ in range(2))
+    rows = []
+    for case, view, src in (("gin forward", fwd, graph_problem.x), ("gin forward", fwd, hidden),
+                            ("gin dh", bwd, dy)):
+        width, nnz = src.shape[1], int(view.row_ptr[-1])
+        lib = _x6_library(view, w[:, 0], n, n)
+        tag = f"{case} F={width}"
+        got, want = sh.launch_spmm_heads(view, w, src, 1), sh.spmm_heads_plain(view, w, src, 1)
+        torch.cuda.synchronize()
+        err = max(_max_err(got, want, F32_TOL, f"spmm_heads {tag}"),
+                  _max_err(got, torch.sparse.mm(lib, src), F32_TOL,
+                           f"spmm_heads {tag} vs torch.sparse.mm"))
+        bound_ms, bound_by = _bound(sh.spmm_pass_bytes(nnz, n, n, width, 1, 4, 4),
+                                    sh.pass_flops(nnz, width))
+        rows.append(dict(
+            name="spmm_heads", case=case, width=width, dtype="float32", heads=1,
+            max_abs_err=err, ms=_cuda_ms(lambda: sh.launch_spmm_heads(view, w, src, 1)),
+            plain_ms=_cuda_ms(lambda: sh.spmm_heads_plain(view, w, src, 1), iters=3, warmup=1),
+            library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, src)),
+            bound_ms=bound_ms, bound_by=bound_by))
+    print(f"gin kernel check ({int(fwd.row_ptr[-1])} of {index.shape[1]} edges in the views; "
+          f"name case F: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
+    for r in rows:
+        print(f"  {r['name']} {r['case']} F={r['width']}: {r['max_abs_err']:.3e}, "
+              f"{r['ms']:.4f}, {r['plain_ms']:.4f}, {r['library_ms']:.4f}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
 # every kernel wrapper of the main path, in the order of the counts below
 _KERNELS = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
-            "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward")
+            "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward",
+            "spmm_heads", "sddmm_heads")
 
 
 def _wrappers():
     from tf_geometric_tpu_torch.ops import fixed_k as fk
     from tf_geometric_tpu_torch.ops import gat_attention as ga
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
     from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm
     from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
     return (launch_csr_spmm, launch_sorted_segment_sum, ga.launch_gat_forward,
             ga.launch_gat_backward_dst, ga.launch_gat_backward_src, fk.launch_draw_fixed_k,
-            fk.launch_fixed_k_forward, fk.launch_fixed_k_backward)
+            fk.launch_fixed_k_forward, fk.launch_fixed_k_backward, sh.launch_spmm_heads,
+            sh.launch_sddmm_heads)
 
 
 def _launch_counts():
@@ -451,10 +742,10 @@ def _zero_launch_counts():
     fk.launch_fixed_k_backward.calls = 0
 
 
-def main_path_phase(gpu, sage_problem):
-    """Workloads 1, 1b and 3 at full arxiv size and 4 (SAGE) at full Reddit
-    size through the kernels; returns the launch totals of the run and the
-    bench results."""
+def main_path_phase(gpu, sage_problem, graph_problem):
+    """Workloads 1, 1b, 3 and 5 at full arxiv size, 4 (SAGE) at full Reddit
+    size and 6 and 7 (GIN) on the benchmark's batch through the kernels;
+    returns the launch totals of the run and the bench results."""
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import fixed_k as fk
     _zero_launch_counts()
@@ -462,34 +753,49 @@ def main_path_phase(gpu, sage_problem):
     adj = problem.adj
     hubs = int(adj.fwd.num_virtual > 0) + int(adj.bwd.num_virtual > 0)
     # the precompute P = Â·x is one forward product
-    expected = [1, int(adj.fwd.num_virtual > 0), 0, 0, 0, 0, 0, 0]
+    expected = [1, int(adj.fwd.num_virtual > 0)] + [0] * (len(_KERNELS) - 2)
     _check(_launch_counts() == expected,
            f"precompute launches {_launch_counts()} != {expected}")
     totals = _launch_counts()
     results = {}
+    problems = {"arxiv": problem, "reddit": sage_problem, "graphs": graph_problem}
     for name, wl in bench.WORKLOADS.items():
         _zero_launch_counts()
-        res = bench.run_workload(problem if wl.problem == "arxiv" else sage_problem, name)
+        res = bench.run_workload(problems[wl.problem], name)
         counts = _launch_counts()
         steps = res["steps_taken"]
+        expected = dict.fromkeys(_KERNELS, 0)
         if name in bench.GCN_WORKLOADS:
             # per step and SpMM: Kernel A forward + backward, Kernel B per split side
             spmms = 1 if name == "gcn_arxiv_fwd_bwd" else 2
-            expected = [steps * spmms * 2, steps * spmms * hubs, 0, 0, 0, 0, 0, 0]
+            expected.update(csr_spmm=steps * spmms * 2, sorted_segment_sum=steps * spmms * hubs)
+        elif name == "gat_merged_arxiv_fwd_bwd":
+            # per step: the multi-head SpMM forward and dV, the d_att SDDMM
+            expected.update(spmm_heads=2 * steps, sddmm_heads=steps)
         elif wl.problem == "arxiv":
             # per step: one forward and two backward attention launches (hub
             # rows are blocks of the same launches)
-            expected = [0, 0, steps, steps, steps, 0, 0, 0]
+            expected.update(gat_forward=steps, gat_backward_dst=steps, gat_backward_src=steps)
+        elif wl.problem == "graphs":
+            # per step: each GIN layer's forward SpMM, dh for layers 2 and 3
+            # (layer 1's input is data); the values are constants: no dv
+            layers = bench.GIN_LAYERS
+            expected.update(spmm_heads=steps * (2 * layers - 1))
         else:
             # per step and layer: one draw, one aggregation forward, one
             # backward call (its sort's launches and the gather)
             layers = len(sage_problem.fanouts)
             per_call = fk.fixed_k_backward_launches(sage_problem.sampler.num_nodes)
-            expected = [0, 0, 0, 0, 0, steps * layers, steps * layers, steps * layers * per_call]
+            expected.update(fixed_k_draw=steps * layers, fixed_k_forward=steps * layers,
+                            fixed_k_backward=steps * layers * per_call)
             calls = fk.launch_fixed_k_backward.calls
             _check(calls == steps * layers,
                    f"{name}: {calls} backward calls != expected {steps * layers}")
+        expected = list(expected.values())
         _check(counts == expected, f"{name}: launches {counts} != expected {expected}")
+        if wl.problem == "graphs":
+            print(json.dumps({"workload": name,
+                              **bench.gin_edge_rates(graph_problem, res["step_ms"])}), flush=True)
         losses = res["losses"]
         _check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
         _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
@@ -519,11 +825,11 @@ def _kernel_vs_plain_losses(wl, problem, spmm_bf16, tol, what):
           f"{losses['plain'].tolist()} max abs err {err:.3e}", flush=True)
 
 
-def small_plain_phase():
-    """3 steps of each workload at a small size through the kernels and
-    through the plain versions on the card: the losses must agree (SAGE:
-    both runs draw from the same integers, the generator being reseeded
-    with the weights)."""
+def small_plain_phase(graph_problem):
+    """3 steps of each workload at a small size (GIN: on its batch) through
+    the kernels and through the plain versions on the card: the losses must
+    agree (SAGE: both runs draw from the same integers, the generator being
+    reseeded with the weights)."""
     from tf_geometric_tpu_torch import bench
     for spmm_bf16, tol in ((False, F32_TOL), (True, BF16_TOL)):
         problem = bench.build_problem(20_000, 140_000, device="cuda", spmm_bf16=spmm_bf16)
@@ -537,6 +843,9 @@ def small_plain_phase():
     for name, wl in bench.WORKLOADS.items():
         if wl.problem == "reddit":
             _kernel_vs_plain_losses(wl, sage, False, F32_TOL, f"{name} (20,000 nodes)")
+        elif wl.problem == "graphs":
+            _kernel_vs_plain_losses(wl, graph_problem, False, F32_TOL,
+                                    f"{name} ({graph_problem.num_graphs} graphs)")
 
 
 def entry_phase():
@@ -582,8 +891,10 @@ def main():
     print(f"arxiv problem built in {time.perf_counter() - t0:.1f} s: {problem.adj}",
           flush=True)
     rows = kernel_phase(problem, normed)
+    rows += spmm_kernel_phase(normed, n)
     del normed
     rows += gat_kernel_phase(problem.gat_layout, problem.gat_edges)
+    rows += multihead_kernel_phase(problem.gat_layout)
     del problem
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -591,17 +902,24 @@ def main():
     print(f"reddit problem built in {time.perf_counter() - t0:.1f} s", flush=True)
     rows += sage_kernel_phase(sage_problem)
     torch.cuda.empty_cache()
+    graph_problem = bench.build_graph_problem(device="cuda")
+    print(f"gin batch: {graph_problem.num_graphs} graphs, {graph_problem.x.shape[0]} padded "
+          f"nodes, {graph_problem.edge_index.shape[1]} padded edges "
+          f"({graph_problem.real_edges} real)", flush=True)
+    rows += gin_kernel_phase(graph_problem)
 
-    totals, results = main_path_phase(gpu, sage_problem)
+    totals, results = main_path_phase(gpu, sage_problem, graph_problem)
     del sage_problem
     torch.cuda.empty_cache()
-    small_plain_phase()
+    small_plain_phase(graph_problem)
     entry_phase()
 
     # one entry per kernel, at its heaviest main-path call: the SpMM kernels
     # on the forward side at F=256 in bfloat16 (the canonical step's first
     # layer), the attention kernels at the bench's H=8, d=32 in bfloat16,
-    # the SAGE kernels at the first layer's k=25 (aggregations: F=128, float32)
+    # the SAGE kernels at the first layer's k=25 (aggregations: F=128, float32),
+    # the H-head SpMM as the COO forward on the arxiv COO at GIN's F=64 in
+    # float32, the H-head SDDMM at workload 5's d_att (H=8, d_v=8, float32)
     spmm_rep = dict(side="fwd", width=256, dtype="bfloat16")
     sage_rep = dict(k=25, width=128, dtype="float32")
     sage_src = ("tf_geometric_tpu_torch/csrc/fixed_k.cu",
@@ -622,18 +940,33 @@ def main():
                                "tf_geometric_tpu/nn/sampling/device_sampler.py:33",
                                dict(k=25, weighted=False), "k=25, no weight table"),
               "fixed_k_forward": sage_src,
-              "fixed_k_backward": sage_src}
+              "fixed_k_backward": sage_src,
+              # the one SpMM kernel serves the COO SpMM (GIN's product) and the
+              # multi-head SpMM; the SDDMM their value and attention gradients
+              "spmm_heads": ("tf_geometric_tpu_torch/csrc/spmm_heads.cu",
+                             "tf_geometric_tpu/ops/spmm.py:67",
+                             dict(case="x6 forward", width=64, dtype="float32"),
+                             "COO SpMM forward, F=64, float32"),
+              "sddmm_heads": ("tf_geometric_tpu_torch/csrc/spmm_heads.cu",
+                              "tf_geometric_tpu/ops/ell.py:325",
+                              dict(case="x3 d_att", heads=8, width=8, dtype="float32"),
+                              "multi-head d_att, H=8, d_v=8, float32")}
+    also_replaces = {"spmm_heads": "tf_geometric_tpu/ops/ell.py:325",
+                     "sddmm_heads": "tf_geometric_tpu/ops/spmm.py:80"}
     kernels = []
     for name, launches in zip(_KERNELS, totals):
         path, replaces, rep_key, shape = source[name]
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if all(r[k] == v for k, v in rep_key.items()))
         _check(launches > 0, f"{name} was not launched on the main path")
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": path, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "shape": shape})
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "shape": shape}
+        if name in also_replaces:
+            entry["also_replaces"] = also_replaces[name]
+        kernels.append(entry)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

@@ -190,3 +190,63 @@ def test_edge_transforms_match_jax():
     got, want = tgu.convert_edge_to_directed(ei), jgu.convert_edge_to_directed(ei)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1] is None and want[1] is None
+
+
+def _check_merged_head_with_layout(x, ei, w, num_heads, dropout):
+    """The port's merged-head branch over a layout against the JAX package's
+    with a cache: the output and the gradients of x and every weight
+    (float32, rtol = atol = 1e-4); under dropout both sides use JAX's mask
+    ([H, E] bernoulli from the same key, handed to the port as a scaled
+    [E, H] keep mask)."""
+    n, rate, key = x.shape[0], 0.3, jax.random.PRNGKey(3)
+    cache = {}
+    jgat._gat_edge_cache(jnp.asarray(ei), n, cache)
+    sorted_ei = np.array(cache[f"gat_edges_{n}"][0])
+
+    def jax_loss(x_, w_):
+        out = jgat.gat(x_, jnp.asarray(ei), w_["wq"], w_["bq"], jax.nn.relu, w_["wk"],
+                       w_["bk"], jax.nn.relu, w_["wv"], bias=w_["b"], activation=jax.nn.relu,
+                       num_heads=num_heads, num_nodes=n, cache=cache, training=dropout,
+                       edge_drop_rate=rate if dropout else 0.0,
+                       dropout_key=key if dropout else None)
+        return jnp.sum(out * jnp.arange(out.size, dtype=jnp.float32).reshape(out.shape) / 100)
+
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    want, (want_dx, want_dw) = jax.value_and_grad(jax_loss, argnums=(0, 1))(jnp.asarray(x), jw)
+    keep = None
+    if dropout:
+        keep = np.asarray(jax.random.bernoulli(key, 1.0 - rate,
+                                               (num_heads, sorted_ei.shape[1]))).T
+        keep = torch.as_tensor(keep.astype(np.float32) / (1.0 - rate))
+    layout = CsrGatLayout.build(sorted_ei, n, device="cpu")
+    tx = torch.tensor(x, requires_grad=True)
+    tw = {k: torch.tensor(v, requires_grad=True) for k, v in w.items()}
+    out = tgat.gat(tx, None, tw["wq"], tw["bq"], torch.relu, tw["wk"], tw["bk"], torch.relu,
+                   tw["wv"], bias=tw["b"], activation=torch.relu, num_heads=num_heads,
+                   edge_drop_rate=rate if dropout else 0.0, training=dropout, keep_mask=keep,
+                   ell_layout=layout, sorted_edge_index=torch.as_tensor(sorted_ei))
+    assert out.shape == (n, w["b"].shape[0])
+    loss = (out * torch.arange(out.numel(), dtype=torch.float32).reshape(out.shape) / 100).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), **TOL)
+    for k in w:
+        np.testing.assert_allclose(tw[k].grad.numpy(), np.asarray(want_dw[k]), **TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_gat_merged_head_with_layout_matches_jax(dropout):
+    """d_q != d_v (2 heads, d_q = 2, d_v = 4) over a layout, with and
+    without dropout."""
+    _check_merged_head_with_layout(*_inputs(21, 2, True, equal_widths=False), 2, dropout)
+
+
+def test_gat_merged_head_one_wide_queries_matches_jax():
+    """The widths of the repository's GAT with d_q != d_v (8 heads, units 64,
+    attention units 8: d_q = 1, d_v = 8; bench workload 5) over a layout."""
+    x, ei, w = _inputs(23, 8, True, units=64)
+    rng = np.random.default_rng(24)
+    w.update({k: rng.normal(size=(x.shape[1], 8)).astype(np.float32) for k in ("wq", "wk")})
+    w.update({k: (rng.normal(size=8) * 0.1).astype(np.float32) for k in ("bq", "bk")})
+    _check_merged_head_with_layout(x, ei, w, 8, False)

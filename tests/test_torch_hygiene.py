@@ -137,12 +137,13 @@ def test_gat_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_gat_unequal_head_widths_raise_off_the_cpu():
-    """On a device other than the CPU, gat() with d_q != d_v raises instead
-    of running the segment path there (meta tensors stand in for CUDA)."""
+    """On a device other than the CPU and the card, gat() with d_q != d_v
+    raises instead of running the segment path there (meta tensors stand in
+    for one)."""
     from tf_geometric_tpu_torch.nn import gat
     x = torch.ones(4, 3, device="meta")
     wq, wv = torch.ones(3, 4, device="meta"), torch.ones(3, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="kernels"):
         gat(x, [[0, 1], [1, 2]], wq, torch.zeros(4, device="meta"), None,
             wq, torch.zeros(4, device="meta"), None, wv, num_heads=2)
 

@@ -1,9 +1,11 @@
 """Training-step benchmark on the ogbn-arxiv-shaped graph (the port's twin
-of workloads 1, 1b and 3 of the repository's ``bench.py``) and on the
+of workloads 1, 1b and 3 of the repository's ``bench.py``), on the
 Reddit-shaped graph (the twin of ``benchmarks/sage_sampling_throughput.py``
-in its ``device`` mode).
+in its ``device`` mode) and on a padded batch of small graphs (the twin of
+``benchmarks/graph_classification_throughput.py``).
 
-Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
+Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"};
+before each GIN line, one with its real and padded edges per second.
 
 1. ``gcn_arxiv_fwd_bwd``: a full training step (forward, backward, Adam) of
    the 2-layer GCN, HIDDEN 256, with the full-batch precompute ``P = Â·x``
@@ -27,6 +29,29 @@ Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"}.
    benchmark's: ``default_rng(0)`` normals at scale 0.05 drawn after the
    graph (s0, n0, s1, n1, wd). The draws come from a ``torch.Generator``
    seeded with 0 when the weights are made.
+
+5. ``gat_merged_arxiv_fwd_bwd``: a GAT whose query and key heads are
+   narrower than its value heads, at the widths of the repository's one
+   such configuration, the first layer of
+   ``benchmarks/node_classification/bench_node_cls_early_stop_gat.py:44``
+   (8 heads, units 64, attention units 8: d_q = 1, d_v = 8), on the
+   self-looped arxiv graph with workload 3's structure (relu on Q and K,
+   a dense layer to the 40 classes). It takes ``gat``'s merged-head
+   branch: scores and the per-head softmax in PyTorch, then the multi-head
+   SpMM (its forward, and ``d_att`` and ``dV`` in the backward), all
+   float32 as the JAX branch runs; weights ``default_rng(1)`` normals at
+   scale 0.05 (wq, wk, wv, wd), zero biases, Adam 1e-3.
+6. ``gin_sum_pool_fwd_bwd`` and 7. ``gin_sort_pool_fwd_bwd``: the twins of
+   ``benchmarks/graph_classification_throughput.py``: the offline graph set
+   of 600 graphs (``synthetic_graph_classification``), its first batch of
+   ``GIN_BATCH`` = 128 graphs padded by ``padded_batch_generator``
+   (2,560 nodes, 12,928 edges), 3 ``GIN`` layers (MLP ``Dense(64)`` → relu
+   → ``Dense(64)``, then relu), then ``sum_pool`` → ``Dense(2)``, or
+   ``sort_pool(k=16)`` → [128, 16·64] → ``Dense(2)``; softmax cross-entropy,
+   Adam 1e-3, float32. Each GIN layer's ``A·h`` is the COO SpMM (forward at
+   widths 4, 64, 64; ``dh`` at 64, 64). Weights: flax's layout from
+   ``default_rng(0)`` (``init_gin_flax_params``), carried over by
+   ``convert.gin_classifier_state_dict_from_flax``.
 
 The GCN workloads use bf16 SpMM compute and a bf16 ``x @ W0`` by default,
 the GAT workload bf16 attention compute and float32 dense products, as
@@ -61,8 +86,15 @@ time), the least time being the passes' least bytes over the H100's
   128-wide float32 source read, the output written, idx and weight) and
   backward (dy read, the float32 source gradient written, idx and weight;
   ``ops.fixed_k.aggregate_pass_bytes``).
+- the merged-head GAT's multi-head SpMM forward and ``dV`` and its
+  ``d_att`` SDDMM (``ops.spmm_heads.spmm_pass_bytes``,
+  ``sddmm_pass_bytes``);
+- the GIN step's COO SpMM passes (the same byte counts, one head, over the
+  batch's real edges: padded edges are dropped from the views).
 Dense products, the loss and Adam are not charged, so the ratio is the
-share of the step that the sparse passes' minimum traffic would fill.
+share of the step that the sparse passes' minimum traffic would fill. The
+GIN lines count graphs/s; ``main`` also prints each GIN step's real and
+padded edges per second.
 """
 from __future__ import annotations
 
@@ -75,26 +107,39 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .convert import GAT_BENCH_PARAM_NAMES, SAGE_BENCH_PARAM_NAMES, bench_params_from_numpy
-from .datasets.synthetic_citation import synthetic_ogbn_arxiv_like
+from torch import nn
+from torch.func import functional_call
+
+from .convert import (GAT_BENCH_PARAM_NAMES, SAGE_BENCH_PARAM_NAMES, bench_params_from_numpy,
+                      gin_classifier_state_dict_from_flax)
+from .data.padding import padded_batch_generator
+from .datasets.synthetic_citation import (synthetic_graph_classification,
+                                          synthetic_ogbn_arxiv_like)
 from .datasets.synthetic_reddit import (REDDIT_CLASSES, REDDIT_EDGES, REDDIT_FEATURES,
                                         REDDIT_NODES, synthetic_reddit_like)
 from .nn.conv.gat import _gat_edge_cache, gat
 from .nn.conv.gcn import (compute_cache_key, gcn_norm_adj, maybe_compile_ell,
                           precompute_propagated_features)
+from .layers.conv.propagation import GIN
 from .nn.conv.graph_sage import mean_graph_sage_fixed_k
+from .nn.pool.common_pool import sum_pool
+from .nn.pool.sort_pool import sort_pool
 from .nn.sampling.device_sampler import DeviceNeighborSampler
 from .ops import config as kernel_config
 from .ops.csr_spmm import CsrAdj, CsrSide, csr_spmm
 from .ops.fixed_k import aggregate_pass_bytes, draw_pass_bytes
 from .ops.gat_attention import CsrGatLayout
+from .ops.spmm_heads import sddmm_pass_bytes, spmm_pass_bytes
 from .sparse.matrix import SparseMatrix
 
-__all__ = ["ArxivProblem", "SageProblem", "build_problem", "build_sage_problem",
-           "init_params", "init_gat_params", "init_sage_params", "precomputed_loss",
-           "canonical_loss", "gat_loss", "sage_loss", "make_step", "run_workload",
+__all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
+           "build_sage_problem", "build_graph_problem", "init_params", "init_gat_params",
+           "init_gat_merged_params", "init_sage_params", "init_gin_flax_params",
+           "precomputed_loss", "canonical_loss", "gat_loss", "sage_loss",
+           "gin_loss", "GinMlp", "GinClassifier", "make_step", "run_workload",
            "profile_workload", "gat_pass_bytes", "gat_pass_flops", "sage_step_bytes",
-           "Workload", "WORKLOADS", "GCN_WORKLOADS", "SAGE_FANOUTS", "main"]
+           "gin_step_bytes", "Workload", "WORKLOADS", "GCN_WORKLOADS", "GIN_READOUTS",
+           "SAGE_FANOUTS", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -105,9 +150,15 @@ PROFILE_STEPS, PROFILE_TOP = 5, 12  # steps traced, kernels listed per workload
 # the port's kernels (csrc/*.cu), matched as substrings of the profiler's
 # names; "fixed_k_" covers the draw, the gather and the backward's sort
 PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel", "gat_forward_kernel",
-                "gat_backward_dst_kernel", "gat_backward_src_kernel", "fixed_k_")
+                "gat_backward_dst_kernel", "gat_backward_src_kernel", "fixed_k_",
+                "spmm_heads_kernel", "sddmm_heads_kernel")
 SAGE_FANOUTS, SAGE_HIDDEN = (25, 10), 256
 SAGE_DRAW_SEED = 0  # the draws' torch.Generator seed at the initial weights
+# workload 5's units and query/key units (bench_node_cls_early_stop_gat.py:44)
+GAT_MERGED_UNITS, GAT_MERGED_ATT_UNITS = 64, 8
+# benchmarks/graph_classification_throughput.py's constants
+GIN_BATCH, GIN_UNITS, GIN_LAYERS, GIN_SORT_K = 128, 64, 3, 16
+GIN_READOUTS = {"gin_sum_pool_fwd_bwd": "sum", "gin_sort_pool_fwd_bwd": "sort"}
 
 
 class ArxivProblem(NamedTuple):
@@ -258,15 +309,165 @@ def canonical_loss(p, problem: ArxivProblem, dense_bf16: bool = True):
 
 
 def gat_loss(p, problem: ArxivProblem):
-    """Workload 3: ``gat`` with 8 heads over the cached layout (no bias or
-    activation on its output), then ``h Wd + bd``. The dense products stay
-    float32 as in ``bench.py``; the attention computes in
-    ``problem.spmm_dtype``."""
+    """Workloads 3 and 5: ``gat`` with 8 heads over the cached layout (no
+    bias or activation on its output), then ``h Wd + bd``. The dense
+    products stay float32 as in ``bench.py``; the fused attention (equal
+    head widths) computes in ``problem.spmm_dtype``, the merged-head branch
+    (workload 5's d_q = 1, d_v = 8) in float32, as the JAX branch runs."""
     with _spmm_compute_dtype(problem.spmm_dtype):
         h = gat(problem.x, None, p["wq"], p["bq"], torch.relu, p["wk"], p["bk"], torch.relu,
                 p["wv"], num_heads=GAT_HEADS, num_nodes=problem.x.shape[0],
                 ell_layout=problem.gat_layout, sorted_edge_index=problem.gat_edges)
     return F.cross_entropy(h @ p["wd"] + p["bd"], problem.y)
+
+
+def init_gat_merged_params(num_features: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """Workload 5's weights: ``default_rng(1)`` normals at scale 0.05 in the
+    order wq, wk ([F, 8]), wv ([F, 64]), wd; zero biases."""
+    rng = np.random.default_rng(1)
+    wq, wk = (rng.normal(scale=0.05, size=(num_features, GAT_MERGED_ATT_UNITS)) for _ in range(2))
+    return bench_params_from_numpy({
+        "wq": wq, "bq": np.zeros(GAT_MERGED_ATT_UNITS), "wk": wk,
+        "bk": np.zeros(GAT_MERGED_ATT_UNITS),
+        "wv": rng.normal(scale=0.05, size=(num_features, GAT_MERGED_UNITS)),
+        "wd": rng.normal(scale=0.05, size=(GAT_MERGED_UNITS, NUM_CLASSES)),
+        "bd": np.zeros(NUM_CLASSES),
+    }, device=device, names=GAT_BENCH_PARAM_NAMES)
+
+
+# ---------------------------------------------------------------------------
+# workloads 6 and 7: GIN graph classification
+# ---------------------------------------------------------------------------
+
+class GinMlp(nn.Module):
+    """The benchmark's MLP: ``Dense(units)`` → relu → ``Dense(units)``."""
+
+    def __init__(self, in_features: int, units: int, device="cuda"):
+        super().__init__()
+        self.dense0 = nn.Linear(in_features, units, device=device)
+        self.dense1 = nn.Linear(units, units, device=device)
+
+    def forward(self, h):
+        return self.dense1(torch.relu(self.dense0(h)))
+
+
+class GinClassifier(nn.Module):
+    """``GINSum`` (readout ``"sum"``) or ``GINSort`` (``"sort"``) of
+    ``benchmarks/graph_classification_throughput.py``: ``num_layers`` ×
+    (``GIN`` with a ``GinMlp``, then relu), then ``sum_pool`` or
+    ``sort_pool(k=sort_k)`` reshaped to [num_graphs, sort_k·units], then a
+    dense head to the classes. Called on a padded batch
+    ``(x, edge_index, edge_weight, node_graph_index)``."""
+
+    def __init__(self, in_features: int, num_classes: int, readout: str = "sum",
+                 units: int = GIN_UNITS, num_layers: int = GIN_LAYERS, sort_k: int = GIN_SORT_K,
+                 num_graphs: int = GIN_BATCH, device="cuda"):
+        super().__init__()
+        if readout not in ("sum", "sort"):
+            raise ValueError(f"readout must be 'sum' or 'sort', got {readout!r}")
+        self.readout, self.sort_k, self.num_graphs = readout, sort_k, num_graphs
+        self.gins = nn.ModuleList(
+            GIN(GinMlp(in_features if i == 0 else units, units, device), device=device)
+            for i in range(num_layers))
+        self.head = nn.Linear(units * (sort_k if readout == "sort" else 1), num_classes,
+                              device=device)
+
+    def forward(self, x, edge_index, edge_weight, node_graph_index):
+        h = x
+        for layer in self.gins:
+            h = torch.relu(layer([h, edge_index]))
+        if self.readout == "sum":
+            h = sum_pool(h, node_graph_index, num_graphs=self.num_graphs)
+        else:
+            pooled = sort_pool(h, edge_index, edge_weight, node_graph_index, k=self.sort_k,
+                               num_graphs=self.num_graphs)
+            h = pooled[0].reshape(self.num_graphs, -1)
+        return self.head(h)
+
+
+def init_gin_flax_params(in_features: int, num_classes: int, readout: str,
+                         units: int = GIN_UNITS, num_layers: int = GIN_LAYERS,
+                         sort_k: int = GIN_SORT_K, seed: int = 0) -> dict:
+    """The benchmark model's params in flax's layout (``{"params": {"MLP_i":
+    {"Dense_0", "Dense_1"}, "Dense_0"}}``): LeCun normals (scale
+    1/√fan_in) from ``default_rng(seed)``, layer by layer and the head last,
+    zero biases; ε is not trained."""
+    rng = np.random.default_rng(seed)
+
+    def dense(fan_in, fan_out):
+        return {"kernel": rng.normal(scale=1.0 / np.sqrt(fan_in),
+                                     size=(fan_in, fan_out)).astype(np.float32),
+                "bias": np.zeros(fan_out, np.float32)}
+
+    params = {f"MLP_{i}": {"Dense_0": dense(in_features if i == 0 else units, units),
+                           "Dense_1": dense(units, units)} for i in range(num_layers)}
+    params["Dense_0"] = dense(units * (sort_k if readout == "sort" else 1), num_classes)
+    return {"params": params}
+
+
+class GraphBatchProblem(NamedTuple):
+    x: torch.Tensor                    # [N, 4] float32, padded nodes zero
+    edge_index: torch.Tensor           # [2, E] int64, padded edges at the sink N
+    edge_weight: torch.Tensor          # [E] float32, padded edges 0
+    node_graph_index: torch.Tensor     # [N] int64, padded nodes num_graphs
+    y: torch.Tensor                    # [num_graphs] int64
+    num_graphs: int
+    num_classes: int
+    real_edges: int                    # edges of the batch's graphs, padding excluded
+    models: Dict[str, GinClassifier]   # per readout, the module its params are called in
+    params0: Dict[str, dict]           # per readout, the initial params (flax layout)
+
+
+def build_graph_problem(batch: int = GIN_BATCH, device="cuda", num_graphs: int = 600,
+                        seed: int = 0) -> GraphBatchProblem:
+    """The benchmark's fixed batch: the offline graph set's first ``batch``
+    graphs (``shuffle=False``), padded to the set's capacities."""
+    graphs, num_classes = synthetic_graph_classification(num_graphs, seed=seed)
+    padded, real = next(padded_batch_generator(graphs, batch, shuffle=False, seed=seed))
+    chunk = graphs[:real]
+    y = np.array([g.y for g in chunk], np.int64).reshape(-1)
+    num_features = padded.x.shape[1]
+
+    def tensor(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return GraphBatchProblem(
+        tensor(padded.x, torch.float32), tensor(padded.edge_index, torch.long),
+        tensor(padded.edge_weight, torch.float32), tensor(padded.node_graph_index, torch.long),
+        tensor(y, torch.long), batch, num_classes, sum(g.num_edges for g in chunk),
+        {r: GinClassifier(num_features, num_classes, r, num_graphs=batch, device=device)
+         for r in ("sum", "sort")},
+        {r: init_gin_flax_params(num_features, num_classes, r) for r in ("sum", "sort")})
+
+
+def init_gin_params(problem: GraphBatchProblem, readout: str) -> Dict[str, torch.Tensor]:
+    """A GIN workload's initial weights, as leaf tensors that require grad."""
+    state = gin_classifier_state_dict_from_flax(problem.params0[readout])
+    return {k: v.to(problem.x.device).requires_grad_() for k, v in state.items()}
+
+
+def gin_loss(p, problem: GraphBatchProblem, readout: str):
+    """Workloads 6 and 7: the classifier with weights ``p``, mean softmax
+    cross-entropy over the batch's graphs."""
+    logits = functional_call(problem.models[readout], p, (
+        problem.x, problem.edge_index, problem.edge_weight, problem.node_graph_index),
+        strict=True)
+    return F.cross_entropy(logits, problem.y)
+
+
+def gin_step_bytes(problem: GraphBatchProblem) -> int:
+    """Least bytes of a GIN step's COO SpMM passes: forward at the input
+    width and twice at ``GIN_UNITS``, ``dh`` twice at ``GIN_UNITS`` (layer
+    1's input is data); each over the real edges, float32."""
+    n = problem.x.shape[0]
+    widths = (problem.x.shape[1],) + (GIN_UNITS,) * (2 * GIN_LAYERS - 2)
+    return sum(spmm_pass_bytes(problem.real_edges, n, n, w, 1, 4, 4) for w in widths)
+
+
+def gin_edge_rates(problem: GraphBatchProblem, step_ms: float) -> Dict[str, float]:
+    """Real and padded edges per second at a step time."""
+    return {"real_edges_per_sec": problem.real_edges / step_ms * 1e3,
+            "padded_edges_per_sec": problem.edge_index.shape[1] / step_ms * 1e3}
 
 
 def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor], lr: float = 1e-2) -> Callable:
@@ -331,6 +532,15 @@ def _gat_step_bytes(problem: ArxivProblem) -> int:
     return sum(gat_pass_bytes(problem.gat_layout, k, GAT_HEADS, d, elt) for k in range(3))
 
 
+def _gat_merged_step_bytes(problem: ArxivProblem) -> int:
+    """The multi-head SpMM's forward and ``dV`` and its ``d_att`` SDDMM,
+    float32, over the layout's stored edges."""
+    layout = problem.gat_layout
+    n, nnz = layout.num_nodes, int(layout.dst.nbr.shape[0])
+    return (2 * spmm_pass_bytes(nnz, n, n, GAT_MERGED_UNITS, GAT_HEADS, 4, 4)
+            + sddmm_pass_bytes(nnz, n, n, GAT_MERGED_UNITS, GAT_HEADS, 4))
+
+
 class Workload(NamedTuple):
     loss: Callable          # (params, problem, dense_bf16) -> scalar loss
     init: Callable          # problem -> params
@@ -364,8 +574,21 @@ WORKLOADS = {
     "sage_reddit_fwd_bwd": Workload(
         _no_dense_bf16(sage_loss), init_sage_params, 1e-2, sage_step_bytes,
         lambda pr: pr.x.shape[0] * sum(pr.fanouts), problem="reddit", counts="sampled_edges"),
+    "gat_merged_arxiv_fwd_bwd": Workload(
+        _no_dense_bf16(gat_loss),
+        lambda pr: init_gat_merged_params(pr.x.shape[1], device=pr.x.device), 1e-3,
+        _gat_merged_step_bytes, lambda pr: pr.gat_layout.num_edges),
 }
 GCN_WORKLOADS = ("gcn_arxiv_fwd_bwd", "gcn_arxiv_canonical_fwd_bwd")
+
+
+def _gin_workload(readout: str) -> Workload:
+    return Workload(lambda p, pr, dense_bf16=True: gin_loss(p, pr, readout),
+                    lambda pr: init_gin_params(pr, readout), 1e-3, gin_step_bytes,
+                    lambda pr: pr.num_graphs, problem="graphs", counts="graphs")
+
+
+WORKLOADS.update({name: _gin_workload(readout) for name, readout in GIN_READOUTS.items()})
 
 
 def _workload_step(problem, name: str, dense_bf16: bool):
@@ -449,20 +672,24 @@ def profile_workload(problem, name: str, dense_bf16: bool = True) -> dict:
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the four workloads on ``device`` and print their JSON lines; with
+    """Run the seven workloads on ``device`` and print their JSON lines; with
     ``profile``, also print each workload's per-kernel device time.
-    ``num_nodes``/``num_edges`` size the arxiv graph; the Reddit graph is
-    built at its full size."""
+    ``num_nodes``/``num_edges`` size the arxiv graph; the Reddit graph and
+    the GIN batch are built at their full size."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
     problems = {"arxiv": build_problem(num_nodes, num_edges, device=device,
                                        spmm_bf16=spmm_bf16)}
+    builders = {"reddit": build_sage_problem, "graphs": build_graph_problem}
     results = []
     for name, wl in WORKLOADS.items():
         if wl.problem not in problems:
-            problems[wl.problem] = build_sage_problem(device=device)
+            problems[wl.problem] = builders[wl.problem](device=device)
         problem = problems[wl.problem]
         res = run_workload(problem, name, steps=steps, dense_bf16=dense_bf16)
+        if wl.problem == "graphs":
+            print(json.dumps({"workload": name, **gin_edge_rates(problem, res["step_ms"])}),
+                  flush=True)
         print(json.dumps(res["line"]), flush=True)
         results.append(res)
         if profile:

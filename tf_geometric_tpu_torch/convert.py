@@ -11,8 +11,8 @@ import numpy as np
 import torch
 
 __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dict_from_flax",
-           "sage_state_dict_from_flax", "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES",
-           "SAGE_BENCH_PARAM_NAMES"]
+           "sage_state_dict_from_flax", "gin_classifier_state_dict_from_flax",
+           "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
 GAT_BENCH_PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "wd", "bd")
@@ -80,4 +80,30 @@ def sage_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
                     "lstm.weight_hh_l0": torch.tensor(gates("h", "kernel")),
                     "lstm.bias_ih_l0": torch.zeros(bias_hh.shape[0]),
                     "lstm.bias_hh_l0": torch.tensor(bias_hh)})
+    return out
+
+
+def gin_classifier_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The params of ``benchmarks/graph_classification_throughput.py``'s
+    ``GINSum`` and ``GINSort`` (``MLP_i/Dense_0``, ``MLP_i/Dense_1``, the
+    trained ``GIN_i/eps`` when present, the head ``Dense_0``) as a
+    ``state_dict`` for the port's ``bench.GinClassifier``
+    (``gins.i.mlp_model.dense0``, ``dense1``, ``gins.i.eps``, ``head``). A
+    flax ``Dense`` kernel [in, out] becomes a ``torch.nn.Linear`` weight
+    [out, in]."""
+    params = variables["params"]
+
+    def linear(prefix, dense):
+        return {f"{prefix}.weight": torch.tensor(np.asarray(dense["kernel"], np.float32).T),
+                f"{prefix}.bias": torch.tensor(np.asarray(dense["bias"], np.float32))}
+
+    out = {}
+    i = 0
+    while f"MLP_{i}" in params:
+        for j in (0, 1):
+            out.update(linear(f"gins.{i}.mlp_model.dense{j}", params[f"MLP_{i}"][f"Dense_{j}"]))
+        if "eps" in params.get(f"GIN_{i}", {}):
+            out[f"gins.{i}.eps"] = torch.tensor(np.asarray(params[f"GIN_{i}"]["eps"], np.float32))
+        i += 1
+    out.update(linear("head", params["Dense_0"]))
     return out

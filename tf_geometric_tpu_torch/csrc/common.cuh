@@ -42,4 +42,54 @@ inline unsigned grid_for_rows(long long rows) {
   return static_cast<unsigned>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+// ---------------------------------------------------------------------------
+// Lane vectors (fixed_k.cu, gat_attention.cu, spmm_heads.cu): a lane loads
+// VEC consecutive elements, up to 16 bytes, with one instruction; a group of
+// 2^lanes_log2 lanes covers a row of lane vectors.
+// ---------------------------------------------------------------------------
+
+// Raw storage of one lane's vector: VEC elements of T, 2 to 16 bytes.
+template <int B> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+template <typename T, int VEC>
+using RawT = typename Raw<VEC * static_cast<int>(sizeof(T))>::type;
+
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const RawT<T, VEC>& r, float* x) {
+  const T* p = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) x[i] = to_f32(p[i]);
+}
+
+// x[0 .. VEC) rounded to OutT and stored at p (aligned to the vector, or to
+// 16 bytes when the vector is wider)
+template <typename OutT, int VEC>
+__device__ __forceinline__ void store_vec(OutT* p, const float* x) {
+  if constexpr (VEC * sizeof(OutT) <= 16) {
+    RawT<OutT, VEC> r;
+    OutT* q = reinterpret_cast<OutT*>(&r);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) q[i] = from_f32<OutT>(x[i]);
+    *reinterpret_cast<RawT<OutT, VEC>*>(p) = r;
+  } else {
+    store_vec<OutT, VEC / 2>(p, x);
+    store_vec<OutT, VEC / 2>(p + VEC / 2, x + VEC / 2);
+  }
+}
+
+// lanes per row: the next power of two of the row's vectors, at most 32
+inline int pick_lanes_log2(int nvec) {
+  int l = 0;
+  while (l < 5 && (1 << l) < nvec) ++l;
+  return l;
+}
+
+// vectors per lane and pass: 1, 2 or 4
+inline int pick_nv(int nvec, int lanes) {
+  return nvec <= lanes ? 1 : nvec <= 2 * lanes ? 2 : 4;
+}
+
 }  // namespace tfg

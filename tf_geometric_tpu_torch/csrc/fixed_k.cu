@@ -57,22 +57,6 @@ using namespace tfg;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = kWarp * kWarpsPerBlock;
 
-// Raw storage of one lane's vector: VEC elements of T, 2 to 16 bytes.
-template <int B> struct Raw;
-template <> struct Raw<2> { using type = unsigned short; };
-template <> struct Raw<4> { using type = unsigned int; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<16> { using type = uint4; };
-template <typename T, int VEC>
-using RawT = typename Raw<VEC * static_cast<int>(sizeof(T))>::type;
-
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const RawT<T, VEC>& r, float* x) {
-  const T* p = reinterpret_cast<const T*>(&r);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) x[i] = to_f32(p[i]);
-}
-
 // ---------------------------------------------------------------------------
 // draw
 // ---------------------------------------------------------------------------
@@ -123,21 +107,6 @@ __device__ __forceinline__ RowLane row_lane(int lanes_log2, int rows) {
   rl.valid = s < rows;
   rl.s = rl.valid ? s : rows - 1;
   return rl;
-}
-
-// x[0 .. VEC) rounded to OutT and stored at p (aligned to the vector)
-template <typename OutT, int VEC>
-__device__ __forceinline__ void store_vec(OutT* p, const float* x) {
-  if constexpr (VEC * sizeof(OutT) <= 16) {
-    RawT<OutT, VEC> r;
-    OutT* q = reinterpret_cast<OutT*>(&r);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) q[i] = from_f32<OutT>(x[i]);
-    *reinterpret_cast<RawT<OutT, VEC>*>(p) = r;
-  } else {
-    store_vec<OutT, VEC / 2>(p, x);
-    store_vec<OutT, VEC / 2>(p + VEC / 2, x + VEC / 2);
-  }
 }
 
 // out[r] = sum_j wt_j * src[id_j] over row r's slots, the gather both passes
@@ -445,18 +414,6 @@ fixed_k_row_ptr_kernel(const int* __restrict__ keys, long long total, int n,
     const int hi = p == total ? n : keys[p];
     for (int c = lo; c <= hi; ++c) row_ptr[c] = static_cast<int>(p);
   }
-}
-
-// lanes per row: the next power of two of the row's vectors, at most 32
-inline int pick_lanes_log2(int nvec) {
-  int l = 0;
-  while (l < 5 && (1 << l) < nvec) ++l;
-  return l;
-}
-
-// vectors per lane and pass: 1, 2 or 4
-inline int pick_nv(int nvec, int lanes) {
-  return nvec <= lanes ? 1 : nvec <= 2 * lanes ? 2 : 4;
 }
 
 inline unsigned grid_for(long long rows, int lanes_log2) {

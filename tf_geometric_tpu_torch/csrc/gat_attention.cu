@@ -55,15 +55,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = kWarp * kWarpsPerBlock;
 constexpr int kMaxSlices = 2;  // 32-lane slices one warp covers
 
-// Raw storage of one lane's vector: VEC elements of T, 2 to 16 bytes.
-template <int B> struct Raw;
-template <> struct Raw<2> { using type = unsigned short; };
-template <> struct Raw<4> { using type = unsigned int; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<16> { using type = uint4; };
-template <typename T, int VEC>
-using RawT = typename Raw<VEC * static_cast<int>(sizeof(T))>::type;
-
 // Elements per lane vector: the largest power of two that divides d and
 // fits in max_bytes (16, or less when a tensor is not 16-byte aligned).
 __host__ __device__ inline int pick_vec(int d, int elt, int max_bytes) {
@@ -182,13 +173,6 @@ __device__ __forceinline__ void load_raw(RawT<T, VEC> (&r)[NS], const T* __restr
   for (int j = 0; j < NS; ++j)
     r[j] = (ok && lm.col[j] >= 0) ? *reinterpret_cast<const RawT<T, VEC>*>(row + lm.col[j])
                                   : RawT<T, VEC>{};
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const RawT<T, VEC>& r, float* x) {
-  const T* p = reinterpret_cast<const T*>(&r);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) x[i] = to_f32(p[i]);
 }
 
 // a row's vectors as floats, slice j at x[j * VEC]

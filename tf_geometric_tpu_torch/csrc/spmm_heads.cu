@@ -1,0 +1,370 @@
+// H-head SpMM and SDDMM over a CSR view: the products of the COO SpMM and of
+// the multi-head SpMM, forward and backward.
+//
+// Replaces:
+//   spmm   tf_geometric_tpu/ops/spmm.py, spmm (spmm_xla; in the custom VJP,
+//          dh = A^T dy on the swapped index) with H = 1, and
+//          tf_geometric_tpu/ops/ell.py, ell_spmm_multihead (_mh_forward; in
+//          _mh_bwd, dV = A_att^T dy on the transposed layout);
+//   sddmm  tf_geometric_tpu/ops/spmm.py, sddmm and the custom VJP's
+//          dv[e] = <dy[row_e], h[col_e]> with H = 1, and _mh_bwd's
+//          d_att[e, h] = <dy[r_e] block h, v[c_e] block h>.
+//
+// The view: rows 0 .. R - 1, row r's entries at row_ptr[r] .. row_ptr[r + 1];
+// entry i names a row nbr[i] of the gathered operand (clamped here to
+// [0, n - 1]) and an edge id eid[i], the row of the [E, H] weight (spmm) or
+// output (sddmm) array. Dense operands are [rows, H * d] row-major, head h
+// in columns h * d .. h * d + d - 1. Float32 or bfloat16; sums in float32,
+// in the view's entry order.
+//   spmm:  out[r, h * d + j] = sum_{i in row r} w[eid_i, h] * src[nbr_i, h * d + j]
+//   sddmm: out[eid_i, h]    = sum_j a[r, h * d + j] * b[nbr_i, h * d + j]
+// sddmm writes only the entries of the view; the caller zeroes the rest.
+//
+// Bound on the H100: bytes. Each entry gathers one row of H * d elements for
+// 2 * H * d flops, far under the ~20 flops per byte where float32 FMA
+// throughput would bind.
+//
+// Design. The view is a stable sort of the COO edge list by row (built by
+// the caller), so every row's entries come in one fixed order and no float
+// atomics are needed: both kernels give the same bits in every run. One
+// warp owns one row. Its lanes form S sub-groups of L lanes: the L lanes of
+// a sub-group split the row's vectors (L = 32 for a row of 32 or more lane
+// vectors, else the next power of two), the S = 32 / L sub-groups split its
+// entries (sub-group s takes entries s, s + S, s + 2S, ...). So a narrow row
+// with many entries (a hub of the skewed arxiv graph: 2,839 entries) is
+// walked by 32 lanes at once and not by one, which a warp shared by 32
+// narrow rows did (1.6 ms for the F = 4 forward, against 0.04 ms on the
+// column-sorted view, whose rows are short). Each lane holds vectors of VEC
+// elements, up to 16 bytes, where VEC divides d, so a vector lies in one
+// head, and loads U entries' ids and rows before using any, so U gathers per
+// lane are in flight. Rows wider than L * NV vectors take several passes.
+// spmm reads each vector's head weight w[eid, h] (one address per sub-group
+// when H = 1) and, after its entries, adds the S sub-groups' partial sums by
+// a butterfly of shuffles; sub-group 0 writes the row. sddmm keeps its row
+// of a in registers for the pass and sums each entry's per-lane products
+// over the lanes of each head: when a head's vectors lie in one sub-group
+// (the vectors per head a power of two, at most L), one segmented butterfly
+// sums every head of a slice at once; otherwise a butterfly over the
+// sub-group per head. One lane writes each head's value (a head split over
+// two passes adds the second pass's part to its own first write). A wide
+// row with many entries is still walked by one warp.
+#include "common.cuh"
+
+namespace {
+
+using namespace tfg;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlock = kWarp * kWarpsPerBlock;
+
+// Where one lane sits: its warp's row, its sub-group and its lane in it.
+struct WarpRow {
+  long long r;
+  int lig, sub, L, S;
+};
+
+__device__ __forceinline__ WarpRow warp_row(int lanes_log2) {
+  WarpRow wr;
+  const int lane = threadIdx.x & (kWarp - 1);
+  wr.r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  wr.L = 1 << lanes_log2;
+  wr.S = kWarp >> lanes_log2;
+  wr.lig = lane & (wr.L - 1);
+  wr.sub = lane >> lanes_log2;
+  return wr;
+}
+
+// Entry j of the row (0 for both ids past the row's end): its neighbour,
+// clamped to [0, n - 1], and its edge id.
+__device__ __forceinline__ void entry_ids(const int* __restrict__ nbr,
+                                          const int* __restrict__ eid, int start, int j,
+                                          bool ok, int n, int* c, int* e) {
+  *c = ok ? min(max(nbr[start + j], 0), n - 1) : 0;
+  *e = ok ? eid[start + j] : 0;
+}
+
+template <typename T, typename OutT, int VEC, int NV, int U>
+__global__ void __launch_bounds__(kBlock)
+spmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
+                  const int* __restrict__ eid, const float* __restrict__ w, int H, int d,
+                  const T* __restrict__ src, int n_src, OutT* __restrict__ out, int rows,
+                  int lanes_log2) {
+  const WarpRow wr = warp_row(lanes_log2);
+  if (wr.r >= rows) return;  // warp-uniform
+  const int F = H * d;
+  const int nvec = F / VEC;
+  const int vpd = d / VEC;  // vectors per head
+  const int start = row_ptr[wr.r];
+  const int count = row_ptr[wr.r + 1] - start;
+  for (int v0 = 0; v0 < nvec; v0 += wr.L * NV) {
+    float acc[NV * VEC];
+    int head[NV];
+#pragma unroll
+    for (int i = 0; i < NV * VEC; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) head[q] = (v0 + q * wr.L + wr.lig) / vpd;
+    for (int jb = 0; jb < count; jb += wr.S * U) {
+      RawT<T, VEC> raw[U][NV];
+      float wu[U][NV];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = jb + u * wr.S + wr.sub;
+        const bool ok = j < count;
+        int c, e;
+        entry_ids(nbr, eid, start, j, ok, n_src, &c, &e);
+        const T* row = src + static_cast<size_t>(c) * F;
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          const int v = v0 + q * wr.L + wr.lig;
+          const bool vok = ok && v < nvec;
+          raw[u][q] = vok ? *reinterpret_cast<const RawT<T, VEC>*>(row + v * VEC)
+                          : RawT<T, VEC>{};
+          wu[u][q] = vok ? w[static_cast<size_t>(e) * H + head[q]] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          float x[VEC];
+          unpack<T, VEC>(raw[u][q], x);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[q * VEC + i] += wu[u][q] * x[i];
+        }
+      }
+    }
+    // the sub-groups' partial sums, added in a fixed order
+    for (int o = wr.L; o < kWarp; o <<= 1) {
+#pragma unroll
+      for (int i = 0; i < NV * VEC; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], o);
+    }
+    if (wr.sub != 0) continue;
+    OutT* orow = out + static_cast<size_t>(wr.r) * F;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int v = v0 + q * wr.L + wr.lig;
+      if (v < nvec) store_vec<OutT, VEC>(orow + v * VEC, acc + q * VEC);
+    }
+  }
+}
+
+template <typename T, int VEC, int NV, int U>
+__global__ void __launch_bounds__(kBlock)
+sddmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
+                   const int* __restrict__ eid, const T* __restrict__ a,
+                   const T* __restrict__ b, int n_b, int H, int d, float* __restrict__ out,
+                   int rows, int lanes_log2) {
+  const WarpRow wr = warp_row(lanes_log2);
+  if (wr.r >= rows) return;  // warp-uniform
+  const int F = H * d;
+  const int nvec = F / VEC;
+  const int vpd = d / VEC;
+  // a head's vectors in one sub-group: one segmented butterfly per slice
+  const bool segmented = (vpd & (vpd - 1)) == 0 && vpd <= wr.L;
+  const int start = row_ptr[wr.r];
+  const int count = row_ptr[wr.r + 1] - start;
+  const T* arow = a + static_cast<size_t>(wr.r) * F;
+  for (int v0 = 0; v0 < nvec; v0 += wr.L * NV) {
+    // this pass's vectors of a[r] as floats, and the head of each
+    float ar[NV * VEC];
+    int head[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int v = v0 + q * wr.L + wr.lig;
+      head[q] = v < nvec ? v / vpd : -1;
+      RawT<T, VEC> r = v < nvec ? *reinterpret_cast<const RawT<T, VEC>*>(arow + v * VEC)
+                                : RawT<T, VEC>{};
+      unpack<T, VEC>(r, ar + q * VEC);
+    }
+    // the heads this pass touches (warp-uniform)
+    const int h_lo = v0 / vpd;
+    const int h_hi = min(H - 1, (v0 + wr.L * NV - 1) / vpd);
+    for (int jb = 0; jb < count; jb += wr.S * U) {
+      RawT<T, VEC> raw[U][NV];
+      int eu[U];
+      bool oku[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = jb + u * wr.S + wr.sub;
+        oku[u] = j < count;
+        int c;
+        entry_ids(nbr, eid, start, j, oku[u], n_b, &c, &eu[u]);
+        const T* row = b + static_cast<size_t>(c) * F;
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          const int v = v0 + q * wr.L + wr.lig;
+          raw[u][q] = (oku[u] && v < nvec)
+                          ? *reinterpret_cast<const RawT<T, VEC>*>(row + v * VEC)
+                          : RawT<T, VEC>{};
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float part[NV];
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          float x[VEC];
+          unpack<T, VEC>(raw[u][q], x);
+          part[q] = 0.f;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) part[q] += ar[q * VEC + i] * x[i];
+        }
+        float* orow = out + static_cast<size_t>(eu[u]) * H;
+        if (segmented) {
+          // slice q holds L / vpd whole heads of vpd lanes each; the lane
+          // at each head's first vector writes it
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            float s = part[q];
+            for (int o = vpd >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o, wr.L);
+            const int v = v0 + q * wr.L + wr.lig;
+            if (oku[u] && v < nvec && (wr.lig & (vpd - 1)) == 0) orow[v / vpd] = s;
+          }
+        } else {
+          for (int h = h_lo; h <= h_hi; ++h) {
+            float s = 0.f;
+#pragma unroll
+            for (int q = 0; q < NV; ++q) s += head[q] == h ? part[q] : 0.f;
+            for (int o = wr.L >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o, wr.L);
+            // head h's first vector, h * vpd, lies in this pass or an earlier one
+            if (oku[u] && wr.lig == 0) orow[h] = h * vpd >= v0 ? s : orow[h] + s;
+          }
+        }
+      }
+    }
+  }
+}
+
+// in-flight gathers per lane for NV vectors per lane
+constexpr int unroll_for(int nv) { return nv == 1 ? 8 : nv == 2 ? 4 : 2; }
+
+template <typename T, typename OutT, int VEC>
+void launch_spmm_vec(int nv, unsigned grid, cudaStream_t st, const int* row_ptr, const int* nbr,
+                     const int* eid, const float* w, int H, int d, const T* src, int n_src,
+                     OutT* out, int rows, int ll) {
+  if (nv == 1)
+    spmm_heads_kernel<T, OutT, VEC, 1, unroll_for(1)><<<grid, kBlock, 0, st>>>(
+        row_ptr, nbr, eid, w, H, d, src, n_src, out, rows, ll);
+  else if (nv == 2)
+    spmm_heads_kernel<T, OutT, VEC, 2, unroll_for(2)><<<grid, kBlock, 0, st>>>(
+        row_ptr, nbr, eid, w, H, d, src, n_src, out, rows, ll);
+  else
+    spmm_heads_kernel<T, OutT, VEC, 4, unroll_for(4)><<<grid, kBlock, 0, st>>>(
+        row_ptr, nbr, eid, w, H, d, src, n_src, out, rows, ll);
+}
+
+template <typename T, typename OutT>
+void launch_spmm(int vec, int nv, unsigned grid, cudaStream_t st, const int* row_ptr,
+                 const int* nbr, const int* eid, const float* w, int H, int d, const void* src,
+                 int n_src, void* out, int rows, int ll) {
+  auto s = static_cast<const T*>(src);
+  auto o = static_cast<OutT*>(out);
+  switch (vec) {
+    case 1: launch_spmm_vec<T, OutT, 1>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll); break;
+    case 2: launch_spmm_vec<T, OutT, 2>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll); break;
+    case 4: launch_spmm_vec<T, OutT, 4>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll); break;
+    default:
+      if constexpr (sizeof(T) == 2)
+        launch_spmm_vec<T, OutT, 8>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll);
+  }
+}
+
+template <typename T, int VEC>
+void launch_sddmm_vec(int nv, unsigned grid, cudaStream_t st, const int* row_ptr, const int* nbr,
+                      const int* eid, const T* a, const T* b, int n_b, int H, int d, float* out,
+                      int rows, int ll) {
+  // U halved against spmm: each entry also costs a shuffle butterfly per head
+  if (nv == 1)
+    sddmm_heads_kernel<T, VEC, 1, 4><<<grid, kBlock, 0, st>>>(row_ptr, nbr, eid, a, b, n_b, H,
+                                                              d, out, rows, ll);
+  else if (nv == 2)
+    sddmm_heads_kernel<T, VEC, 2, 2><<<grid, kBlock, 0, st>>>(row_ptr, nbr, eid, a, b, n_b, H,
+                                                              d, out, rows, ll);
+  else
+    sddmm_heads_kernel<T, VEC, 4, 1><<<grid, kBlock, 0, st>>>(row_ptr, nbr, eid, a, b, n_b, H,
+                                                              d, out, rows, ll);
+}
+
+template <typename T>
+void launch_sddmm(int vec, int nv, unsigned grid, cudaStream_t st, const int* row_ptr,
+                  const int* nbr, const int* eid, const void* a, const void* b, int n_b, int H,
+                  int d, float* out, int rows, int ll) {
+  auto pa = static_cast<const T*>(a);
+  auto pb = static_cast<const T*>(b);
+  switch (vec) {
+    case 1: launch_sddmm_vec<T, 1>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll); break;
+    case 2: launch_sddmm_vec<T, 2>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll); break;
+    case 4: launch_sddmm_vec<T, 4>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll); break;
+    default:
+      if constexpr (sizeof(T) == 2)
+        launch_sddmm_vec<T, 8>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll);
+  }
+}
+
+// vec elements per lane vector: a power of two dividing d, at most 16 bytes
+// of the narrower dtype's elements
+bool bad_shape(int rows, int n, int H, int d, int vec, int max_vec) {
+  return rows < 0 || n <= 0 || H <= 0 || d <= 0 || vec <= 0 || vec > max_vec ||
+         (vec & (vec - 1)) || d % vec != 0 || static_cast<long long>(H) * d >= (1LL << 31);
+}
+
+}  // namespace
+
+// Every entry returns cudaGetLastError() after its launch (0 on success).
+
+// out [rows, H * d] (dtype out_dtype) = the view's rows of w-weighted rows of
+// src [n_src, H * d] (dtype src_dtype): float32 -> float32, bfloat16 ->
+// bfloat16 or float32. w float32 [E, H]. Row starts aligned to vec elements.
+extern "C" int tfg_spmm_heads(const void* row_ptr, const void* nbr, const void* eid,
+                              const void* w, int H, int d, const void* src, int src_dtype,
+                              int n_src, void* out, int out_dtype, int rows, int vec,
+                              void* stream) {
+  const int max_vec = src_dtype == kFloat32 ? 4 : src_dtype == kBFloat16 ? 8 : 0;
+  if (bad_shape(rows, n_src, H, d, vec, max_vec) ||
+      (src_dtype == kFloat32 && out_dtype != kFloat32) ||
+      (out_dtype != kFloat32 && out_dtype != kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  const int nvec = H * d / vec;
+  const int ll = pick_lanes_log2(nvec);
+  const int nv = pick_nv(nvec, 1 << ll);
+  const unsigned grid = grid_for_rows(rows);  // one warp per row
+  auto st = static_cast<cudaStream_t>(stream);
+  auto rp = static_cast<const int*>(row_ptr);
+  auto nb = static_cast<const int*>(nbr);
+  auto ei = static_cast<const int*>(eid);
+  auto wt = static_cast<const float*>(w);
+  if (src_dtype == kFloat32)
+    launch_spmm<float, float>(vec, nv, grid, st, rp, nb, ei, wt, H, d, src, n_src, out, rows, ll);
+  else if (out_dtype == kBFloat16)
+    launch_spmm<__nv_bfloat16, __nv_bfloat16>(vec, nv, grid, st, rp, nb, ei, wt, H, d, src,
+                                              n_src, out, rows, ll);
+  else
+    launch_spmm<__nv_bfloat16, float>(vec, nv, grid, st, rp, nb, ei, wt, H, d, src, n_src, out,
+                                      rows, ll);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out float32 [E, H]: out[eid_i, h] = <a[r] block h, b[nbr_i] block h> for
+// each entry i of row r; a [rows, H * d] and b [n_b, H * d] of one dtype.
+extern "C" int tfg_sddmm_heads(const void* row_ptr, const void* nbr, const void* eid,
+                               const void* a, const void* b, int dtype, int n_b, int H, int d,
+                               void* out, int rows, int vec, void* stream) {
+  const int max_vec = dtype == kFloat32 ? 4 : dtype == kBFloat16 ? 8 : 0;
+  if (bad_shape(rows, n_b, H, d, vec, max_vec)) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  const int nvec = H * d / vec;
+  const int ll = pick_lanes_log2(nvec);
+  const int nv = pick_nv(nvec, 1 << ll);
+  const unsigned grid = grid_for_rows(rows);  // one warp per row
+  auto st = static_cast<cudaStream_t>(stream);
+  auto rp = static_cast<const int*>(row_ptr);
+  auto nb = static_cast<const int*>(nbr);
+  auto ei = static_cast<const int*>(eid);
+  auto o = static_cast<float*>(out);
+  if (dtype == kFloat32)
+    launch_sddmm<float>(vec, nv, grid, st, rp, nb, ei, a, b, n_b, H, d, o, rows, ll);
+  else
+    launch_sddmm<__nv_bfloat16>(vec, nv, grid, st, rp, nb, ei, a, b, n_b, H, d, o, rows, ll);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,3 +1,6 @@
-from .graph import Graph
+from .graph import BatchGraph, Graph
+from .padding import (PaddingSpec, batch_padding_spec, bucket_size, pad_batch_graph, pad_graph,
+                      padded_batch_generator)
 
-__all__ = ["Graph"]
+__all__ = ["Graph", "BatchGraph", "PaddingSpec", "bucket_size", "pad_graph", "pad_batch_graph",
+           "batch_padding_spec", "padded_batch_generator"]

@@ -1,4 +1,5 @@
 from .conv.gat import gat
+from .conv.gin import gin, gin_updater
 from .conv.gcn import (compile_and_dropout, compute_cache_key, gcn,
                        gcn_build_cache_by_adj, gcn_build_cache_for_graph,
                        gcn_cache_normed_edge, gcn_norm_adj,
@@ -13,10 +14,14 @@ from .kernel.map_reduce import (aggregate_neighbors, gcn_mapper, identity_mapper
 from .kernel.segment import (segment_count, segment_max, segment_mean, segment_min,
                              segment_normalize, segment_op_with_pad,
                              segment_softmax, segment_sum)
+from .pool import (max_pool, mean_pool, min_pool, sort_pool, sum_pool, topk_pool,
+                   topk_pool_fixed)
 from .sampling import DeviceNeighborSampler, draw_fixed_k
 
-__all__ = ["gat", "gcn", "gcn_norm_adj", "gcn_build_cache_by_adj", "gcn_build_cache_for_graph",
-           "gcn_norm_edge", "gcn_cache_normed_edge", "gcn_mapper", "compute_cache_key",
+__all__ = ["gat", "gcn", "gin", "gin_updater", "mean_pool", "sum_pool", "max_pool",
+           "min_pool", "sort_pool", "topk_pool", "topk_pool_fixed", "gcn_norm_adj",
+           "gcn_build_cache_by_adj", "gcn_build_cache_for_graph", "gcn_norm_edge",
+           "gcn_cache_normed_edge", "gcn_mapper", "compute_cache_key",
            "compile_and_dropout", "precompute_propagated_features", "maybe_compile_ell",
            "mean_graph_sage", "sum_graph_sage", "gcn_graph_sage", "mean_pool_graph_sage",
            "max_pool_graph_sage", "lstm_graph_sage", "mean_graph_sage_fixed_k",

@@ -7,14 +7,15 @@ destination's in-edges; the attention-weighted sum of V; heads concatenated
 (``split_value_heads``) or averaged. Heads live in a tensor dimension
 (scores [E, H]), as in the JAX package.
 
-Paths. With equal query and value head widths the fused attention
-(``ops/gat_attention.py``) runs over a ``CsrGatLayout``: the cached one, one
-passed in, or, for CUDA tensors without either, one built eagerly for the
-call, so on the card ``gat`` always runs the attention kernels. CPU tensors
-without a layout take the segment path, as the JAX package does without a
-cache. Unequal head widths take the segment path on CPU tensors; on the card
-they raise, because their kernel (the JAX package's ``ell_spmm_multihead``)
-is not ported yet.
+Paths. Both run over a ``CsrGatLayout``: the cached one, one passed in,
+or, for CUDA tensors without either, one built eagerly for the call, so on
+the card ``gat`` always runs the kernels. With equal query and value head
+widths the fused attention (``ops/gat_attention.py``) runs; with unequal
+widths the merged-head branch (the JAX package's, ``nn/conv/gat.py:162-183``):
+per-head scores, a segment softmax per head and the keep mask in PyTorch,
+then the multi-head SpMM ``ops/spmm_heads.spmm_multihead`` (the counterpart
+of ``ell_spmm_multihead``). CPU tensors without a layout take the segment
+path, as the JAX package does without a cache.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ...ops.gat_attention import CsrGatLayout, gat_attention_csr
+from ...ops.spmm_heads import spmm_multihead
 from ...sparse.matrix import SparseMatrix
 from ...utils.graph_utils import add_self_loop_edge
 from ...utils.union_utils import convert_union_to_numpy
@@ -51,21 +53,25 @@ def _gat_edge_cache(edge_index, num_nodes: int, cache: Optional[dict], device="c
     return entry
 
 
-def _segment_attention(Q, K, V, row, col, num_nodes, num_heads, keep):
-    """The plain segment path: per-edge scores, segment softmax, weighted
-    segment sum ([N, H, d_v])."""
-    E = row.shape[0]
-    d_q, d_v = Q.shape[-1] // num_heads, V.shape[-1] // num_heads
-    safe_row = row.clamp(0, num_nodes - 1)
-    safe_col = col.clamp(0, num_nodes - 1)
+def _edge_attention(Q, K, row, col, num_nodes, num_heads, keep):
+    """Per-edge, per-head attention weights [E, H]: scores <Q[r], K[c]>/√d_q,
+    a softmax over each destination's in-edges, then the keep mask."""
+    d_q = Q.shape[-1] // num_heads
     Qh = Q.reshape(num_nodes, num_heads, d_q)
     Kh = K.reshape(num_nodes, num_heads, d_q)
-    Vh = V.reshape(num_nodes, num_heads, d_v)
-    att = (Qh[safe_row] * Kh[safe_col]).sum(-1) / float(np.sqrt(d_q))  # [E, H]
+    att = ((Qh[row.clamp(0, num_nodes - 1)] * Kh[col.clamp(0, num_nodes - 1)]).sum(-1)
+           / float(np.sqrt(d_q)))
     att = segment_softmax(att, row, num_nodes)
-    if keep is not None:
-        att = att * keep
-    msg = Vh[safe_col] * att[:, :, None]
+    return att if keep is None else att * keep
+
+
+def _segment_attention(Q, K, V, row, col, num_nodes, num_heads, keep):
+    """The plain segment path: the edge attention, then a weighted segment
+    sum ([N, H, d_v])."""
+    E = row.shape[0]
+    d_v = V.shape[-1] // num_heads
+    att = _edge_attention(Q, K, row, col, num_nodes, num_heads, keep)
+    msg = V.reshape(num_nodes, num_heads, d_v)[col.clamp(0, num_nodes - 1)] * att[:, :, None]
     return segment_sum(msg.reshape(E, num_heads * d_v), row, num_nodes).reshape(
         num_nodes, num_heads, d_v)
 
@@ -123,15 +129,12 @@ def gat(x, edge_index,
 
     d_q = Q.shape[-1] // num_heads
     d_v = V.shape[-1] // num_heads
-    if d_q != d_v and V.device.type != "cpu":
-        raise NotImplementedError(
-            "gat with unequal query and value head widths has no CUDA kernel yet "
-            "(ROADMAP §2.3, ops/ell.py ell_spmm_multihead); run it on CPU "
-            "tensors or use equal head widths")
-    if d_q == d_v and (ell_layout is not None or V.is_cuda):
-        if ell_layout is None:
-            # no cache on the card: a layout for this call, so the kernels run
-            ell_layout = CsrGatLayout.build(edge_index, num_nodes, device=device)
+    if ell_layout is None and V.device.type != "cpu":
+        if not V.is_cuda:
+            raise NotImplementedError(f"gat has no kernels for device {V.device}")
+        # no cache on the card: a layout for this call, so the kernels run
+        ell_layout = CsrGatLayout.build(edge_index, num_nodes, device=device)
+    if d_q == d_v and ell_layout is not None:
         h_flat = gat_attention_csr(ell_layout, Q, K, V, num_heads,
                                    edge_drop_rate=edge_drop_rate, training=training,
                                    generator=generator, keep_mask=keep_mask)
@@ -144,8 +147,15 @@ def gat(x, edge_index,
                                          generator=generator, device=device)
                               < 1.0 - edge_drop_rate).float() / (1.0 - edge_drop_rate))
             keep = torch.as_tensor(keep_mask, dtype=torch.float32, device=device)
-        h_heads = _segment_attention(Q, K, V, edge_index[0], edge_index[1], num_nodes,
-                                     num_heads, keep)
+        row, col = edge_index[0], edge_index[1]
+        if ell_layout is not None:
+            # merged-head branch: attention weights in PyTorch, then the
+            # multi-head SpMM over the layout
+            att = _edge_attention(Q, K, row, col, num_nodes, num_heads, keep)
+            h_heads = spmm_multihead(ell_layout, att, V, d_v).reshape(
+                num_nodes, num_heads, d_v)
+        else:
+            h_heads = _segment_attention(Q, K, V, row, col, num_nodes, num_heads, keep)
 
     if split_value_heads:
         h = h_heads.reshape(num_nodes, num_heads * d_v)

@@ -28,7 +28,8 @@ _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_ROOT = _PACKAGE_DIR / "_build"
 
-SOURCES = ("csr_spmm.cu", "sorted_segment.cu", "gat_attention.cu", "fixed_k.cu")
+SOURCES = ("csr_spmm.cu", "sorted_segment.cu", "gat_attention.cu", "fixed_k.cu",
+           "spmm_heads.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _BUILD_TIMEOUT_S = 600

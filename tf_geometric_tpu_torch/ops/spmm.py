@@ -1,75 +1,81 @@
-"""COO SpMM / SDDMM with a hand-written backward, in plain PyTorch.
+"""COO SpMM / SDDMM with a hand-written backward (JAX counterpart:
+``tf_geometric_tpu/ops/spmm.py``):
 
-Counterpart of ``tf_geometric_tpu/ops/spmm.py``:
-
-    forward:   y[r] = Σ_{e: row[e]=r} value[e] · h[col[e]]
+    forward:   y[r] = Σ_{e: row[e]=r} value[e] · h[clip(col[e])]
     d/d h:     dh = Aᵀ @ dy       (SpMM with swapped index)
-    d/d value: dv[e] = <dy[row[e]], h[col[e]]>   (SDDMM; 0 for padded edges)
+    d/d value: dv[e] = <dy[row[e]], h[clip(col[e])]>   (SDDMM; 0 for padded edges)
 
-This is the no-cache path (``SparseMatrix.matmul``). Its Hopper kernel is a
-later slice of the port (ROADMAP §2, "ops/spmm.py spmm / sddmm"), so on a
-CUDA tensor these functions raise instead of running plain PyTorch there;
-the GCN path on the card goes through the cached ``CsrAdj`` instead.
+Edges come in any order and duplicates sum. An edge whose row is out of
+range is dropped; one whose column is out of range with an in-range row
+reads the clamped row ``h[clip(col)]``, as the JAX op's ``_gather_rows``
+does. ``dh`` runs on the swapped index with ``h.shape[0]`` rows, so an edge
+with an out-of-range row still reaches ``dh`` through ``dy[clip(row)]``.
+
+Each call builds CSR views of the edge list on the tensors' device
+(``ops/spmm_heads.build_csr_view``, a stable sort by row for the forward and
+``dv``, by column for ``dh``) and runs the H-head kernels of
+``csrc/spmm_heads.cu`` with one head on CUDA tensors, their plain versions
+on CPU tensors and inside ``ops.config.use_plain_versions()``.
+
+Types follow JAX's promotion: the result is ``promote_types(h, value)``
+(bfloat16 ``h`` with float32 values gives float32, the product formed in
+float32), ``dh`` is ``promote_types(dy, value)`` and ``dv``
+``promote_types(dy, h)``, as the JAX VJP returns them; PyTorch's autograd
+then hands each gradient to its input in the input's own dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _segment_core as _seg
+from . import config as _config
+from .spmm_heads import CsrView, build_csr_view, sddmm_heads, spmm_heads
 
 __all__ = ["spmm", "sddmm"]
 
 
-def _require_cpu(*tensors):
-    for t in tensors:
-        if t.device.type != "cpu":
-            raise NotImplementedError(
-                "COO spmm/sddmm has no CUDA kernel yet (ROADMAP §2, ops/spmm.py "
-                "spmm / sddmm); build the cache so the CSR path is used, or run "
-                f"on the CPU (got a tensor on {t.device})")
-
-
-def _gather_rows(h, ids):
-    """Clamped gather: out-of-range (padded) ids read a valid row harmlessly."""
-    return h[ids.long().clamp(0, h.shape[0] - 1)]
-
-
-def _spmm_plain(index, value, h, num_rows: int):
-    msg = _gather_rows(h, index[1]) * value[:, None].to(h.dtype)
-    return _seg.segment_sum(msg, index[0], num_rows)
-
-
-def _sddmm_plain(index, a, b):
-    return (_gather_rows(a, index[0]) * _gather_rows(b, index[1])).sum(-1)
-
-
 class _Spmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, index, value, h, num_rows):
-        ctx.save_for_backward(index, value, h)
-        ctx.num_rows = num_rows
-        return _spmm_plain(index, value, h, num_rows)
+    def forward(ctx, index, value, h, num_rows, plain):
+        view = build_csr_view(index[0], index[1], num_rows, h.shape[0])
+        w = value.float()[:, None].contiguous()
+        out = spmm_heads(view, w, h, 1, torch.promote_types(h.dtype, value.dtype), plain)
+        ctx.save_for_backward(index, w, h, *view)
+        ctx.num_rows, ctx.plain, ctx.value_dtype = num_rows, plain, value.dtype
+        return out
 
     @staticmethod
     def backward(ctx, dy):
-        index, value, h = ctx.saved_tensors
+        index, w, h, *fwd_view = ctx.saved_tensors
+        dy = dy.contiguous()
         dh = dv = None
         if ctx.needs_input_grad[2]:
-            dh = _spmm_plain(index.flip(0), value, dy, h.shape[0])
+            bwd_view = build_csr_view(index[1], index[0], h.shape[0], ctx.num_rows)
+            dh = spmm_heads(bwd_view, w, dy, 1, torch.promote_types(dy.dtype, ctx.value_dtype),
+                            ctx.plain)
         if ctx.needs_input_grad[1]:
-            dv = _sddmm_plain(index, dy, h)
-            valid = (index[0] >= 0) & (index[0] < ctx.num_rows)
-            dv = torch.where(valid, dv, torch.zeros_like(dv))
-        return None, dv, dh, None
+            # the forward's view holds exactly the edges with an in-range row;
+            # the others keep dv = 0
+            dv = torch.zeros((index.shape[1], 1), dtype=torch.float32, device=dy.device)
+            sddmm_heads(CsrView(*fwd_view), dy, h, 1, dv, ctx.plain)
+            dv = dv[:, 0].to(torch.promote_types(dy.dtype, h.dtype))
+        return None, dv, dh, None, None
 
 
 def spmm(index, value, h, num_rows: int):
-    """COO SpMM ``A @ h`` with a custom backward (CPU tensors only)."""
-    _require_cpu(index, value, h)
-    return _Spmm.apply(index, value, h, num_rows)
+    """COO SpMM ``A @ h`` (``index`` [2, E], ``value`` [E], ``h`` [C, F]),
+    differentiable in ``value`` and ``h``."""
+    if h.dim() != 2 or index.dim() != 2 or index.shape[0] != 2 or value.shape != index.shape[1:]:
+        raise ValueError(f"index must be [2, E], value [E] and h [C, F]: {tuple(index.shape)}, "
+                         f"{tuple(value.shape)}, {tuple(h.shape)}")
+    return _Spmm.apply(index, value, h, num_rows, _config.plain_versions)
 
 
 def sddmm(index, a, b):
-    """Per-edge inner product ``out[e] = <a[row[e]], b[col[e]]>`` (CPU tensors only)."""
-    _require_cpu(index, a, b)
-    return _sddmm_plain(index, a, b)
+    """Per-edge inner product ``out[e] = <a[clip(row[e])], b[clip(col[e])]>``
+    (the GAT score), in ``promote_types(a, b)``."""
+    out = torch.zeros((index.shape[1], 1), dtype=torch.float32, device=a.device)
+    if a.shape[0] and b.shape[0]:
+        rows = index[0].long().clamp(0, a.shape[0] - 1)
+        sddmm_heads(build_csr_view(rows, index[1], a.shape[0], b.shape[0]), a, b, 1, out,
+                    _config.plain_versions)
+    return out[:, 0].to(torch.promote_types(a.dtype, b.dtype))

@@ -8,7 +8,9 @@
   ``index[1] = col`` the source.
 
 A SparseMatrix built from numpy or a list lands on ``device`` (default
-``"cuda"``); one built from tensors stays on their device.
+``"cuda"``); one built from tensors stays on their device. ``matmul``, ``@``
+and ``rmatmul_dense`` run ``ops/spmm.py``: the hand-written kernels on the
+card, their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -119,6 +121,10 @@ class SparseMatrix:
 
     def __matmul__(self, h):
         return self.matmul(h)
+
+    def rmatmul_dense(self, h):
+        """``h @ self`` for dense ``h``: ``(selfᵀ @ hᵀ)ᵀ``."""
+        return self.transpose()._spmm(h.T.contiguous()).T
 
     # -- segment reductions --------------------------------------------------
     def _axis_ids(self, axis: int):
