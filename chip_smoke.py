@@ -82,8 +82,38 @@ Phases, each of which raises (non-zero exit) on failure:
    through the plain versions on the card and compare the losses, and run
    ``entry()`` on the card against its CPU run.
 
-The second-to-last line of output is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+10. X2 kernels (``ell_spmm``): on the arxiv graph partitioned over 4 ranks
+    (``bench.build_halo_problem``: ``partition_order``, whose host time is
+    printed, then the packed halo plan), for every rank's local block
+    (square, split diagonal) and remote block (rectangular, mostly empty
+    rows), at F = 64 and 40, float32 and bfloat16: Kernel A and Kernel B
+    forward and ``dh`` against their plain versions (float32 1e-4, bfloat16
+    2e-2) and, in float32, the product against ``torch.sparse.mm`` on the
+    same block; the ``diff_values`` SDDMM (``ops.ell.side_value_grad``)
+    against its plain version; each block side's hub rows and rows without
+    entries printed; timed beside the byte bound and ``torch.sparse.mm``.
+11. X5 kernels (``gat_attention_ell``): on every rank's rectangular GAT
+    layout (``npp`` rows reading ``npp + 4·cap``) at (H, d) = (8, 8),
+    (1, 64), (8, 32), float32 and bfloat16, without dropout and with a 0.6
+    dropout mask: the three attention kernels against their plain versions
+    (1e-4 out and lse, 1e-3 gradients, bfloat16 2e-2), and every row without
+    entries exactly 0 (out, lse, dQ, D; dK, dV); hub and empty rows printed;
+    the main path's float32 masked cases timed on rank 0.
+12. The graph-parallel main path, "4 ranks sharing one H100 over gloo":
+    ``bench.run_halo_workload`` trains the halo GCN and the fused halo GAT
+    (workloads 8 and 9) at full arxiv size on 4 spawned ranks with CUDA
+    tensors, 3 warm-up and 20 timed steps each; the loss finite and falling
+    on every rank and each kernel's launches per rank exactly as the plans
+    imply (GCN per layer: Kernel A forward and ``dh`` on both blocks, Kernel
+    B per block side with hub rows; GAT per layer: one forward and two
+    backward launches). The GCN's step-1 loss and gradients against the
+    port's single-process GCN over the whole graph (1e-4); 3 steps of both
+    at 20,000 nodes through the kernels and through the plain versions
+    (losses within 1e-4); ``entry.dryrun_multichip(4)``.
+
+The second-to-last line of output is ``{"kernels": [...]}`` (X2 and X5 as
+``ell_spmm:<kernel>`` and ``gat_attention_ell:<kernel>`` beside the
+single-process entries); the last is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -857,6 +887,428 @@ def entry_phase():
     print(f"entry(): output {tuple(out.shape)}, max abs err vs CPU {err:.3e}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the graph-parallel slice: X2 (ell_spmm) and X5 (gat_attention_ell) on the
+# halo plans of the arxiv graph partitioned over 4 ranks
+# ---------------------------------------------------------------------------
+
+HALO_LABEL = "4 ranks sharing one H100 over gloo"
+X2_WIDTHS = (64, 40)                   # the halo GCN's two layers
+X5_SHAPES = ((8, 8), (1, 64), (8, 32))  # the fused GAT's two layers, and wider heads
+X5_KEEP_RATE = 0.6
+
+
+def _side_rows(side):
+    """Each stored entry's row, virtual rows mapped to the hub that owns them."""
+    import torch
+    ptr = side.row_ptr.long()
+    rows = torch.repeat_interleave(torch.arange(ptr.shape[0] - 1, device=ptr.device),
+                                   ptr[1:] - ptr[:-1])
+    if side.num_virtual:
+        owners = torch.repeat_interleave(side.owner_rows.long(),
+                                         (side.owner_ptr[1:] - side.owner_ptr[:-1]).long())
+        rows = torch.where(rows >= side.num_rows,
+                           owners[(rows - side.num_rows).clamp(0, owners.shape[0] - 1)], rows)
+    return rows
+
+
+def _block_library(adj, side_name):
+    """One product direction of a block (diagonal included) as a torch CSR
+    matrix, for the ``torch.sparse.mm`` yardstick."""
+    import torch
+    side = getattr(adj, side_name)
+    rows, cols, vals = _side_rows(side), side.col.long(), side.val
+    n_rows = adj.shape[0] if side_name == "fwd" else adj.shape[1]
+    n_cols = adj.shape[1] if side_name == "fwd" else adj.shape[0]
+    if adj.diag_val is not None:
+        diag = torch.arange(n_rows, device=rows.device)
+        rows, cols, vals = (torch.cat([rows, diag]), torch.cat([cols, diag]),
+                            torch.cat([vals, adj.diag_val]))
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n_rows, n_cols))
+    return coo.coalesce().to_sparse_csr()
+
+
+def _kernel_a_bytes(adj, side, width, elt):
+    """Least bytes of Kernel A on one side: the rows of h that an entry or
+    the diagonal reads, the output and the hub partials written, row
+    pointers, columns and values, the diagonal."""
+    from tf_geometric_tpu_torch import bench
+    return bench.csr_pass_bytes(adj, side, width, elt) + side.num_virtual * width * 4
+
+
+def _dv_bytes(adj, width, elt):
+    """Least bytes of the ``diff_values`` SDDMM over a block: the forward
+    side's row pointers, each entry's column and edge id read and its value
+    written (the diagonal's too), and the rows of dy and h that an entry
+    reads."""
+    from tf_geometric_tpu_torch import bench
+    entries = int(adj.fwd.col.shape[0]) + bench.csr_diag_rows(adj)
+    return (4 * adj.fwd.row_ptr.shape[0] + 12 * entries
+            + (bench.csr_rows_read(adj, adj.bwd) + bench.csr_rows_read(adj, adj.fwd))
+            * width * elt)
+
+
+def x2_kernel_phase(halo):
+    """Kernel A and B on every rank's local (split-diagonal) and remote
+    (rectangular) halo block, forward and ``dh``, at the halo GCN's widths in
+    float32 and bfloat16, and the ``diff_values`` SDDMM, against their plain
+    versions; timed beside the byte bound and ``torch.sparse.mm`` on the
+    same block (float32)."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops.csr_spmm import (csr_spmm_plain, launch_csr_spmm,
+                                                     side_matmul, side_matmul_plain)
+    from tf_geometric_tpu_torch.ops.ell import side_value_grad
+    from tf_geometric_tpu_torch.ops.sorted_segment import (launch_sorted_segment_sum,
+                                                           sorted_segment_sum_plain)
+    from tf_geometric_tpu_torch.ops.spmm_heads import pass_flops
+    spec = halo.gcn_spec
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for r in range(halo.num_parts):
+        for block_name, block in (("local", spec.local[r]), ("remote", spec.remote[r])):
+            adj = block.to("cuda")
+            for side_name in ("fwd", "bwd"):
+                side = getattr(adj, side_name)
+                deg = side.row_ptr.diff()[:side.num_rows]
+                print(f"x2 rank {r} {block_name} {side_name}: {side.num_rows} rows, "
+                      f"{int(side.col.shape[0])} entries, "
+                      f"{0 if side.owner_rows is None else side.owner_rows.shape[0]} hub rows, "
+                      f"{side.num_virtual} virtual rows, {int((deg == 0).sum())} rows without "
+                      f"entries{', split diagonal' if adj.diag_val is not None else ''}",
+                      flush=True)
+            libs = {s: _block_library(adj, s) for s in ("fwd", "bwd")}
+            for dtype in (torch.float32, torch.bfloat16):
+                f32 = dtype == torch.float32
+                tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
+                for width in X2_WIDTHS:
+                    tag = f"rank {r} {block_name} F={width} {str(dtype)[6:]}"
+                    for side_name, n_src in (("fwd", adj.shape[1]), ("bwd", adj.shape[0])):
+                        side = getattr(adj, side_name)
+                        h = torch.randn(n_src, width, generator=gen, device="cuda").to(dtype)
+                        args = (side.row_ptr, side.col, side.val, h, adj.diag_val, side.num_rows)
+                        out_k, part_k = launch_csr_spmm(*args)
+                        out_p, part_p = csr_spmm_plain(*args)
+                        full = side_matmul(side, h, adj.diag_val)
+                        torch.cuda.synchronize()
+                        case = "forward" if side_name == "fwd" else "dh"
+                        err = max(_max_err(out_k, out_p, tol, f"x2 Kernel A {case} {tag}"),
+                                  _max_err(part_k, part_p, F32_TOL, f"x2 partial {case} {tag}"),
+                                  _max_err(full, side_matmul_plain(side, h, adj.diag_val), tol,
+                                           f"x2 A+B {case} {tag}"))
+                        if f32:
+                            err = max(err, _max_err(full, torch.sparse.mm(libs[side_name], h),
+                                                    F32_TOL, f"x2 {case} vs torch.sparse.mm {tag}"))
+                        bound_ms, bound_by = _bound(
+                            _kernel_a_bytes(adj, side, width, elt),
+                            2 * (int(side.col.shape[0]) + bench.csr_diag_rows(adj)) * width)
+                        rows.append(dict(
+                            name="csr_spmm", case=f"x2 {block_name} {case}", rank=r, width=width,
+                            dtype=str(dtype)[6:], max_abs_err=err,
+                            ms=_cuda_ms(lambda: launch_csr_spmm(*args)),
+                            plain_ms=_cuda_ms(lambda: csr_spmm_plain(*args), iters=3, warmup=1),
+                            library_ms=_cuda_ms(lambda: torch.sparse.mm(libs[side_name], h))
+                            if f32 else None, bound_ms=bound_ms, bound_by=bound_by))
+                        if side.num_virtual:
+                            base = out_k.clone()
+                            got = launch_sorted_segment_sum(part_k, side.owner_ptr, base.clone(),
+                                                            True, side.owner_rows)
+                            want = sorted_segment_sum_plain(part_k, side.owner_ptr, base.clone(),
+                                                            side.owner_rows)
+                            torch.cuda.synchronize()
+                            owners = int(side.owner_rows.shape[0])
+                            bound_ms, bound_by = _bound(
+                                side.num_virtual * width * 4 + 2 * owners * width * elt
+                                + 4 * (2 * owners + 1), (side.num_virtual + owners) * width)
+                            rows.append(dict(
+                                name="sorted_segment_sum", case=f"x2 {block_name} {case}", rank=r,
+                                width=width, dtype=str(dtype)[6:],
+                                max_abs_err=_max_err(got, want, tol, f"x2 Kernel B {case} {tag}"),
+                                ms=_cuda_ms(lambda: launch_sorted_segment_sum(
+                                    part_k, side.owner_ptr, base, True, side.owner_rows)),
+                                plain_ms=_cuda_ms(lambda: sorted_segment_sum_plain(
+                                    part_k, side.owner_ptr, base, side.owner_rows), iters=3,
+                                    warmup=1),
+                                library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                    # diff_values: dv[e] = <dy[row_e], h[col_e]>, SDDMM over the
+                    # forward side (virtual rows read their owner's dy) and the diagonal
+                    h = torch.randn(adj.shape[1], width, generator=gen, device="cuda").to(dtype)
+                    dy = torch.randn(adj.shape[0], width, generator=gen, device="cuda").to(dtype)
+                    got = side_value_grad(adj, h, dy)
+                    want = side_value_grad(adj, h, dy, plain=True)
+                    torch.cuda.synchronize()
+                    err = _max_err(got, want, tol, f"x2 dv {tag}")
+                    bound_ms, bound_by = _bound(
+                        _dv_bytes(adj, width, elt),
+                        pass_flops(int(adj.fwd.col.shape[0]) + bench.csr_diag_rows(adj), width))
+                    rows.append(dict(
+                        name="sddmm_heads", case=f"x2 {block_name} dv", rank=r, width=width,
+                        dtype=str(dtype)[6:], max_abs_err=err,
+                        ms=_cuda_ms(lambda: side_value_grad(adj, h, dy)),
+                        plain_ms=_cuda_ms(lambda: side_value_grad(adj, h, dy, plain=True),
+                                          iters=3, warmup=1),
+                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+            del adj, libs
+            torch.cuda.empty_cache()
+    print("x2 kernel check (name case rank F dtype: max_abs_err, ms, plain_ms, library_ms, "
+          "bound_ms)")
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['name']} {r['case']} rank {r['rank']} F={r['width']} {r['dtype']}: "
+              f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def x5_kernel_phase(halo):
+    """The three attention kernels on every rank's rectangular GAT layout at
+    ``X5_SHAPES``, float32 and bfloat16, without dropout and with a 0.6 keep
+    mask, against their plain versions; rows without entries must come back
+    exactly 0. The main path's cases (float32 with the mask) are timed on
+    rank 0."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for r in range(halo.num_parts):
+        layout = halo.gat_spec.layouts[r].to("cuda")
+        n, S = layout.num_nodes, layout.num_src
+        empty_dst = layout.dst.row_ptr.diff() == 0
+        empty_src = layout.src.row_ptr.diff() == 0
+        print(f"x5 rank {r}: {layout}; destination side {int(layout.dst.hubs.shape[0])} hub rows, "
+              f"{int(empty_dst.sum())} rows without entries; source side "
+              f"{int(layout.src.hubs.shape[0])} hub rows, {int(empty_src.sum())} rows without "
+              f"entries", flush=True)
+        for heads, width in X5_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                f32 = dtype == torch.float32
+                fwd_tol, grad_tol = (F32_TOL, F32_GRAD_TOL) if f32 else (BF16_TOL, BF16_TOL)
+                Q, dy = (torch.randn(n, heads * width, generator=gen, device="cuda").to(dtype)
+                         for _ in range(2))
+                K, V = (torch.randn(S, heads * width, generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                for with_keep in (False, True):
+                    keep = None
+                    if with_keep:
+                        keep = ((torch.rand(layout.num_edges, heads, generator=gen, device="cuda")
+                                 >= X5_KEEP_RATE).float() / (1.0 - X5_KEEP_RATE))
+                    tag = (f"rank {r} H={heads} d={width} {str(dtype)[6:]} "
+                           f"{'keep 0.4' if with_keep else 'no dropout'}")
+                    fwd_args = (layout.dst, Q, K, V, heads, keep)
+                    out, lse = ga.launch_gat_forward(*fwd_args)
+                    out_p, lse_p = ga.gat_forward_plain(*fwd_args)
+                    dst_args = (layout.dst, Q, K, V, out, lse, dy, heads, keep)
+                    dQ, D = ga.launch_gat_backward_dst(*dst_args)
+                    dQ_p, D_p = ga.gat_backward_dst_plain(*dst_args)
+                    src_args = (layout.src, Q, K, V, dy, lse, D, heads, keep)
+                    dK, dV = ga.launch_gat_backward_src(*src_args)
+                    dK_p, dV_p = ga.gat_backward_src_plain(*src_args)
+                    torch.cuda.synchronize()
+                    for what, t, empty in (("out", out, empty_dst), ("lse", lse, empty_dst),
+                                           ("dQ", dQ, empty_dst), ("D", D, empty_dst),
+                                           ("dK", dK, empty_src), ("dV", dV, empty_src)):
+                        _check(bool((t[empty] == 0).all()),
+                               f"x5 {what} {tag}: a row without entries is not exactly 0")
+                    errs = (
+                        max(_max_err(out, out_p, fwd_tol, f"x5 forward out {tag}"),
+                            _max_err(lse, lse_p, fwd_tol, f"x5 forward lse {tag}")),
+                        max(_max_err(dQ, dQ_p, grad_tol, f"x5 backward dQ {tag}"),
+                            _max_err(D, D_p, grad_tol, f"x5 backward D {tag}")),
+                        max(_max_err(dK, dK_p, grad_tol, f"x5 backward dK {tag}"),
+                            _max_err(dV, dV_p, grad_tol, f"x5 backward dV {tag}")))
+                    del out_p, lse_p, dQ_p, D_p, dK_p, dV_p
+                    timed = r == 0 and f32 and with_keep
+                    calls = ((ga.launch_gat_forward, ga.gat_forward_plain, fwd_args),
+                             (ga.launch_gat_backward_dst, ga.gat_backward_dst_plain, dst_args),
+                             (ga.launch_gat_backward_src, ga.gat_backward_src_plain, src_args))
+                    for kind, ((kernel, plain, args), err) in enumerate(zip(calls, errs)):
+                        bound_ms, bound_by = _bound(
+                            bench.gat_pass_bytes(layout, kind, heads, width, 4 if f32 else 2,
+                                                 with_keep),
+                            bench.gat_pass_flops(layout, kind, heads, width))
+                        rows.append(dict(
+                            name=("gat_forward", "gat_backward_dst", "gat_backward_src")[kind],
+                            case="x5", rank=r, heads=heads, width=width, dtype=str(dtype)[6:],
+                            keep=with_keep, max_abs_err=err,
+                            ms=_cuda_ms(lambda: kernel(*args)) if timed else None,
+                            plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+                            if timed else None,
+                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                del Q, K, V, dy
+        del layout
+        torch.cuda.empty_cache()
+    print("x5 kernel check (name rank H d dtype dropout: max_abs_err, ms, plain_ms, bound_ms)")
+    for r in rows:
+        times = (f"{r['ms']:.4f}, {r['plain_ms']:.4f}" if r["ms"] is not None
+                 else "not timed, not timed")
+        print(f"  {r['name']} rank {r['rank']} H={r['heads']} d={r['width']} {r['dtype']} "
+              f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {times}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def _halo_expected(halo, name, rank, steps):
+    """Each kernel's launches on one rank over ``steps`` steps of a halo
+    workload: the GCN runs Kernel A forward and ``dh`` on both blocks in both
+    layers (8 a step) and Kernel B once per layer on each block side with hub
+    rows; the GAT one forward and two backward attention launches per layer."""
+    from tf_geometric_tpu_torch import bench
+    expected = dict.fromkeys(_KERNELS, 0)
+    if bench.HALO_WORKLOADS[name] == "gcn":
+        blocks = (halo.gcn_spec.local[rank], halo.gcn_spec.remote[rank])
+        hub_sides = sum(int(b.fwd.num_virtual > 0) + int(b.bwd.num_virtual > 0) for b in blocks)
+        layers = 2
+        expected.update(csr_spmm=steps * layers * 4, sorted_segment_sum=steps * layers * hub_sides)
+    else:
+        layers = len(bench.HALO_GAT_DIMS)
+        expected.update(gat_forward=steps * layers, gat_backward_dst=steps * layers,
+                        gat_backward_src=steps * layers)
+    return expected
+
+
+def halo_main_path_phase(halo, gpu):
+    """The halo GCN and the fused halo GAT at full arxiv size on 4 ranks
+    sharing the card (gloo, CUDA tensors): 3 warm-up and 20 timed steps
+    each; the loss finite and falling on every rank, each kernel's launches
+    per rank exactly as the plans imply. Returns the launch totals over the
+    ranks (per workload) and the results."""
+    from tf_geometric_tpu_torch import bench
+    totals, results = {}, {}
+    for name in bench.HALO_WORKLOADS:
+        res = bench.run_halo_workload(halo, name, steps=TIMED_ITERS)
+        steps = res["steps_taken"]
+        totals[name] = dict.fromkeys(_KERNELS, 0)
+        for rank, (job,) in enumerate(res["ranks"]):
+            expected = _halo_expected(halo, name, rank, steps)
+            got = {k: job["launches"][k] for k in _KERNELS}
+            _check(got == expected, f"{name} rank {rank}: launches {got} != expected {expected}")
+            losses = job["losses"]
+            _check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
+            _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+            totals[name] = {k: totals[name][k] + got[k] for k in _KERNELS}
+        per_rank = [float(sorted(job["step_ms"])[len(job["step_ms"]) // 2])
+                    for (job,) in res["ranks"]]
+        line = res["line"]
+        print(f"{name} ({HALO_LABEL}): {res['step_ms']:.4f} ms/step (slowest rank's median; "
+              f"ranks {', '.join(f'{v:.4f}' for v in per_rank)}), {line['value']} edges/s, "
+              f"halo_fraction {line['halo_fraction']}, cap {line['cap']}, vs_baseline "
+              f"{line['vs_baseline']}, loss {res['ranks'][0][0]['losses'][0]:.5f} -> "
+              f"{res['ranks'][0][0]['losses'][-1]:.5f}, launches per rank per step "
+              f"{ {k: v // steps for k, v in _halo_expected(halo, name, 0, steps).items() if v} } "
+              f"(rank 0) on {gpu}", flush=True)
+        print(json.dumps(line), flush=True)
+        results[name] = res
+    return totals, results
+
+
+def halo_single_process_check(halo, results):
+    """The 4-rank halo GCN's step-1 loss and gradients against the port's
+    single-process GCN on the card, over the whole graph with the same
+    normalized adjacency and weights (rtol 1e-4, atol 1e-4 of the largest
+    gradient entry: float32 sums in another order)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.convert import sharded_params_from_numpy
+    from tf_geometric_tpu_torch.ops.csr_spmm import CsrAdj, csr_spmm
+    part = halo.gcn_part
+    npp, n_pad = part.nodes_per_part, part.num_nodes_padded
+    ok = part.local_row < npp
+    rows = (part.local_row + np.arange(halo.num_parts)[:, None] * npp)[ok]
+    adj = CsrAdj.from_coo(np.stack([rows, part.global_col[ok]]), part.value[ok], (n_pad, n_pad),
+                          split_diag=True, device="cuda")
+    params = sharded_params_from_numpy(halo.params["gcn_arxiv_halo_p4_fwd_bwd"], "cuda")
+    x, mask = (torch.as_tensor(a, device="cuda") for a in (halo.x, halo.mask))
+    y = torch.as_tensor(halo.y, device="cuda").long()
+    (w0, b0), (w1, b1) = params
+    h = torch.relu(csr_spmm(adj, x @ w0) + b0)
+    ce = F.cross_entropy(csr_spmm(adj, h @ w1) + b1, y, reduction="none")
+    loss = (ce * mask).sum() / mask.sum()
+    loss.backward()
+    job = results["gcn_arxiv_halo_p4_fwd_bwd"]["ranks"][0][0]
+    err = _max_err(torch.tensor([job["losses"][0]]), loss.detach().cpu()[None],
+                   dict(rtol=1e-4, atol=1e-6), "halo GCN step-1 loss vs single process")
+    got = [g for layer in job["grads"] for g in layer]
+    for i, (g, p) in enumerate(zip(got, (w0, b0, w1, b1))):
+        want = p.grad.cpu()
+        tol = dict(rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        err = max(err, _max_err(torch.as_tensor(g), want, tol,
+                                f"halo GCN step-1 gradient {i} vs single process"))
+    print(f"halo GCN vs single process ({bench.HALO_PARTS} ranks): step-1 loss "
+          f"{job['losses'][0]:.6f} vs {float(loss):.6f}, max abs err {err:.3e}", flush=True)
+
+
+def halo_small_plain_phase():
+    """3 steps of both halo workloads at 20,000 nodes on 4 ranks through the
+    kernels and through the plain versions on the card (the same dropout
+    draws): the losses must agree."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.parallel import run_ranks
+    small = bench.build_halo_problem(num_nodes=20_000, num_edges=140_000)
+    jobs = [[] for _ in range(small.num_parts)]
+    for name in bench.HALO_WORKLOADS:
+        for plain in (False, True):
+            for r, (job,) in enumerate(bench.halo_jobs(small, name, 3, plain=plain)):
+                jobs[r].append(job._replace(name=f"{name} plain={plain}"))
+    results = run_ranks(jobs, backend="gloo", device="cuda")
+    for name in bench.HALO_WORKLOADS:
+        by = {job["name"]: job["losses"] for job in results[0]}
+        kern, plain = by[f"{name} plain=False"], by[f"{name} plain=True"]
+        err = _max_err(torch.tensor(kern), torch.tensor(plain), F32_TOL,
+                       f"3-step losses {name} (20,000 nodes, {HALO_LABEL})")
+        print(f"small {name}: kernel {kern} plain {plain} max abs err {err:.3e}", flush=True)
+
+
+def dryrun_phase():
+    """The port's twin of the JAX dry run on 4 ranks sharing the card."""
+    from tf_geometric_tpu_torch.entry import dryrun_multichip
+    losses = dryrun_multichip(4)
+    print(f"dryrun_multichip(4) ({HALO_LABEL}): losses {losses}", flush=True)
+
+
+def halo_kernel_entries(halo_rows, halo_totals):
+    """The ``{"kernels"}`` entries of X2 and X5, each named with the kernel
+    that serves it; times at the main path's heaviest call (rank 0's local
+    block forward at F = 64, float32; the attention at H = 8, d = 8, float32
+    with the dropout mask), launches over the ranks of the main path."""
+    gcn, gat = halo_totals["gcn_arxiv_halo_p4_fwd_bwd"], halo_totals["gat_arxiv_halo_p4_fwd_bwd"]
+    x2 = ("tf_geometric_tpu/ops/ell.py:339", gcn)
+    x5 = ("tf_geometric_tpu/ops/ell_attention.py:397", gat)
+    gat_src = "tf_geometric_tpu_torch/csrc/gat_attention.cu"
+    f32_64 = dict(dtype="float32", width=64)
+    specs = (
+        ("csr_spmm", "tf_geometric_tpu_torch/csrc/csr_spmm.cu", x2,
+         dict(f32_64, case="x2 local forward", rank=0),
+         "rank 0 local block forward, F=64, float32"),
+        ("sorted_segment_sum", "tf_geometric_tpu_torch/csrc/sorted_segment.cu", x2,
+         f32_64, "first block side with hub rows, F=64, float32"),
+        ("gat_forward", gat_src, x5, dict(rank=0, heads=8, width=8, dtype="float32", keep=True),
+         "rank 0, H=8, d=8, float32, keep 0.4"),
+        ("gat_backward_dst", gat_src, x5, dict(rank=0, heads=8, width=8, dtype="float32",
+                                                keep=True), "rank 0, H=8, d=8, float32, keep 0.4"),
+        ("gat_backward_src", gat_src, x5, dict(rank=0, heads=8, width=8, dtype="float32",
+                                                keep=True), "rank 0, H=8, d=8, float32, keep 0.4"))
+    entries = []
+    for name, path, (replaces, launches), rep_key, shape in specs:
+        if name == "sorted_segment_sum" and launches[name] == 0:
+            continue  # no halo block has hub rows: Kernel B is not on this path
+        _check(launches[name] > 0, f"{name} was not launched on the halo main path")
+        mine = [r for r in halo_rows if r["name"] == name and r["case"].startswith(
+            "x2" if replaces.endswith("ell.py:339") else "x5")]
+        rep = next(r for r in mine if all(r[k] == v for k, v in rep_key.items()))
+        entries.append({
+            "name": f"{'ell_spmm' if replaces.endswith('ell.py:339') else 'gat_attention_ell'}"
+                    f":{name}", "route": "cuda", "source": path, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": f"{shape}; {HALO_LABEL}"})
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -907,12 +1359,26 @@ def main():
           f"nodes, {graph_problem.edge_index.shape[1]} padded edges "
           f"({graph_problem.real_edges} real)", flush=True)
     rows += gin_kernel_phase(graph_problem)
+    t0 = time.perf_counter()
+    halo = bench.build_halo_problem()
+    print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
+          f"{halo.partition_s:.1f} s on the host (its refinement is a Python loop), partitions "
+          f"and plans {halo.plan_s:.1f} s; {halo.num_parts} ranks of "
+          f"{halo.gcn_part.nodes_per_part} nodes; GCN cap {halo.gcn_spec.capacity}, "
+          f"halo_fraction {halo.gcn_spec.halo_fraction:.4f}; GAT cap {halo.gat_spec.capacity}, "
+          f"halo_fraction {halo.gat_spec.halo_fraction:.4f}, {halo.gat_spec.num_edges} edge "
+          f"ids per rank", flush=True)
+    halo_rows = x2_kernel_phase(halo) + x5_kernel_phase(halo)
 
     totals, results = main_path_phase(gpu, sage_problem, graph_problem)
     del sage_problem
     torch.cuda.empty_cache()
     small_plain_phase(graph_problem)
     entry_phase()
+    halo_totals, halo_results = halo_main_path_phase(halo, gpu)
+    halo_single_process_check(halo, halo_results)
+    halo_small_plain_phase()
+    dryrun_phase()
 
     # one entry per kernel, at its heaviest main-path call: the SpMM kernels
     # on the forward side at F=256 in bfloat16 (the canonical step's first
@@ -967,9 +1433,13 @@ def main():
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
         kernels.append(entry)
+    kernels += halo_kernel_entries(halo_rows, halo_totals)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)
+    for name, res in halo_results.items():
+        print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
+              f"{res['line']['unit']} ({HALO_LABEL}; {gpu})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

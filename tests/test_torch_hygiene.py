@@ -212,3 +212,22 @@ def test_plain_versions_switch_is_scoped():
             assert torch.equal(gat_attention_csr(layout, q, q, q, 2), want)
             raise KeyError
     assert not config.plain_versions
+
+
+def test_halo_ops_raise_off_the_cpu():
+    """``ell_spmm`` (with and without the value gradient) and
+    ``gat_attention_ell`` on a device with no kernel (meta tensors stand in
+    for one) raise instead of running the plain versions there."""
+    from tf_geometric_tpu_torch.ops import ell
+    from tf_geometric_tpu_torch.ops.csr_spmm import CsrAdj
+    from tf_geometric_tpu_torch.ops.gat_attention import CsrGatLayout, gat_attention_ell
+    adj = CsrAdj.from_coo([[0, 1], [2, 0]], None, (2, 3), device="meta")
+    h = torch.ones(3, 4, device="meta")
+    with pytest.raises(NotImplementedError):
+        ell.ell_spmm(adj, h)
+    values = torch.ones(2, device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        ell.ell_spmm(ell.with_edge_values(adj, values), h, diff_values=True)
+    layout = CsrGatLayout.build([[0, 1], [2, 0]], 2, device="meta", num_src=3)
+    with pytest.raises(NotImplementedError):
+        gat_attention_ell(layout, torch.ones(2, 4, device="meta"), h, h, 2)

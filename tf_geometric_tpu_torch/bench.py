@@ -52,6 +52,22 @@ before each GIN line, one with its real and padded edges per second.
    widths 4, 64, 64; ``dh`` at 64, 64). Weights: flax's layout from
    ``default_rng(0)`` (``init_gin_flax_params``), carried over by
    ``convert.gin_classifier_state_dict_from_flax``.
+8. ``gcn_arxiv_halo_p4_fwd_bwd`` and 9. ``gat_arxiv_halo_p4_fwd_bwd``: the
+   graph-parallel steps of ``benchmarks/scaling.py`` (``measure(4, graph,
+   model="gcn" | "gat_full")`` with ``TFG_SCALING_LAYOUT=ell``) on the arxiv
+   graph partitioned over ``HALO_PARTS`` = 4 ranks (``partition_order``, then
+   ``partition_edges_by_row`` and the halo plan), each rank a spawned process
+   (``parallel/runner.py``). The halo GCN: 2 layers, hidden 64, Adam 1e-2,
+   the normalized adjacency, ``ell_spmm`` on each rank's local and remote
+   blocks. The fused halo GAT: ``layer_dims = ((8, 8), (1, 64))``, attention
+   and feature dropout 0.6, Adam 5e-3, over the self-looped graph. Weights:
+   ``default_rng(0)`` normals at scale 0.1, zero biases, in ``scaling.py``'s
+   order; float32. The dropout masks come from one ``torch.Generator`` per
+   rank (``scaling.py`` fixes the step key instead). Each rank times its
+   steps with CUDA events; the line reports the slowest rank's median step
+   and counts the partition's real edges, as ``scaling.py`` does, with the
+   plan's ``halo_fraction`` and ``cap``. The ranks share one card over gloo,
+   so the number is that of 4 ranks sharing one H100, not of 4 cards.
 
 The GCN workloads use bf16 SpMM compute and a bf16 ``x @ W0`` by default,
 the GAT workload bf16 attention compute and float32 dense products, as
@@ -69,15 +85,19 @@ size, per step; the SAGE line counts sampled edges, N·(25 + 10) =
 
 vs_baseline = (least time of the step's sparse passes) / (measured step
 time), the least time being the passes' least bytes over the H100's
-3.35 TB/s, each operand read once and each output written once:
-- one SpMM pass ``A_side · h``: h read and the output written (N·F elements
-  each, in the compute dtype), row_ptr, col and val (4 + 8·nnz bytes, nnz
-  without the diagonal) and the diagonal (4·N bytes);
-- the three attention passes, at N rows of H·d elements in the compute
+3.35 TB/s, each input row that an edge reads read once and each output
+written once (on the square, self-looped graphs every row is read; the
+halo blocks and layouts leave many rows unread):
+- one SpMM pass ``A_side · h``: the rows of h that an entry or the diagonal
+  reads, and the output written (N·F elements, in the compute dtype),
+  row_ptr, col and val (4 + 8·nnz bytes, nnz without the diagonal) and the
+  diagonal (4·N bytes; ``csr_pass_bytes``);
+- the three attention passes, at rows of H·d elements in the compute
   dtype: forward reads Q, K, V and writes out and lse; the destination-side
   backward reads Q, K, V, out, dy and lse and writes dQ and D; the
-  source-side backward reads Q, K, V, dy, lse and D and writes dK and dV;
-  each pass also reads its side's row pointers and neighbour ids
+  source-side backward reads Q, K, V, dy, lse and D and writes dK and dV
+  (inputs on the rows with an entry, outputs on every row); each pass also
+  reads its side's row pointers and neighbour ids
   (4·(N + 1) + 4·nnz bytes) and, under dropout, the edge ids that index
   the mask (4·nnz) and the [E, H] float32 mask (``gat_pass_bytes``);
 - the SAGE step's two draws (the random integers read, idx and weight
@@ -131,6 +151,7 @@ from .ops.fixed_k import aggregate_pass_bytes, draw_pass_bytes
 from .ops.gat_attention import CsrGatLayout
 from .ops.spmm_heads import sddmm_pass_bytes, spmm_pass_bytes
 from .sparse.matrix import SparseMatrix
+from .utils.profiling import device_time_by_kernel
 
 __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "build_sage_problem", "build_graph_problem", "init_params", "init_gat_params",
@@ -139,7 +160,9 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "gin_loss", "GinMlp", "GinClassifier", "make_step", "run_workload",
            "profile_workload", "gat_pass_bytes", "gat_pass_flops", "sage_step_bytes",
            "gin_step_bytes", "Workload", "WORKLOADS", "GCN_WORKLOADS", "GIN_READOUTS",
-           "SAGE_FANOUTS", "main"]
+           "SAGE_FANOUTS", "HaloProblem", "build_halo_problem", "halo_jobs",
+           "run_halo_workload", "halo_pass_bytes", "csr_pass_bytes", "csr_rows_read",
+           "csr_diag_rows", "HALO_WORKLOADS", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -159,6 +182,10 @@ GAT_MERGED_UNITS, GAT_MERGED_ATT_UNITS = 64, 8
 # benchmarks/graph_classification_throughput.py's constants
 GIN_BATCH, GIN_UNITS, GIN_LAYERS, GIN_SORT_K = 128, 64, 3, 16
 GIN_READOUTS = {"gin_sum_pool_fwd_bwd": "sum", "gin_sort_pool_fwd_bwd": "sort"}
+# benchmarks/scaling.py's graph-parallel steps
+HALO_PARTS, HALO_GCN_HIDDEN = 4, 64
+HALO_GAT_DIMS, HALO_DROP_RATE = ((8, 8), (1, 64)), 0.6
+HALO_WORKLOADS = {"gcn_arxiv_halo_p4_fwd_bwd": "gcn", "gat_arxiv_halo_p4_fwd_bwd": "gat_fused"}
 
 
 class ArxivProblem(NamedTuple):
@@ -485,38 +512,61 @@ def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor], lr: float = 1e
     return step
 
 
-def _spmm_pass_bytes(side: CsrSide, has_diag: bool, num_src: int, width: int,
-                    elt_bytes: int) -> int:
+def csr_diag_rows(adj: CsrAdj) -> int:
+    """Rows of ``adj`` with a split-off diagonal entry."""
+    return 0 if adj.diag_val is None else int((adj.diag_eid < adj.num_edges).sum())
+
+
+def csr_rows_read(adj: CsrAdj, side: CsrSide) -> int:
+    """Rows of the operand that a pass over ``side`` reads: the distinct
+    columns of its entries and the rows with a diagonal entry."""
+    cols = side.col.long()
+    if adj.diag_val is not None:
+        cols = torch.cat([cols, torch.nonzero(adj.diag_eid < adj.num_edges).flatten()])
+    return int(torch.unique(cols).numel())
+
+
+def csr_pass_bytes(adj: CsrAdj, side: CsrSide, width: int, elt_bytes: int) -> int:
     """Least bytes of one SpMM pass ``A_side · h`` (see the module docstring)."""
     nnz = int(side.col.shape[0])
-    return ((num_src + side.num_rows) * width * elt_bytes
+    return ((csr_rows_read(adj, side) + side.num_rows) * width * elt_bytes
             + 4 * (side.row_ptr.shape[0]) + 8 * nnz
-            + (4 * side.num_rows if has_diag else 0))
+            + (4 * side.num_rows if adj.diag_val is not None else 0))
 
 
 def _spmm_step_bytes(problem: ArxivProblem, widths) -> int:
     adj = problem.adj
     elt = 2 if problem.spmm_dtype == torch.bfloat16 else 4
-    has_diag = adj.diag_val is not None
-    return sum(_spmm_pass_bytes(adj.fwd, has_diag, adj.shape[1], w, elt)
-               + _spmm_pass_bytes(adj.bwd, has_diag, adj.shape[0], w, elt) for w in widths)
+    return sum(csr_pass_bytes(adj, adj.fwd, w, elt) + csr_pass_bytes(adj, adj.bwd, w, elt)
+               for w in widths)
 
 
 # per attention pass (0 forward, 1 backward destination side, 2 backward
-# source side): dense [N, H·d] operands read + written, [N, H] float32
-# statistics read + written, flops per stored edge and feature
-_GAT_PASS_DENSE = (4, 6, 6)
-_GAT_PASS_STATS = (1, 2, 2)
+# source side): dense operands read and written with the destination rows
+# (Q, out, dy read; out, dQ written) and with the source rows (K, V read; dK,
+# dV written), [N, H] float32 statistics read and written (lse, D), flops per
+# stored edge and feature
+_GAT_DST_READ, _GAT_DST_WRITE = (1, 3, 2), (1, 1, 0)
+_GAT_SRC_READ, _GAT_SRC_WRITE = (2, 2, 2), (0, 0, 2)
+_GAT_STATS_READ, _GAT_STATS_WRITE = (0, 1, 2), (1, 1, 0)
 _GAT_PASS_FLOPS = (4, 6, 8)
 
 
 def gat_pass_bytes(layout: CsrGatLayout, kind: int, num_heads: int, head_width: int,
                    elt_bytes: int, with_keep: bool = False) -> int:
-    """Least bytes of attention pass ``kind`` (see the module docstring)."""
-    n, nnz = layout.num_nodes, int(layout.dst.nbr.shape[0])
-    return (_GAT_PASS_DENSE[kind] * n * num_heads * head_width * elt_bytes
-            + _GAT_PASS_STATS[kind] * 4 * n * num_heads
-            + 4 * (n + 1) + 4 * nnz
+    """Least bytes of attention pass ``kind`` (see the module docstring)
+    over a square or rectangular layout. Inputs are charged only on the rows
+    an edge reads (destination rows with an entry, source rows with an
+    entry); outputs on every row, as every row must be written."""
+    n, s, nnz = layout.num_nodes, layout.num_src, int(layout.dst.nbr.shape[0])
+    n_read = int((layout.dst.row_ptr.diff() > 0).sum())
+    s_read = int((layout.src.row_ptr.diff() > 0).sum())
+    rows = n if kind < 2 else s  # the side the pass walks
+    return ((_GAT_DST_READ[kind] * n_read + _GAT_DST_WRITE[kind] * n
+             + _GAT_SRC_READ[kind] * s_read + _GAT_SRC_WRITE[kind] * s)
+            * num_heads * head_width * elt_bytes
+            + 4 * num_heads * (_GAT_STATS_READ[kind] * n_read + _GAT_STATS_WRITE[kind] * n)
+            + 4 * (rows + 1) + 4 * nnz
             + (4 * nnz + 4 * layout.num_edges * num_heads if with_keep else 0))
 
 
@@ -650,15 +700,7 @@ def profile_workload(problem, name: str, dense_bf16: bool = True) -> dict:
             step()
         end.record()
         end.synchronize()
-    # device-side events only; a user annotation (Optimizer.step#Adam.step)
-    # spans kernels already counted
-    kernels = [(e.key, e.self_device_time_total / 1e3 / PROFILE_STEPS,
-                e.count / PROFILE_STEPS)
-               for e in prof.key_averages()
-               if e.self_device_time_total > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_time_by_kernel(prof, PROFILE_STEPS)
     step_ms = start.elapsed_time(end) / PROFILE_STEPS
     busy_ms = sum(k[1] for k in kernels)
     return {"profile": name, "step_ms": step_ms, "device_busy_ms": busy_ms,
@@ -669,13 +711,167 @@ def profile_workload(problem, name: str, dense_bf16: bool = True) -> dict:
                      if any(p in k[0] for p in PORT_KERNELS)]}
 
 
+# ---------------------------------------------------------------------------
+# workloads 8 and 9: the graph-parallel steps on spawned ranks
+# ---------------------------------------------------------------------------
+
+class HaloProblem(NamedTuple):
+    num_parts: int
+    x: np.ndarray                      # [P·npp, 128] float32, padding rows zero
+    y: np.ndarray                      # [P·npp] int32
+    mask: np.ndarray                   # [P·npp] float32, 1 on real nodes
+    gcn_part: "EdgePartition"          # the normalized adjacency's partition
+    gcn_spec: "HaloSpecEll"            # its packed halo plan
+    gat_part: "EdgePartition"          # the self-looped graph's partition
+    gat_spec: "GatHaloSpec"            # its fused-GAT halo plan
+    params: Dict[str, object]          # per workload, the initial weights (numpy)
+    partition_s: float                 # host seconds of partition_order
+    plan_s: float                      # host seconds of the partitions and plans
+
+
+def build_halo_problem(num_parts: int = HALO_PARTS, num_nodes: int = ARXIV_NODES,
+                       num_edges: int = ARXIV_EDGES) -> HaloProblem:
+    """``benchmarks/scaling.py``'s set-up on the host: the arxiv graph
+    permuted by ``partition_order``, the normalized adjacency's partition and
+    packed plan, the self-looped graph's partition and fused-GAT plan, and
+    the weights (``default_rng(0)`` per workload, as each ``measure`` call
+    draws them)."""
+    import time
+    from .parallel import (apply_node_permutation, build_gat_halo_spec, build_halo_spec,
+                           partition_edges_by_row, partition_order)
+    from .utils.graph_utils import add_self_loop_edge
+    graph = synthetic_ogbn_arxiv_like(num_nodes=num_nodes, num_edges=num_edges)
+    n = graph.num_nodes
+    t0 = time.perf_counter()
+    perm = partition_order(graph.edge_index, n, num_parts)
+    partition_s = time.perf_counter() - t0
+    graph, _ = apply_node_permutation(graph, perm)
+    t0 = time.perf_counter()
+    normed = gcn_norm_adj(SparseMatrix(graph.edge_index, graph.edge_weight, (n, n),
+                                       device="cpu"))
+    gcn_part = partition_edges_by_row(normed.index.numpy(), normed.value.numpy(), n, num_parts)
+    loops, ones = add_self_loop_edge(graph.edge_index, n)
+    gat_part = partition_edges_by_row(loops, ones, n, num_parts)
+    gcn_spec, gat_spec = build_halo_spec(gcn_part, layout="ell"), build_gat_halo_spec(gat_part)
+    plan_s = time.perf_counter() - t0
+    n_pad = gcn_part.num_nodes_padded
+    x = np.zeros((n_pad, graph.x.shape[1]), np.float32)
+    x[:n] = graph.x
+    y = np.zeros(n_pad, np.int32)
+    y[:n] = graph.y
+    mask = np.zeros(n_pad, np.float32)
+    mask[:n] = 1.0
+
+    def normal(rng, *shape):
+        return rng.normal(scale=0.1, size=shape).astype(np.float32)
+
+    rng = np.random.default_rng(0)
+    gcn = [(normal(rng, x.shape[1], HALO_GCN_HIDDEN), np.zeros(HALO_GCN_HIDDEN, np.float32)),
+           (normal(rng, HALO_GCN_HIDDEN, NUM_CLASSES), np.zeros(NUM_CLASSES, np.float32))]
+    rng, layers, fin = np.random.default_rng(0), [], x.shape[1]
+    for heads, units in HALO_GAT_DIMS:
+        hd = heads * units
+        zeros = np.zeros(hd, np.float32)
+        layers.append((normal(rng, fin, hd), zeros, normal(rng, fin, hd), zeros,
+                       normal(rng, fin, hd), zeros))
+        fin = hd
+    gat = (layers, (normal(rng, fin, NUM_CLASSES), np.zeros(NUM_CLASSES, np.float32)))
+    return HaloProblem(num_parts, x, y, mask, gcn_part, gcn_spec, gat_part, gat_spec,
+                       {"gcn_arxiv_halo_p4_fwd_bwd": gcn, "gat_arxiv_halo_p4_fwd_bwd": gat},
+                       partition_s, plan_s)
+
+
+def halo_jobs(problem: HaloProblem, name: str, steps: int, warmup: int = 0,
+              timed: bool = False, plain: bool = False, seed: int = 0) -> list:
+    """Per rank, the job list of workload ``name`` (``HALO_WORKLOADS``): the
+    rank's rows and its shard of the plan."""
+    from .parallel import ShardJob, rank_gat_plan, rank_halo_plan
+    kind = HALO_WORKLOADS[name]
+    npp = problem.gcn_part.nodes_per_part
+    if kind == "gcn":
+        options = {"learning_rate": 1e-2}
+    else:
+        options = {"layer_dims": HALO_GAT_DIMS, "learning_rate": 5e-3,
+                   "edge_drop_rate": HALO_DROP_RATE,
+                   "feat_drop_rate": HALO_DROP_RATE, "seed": seed}
+    jobs = []
+    for r in range(problem.num_parts):
+        rows = slice(r * npp, (r + 1) * npp)
+        plan = (rank_halo_plan(problem.gcn_spec, r, "cpu") if kind == "gcn"
+                else rank_gat_plan(problem.gat_spec, r, "cpu"))
+        jobs.append([ShardJob(name, kind, problem.params[name], problem.x[rows],
+                              problem.y[rows], problem.mask[rows], plan,
+                              dict(options, plain=plain), steps, warmup, timed)])
+    return jobs
+
+
+def halo_pass_bytes(problem: HaloProblem, name: str) -> int:
+    """Least bytes of one step's sparse passes over all ranks: for the GCN
+    each layer's forward and ``dh`` on both blocks (float32, widths 64 and
+    40); for the GAT each layer's three attention passes (float32)."""
+    if HALO_WORKLOADS[name] == "gcn":
+        return sum(csr_pass_bytes(adj, side, width, 4)
+                   for adj in (*problem.gcn_spec.local, *problem.gcn_spec.remote)
+                   for side in (adj.fwd, adj.bwd) for width in (HALO_GCN_HIDDEN, NUM_CLASSES))
+    return sum(gat_pass_bytes(layout, kind, heads, units, 4, with_keep=True)
+               for layout in problem.gat_spec.layouts for heads, units in HALO_GAT_DIMS
+               for kind in range(3))
+
+
+def run_halo_workload(problem: HaloProblem, name: str, steps: int = 20, device="cuda",
+                      profile: bool = False) -> dict:
+    """Train ``WARMUP_STEPS + steps`` steps of halo workload ``name`` on
+    ``problem.num_parts`` spawned ranks sharing one card over gloo and time
+    the last ``steps`` on each rank with CUDA events. Returns the JSON line
+    (the slowest rank's median step), the step time, every rank's results
+    (``parallel.runner.run_job``) and the number of steps taken; with
+    ``profile``, also ``profile``: each rank's device time over
+    ``PROFILE_STEPS`` more steps, the card's busy time (the ranks' sum) and
+    its idle share."""
+    from .ops import _build
+    from .parallel import run_ranks
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the bench times on a CUDA device, got {device}")
+    _build.build_all()  # once, before the ranks load the libraries
+    jobs = halo_jobs(problem, name, WARMUP_STEPS + steps, WARMUP_STEPS, True)
+    if profile:
+        jobs = [[job._replace(options=dict(job.options, profile_steps=PROFILE_STEPS))
+                 for job in rank] for rank in jobs]
+    results = run_ranks(jobs, backend="gloo", device=device)
+    step_ms = max(float(np.median(rank[0]["step_ms"])) for rank in results)
+    gcn = HALO_WORKLOADS[name] == "gcn"
+    part, spec = ((problem.gcn_part, problem.gcn_spec) if gcn
+                  else (problem.gat_part, problem.gat_spec))
+    edges = int((part.local_row < part.nodes_per_part).sum())
+    line = {"metric": f"{name}_edges_per_sec_per_chip",
+            "value": round(edges / step_ms * 1e3, 1), "unit": "edges/s",
+            "vs_baseline": round(halo_pass_bytes(problem, name) / H100_HBM_BYTES_PER_S
+                                 / (step_ms / 1e3), 4),
+            "halo_fraction": round(spec.halo_fraction, 4), "cap": spec.capacity,
+            "setup": f"{problem.num_parts} ranks sharing one card over gloo"}
+    out = {"line": line, "step_ms": step_ms, "ranks": results,
+           "steps_taken": WARMUP_STEPS + steps}
+    if profile:
+        busy = [sum(k[1] for k in rank[0]["kernels"]) for rank in results]
+        out["profile"] = {
+            "profile": name, "step_ms": step_ms, "rank_busy_ms": [round(b, 4) for b in busy],
+            "card_busy_ms": round(sum(busy), 4),
+            "card_idle_share": round(1.0 - sum(busy) / step_ms, 4),
+            "top_rank0": [[k[0][:90], round(k[1], 5), k[2]]
+                          for k in results[0][0]["kernels"][:PROFILE_TOP]],
+            "port_rank0": [[k[0][:90], round(k[1], 5), k[2]] for k in results[0][0]["kernels"]
+                           if any(p in k[0] for p in PORT_KERNELS)]}
+    return out
+
+
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the seven workloads on ``device`` and print their JSON lines; with
-    ``profile``, also print each workload's per-kernel device time.
-    ``num_nodes``/``num_edges`` size the arxiv graph; the Reddit graph and
-    the GIN batch are built at their full size."""
+    """Run the nine workloads on ``device`` and print their JSON lines; with
+    ``profile``, also print each workload's per-kernel device time (for the
+    halo workloads, each rank's and the card's busy time).
+    ``num_nodes``/``num_edges`` size the arxiv graph (the halo workloads'
+    too); the Reddit graph and the GIN batch are built at their full size."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
     problems = {"arxiv": build_problem(num_nodes, num_edges, device=device,
@@ -695,6 +891,13 @@ def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int 
         if profile:
             print(json.dumps(profile_workload(problem, name, dense_bf16=dense_bf16)),
                   flush=True)
+    halo = build_halo_problem(num_nodes=num_nodes, num_edges=num_edges)
+    for name in HALO_WORKLOADS:
+        res = run_halo_workload(halo, name, steps=steps, device=device, profile=profile)
+        print(json.dumps(res["line"]), flush=True)
+        if profile:
+            print(json.dumps(res["profile"]), flush=True)
+        results.append(res)
     return results
 
 

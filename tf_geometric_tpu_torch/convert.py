@@ -12,6 +12,7 @@ import torch
 
 __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dict_from_flax",
            "sage_state_dict_from_flax", "gin_classifier_state_dict_from_flax",
+           "sharded_params_from_numpy",
            "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
@@ -107,3 +108,17 @@ def gin_classifier_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.T
         i += 1
     out.update(linear("head", params["Dense_0"]))
     return out
+
+
+def sharded_params_from_numpy(params, device="cuda"):
+    """The parameters of a JAX graph-parallel step (numpy, or JAX arrays
+    through ``__array__``) as float32 leaf tensors on ``device`` that require
+    grad, in the same nesting, for the port's step of the same name:
+    ``make_graph_parallel_gcn_step``'s ``[(w, b), ...]``,
+    ``make_graph_parallel_gat_step``'s ``((wq, bq, wk, bk, wv, bias),
+    (w_out, b_out))`` and ``make_graph_parallel_gat_fused_step``'s
+    ``([(wq, bq, wk, bk, wv, bias), ...], (w_out, b_out))``. Kernels keep
+    their [in, out] layout (``h @ w``)."""
+    if isinstance(params, (list, tuple)):
+        return type(params)(sharded_params_from_numpy(p, device) for p in params)
+    return torch.tensor(np.asarray(params, np.float32), device=device, requires_grad=True)

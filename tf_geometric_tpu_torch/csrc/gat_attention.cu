@@ -3,12 +3,18 @@
 //
 // Replaces: tf_geometric_tpu/ops/ell_attention_bucketed.py,
 // gat_attention_bucketed (its _fused_core forward and _fused_bwd backward
-// under jax.custom_vjp).
+// under jax.custom_vjp), and tf_geometric_tpu/ops/ell_attention.py,
+// gat_attention_ell (the same passes over a rectangular layout: the
+// graph-parallel GAT's local destination rows reading [local || received]
+// source rows).
 //
-// Q, K, V, out, dy, dQ, dK, dV are [N, H*d] row-major and head-blocked (head
-// h owns columns h*d .. h*d + d - 1), float32 or bfloat16; lse and D are
-// [N, H] float32; keep is null or [E, H] float32 (the dropout mask, its
-// 1/(1 - rate) scale included), indexed by edge id. Sums run in float32.
+// Q, out, dy, dQ are [N, H*d] and K, V, dK, dV [S, H*d] (S = N for a square
+// layout), row-major and head-blocked (head h owns columns h*d .. h*d + d -
+// 1), float32 or bfloat16; lse and D are [N, H] float32; keep is null or
+// [E, H] float32 (the dropout mask, its 1/(1 - rate) scale included),
+// indexed by edge id. The destination side has N rows whose neighbours are
+// source rows, the source side S rows whose neighbours are destination rows.
+// Sums run in float32.
 //
 //   forward, per destination row r and head h, over r's in-edges e = (r <- c):
 //     s_e    = <Q[r], K[c]>_h / sqrt(d)
@@ -21,7 +27,11 @@
 //     dQ[r] = sum_e ds_e K[c]
 //   backward, source side, per column c over c's out-edges (r <- c), with
 //   the same recompute:  dV[c] = sum_e a_e keep_e dy[r],  dK[c] = sum_e ds_e Q[r]
-// Rows without edges write zeros (and lse 0).
+// Every row of a side is written, so the outputs need no zero fill: a
+// destination row without edges writes out = 0, lse = 0, dQ = 0 and D =
+// <dy, 0> = 0, a source row without edges dK = dV = 0 (the halo layouts
+// have many: padding rows, unaddressed received slots, nodes that are the
+// source of no edge).
 //
 // Bound on the H100: bytes. Each edge gathers two rows of H*d elements and
 // does ~4 flops per gathered element, under the ~20 flops per byte where

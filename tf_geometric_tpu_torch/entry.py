@@ -1,9 +1,12 @@
-"""Entry point: the flagship forward of the port (twin of the repository's
-``__graft_entry__.entry()``).
+"""Entry points of the port (twins of the repository's ``__graft_entry__``).
 
 ``entry()`` returns ``(forward, example_args)``: the 2-layer GCN forward over
 a 512-node graph through the cached CSR adjacency, with the normalization
 and the CSR build done eagerly on the host first, as in the JAX entry.
+
+``dryrun_multichip(n_ranks)`` runs one training step of the edge-partitioned
+halo GCN and of the fused halo GAT over ``n_ranks`` spawned ranks at the JAX
+dry run's tiny sizes.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 from .nn.conv.gcn import compute_cache_key, gcn_norm_adj, maybe_compile_ell
 from .sparse.matrix import SparseMatrix
 
-__all__ = ["entry"]
+__all__ = ["entry", "dryrun_multichip"]
 
 
 def _make_graph(num_nodes=512, num_edges=2048, num_features=64, num_classes=7, seed=0):
@@ -47,3 +50,72 @@ def entry(device="cuda"):
 
     example_args = tuple(torch.as_tensor(a, device=device) for a in (x, w0, w1))
     return forward, example_args
+
+
+def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
+    """The GCN part (``__graft_entry__.py:91-134``) and the fused-GAT part
+    (``:136-177``) of the JAX dry run over ``n_ranks`` spawned ranks (gloo,
+    sharing one card on ``device="cuda"``): one training step each of the
+    2-layer halo GCN (packed ``ell`` plan, hidden 16, 7 classes) and of the
+    two-layer fused halo GAT (``((8, 8), (1, 64))``, attention and feature
+    dropout 0.6) on a 4,096-node skewed graph; checks that both losses are
+    finite and returns them. The graph axis spans every rank (the JAX dry
+    run's data axis only replicates inputs). The sampled SAGE, MinCut and
+    2-D parts wait for their modules."""
+    from .ops import _build
+    from .parallel import (ShardJob, build_gat_halo_spec, build_halo_spec,
+                           partition_edges_by_row, rank_gat_plan, rank_halo_plan, run_ranks)
+    num_classes, hidden = 7, 16
+    n, num_edges = 4096, 65536
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    # heavy-tailed in- and out-degrees: hubs, as the JAX dry run draws them
+    edge_index = (rng.random((2, num_edges)) ** 3 * n).astype(np.int32)
+    edge_weight = np.ones(num_edges, np.float32)
+    y = rng.integers(0, num_classes, size=n).astype(np.int32)
+    normed = gcn_norm_adj(SparseMatrix(edge_index, edge_weight, (n, n), device="cpu"))
+    part = partition_edges_by_row(normed.index.numpy(), normed.value.numpy(), n, n_ranks,
+                                  pad_multiple=64)
+    npp, n_pad = part.nodes_per_part, part.num_nodes_padded
+    x_p = np.zeros((n_pad, x.shape[1]), np.float32)
+    x_p[:n] = x
+    y_p = np.zeros(n_pad, np.int32)
+    y_p[:n] = y
+    mask = np.zeros(n_pad, np.float32)
+    mask[:n] = 1.0
+    spec = build_halo_spec(part, capacity_multiple=64, layout="ell")
+    loops = np.concatenate([edge_index, np.stack([np.arange(n), np.arange(n)]).astype(np.int32)],
+                           axis=1)
+    gat_spec = build_gat_halo_spec(partition_edges_by_row(loops, None, n, n_ranks,
+                                                          pad_multiple=64), capacity_multiple=64)
+    rng = np.random.default_rng(0)
+
+    def normal(*shape):
+        return rng.normal(scale=0.1, size=shape).astype(np.float32)
+
+    gcn_params = [(normal(x.shape[1], hidden), np.zeros(hidden, np.float32)),
+                  (normal(hidden, num_classes), np.zeros(num_classes, np.float32))]
+    dims, layers, fin = ((8, 8), (1, 64)), [], x.shape[1]
+    for heads, units in dims:
+        hd = heads * units
+        layers.append((normal(fin, hd), np.zeros(hd, np.float32), normal(fin, hd),
+                       np.zeros(hd, np.float32), normal(fin, hd), np.zeros(hd, np.float32)))
+        fin = hd
+    gat_params = (layers, (normal(fin, num_classes), np.zeros(num_classes, np.float32)))
+    jobs = []
+    for r in range(n_ranks):
+        rows = slice(r * npp, (r + 1) * npp)
+        shard = (x_p[rows], y_p[rows], mask[rows])
+        jobs.append([
+            ShardJob("gcn", "gcn", gcn_params, *shard, rank_halo_plan(spec, r, "cpu"), {}, 1),
+            ShardJob("gat", "gat_fused", gat_params, *shard, rank_gat_plan(gat_spec, r, "cpu"),
+                     {"layer_dims": dims, "edge_drop_rate": 0.6, "feat_drop_rate": 0.6,
+                      "seed": 7}, 1)])
+    if torch.device(device).type == "cuda":
+        _build.build_all()  # once, before the ranks load the libraries
+    results = run_ranks(jobs, backend="gloo", device=device)
+    losses = {job["name"]: job["losses"][0] for job in results[0]}
+    for name, loss in losses.items():
+        if not np.isfinite(loss):
+            raise RuntimeError(f"non-finite {name} loss from the multi-rank step: {loss}")
+    return losses

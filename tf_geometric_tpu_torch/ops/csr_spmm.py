@@ -245,18 +245,22 @@ class CsrAdj:
 
     Duck-types the JAX ``BucketedEllAdj`` surface: ``matmul`` / ``@`` /
     ``with_edge_values`` / ``dropout`` / ``shape`` / ``num_edges``.
+    ``edge_values`` is None, or the [num_edges] tensor that
+    ``ops.ell.with_edge_values`` re-skinned the layout with, for the value
+    gradient of ``ops.ell.ell_spmm(..., diff_values=True)``.
     """
 
-    __slots__ = ("fwd", "bwd", "diag_val", "diag_eid", "_shape", "_num_edges")
+    __slots__ = ("fwd", "bwd", "diag_val", "diag_eid", "_shape", "_num_edges", "edge_values")
 
     def __init__(self, fwd: CsrSide, bwd: CsrSide, diag_val, diag_eid, shape,
-                 num_edges: int):
+                 num_edges: int, edge_values=None):
         self.fwd = fwd
         self.bwd = bwd
         self.diag_val = diag_val
         self.diag_eid = diag_eid
         self._shape = (int(shape[0]), int(shape[1]))
         self._num_edges = int(num_edges)
+        self.edge_values = edge_values
 
     @property
     def shape(self):
@@ -328,6 +332,18 @@ class CsrAdj:
         diag_val = None if self.diag_val is None else padded[self.diag_eid]
         return CsrAdj(reskin(self.fwd), reskin(self.bwd), diag_val, self.diag_eid,
                       self._shape, self._num_edges)
+
+    def to(self, device) -> "CsrAdj":
+        """The same adjacency with its tensors on ``device``."""
+        def move(side: CsrSide) -> CsrSide:
+            return side._replace(**{f: None if getattr(side, f) is None
+                                    else getattr(side, f).to(device)
+                                    for f in ("row_ptr", "col", "val", "eid", "owner_rows",
+                                              "owner_ptr")})
+        def opt(t):
+            return None if t is None else t.to(device)
+        return CsrAdj(move(self.fwd), move(self.bwd), opt(self.diag_val), opt(self.diag_eid),
+                      self._shape, self._num_edges, opt(self.edge_values))
 
     def matmul(self, h, num_or_size_splits=None):
         from ..sparse.matrix import chunked_feature_matmul

@@ -13,16 +13,22 @@ to TPU costs; none is ported. ``CsrGatLayout`` holds two CSR views of the
 self-looped edge list: the destination side (per row: source ``nbr`` and
 edge id) for the forward and dQ, the source side (per column: destination
 ``nbr`` and edge id) for dK and dV, so no pass needs atomics or moves
-weights between edge orders. The backward recomputes each weight from
-``lse`` (saved by the forward) and ``D[r] = <dy[r], out[r]>_h``, which
-equals the JAX package's ``gsum`` because ``Σ a·keep·<dy, V> = <dy, out>``.
+weights between edge orders. A layout may be rectangular: ``num_nodes``
+destination rows (Q, out, dy, dQ, lse, D) read ``num_src`` source rows (K,
+V, dK, dV), as the graph-parallel GAT's ``[local ‖ received]`` source space
+needs (``gat_attention_ell``); the square layout has both equal. The
+backward recomputes each weight from ``lse`` (saved by the forward) and
+``D[r] = <dy[r], out[r]>_h``, which equals the JAX package's ``gsum``
+because ``Σ a·keep·<dy, V> = <dy, out>``.
 
 The three passes and their kernels (``csrc/gat_attention.cu``):
 forward (destination side, online softmax; out and lse), backward on the
 destination side (dQ and D) and backward on the source side (dK and dV).
 Each has a plain PyTorch version with the same contract; ``_run_pass``
 dispatches on the device of Q: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel, and a failed launch raises. Inside
+tensor launches the kernel, and a failed launch raises. Every pass writes
+every row of its outputs, rows without entries included (out, lse, dQ, D,
+dK and dV are 0 there), so the wrappers allocate them uninitialized. Inside
 ``ops.config.use_plain_versions()`` it takes the plain versions on any
 device (the on-card reference of ``chip_smoke.py``).
 
@@ -41,7 +47,7 @@ from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from . import config as _config
 
-__all__ = ["GatSide", "CsrGatLayout", "gat_attention_csr", "HUB_DEGREE",
+__all__ = ["GatSide", "CsrGatLayout", "gat_attention_csr", "gat_attention_ell", "HUB_DEGREE",
            "gat_forward_plain", "gat_backward_dst_plain", "gat_backward_src_plain",
            "launch_gat_forward", "launch_gat_backward_dst", "launch_gat_backward_src"]
 
@@ -55,16 +61,16 @@ class GatSide(NamedTuple):
     """One CSR view of the edge list. ``nbr`` is the source of each entry
     on the destination side and its destination on the source side;
     ``hubs`` lists the rows with more than ``hub_degree`` entries."""
-    row_ptr: torch.Tensor   # [num_nodes + 1] int32
+    row_ptr: torch.Tensor   # [num_rows + 1] int32
     nbr: torch.Tensor       # [nnz] int32
     eid: torch.Tensor       # [nnz] int32, index into the input edge list
     hubs: torch.Tensor      # [num_hubs] int32
     hub_degree: int
 
 
-def _build_side(keys, nbrs, eids, num_nodes: int, hub_degree: int, device) -> GatSide:
+def _build_side(keys, nbrs, eids, num_rows: int, hub_degree: int, device) -> GatSide:
     order = np.argsort(keys, kind="stable")
-    deg = np.bincount(keys, minlength=num_nodes)
+    deg = np.bincount(keys, minlength=num_rows)
     row_ptr = np.concatenate([[0], np.cumsum(deg)])
 
     def as_int32(a):
@@ -76,37 +82,50 @@ def _build_side(keys, nbrs, eids, num_nodes: int, hub_degree: int, device) -> Ga
 
 
 class CsrGatLayout(NamedTuple):
-    """Both CSR views of a (self-looped) edge list over ``num_nodes`` nodes.
+    """Both CSR views of an edge list from ``num_src`` source rows into
+    ``num_nodes`` destination rows (equal for a square, self-looped graph).
     ``num_edges`` counts the input list, padding included: it is the row
     count of a keep mask, which is indexed by edge id."""
     dst: GatSide
     src: GatSide
     num_nodes: int
     num_edges: int
+    num_src: int
 
     @classmethod
     def build(cls, edge_index, num_nodes: int, hub_degree: int = HUB_DEGREE,
-              device="cuda") -> "CsrGatLayout":
-        """Host-side build from ``edge_index`` [2, E] (row = destination).
-        Out-of-range (padding) edges are dropped, as
-        ``build_gat_layout_bucketed`` drops them."""
+              device="cuda", num_src: Optional[int] = None) -> "CsrGatLayout":
+        """Host-side build from ``edge_index`` [2, E] (row = destination,
+        in ``[0, num_nodes)``; column = source, in ``[0, num_src)``, default
+        ``num_nodes``). Out-of-range (padding) edges are dropped, as
+        ``build_gat_layout_bucketed`` and ``EllAdj.from_coo`` drop them."""
         ei = convert_union_to_numpy(edge_index, np.int64)
         if ei.ndim != 2 or ei.shape[0] != 2:
             raise ValueError(f"edge_index must be [2, E], got shape {ei.shape}")
+        num_src = num_nodes if num_src is None else num_src
         num_edges = ei.shape[1]
         if num_edges >= 2 ** 31 - 1:
             raise ValueError("the attention kernels index edges with int32")
         rows, cols = ei[0], ei[1]
-        ok = (rows >= 0) & (rows < num_nodes) & (cols >= 0) & (cols < num_nodes)
+        ok = (rows >= 0) & (rows < num_nodes) & (cols >= 0) & (cols < num_src)
         rows, cols = rows[ok], cols[ok]
         eids = np.nonzero(ok)[0]
         return cls(dst=_build_side(rows, cols, eids, num_nodes, hub_degree, device),
-                   src=_build_side(cols, rows, eids, num_nodes, hub_degree, device),
-                   num_nodes=int(num_nodes), num_edges=int(num_edges))
+                   src=_build_side(cols, rows, eids, num_src, hub_degree, device),
+                   num_nodes=int(num_nodes), num_edges=int(num_edges), num_src=int(num_src))
+
+    def to(self, device) -> "CsrGatLayout":
+        """The same layout with its tensors on ``device``."""
+        def move(side):
+            return side._replace(**{f: getattr(side, f).to(device)
+                                    for f in ("row_ptr", "nbr", "eid", "hubs")})
+        return self._replace(dst=move(self.dst), src=move(self.src))
 
     def __repr__(self):
         deg = self.dst.row_ptr.diff()
-        return (f"CsrGatLayout(N={self.num_nodes}, E={self.num_edges}, "
+        shape = (self.num_nodes if self.num_src == self.num_nodes
+                 else f"{self.num_nodes}x{self.num_src}")
+        return (f"CsrGatLayout(N={shape}, E={self.num_edges}, "
                 f"nnz={int(self.dst.nbr.shape[0])}, dst_hubs={int(self.dst.hubs.shape[0])}, "
                 f"src_hubs={int(self.src.hubs.shape[0])}, "
                 f"max_in_degree={int(deg.max()) if deg.numel() else 0})")
@@ -146,7 +165,7 @@ def _scores(Q, K, num_heads, rows, cols):
 
 def gat_forward_plain(side: GatSide, Q, K, V, num_heads: int, keep=None):
     """Plain version of the forward kernel: ``(out, lse)``, ``out`` [N, H·d]
-    in Q's dtype, ``lse`` [N, H] float32 (0 on rows without edges)."""
+    in Q's dtype, ``lse`` [N, H] float32 (both 0 on rows without edges)."""
     n, H = Q.shape[0], num_heads
     rows, cols, eids = _entries(side)
     s = _scores(Q, K, H, rows, cols)
@@ -205,11 +224,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIDE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I]
 
 
-def _check_launch(side: GatSide, num_heads: int, dense, stats=(), keep=None):
+def _check_launch(side: GatSide, num_heads: int, dense, source, stats=(), keep=None,
+                  side_rows: str = "Q"):
     """Raise unless every tensor is a contiguous CUDA tensor on Q's device
-    of the type and shape the kernels take; returns (N, H, d)."""
-    q = dense[0][1]
-    tensors = list(dense) + list(stats) + [
+    of the type and shape the kernels take: ``dense`` (Q first) with Q's
+    shape, ``source`` (K first) with K's, K as wide as Q, ``stats`` [N_Q, H]
+    float32, and the side with as many rows as ``side_rows`` ("Q" for the
+    destination side, "K" for the source side); returns (N_Q, H, d)."""
+    q, k = dense[0][1], source[0][1]
+    tensors = list(dense) + list(source) + list(stats) + [
         ("row_ptr", side.row_ptr), ("nbr", side.nbr), ("eid", side.eid), ("hubs", side.hubs)]
     if keep is not None:
         tensors.append(("keep", keep))
@@ -225,9 +248,13 @@ def _check_launch(side: GatSide, num_heads: int, dense, stats=(), keep=None):
     n, width = q.shape if q.dim() == 2 else (None, None)
     if n is None or num_heads < 1 or width % num_heads:
         raise ValueError(f"Q must be [N, H·d] with H = {num_heads}, got {tuple(q.shape)}")
-    for name, t in dense:
-        if t.dtype != q.dtype or t.shape != q.shape:
-            raise ValueError(f"{name} must match Q: {t.dtype} {tuple(t.shape)}")
+    if k.dim() != 2 or k.shape[1] != width:
+        raise ValueError(f"K must be [S, {width}], got {tuple(k.shape)}")
+    for like, group in ((q, dense), (k, source)):
+        for name, t in group:
+            if t.dtype != q.dtype or t.shape != like.shape:
+                raise ValueError(f"{name} must be {q.dtype} {tuple(like.shape)}: "
+                                 f"{t.dtype} {tuple(t.shape)}")
     for name, t in stats:
         if t.dtype != torch.float32 or t.shape != (n, num_heads):
             raise ValueError(f"{name} must be float32 [{n}, {num_heads}]")
@@ -237,8 +264,10 @@ def _check_launch(side: GatSide, num_heads: int, dense, stats=(), keep=None):
     for name in ("row_ptr", "nbr", "eid", "hubs"):
         if getattr(side, name).dtype != torch.int32:
             raise TypeError(f"side.{name} must be int32")
-    if side.row_ptr.shape != (n + 1,):
-        raise ValueError(f"the layout has {side.row_ptr.shape[0] - 1} rows, Q has {n}")
+    rows = n if side_rows == "Q" else k.shape[0]
+    if side.row_ptr.shape != (rows + 1,):
+        raise ValueError(f"the layout side has {side.row_ptr.shape[0] - 1} rows, "
+                         f"{side_rows} has {rows}")
     return n, num_heads, width // num_heads
 
 
@@ -288,7 +317,7 @@ def launch_gat_forward(side: GatSide, Q, K, V, num_heads: int, keep=None):
     """Launch the forward kernel over the destination side; returns
     ``(out, lse)`` as ``gat_forward_plain`` does. Counts each launch in
     ``.launches``."""
-    n, H, d = _check_launch(side, num_heads, [("Q", Q), ("K", K), ("V", V)], keep=keep)
+    n, H, d = _check_launch(side, num_heads, [("Q", Q)], [("K", K), ("V", V)], keep=keep)
     out = torch.empty_like(Q)
     lse = torch.empty((n, H), dtype=torch.float32, device=Q.device)
     if _launch(0, "tfg_gat_forward", side, H, d, keep, [Q, K, V, out, lse], [_P] * 5):
@@ -299,8 +328,8 @@ def launch_gat_forward(side: GatSide, Q, K, V, num_heads: int, keep=None):
 def launch_gat_backward_dst(side: GatSide, Q, K, V, out, lse, dy, num_heads: int, keep=None):
     """Launch the destination-side backward kernel; returns ``(dQ, D)`` as
     ``gat_backward_dst_plain`` does. Counts each launch in ``.launches``."""
-    n, H, d = _check_launch(side, num_heads, [("Q", Q), ("K", K), ("V", V), ("out", out),
-                                              ("dy", dy)], [("lse", lse)], keep)
+    n, H, d = _check_launch(side, num_heads, [("Q", Q), ("out", out), ("dy", dy)],
+                            [("K", K), ("V", V)], [("lse", lse)], keep)
     dQ = torch.empty_like(Q)
     D = torch.empty((n, H), dtype=torch.float32, device=Q.device)
     if _launch(1, "tfg_gat_backward_dst", side, H, d, keep, [Q, K, V, out, dy, lse, dQ, D],
@@ -312,8 +341,8 @@ def launch_gat_backward_dst(side: GatSide, Q, K, V, out, lse, dy, num_heads: int
 def launch_gat_backward_src(side: GatSide, Q, K, V, dy, lse, D, num_heads: int, keep=None):
     """Launch the source-side backward kernel; returns ``(dK, dV)`` as
     ``gat_backward_src_plain`` does. Counts each launch in ``.launches``."""
-    _, H, d = _check_launch(side, num_heads, [("Q", Q), ("K", K), ("V", V), ("dy", dy)],
-                            [("lse", lse), ("D", D)], keep)
+    _, H, d = _check_launch(side, num_heads, [("Q", Q), ("dy", dy)], [("K", K), ("V", V)],
+                            [("lse", lse), ("D", D)], keep, side_rows="K")
     dK, dV = torch.empty_like(K), torch.empty_like(V)
     if _launch(2, "tfg_gat_backward_src", side, H, d, keep, [Q, K, V, dy, lse, D, dK, dV],
                [_P] * 8):
@@ -366,9 +395,9 @@ def gat_attention_csr(layout: CsrGatLayout, Q, K, V, num_heads: int,
                       edge_drop_rate: float = 0.0, training: bool = False,
                       generator: Optional[torch.Generator] = None, keep_mask=None,
                       compute_dtype=None):
-    """Fused GAT attention, ``gat_attention_bucketed``'s contract: Q, K and V
-    are [N, H·d] head-blocked with equal head width; returns [N, H·d] in
-    V's dtype.
+    """Fused GAT attention, ``gat_attention_bucketed``'s contract: Q is
+    [layout.num_nodes, H·d], K and V [layout.num_src, H·d], head-blocked with
+    equal head width; returns [layout.num_nodes, H·d] in V's dtype.
 
     Q, K and V are cast to ``compute_dtype`` (default
     ``ops.config.ell_compute_dtype``) for the passes. Training with
@@ -381,11 +410,11 @@ def gat_attention_csr(layout: CsrGatLayout, Q, K, V, num_heads: int,
     if Q.dim() != 2 or Q.shape[1] % H or V.shape[1] % H:
         raise ValueError(f"Q and V must be [N, H·d] with H = {H}: "
                          f"{tuple(Q.shape)}, {tuple(V.shape)}")
-    if Q.shape[1] != V.shape[1] or K.shape != Q.shape:
+    if Q.shape[1] != V.shape[1] or K.shape != V.shape:
         raise NotImplementedError(
             "fused GAT attention needs equal query, key and value head widths")
-    if Q.shape[0] != layout.num_nodes or V.shape[0] != layout.num_nodes:
-        raise ValueError(f"Q, K and V must have {layout.num_nodes} rows")
+    if Q.shape[0] != layout.num_nodes or V.shape[0] != layout.num_src:
+        raise ValueError(f"Q must have {layout.num_nodes} rows and K, V {layout.num_src}")
     dropping = training and edge_drop_rate > 0.0
     if dropping and generator is None and keep_mask is None:
         raise ValueError(
@@ -408,3 +437,10 @@ def gat_attention_csr(layout: CsrGatLayout, Q, K, V, num_heads: int,
     out = _GatAttention.apply(Q.contiguous(), K.contiguous(), V.contiguous(), layout, H,
                               keep, _config.plain_versions)
     return out.to(out_dtype)
+
+
+# The JAX package's ``ops/ell_attention.py`` runs the same fused attention on
+# a uniform-K ELL packing, over each rank's rectangular ``[npp] <- [npp ‖
+# P·cap]`` layout in the graph-parallel GAT (``parallel/halo.py``); here it is
+# this function over a rectangular ``CsrGatLayout``.
+gat_attention_ell = gat_attention_csr
