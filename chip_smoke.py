@@ -67,8 +67,9 @@ Phases, each of which raises (non-zero exit) on failure:
    ``dh`` at 64 against their plain versions and ``torch.sparse.mm``
    (float32, 1e-4), timed.
 9. Main path: zero the launch counters, build the bench problem and train
-   ``bench`` workloads 1, 1b, 3 (the 8-head GAT) and 5 (the GAT with
-   d_q = 1, d_v = 8, the merged-head branch) at full arxiv size, workload 4
+   ``bench`` workloads 1, 1b, 3 (the 8-head GAT), 5 (the GAT with
+   d_q = 1, d_v = 8, the merged-head branch) and 10-12 (SGC, APPNP and SSGC
+   at the widths of their early-stop benches) at full arxiv size, workload 4
    (the sampled GraphSAGE) at full Reddit size and workloads 6 and 7 (GIN
    with the sum-pool and the SortPool readout) on the benchmark's batch of
    128 graphs; check that the loss is finite and falls and that each
@@ -77,10 +78,13 @@ Phases, each of which raises (non-zero exit) on failure:
    forward and two backward calls per step, each backward call launching
    its sort's kernels and the gather; merged-head GAT: two SpMM and one
    SDDMM launches per step; GIN: five SpMM launches per step, three forward
-   and two ``dh``). Then train 3 steps of each arxiv workload at a small
-   size and of each GIN workload on its batch through the kernels and
-   through the plain versions on the card and compare the losses, and run
-   ``entry()`` on the card against its CPU run.
+   and two ``dh``; SGC, APPNP and SSGC: Kernel A forward and ``dh`` per
+   hop, 2, 10 and 10 hops, and Kernel B per hop and split side). Then train
+   3 steps of each arxiv workload at a small size and of each GIN workload
+   on its batch through the kernels and through the plain versions on the
+   card and compare the losses, the same for a TAGCN, a ChebyNet and an
+   LEConv layer at 20,000 nodes, and run ``entry()`` on the card against its
+   CPU run.
 
 10. X2 kernels (``ell_spmm``): on the arxiv graph partitioned over 4 ranks
     (``bench.build_halo_problem``: ``partition_order``, whose host time is
@@ -111,9 +115,27 @@ Phases, each of which raises (non-zero exit) on failure:
     at 20,000 nodes through the kernels and through the plain versions
     (losses within 1e-4); ``entry.dryrun_multichip(4)``.
 
-The second-to-last line of output is ``{"kernels": [...]}`` (X2 and X5 as
-``ell_spmm:<kernel>`` and ``gat_attention_ell:<kernel>`` beside the
-single-process entries); the last is ``{"ok": true, "device": {...}}``.
+13. X7 (``tiled_spmm``, ``csrc/tiled_spmm.cu``), before the main path: the
+    kernel against its plain version at the shapes and tiles of
+    ``tests/test_tiled_spmm.py`` (t = 32, 64, 128) and at t = 48 and 256,
+    widths 1 to 130, half the cases with row tiles that hold no tile; then
+    on the A/B's community graph (t = 128, F = 128); every pair of tile
+    dtype (float32: SIMT, bf16: tensor cores) and ``h`` dtype, forward and
+    ``dh``: float32 outputs within 1e-4 (both sides round ``h`` to the tiles'
+    dtype and sum in float32), bf16 outputs 2e-2; a second run bit for bit;
+    empty row tiles exactly 0; a tile that is not a multiple of 16 refused.
+    Timed beside its byte bound, its plain version, ``torch.sparse.mm`` on
+    the CSR of the same matrix (the library yardstick, never called by the
+    port) and Kernel A on the same graph. After the main path, X7's one
+    path: the A/B twin (``bench.tiled_ab``), its occupancy, timing and
+    ``VERDICT`` lines, with exact launch counts (1 a forward step, 2 a
+    forward-and-backward step); no training path launches X7.
+
+Each phase prints its seconds. The second-to-last line of output is
+``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
+``gat_attention_ell:<kernel>`` beside the single-process entries, X7 as
+``tiled_spmm`` with the A/B's launches); the last is
+``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -746,7 +768,7 @@ def gin_kernel_phase(graph_problem):
 # every kernel wrapper of the main path, in the order of the counts below
 _KERNELS = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
             "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward",
-            "spmm_heads", "sddmm_heads")
+            "spmm_heads", "sddmm_heads", "tiled_spmm")
 
 
 def _wrappers():
@@ -755,10 +777,11 @@ def _wrappers():
     from tf_geometric_tpu_torch.ops import spmm_heads as sh
     from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm
     from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
+    from tf_geometric_tpu_torch.ops.tiled_spmm import launch_tiled_spmm
     return (launch_csr_spmm, launch_sorted_segment_sum, ga.launch_gat_forward,
             ga.launch_gat_backward_dst, ga.launch_gat_backward_src, fk.launch_draw_fixed_k,
             fk.launch_fixed_k_forward, fk.launch_fixed_k_backward, sh.launch_spmm_heads,
-            sh.launch_sddmm_heads)
+            sh.launch_sddmm_heads, launch_tiled_spmm)
 
 
 def _launch_counts():
@@ -773,9 +796,10 @@ def _zero_launch_counts():
 
 
 def main_path_phase(gpu, sage_problem, graph_problem):
-    """Workloads 1, 1b, 3 and 5 at full arxiv size, 4 (SAGE) at full Reddit
-    size and 6 and 7 (GIN) on the benchmark's batch through the kernels;
-    returns the launch totals of the run and the bench results."""
+    """Workloads 1, 1b, 3, 5 and 10-12 (SGC, APPNP, SSGC) at full arxiv
+    size, 4 (SAGE) at full Reddit size and 6 and 7 (GIN) on the benchmark's
+    batch through the kernels; returns the launch totals of the run and the
+    bench results."""
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import fixed_k as fk
     _zero_launch_counts()
@@ -795,9 +819,9 @@ def main_path_phase(gpu, sage_problem, graph_problem):
         counts = _launch_counts()
         steps = res["steps_taken"]
         expected = dict.fromkeys(_KERNELS, 0)
-        if name in bench.GCN_WORKLOADS:
+        if name in bench.SPMM_PAIRS:
             # per step and SpMM: Kernel A forward + backward, Kernel B per split side
-            spmms = 1 if name == "gcn_arxiv_fwd_bwd" else 2
+            spmms = bench.SPMM_PAIRS[name]
             expected.update(csr_spmm=steps * spmms * 2, sorted_segment_sum=steps * spmms * hubs)
         elif name == "gat_merged_arxiv_fwd_bwd":
             # per step: the multi-head SpMM forward and dV, the d_att SDDMM
@@ -878,6 +902,50 @@ def small_plain_phase(graph_problem):
                                     f"{name} ({graph_problem.num_graphs} graphs)")
 
 
+def propagation_small_phase():
+    """3 Adam steps of a TAGCN (k = 3, renorm off: its own CSR twin), a
+    ChebyNet (k = 3, the COO SpMM over the scaled Laplacian) and an LEConv
+    (the segment core) layer to the 40 classes at 20,000 nodes through the
+    kernels and through the plain versions on the card: the losses must
+    agree (1e-4), the kernel runs must launch their kernels and the plain
+    runs none."""
+    import torch
+    import torch.nn.functional as F
+    from tf_geometric_tpu_torch import bench, layers
+    problem = bench.build_problem(20_000, 140_000, device="cuda", spmm_bf16=False)
+    f = problem.x.shape[1]
+    models = {"TAGCN": (lambda g: layers.TAGCN(f, bench.NUM_CLASSES, k=3, generator=g),
+                        "csr_spmm"),
+              "ChebyNet": (lambda g: layers.ChebyNet(f, bench.NUM_CLASSES, k=3, generator=g),
+                           "spmm_heads"),
+              "LEConv": (lambda g: layers.LEConv(f, bench.NUM_CLASSES, generator=g), None)}
+    for name, (make, kernel) in models.items():
+        losses = {}
+        for label in ("kernel", "plain"):
+            model = make(torch.Generator().manual_seed(0))
+            opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+            cache = {}
+            _zero_launch_counts()
+            with (_plain() if label == "plain" else contextlib.nullcontext()):
+                run = []
+                for _ in range(3):
+                    opt.zero_grad()
+                    loss = F.cross_entropy(model([problem.x, problem.edge_index], cache=cache),
+                                           problem.y)
+                    loss.backward()
+                    opt.step()
+                    run.append(loss.detach())
+            counts = dict(zip(_KERNELS, _launch_counts()))
+            if kernel is not None and label == "kernel":
+                _check(counts[kernel] > 0, f"small {name}: {kernel} was not launched")
+            if label == "plain":
+                _check(sum(counts.values()) == 0, f"small {name} plain run launched {counts}")
+            losses[label] = torch.stack(run)
+        err = _max_err(losses["kernel"], losses["plain"], F32_TOL, f"3-step losses {name}")
+        print(f"small {name} (20,000 nodes): kernel {losses['kernel'].tolist()} plain "
+              f"{losses['plain'].tolist()} max abs err {err:.3e}", flush=True)
+
+
 def entry_phase():
     from tf_geometric_tpu_torch.entry import entry
     fn, args = entry()
@@ -885,6 +953,193 @@ def entry_phase():
     fn_cpu, args_cpu = entry(device="cpu")
     err = _max_err(out.cpu(), fn_cpu(*args_cpu), F32_TOL, "entry() on the card vs the CPU")
     print(f"entry(): output {tuple(out.shape)}, max abs err vs CPU {err:.3e}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# X7 (tiled_spmm): the block-sparse SpMM over occupied tiles, and its A/B
+# ---------------------------------------------------------------------------
+
+# (shape, tile, F): the three of tests/test_tiled_spmm.py's first test, its
+# padded-edge case (t = 32), its bf16 case, the largest tile with one column,
+# and a tile of 48 (a k-chunk cut at the tile's edge) over 130 columns
+X7_CASES = (((300, 260), 64, 24), ((130, 130), 128, 24), ((64, 64), 64, 24), ((96, 96), 32, 8),
+            ((200, 200), 64, 16), ((520, 600), 256, 1), ((100, 70), 48, 130))
+X7_WIDTH = 128                 # the A/B's F
+BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+
+
+def _x7_dtypes():
+    import torch
+    return ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16))
+
+
+def _x7_check(ts, h, dy, tag):
+    """Kernel against plain version, forward and ``dh``: tolerance by the
+    output's dtype, a second run bit for bit, row tiles without tiles
+    exactly 0; returns the max abs error."""
+    import torch
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    tol = F32_TOL if h.dtype == torch.float32 else BF16_TOL
+    err = 0.0
+    for case, x, transpose, ptr in (("forward", h, False, ts.row_ptr),
+                                    ("dh", dy, True, ts.t_row_ptr)):
+        got = tsp.tiled_pass(ts, x, transpose)
+        with _plain():
+            want = tsp.tiled_pass(ts, x, transpose)
+        torch.cuda.synchronize()
+        err = max(err, _max_err(got, want, tol, f"x7 {case} {tag}"))
+        _check(torch.equal(got, tsp.tiled_pass(ts, x, transpose)),
+               f"x7 {case} {tag}: two runs on the same inputs differ")
+        empty = torch.repeat_interleave(ptr.diff() == 0, ts.tile)[:got.shape[0]]
+        _check(bool((got[empty] == 0).all()), f"x7 {case} {tag}: an empty row tile is not 0")
+    return err
+
+
+def _plain():
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    return kernel_config.use_plain_versions()
+
+
+def x7_small_phase():
+    """The kernel against its plain version at the JAX tests' shapes and
+    tiles and at t = 256 and 48, every tile and operand dtype, forward and
+    ``dh``; half the cases draw their rows from the first half only, so
+    their later row tiles hold no tile."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    from tf_geometric_tpu_torch.ops.tiled_spmm import build_tiled_spmm
+    rng = np.random.default_rng(9)
+    worst = 0.0
+    for i, ((n, m), tile, width) in enumerate(X7_CASES):
+        e = 6 * n
+        rows = rng.integers(0, n // 2 if i % 2 else n, size=e)
+        cols = rng.integers(0, m, size=e)
+        if tile == 32:  # padded edges, out of range on either side
+            rows[:2], cols[2:4] = n, m
+        vals = rng.normal(size=e).astype(np.float32)
+        base = build_tiled_spmm(np.stack([rows, cols]), vals, (n, m), tile=tile, device="cuda")
+        for a_dtype, h_dtype in _x7_dtypes():
+            ts = base._replace(a_tiles=base.a_tiles.to(a_dtype),
+                               t_a_tiles=base.t_a_tiles.to(a_dtype))
+            h = torch.as_tensor(rng.normal(size=(m, width)), dtype=torch.float32,
+                                device="cuda").to(h_dtype)
+            dy = torch.as_tensor(rng.normal(size=(n, width)), dtype=torch.float32,
+                                 device="cuda").to(h_dtype)
+            tag = (f"({n}, {m}) t={tile} F={width} tiles {str(a_dtype)[6:]} "
+                   f"h {str(h_dtype)[6:]}")
+            worst = max(worst, _x7_check(ts, h, dy, tag))
+    bad = build_tiled_spmm(np.stack([rows, cols]), vals, (n, m), tile=24, device="cuda")
+    try:
+        tsp.tiled_pass(bad, h)
+    except ValueError as e:
+        _check("multiple of 16" in str(e), f"x7: t = 24 refused for another reason: {e}")
+    else:
+        raise RuntimeError("x7: the kernel accepted a tile of 24")
+    print(f"x7 small cases: {len(X7_CASES)} shapes x 4 dtype pairs, forward and dh, "
+          f"max abs err {worst:.3e}; t = 24 refused", flush=True)
+    return worst
+
+
+def x7_kernel_phase(small_err):
+    """X7 on the A/B's community graph (``bench.community_graph``, t = 128,
+    F = 128): float32 and bf16 tiles against ``h`` float32 and bf16, forward
+    and ``dh``, against the plain version; timed beside the byte bound, the
+    plain version, ``torch.sparse.mm`` on the CSR of the same matrix (the
+    library yardstick, never called by the port) and Kernel A on the same
+    graph. Returns one row per case."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.nn.conv.gcn import (compute_cache_key, gcn_norm_adj,
+                                                    maybe_compile_ell)
+    from tf_geometric_tpu_torch.ops.csr_spmm import side_matmul
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    t0 = time.perf_counter()
+    ei = bench.community_graph()
+    n = bench.ARXIV_NODES
+    cache = {}
+    normed = gcn_norm_adj(SparseMatrix(ei, None, (n, n), device="cuda"), cache=cache)
+    adj = maybe_compile_ell(normed, cache, compute_cache_key("both", True, True, True, False))
+    base = tsp.build_tiled_spmm(normed.index, normed.value, (n, n), tile=bench.TILED_AB_TILE,
+                                device="cuda")
+    torch.cuda.synchronize()
+    b, bt = int(base.a_tiles.shape[0]), int(base.t_a_tiles.shape[0])
+    print(f"x7 community graph: {b} tiles ({bt} transposed) of {base.tile}, occupancy "
+          f"{base.occupancy:.5f}, packed in {time.perf_counter() - t0:.1f} s", flush=True)
+    lib = {"forward": _library_csr(adj, normed.index, normed.value, "fwd"),
+           "dh": _library_csr(adj, normed.index, normed.value, "bwd")}
+    sides = {"forward": adj.fwd, "dh": adj.bwd}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for a_dtype, h_dtype in _x7_dtypes():
+        ts = base if a_dtype == torch.float32 else base._replace(
+            a_tiles=base.a_tiles.to(a_dtype), t_a_tiles=base.t_a_tiles.to(a_dtype))
+        h = torch.randn(n, X7_WIDTH, generator=gen, device="cuda").to(h_dtype)
+        dy = torch.randn(n, X7_WIDTH, generator=gen, device="cuda").to(h_dtype)
+        tag = f"community t={ts.tile} F={X7_WIDTH} tiles {str(a_dtype)[6:]} h {str(h_dtype)[6:]}"
+        err = max(small_err, _x7_check(ts, h, dy, tag))
+        flop_rate = BF16_TC_FLOPS_PER_S if a_dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        for case, x, transpose in (("forward", h, False), ("dh", dy, True)):
+            nb = int((ts.t_a_tiles if transpose else ts.a_tiles).shape[0])
+            nbytes = tsp.tiled_pass_bytes(ts, X7_WIDTH, x.element_size(), transpose)
+            flops = 2 * nb * ts.tile * ts.tile * X7_WIDTH
+            byte_ms, flop_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / flop_rate
+            timed = h_dtype == torch.float32
+            x32 = x.float()
+            rows.append(dict(
+                name="tiled_spmm", case=case, a_dtype=str(a_dtype)[6:], dtype=str(h_dtype)[6:],
+                width=X7_WIDTH, max_abs_err=err,
+                ms=_cuda_ms(lambda: tsp.tiled_pass(ts, x, transpose)),
+                plain_ms=_plain_ms(lambda: tsp.tiled_pass(ts, x, transpose)) if timed else None,
+                library_ms=_cuda_ms(lambda: torch.sparse.mm(lib[case], x32)) if timed else None,
+                kernel_a_ms=_cuda_ms(lambda: side_matmul(sides[case], x32, adj.diag_val))
+                if timed else None,
+                bound_ms=max(byte_ms, flop_ms),
+                bound_by="bytes" if byte_ms >= flop_ms else "operations"))
+        del ts, h, dy
+        torch.cuda.empty_cache()
+    del base, lib, adj, normed
+    torch.cuda.empty_cache()
+    print("x7 kernel check (name case tiles h: max_abs_err, ms, plain_ms, library_ms "
+          "(torch.sparse.mm, CSR, float32), Kernel A ms (float32), bound_ms)")
+    for r in rows:
+        extra = ("not timed" if r["plain_ms"] is None else
+                 f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['kernel_a_ms']:.4f}")
+        print(f"  {r['name']} {r['case']} tiles {r['a_dtype']} h {r['dtype']}: "
+              f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {extra}, {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def _plain_ms(fn):
+    with _plain():
+        return _cuda_ms(fn, iters=3, warmup=1)
+
+
+def x7_main_path_phase(gpu):
+    """X7's one path, the A/B twin (``bench.tiled_ab``): the occupancy lines,
+    the four paths timed on each graph whose tiles fit, the ``VERDICT``
+    lines; the tiled paths launch the kernel once (forward) and twice
+    (forward and ``dh``) a step, and each CSR step Kernel A as often."""
+    from tf_geometric_tpu_torch import bench
+    _zero_launch_counts()
+    res = bench.tiled_ab()
+    counts = dict(zip(_KERNELS, _launch_counts()))
+    timed = [name for name, r in res.items() if r["ms"] is not None]
+    _check("community" in timed, f"the community graph was not timed: {timed}")
+    timing = bench.TILED_AB_TIMING
+    steps = timing["warmup"] + timing["repeats"] * timing["iters"]  # per path and graph
+    want = 3 * steps * len(timed)
+    _check(counts["tiled_spmm"] == want,
+           f"A/B: tiled_spmm launches {counts['tiled_spmm']} != expected {want}")
+    _check(counts["csr_spmm"] == want,
+           f"A/B: csr_spmm launches {counts['csr_spmm']} != expected {want}")
+    print(f"tiled A/B: graphs timed {timed}, launches {counts} ({steps} steps a path) on {gpu}",
+          flush=True)
+    return counts["tiled_spmm"], res
 
 
 # ---------------------------------------------------------------------------
@@ -1029,7 +1284,9 @@ def x2_kernel_phase(halo):
                                 plain_ms=_cuda_ms(lambda: sorted_segment_sum_plain(
                                     part_k, side.owner_ptr, base, side.owner_rows), iters=3,
                                     warmup=1),
-                                library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                                library_ms=_cuda_ms(lambda: torch.segment_reduce(
+                                    part_k, "sum", lengths=side.owner_ptr.diff().long())),
+                                bound_ms=bound_ms, bound_by=bound_by))
                     # diff_values: dv[e] = <dy[row_e], h[col_e]>, SDDMM over the
                     # forward side (virtual rows read their owner's dy) and the diagonal
                     h = torch.randn(adj.shape[1], width, generator=gen, device="cuda").to(dtype)
@@ -1047,7 +1304,9 @@ def x2_kernel_phase(halo):
                         ms=_cuda_ms(lambda: side_value_grad(adj, h, dy)),
                         plain_ms=_cuda_ms(lambda: side_value_grad(adj, h, dy, plain=True),
                                           iters=3, warmup=1),
-                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                        library_ms=_cuda_ms(lambda: torch.sparse.sampled_addmm(
+                            libs["fwd"], dy, h.t(), beta=0.0)) if f32 else None,
+                        bound_ms=bound_ms, bound_by=bound_by))
             del adj, libs
             torch.cuda.empty_cache()
     print("x2 kernel check (name case rank F dtype: max_abs_err, ms, plain_ms, library_ms, "
@@ -1309,12 +1568,38 @@ def halo_kernel_entries(halo_rows, halo_totals):
     return entries
 
 
+def _phase(name, fn, *args):
+    """Run one phase and print its seconds; its failure propagates."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def x7_kernel_entry(x7_rows, ab_launches):
+    """The ``{"kernels"}`` entry of X7 at the A/B's call (the community
+    graph, t = 128, F = 128, bf16 tiles, float32 ``h``, forward); its
+    launches are the A/B run's, since no training path runs X7."""
+    _check(ab_launches > 0, "tiled_spmm was not launched on the A/B path")
+    rep = next(r for r in x7_rows if r["case"] == "forward" and r["a_dtype"] == "bfloat16"
+               and r["dtype"] == "float32")
+    return {"name": "tiled_spmm", "route": "cuda",
+            "source": "tf_geometric_tpu_torch/csrc/tiled_spmm.cu",
+            "replaces": "tf_geometric_tpu/ops/tiled_spmm.py:159", "launches": ab_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in x7_rows), "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": "community graph, t=128, F=128, bf16 tiles, float32 h, forward; "
+                     "launches of the A/B twin (bench --tiled-ab), 0 on every training path"}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 1
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = _gpu_line()
@@ -1342,23 +1627,24 @@ def main():
                                        device="cuda"))
     print(f"arxiv problem built in {time.perf_counter() - t0:.1f} s: {problem.adj}",
           flush=True)
-    rows = kernel_phase(problem, normed)
-    rows += spmm_kernel_phase(normed, n)
+    rows = _phase("kernels A/B", kernel_phase, problem, normed)
+    rows += _phase("x6", spmm_kernel_phase, normed, n)
     del normed
-    rows += gat_kernel_phase(problem.gat_layout, problem.gat_edges)
-    rows += multihead_kernel_phase(problem.gat_layout)
+    rows += _phase("gat kernels", gat_kernel_phase, problem.gat_layout, problem.gat_edges)
+    rows += _phase("x3", multihead_kernel_phase, problem.gat_layout)
     del problem
     torch.cuda.empty_cache()
+    x7_rows = _phase("x7", x7_kernel_phase, _phase("x7 small", x7_small_phase))
     t0 = time.perf_counter()
     sage_problem = bench.build_sage_problem(device="cuda")
     print(f"reddit problem built in {time.perf_counter() - t0:.1f} s", flush=True)
-    rows += sage_kernel_phase(sage_problem)
+    rows += _phase("sage kernels", sage_kernel_phase, sage_problem)
     torch.cuda.empty_cache()
     graph_problem = bench.build_graph_problem(device="cuda")
     print(f"gin batch: {graph_problem.num_graphs} graphs, {graph_problem.x.shape[0]} padded "
           f"nodes, {graph_problem.edge_index.shape[1]} padded edges "
           f"({graph_problem.real_edges} real)", flush=True)
-    rows += gin_kernel_phase(graph_problem)
+    rows += _phase("gin kernels", gin_kernel_phase, graph_problem)
     t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
@@ -1368,17 +1654,19 @@ def main():
           f"halo_fraction {halo.gcn_spec.halo_fraction:.4f}; GAT cap {halo.gat_spec.capacity}, "
           f"halo_fraction {halo.gat_spec.halo_fraction:.4f}, {halo.gat_spec.num_edges} edge "
           f"ids per rank", flush=True)
-    halo_rows = x2_kernel_phase(halo) + x5_kernel_phase(halo)
+    halo_rows = _phase("x2", x2_kernel_phase, halo) + _phase("x5", x5_kernel_phase, halo)
 
-    totals, results = main_path_phase(gpu, sage_problem, graph_problem)
+    totals, results = _phase("main path", main_path_phase, gpu, sage_problem, graph_problem)
     del sage_problem
     torch.cuda.empty_cache()
-    small_plain_phase(graph_problem)
-    entry_phase()
-    halo_totals, halo_results = halo_main_path_phase(halo, gpu)
-    halo_single_process_check(halo, halo_results)
-    halo_small_plain_phase()
-    dryrun_phase()
+    ab_launches, _ = _phase("x7 main path (tiled A/B)", x7_main_path_phase, gpu)
+    _phase("small plain", small_plain_phase, graph_problem)
+    _phase("small propagation", propagation_small_phase)
+    _phase("entry", entry_phase)
+    halo_totals, halo_results = _phase("halo main path", halo_main_path_phase, halo, gpu)
+    _phase("halo single process", halo_single_process_check, halo, halo_results)
+    _phase("halo small plain", halo_small_plain_phase)
+    _phase("dryrun", dryrun_phase)
 
     # one entry per kernel, at its heaviest main-path call: the SpMM kernels
     # on the forward side at F=256 in bfloat16 (the canonical step's first
@@ -1421,6 +1709,10 @@ def main():
                      "sddmm_heads": "tf_geometric_tpu/ops/spmm.py:80"}
     kernels = []
     for name, launches in zip(_KERNELS, totals):
+        if name == "tiled_spmm":
+            _check(launches == 0, f"tiled_spmm ran {launches} times on a training path")
+            kernels.append(x7_kernel_entry(x7_rows, ab_launches))
+            continue
         path, replaces, rep_key, shape = source[name]
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if all(r[k] == v for k, v in rep_key.items()))
@@ -1440,6 +1732,7 @@ def main():
     for name, res in halo_results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({HALO_LABEL}; {gpu})", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,3 +231,42 @@ def test_halo_ops_raise_off_the_cpu():
     layout = CsrGatLayout.build([[0, 1], [2, 0]], 2, device="meta", num_src=3)
     with pytest.raises(NotImplementedError):
         gat_attention_ell(layout, torch.ones(2, 4, device="meta"), h, h, 2)
+
+
+def test_run_ranks_asks_for_the_card_by_default():
+    import inspect
+    from tf_geometric_tpu_torch.parallel import run_ranks
+    assert inspect.signature(run_ranks).parameters["device"].default == "cuda"
+
+
+def test_tiled_spmm_wrapper_refuses_cpu_tensors_and_raises_off_the_cpu():
+    """``launch_tiled_spmm`` refuses CPU tensors without counting a launch;
+    ``tiled_spmm`` on a device with no kernel (meta tensors stand in for
+    one) raises instead of running the plain pass there."""
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    ts = tsp.build_tiled_spmm([[0, 1], [1, 0]], None, (2, 2), tile=16, device="cpu")
+    before = tsp.launch_tiled_spmm.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.launch_tiled_spmm(ts.row_ptr, ts.col_tile, ts.a_tiles, torch.ones(2, 3), 2)
+    assert tsp.launch_tiled_spmm.launches == before
+    meta = ts._replace(**{f: getattr(ts, f).to("meta") for f in (
+        "row_tile", "col_tile", "a_tiles", "row_ptr", "t_row_tile", "t_col_tile", "t_a_tiles",
+        "t_row_ptr")})
+    with pytest.raises(NotImplementedError, match="tiled"):
+        tsp.tiled_spmm(meta, torch.ones(2, 3, device="meta"))
+
+
+def test_tiled_ab_and_propagation_layers_ask_for_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tf_geometric_tpu_torch import bench, layers
+    with pytest.raises(ValueError, match="CUDA"):
+        bench.tiled_ab(num_nodes=200, num_edges=600, device="cpu")
+    for make in (lambda: layers.SGC(4, 8), lambda: layers.TAGCN(4, 8),
+                 lambda: layers.APPNP(4, [8, 2]), lambda: layers.SSGC(4, [8, 2]),
+                 lambda: layers.ChebyNet(4, 8), lambda: layers.LEConv(4, 8)):
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
+    with pytest.raises((AssertionError, RuntimeError)):
+        from tf_geometric_tpu_torch.nn import chebynet_norm_edge
+        chebynet_norm_edge([[0, 1], [1, 0]], 2)

@@ -2,7 +2,8 @@
 of workloads 1, 1b and 3 of the repository's ``bench.py``), on the
 Reddit-shaped graph (the twin of ``benchmarks/sage_sampling_throughput.py``
 in its ``device`` mode) and on a padded batch of small graphs (the twin of
-``benchmarks/graph_classification_throughput.py``).
+``benchmarks/graph_classification_throughput.py``). With ``--tiled-ab``,
+instead, the twin of ``benchmarks/tiled_spmm_ab.py`` (``tiled_ab``).
 
 Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"};
 before each GIN line, one with its real and padded edges per second.
@@ -68,6 +69,32 @@ before each GIN line, one with its real and padded edges per second.
    and counts the partition's real edges, as ``scaling.py`` does, with the
    plan's ``halo_fraction`` and ``cap``. The ranks share one card over gloo,
    so the number is that of 4 ranks sharing one H100, not of 4 cards.
+10. ``sgc_arxiv_fwd_bwd``, 11. ``appnp_arxiv_fwd_bwd`` and 12.
+   ``ssgc_arxiv_fwd_bwd``: the propagation family at the widths, dropouts and
+   learning rates of ``benchmarks/node_classification/
+   bench_node_cls_early_stop_{sgc,appnp,ssgc}.py`` on the arxiv graph, 40
+   classes: ``SGC(units=40, k=2)``, Adam 0.2; ``APPNP([64, 40], k=10,
+   alpha=0.1, dense_drop_rate=0.5, edge_drop_rate=0.5)``, Adam 5e-3; the same
+   ``SSGC`` behind an input dropout of 0.5, Adam 5e-3. Mean cross-entropy
+   over all nodes plus ``l2_loss`` on the kernels (5e-6, 1e-3, 1e-3, the
+   benches' coefficients). Every hop is Kernel A (and Kernel B on a side
+   with hub rows) over the cached CSR adjacency in float32, forward and
+   ``dh``; APPNP and SSGC re-skin the dropped edge values onto it each step.
+   Weights: glorot-uniform from ``default_rng(2)``, zero biases; the dropout
+   masks come from the problem's ``torch.Generator``, reseeded with the
+   weights. Dense products float32.
+
+The tiled A/B (``tiled_ab``, ``--tiled-ab``): for the random arxiv graph,
+``tiled_spmm_ab.py``'s community graph (communities of the tile size, 0.95
+of the edges inside) and the random graph at 32,768 nodes and 225,669 edges
+(arxiv's mean degree), the occupancy of the normalized adjacency at t = 128
+and 256 without building a tile; the 6 GB budget of the bf16 tiles of both
+directions, over which a graph prints its SKIP line; then, at t = 128,
+F = 128, bf16 tiles and float32 ``h``, the four chained steps of
+``tiled_spmm_ab.py`` (forward, and the gradient of ``vdot(A·h, c)``)
+through the CSR SpMM and through X7, timed by
+``utils.profiling.measure_step_time``, and one ``VERDICT`` line per graph.
+Nothing dispatches X7 whatever the verdict.
 
 The GCN workloads use bf16 SpMM compute and a bf16 ``x @ W0`` by default,
 the GAT workload bf16 attention compute and float32 dense products, as
@@ -140,7 +167,11 @@ from .datasets.synthetic_reddit import (REDDIT_CLASSES, REDDIT_EDGES, REDDIT_FEA
 from .nn.conv.gat import _gat_edge_cache, gat
 from .nn.conv.gcn import (compute_cache_key, gcn_norm_adj, maybe_compile_ell,
                           precompute_propagated_features)
+from .layers.base import l2_loss
 from .layers.conv.propagation import GIN
+from .nn.conv.appnp import appnp
+from .nn.conv.sgc import sgc
+from .nn.conv.ssgc import ssgc
 from .nn.conv.graph_sage import mean_graph_sage_fixed_k
 from .nn.pool.common_pool import sum_pool
 from .nn.pool.sort_pool import sort_pool
@@ -151,7 +182,9 @@ from .ops.fixed_k import aggregate_pass_bytes, draw_pass_bytes
 from .ops.gat_attention import CsrGatLayout
 from .ops.spmm_heads import sddmm_pass_bytes, spmm_pass_bytes
 from .sparse.matrix import SparseMatrix
-from .utils.profiling import device_time_by_kernel
+from .ops.tiled_spmm import TiledSpmm, build_tiled_spmm, count_occupied_tiles, tiled_spmm
+from .utils.profiling import (H100_HBM_BYTES_PER_S, device_time_by_kernel,
+                              estimate_spmm_roofline, measure_step_time)
 
 __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "build_sage_problem", "build_graph_problem", "init_params", "init_gat_params",
@@ -162,12 +195,14 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "gin_step_bytes", "Workload", "WORKLOADS", "GCN_WORKLOADS", "GIN_READOUTS",
            "SAGE_FANOUTS", "HaloProblem", "build_halo_problem", "halo_jobs",
            "run_halo_workload", "halo_pass_bytes", "csr_pass_bytes", "csr_rows_read",
-           "csr_diag_rows", "HALO_WORKLOADS", "main"]
+           "csr_diag_rows", "HALO_WORKLOADS", "SPMM_PAIRS", "init_propagation_params",
+           "sgc_loss", "appnp_loss", "ssgc_loss", "community_graph", "tiled_ab_graphs",
+           "tiled_ab_occupancy", "TiledAbProblem", "build_tiled_ab", "tiled_ab_steps",
+           "tiled_ab", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
 ARXIV_NODES, ARXIV_EDGES = 169_343, 1_166_243
-H100_HBM_BYTES_PER_S = 3.35e12
 WARMUP_STEPS = 3
 PROFILE_STEPS, PROFILE_TOP = 5, 12  # steps traced, kernels listed per workload
 # the port's kernels (csrc/*.cu), matched as substrings of the profiler's
@@ -197,6 +232,9 @@ class ArxivProblem(NamedTuple):
     spmm_dtype: Optional[torch.dtype]  # SpMM and attention compute dtype (None: float32)
     gat_layout: CsrGatLayout           # the self-looped graph's attention layout
     gat_edges: torch.Tensor            # [2, E + N] the self-looped list, row-sorted
+    edge_index: torch.Tensor           # [2, E] the graph's edges, on the device
+    cache: dict                        # the graph's cache: Â and its CSR twin
+    generator: torch.Generator         # dropout draws of workloads 11 and 12
 
 
 @contextlib.contextmanager
@@ -226,7 +264,8 @@ def build_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
         px = precompute_propagated_features(x, coo, cache=cache)
     y = torch.as_tensor(graph.y, device=device).long()
     gat_edges, _, gat_layout = _gat_edge_cache(graph.edge_index, n, {}, device)
-    return ArxivProblem(adj, x, px, y, normed.nnz, spmm_dtype, gat_layout, gat_edges)
+    return ArxivProblem(adj, x, px, y, normed.nnz, spmm_dtype, gat_layout, gat_edges,
+                        coo.index, cache, torch.Generator(device=device))
 
 
 class SageProblem(NamedTuple):
@@ -360,6 +399,81 @@ def init_gat_merged_params(num_features: int, device="cuda") -> Dict[str, torch.
         "wd": rng.normal(scale=0.05, size=(GAT_MERGED_UNITS, NUM_CLASSES)),
         "bd": np.zeros(NUM_CLASSES),
     }, device=device, names=GAT_BENCH_PARAM_NAMES)
+
+
+# ---------------------------------------------------------------------------
+# workloads 10-12: the propagation family
+# ---------------------------------------------------------------------------
+
+# benchmarks/node_classification/bench_node_cls_early_stop_{sgc,appnp,ssgc}.py:
+# SGC(units=C, k=2), lr 0.2; APPNP and SSGC ([64, C], k=10, alpha=0.1, dense
+# and edge dropout 0.5; SSGC behind an input dropout of 0.5), lr 5e-3; L2 on
+# the kernels at their arxiv (SGC) and default (APPNP, SSGC) coefficients
+SGC_K, PPR_K, PPR_ALPHA, PPR_HIDDEN, PPR_DROP = 2, 10, 0.1, 64, 0.5
+PROPAGATION_L2 = {"sgc_arxiv_fwd_bwd": 5e-6, "appnp_arxiv_fwd_bwd": 1e-3,
+                  "ssgc_arxiv_fwd_bwd": 1e-3}
+PROPAGATION_SEED = 2  # the weights' numpy seed and the dropout generator's
+
+
+def init_propagation_params(problem: ArxivProblem, name: str) -> Dict[str, torch.Tensor]:
+    """Workload ``name``'s weights in the flax layer's names: glorot-uniform
+    kernels from ``default_rng(PROPAGATION_SEED)`` (SGC ``kernel`` [F, 40];
+    APPNP and SSGC ``kernel_0`` [F, 64], ``kernel_1`` [64, 40]), zero
+    biases. Also reseeds the dropout generator, so every run from these
+    weights draws the same masks."""
+    problem.generator.manual_seed(PROPAGATION_SEED)
+    rng = np.random.default_rng(PROPAGATION_SEED)
+    dims = ([problem.x.shape[1], NUM_CLASSES] if name == "sgc_arxiv_fwd_bwd"
+            else [problem.x.shape[1], PPR_HIDDEN, NUM_CLASSES])
+
+    def glorot(fan_in, fan_out):
+        limit = np.sqrt(6.0 / (fan_in + fan_out))
+        return rng.uniform(-limit, limit, size=(fan_in, fan_out))
+
+    if len(dims) == 2:
+        params = {"kernel": glorot(*dims), "bias": np.zeros(dims[1])}
+    else:
+        params = {}
+        for i in range(len(dims) - 1):
+            params[f"kernel_{i}"] = glorot(dims[i], dims[i + 1])
+            params[f"bias_{i}"] = np.zeros(dims[i + 1])
+    return bench_params_from_numpy(params, device=problem.x.device, names=tuple(params))
+
+
+def sgc_loss(p, problem: ArxivProblem):
+    """Workload 10: ``sgc`` (k = 2) over the cached CSR adjacency, mean
+    cross-entropy over all nodes plus L2 on the kernel."""
+    logits = sgc(problem.x, problem.edge_index, None, SGC_K, p["kernel"], p["bias"],
+                 cache=problem.cache)
+    return (F.cross_entropy(logits, problem.y)
+            + l2_loss(p, PROPAGATION_L2["sgc_arxiv_fwd_bwd"]))
+
+
+def _ppr_loss(fn, name: str, p, problem: ArxivProblem, masks: Optional[dict] = None):
+    """Workloads 11 and 12: ``appnp`` or ``ssgc`` in training mode, the
+    edge and dense dropout drawn from the problem's generator, or taken
+    from ``masks`` ({"input", "edge", "dense"} keep masks)."""
+    masks = masks or {}
+    x = problem.x
+    if name == "ssgc_arxiv_fwd_bwd":
+        keep = masks.get("input")
+        if keep is None:
+            keep = torch.rand(x.shape, generator=problem.generator, device=x.device) >= PPR_DROP
+        x = torch.where(keep, x / (1.0 - PPR_DROP), torch.zeros_like(x))
+    logits = fn(x, problem.edge_index, None, [p["kernel_0"], p["kernel_1"]],
+                [p["bias_0"], p["bias_1"]], k=PPR_K, alpha=PPR_ALPHA, dense_drop_rate=PPR_DROP,
+                edge_drop_rate=PPR_DROP, cache=problem.cache, training=True,
+                generator=problem.generator, edge_keep_mask=masks.get("edge"),
+                dense_keep_masks=masks.get("dense"))
+    return F.cross_entropy(logits, problem.y) + l2_loss(p, PROPAGATION_L2[name])
+
+
+def appnp_loss(p, problem: ArxivProblem, masks: Optional[dict] = None):
+    return _ppr_loss(appnp, "appnp_arxiv_fwd_bwd", p, problem, masks)
+
+
+def ssgc_loss(p, problem: ArxivProblem, masks: Optional[dict] = None):
+    return _ppr_loss(ssgc, "ssgc_arxiv_fwd_bwd", p, problem, masks)
 
 
 # ---------------------------------------------------------------------------
@@ -534,9 +648,10 @@ def csr_pass_bytes(adj: CsrAdj, side: CsrSide, width: int, elt_bytes: int) -> in
             + (4 * side.num_rows if adj.diag_val is not None else 0))
 
 
-def _spmm_step_bytes(problem: ArxivProblem, widths) -> int:
+def _spmm_step_bytes(problem: ArxivProblem, widths, elt: Optional[int] = None) -> int:
     adj = problem.adj
-    elt = 2 if problem.spmm_dtype == torch.bfloat16 else 4
+    if elt is None:
+        elt = 2 if problem.spmm_dtype == torch.bfloat16 else 4
     return sum(csr_pass_bytes(adj, adj.fwd, w, elt) + csr_pass_bytes(adj, adj.bwd, w, elt)
                for w in widths)
 
@@ -630,6 +745,10 @@ WORKLOADS = {
         _gat_merged_step_bytes, lambda pr: pr.gat_layout.num_edges),
 }
 GCN_WORKLOADS = ("gcn_arxiv_fwd_bwd", "gcn_arxiv_canonical_fwd_bwd")
+# the CSR SpMM pairs (forward, dh) of a step of each workload on Kernels A and B
+SPMM_PAIRS = {"gcn_arxiv_fwd_bwd": 1, "gcn_arxiv_canonical_fwd_bwd": 2,
+              "sgc_arxiv_fwd_bwd": SGC_K, "appnp_arxiv_fwd_bwd": PPR_K,
+              "ssgc_arxiv_fwd_bwd": PPR_K}
 
 
 def _gin_workload(readout: str) -> Workload:
@@ -639,6 +758,19 @@ def _gin_workload(readout: str) -> Workload:
 
 
 WORKLOADS.update({name: _gin_workload(readout) for name, readout in GIN_READOUTS.items()})
+
+
+def _propagation_workload(name: str, loss: Callable, lr: float) -> Workload:
+    return Workload(_no_dense_bf16(loss), lambda pr: init_propagation_params(pr, name), lr,
+                    lambda pr: _spmm_step_bytes(pr, (NUM_CLASSES,) * SPMM_PAIRS[name], elt=4),
+                    lambda pr: pr.num_edges_normed)
+
+
+WORKLOADS.update({
+    "sgc_arxiv_fwd_bwd": _propagation_workload("sgc_arxiv_fwd_bwd", sgc_loss, 0.2),
+    "appnp_arxiv_fwd_bwd": _propagation_workload("appnp_arxiv_fwd_bwd", appnp_loss, 5e-3),
+    "ssgc_arxiv_fwd_bwd": _propagation_workload("ssgc_arxiv_fwd_bwd", ssgc_loss, 5e-3),
+})
 
 
 def _workload_step(problem, name: str, dense_bf16: bool):
@@ -863,11 +995,159 @@ def run_halo_workload(problem: HaloProblem, name: str, steps: int = 20, device="
                            if any(p in k[0] for p in PORT_KERNELS)]}
     return out
 
+# ---------------------------------------------------------------------------
+# the tiled A/B: X7 against the CSR path (benchmarks/tiled_spmm_ab.py)
+# ---------------------------------------------------------------------------
+
+# benchmarks/tiled_spmm_ab.py's constants: tile sizes counted, the tile timed,
+# the width, the community graph's in-community share, the tiles' budget
+TILED_AB_TILES, TILED_AB_TILE, TILED_AB_F, TILED_AB_INTRA = (128, 256), 128, 128, 0.95
+TILED_AB_BUDGET_BYTES = 6e9
+# the random graph at a size whose tiles fit the budget, at arxiv's mean degree
+TILED_AB_SMALL = (32_768, 225_669)
+TILED_AB_PATHS = ("csr_fwd", "tiled_fwd", "csr_fwd_bwd", "tiled_fwd_bwd")
+# measure_step_time's chain per path: warm-up steps, then repeats of iters steps
+TILED_AB_TIMING = dict(warmup=2, iters=10, repeats=5)
+
+
+def community_graph(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES) -> np.ndarray:
+    """``benchmarks/tiled_spmm_ab.py``'s most favourable graph for the tiled
+    formulation, bit for bit (seed 0): contiguous communities of
+    ``TILED_AB_TILE`` nodes and ``TILED_AB_INTRA`` of the edges inside their
+    community; [2, E] int32 (dst, src)."""
+    rng = np.random.default_rng(0)
+    size = TILED_AB_TILE
+    src = rng.integers(0, num_nodes, size=num_edges)
+    blk = src // size
+    local = rng.integers(0, size, size=num_edges)
+    intra_dst = np.minimum(blk * size + local, num_nodes - 1)
+    dst = np.where(rng.random(num_edges) < TILED_AB_INTRA, intra_dst,
+                   rng.integers(0, num_nodes, size=num_edges))
+    return np.stack([dst, src]).astype(np.int32)
+
+
+def tiled_ab_graphs(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES):
+    """(name, edge_index, num_nodes) of the A/B's graphs: the random arxiv
+    graph, the community graph, and the random graph at
+    ``TILED_AB_SMALL``."""
+    small_n, small_e = TILED_AB_SMALL
+    return [("random", synthetic_ogbn_arxiv_like(num_nodes, num_edges).edge_index, num_nodes),
+            ("community", community_graph(num_nodes, num_edges), num_nodes),
+            (f"random_n{small_n}", synthetic_ogbn_arxiv_like(small_n, small_e).edge_index,
+             small_n)]
+
+
+def tiled_ab_occupancy(index, num_nodes: int) -> dict:
+    """``occupancy_t*``, ``B_t*`` and ``tile_GB_t*`` of the normalized
+    adjacency's ``index`` at each of ``TILED_AB_TILES`` (bf16 tiles and one
+    float32 operand tile each, as ``tiled_spmm_ab.py`` counts), no tile built."""
+    out = {}
+    for t in TILED_AB_TILES:
+        b = count_occupied_tiles(index, (num_nodes, num_nodes), t)
+        out[f"occupancy_t{t}"] = round(index.shape[1] / (b * t * t), 5)
+        out[f"B_t{t}"] = b
+        out[f"tile_GB_t{t}"] = round((b * t * t * 2 + b * t * TILED_AB_F * 4) / 1e9, 2)
+    return out
+
+
+class TiledAbProblem(NamedTuple):
+    adj: CsrAdj                # the normalized adjacency, CSR, float32
+    tiles: TiledSpmm           # its packing at TILED_AB_TILE, bf16 tiles
+    h: torch.Tensor            # [N, TILED_AB_F] float32
+    c: torch.Tensor            # [N, TILED_AB_F] float32, the fwd+bwd loss's weights
+
+
+def build_tiled_ab(name: str, edge_index, num_nodes: int, device="cuda"):
+    """The A/B's set-up of one graph (``tiled_spmm_ab.py``'s ``time_paths``):
+    the normalized adjacency and its CSR, the occupancy line, and, when the
+    tiles of both directions fit ``TILED_AB_BUDGET_BYTES`` in bf16, the tile
+    packing and the inputs. Returns (problem or None, occupancy dict)."""
+    n = num_nodes
+    cache = {}
+    normed = gcn_norm_adj(SparseMatrix(edge_index, np.ones(edge_index.shape[1], np.float32),
+                                       (n, n), device=device), cache=cache)
+    adj = maybe_compile_ell(normed, cache, compute_cache_key("both", True, True, True, False))
+    idx, val = normed.index.cpu().numpy(), normed.value.cpu().numpy()
+    occ = tiled_ab_occupancy(idx, n)
+    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in occ.items()), flush=True)
+    t = TILED_AB_TILE
+    est = 2 * occ[f"B_t{t}"] * t * t * 2
+    if est > TILED_AB_BUDGET_BYTES:
+        print(f"[{name}] SKIP timing: tile matrices would need {est / 1e9:.1f} GB "
+              f"(> {TILED_AB_BUDGET_BYTES / 1e9:.0f} GB budget) — occupancy "
+              f"{occ[f'occupancy_t{t}']} decides", flush=True)
+        return None, occ
+    ts = build_tiled_spmm(idx, val, (n, n), tile=t, dtype=torch.bfloat16, device=device,
+                          max_bytes=TILED_AB_BUDGET_BYTES)
+    rng = np.random.default_rng(1)
+    h0 = torch.as_tensor(rng.normal(size=(n, TILED_AB_F)), dtype=torch.float32, device=device)
+    c = torch.as_tensor(rng.normal(size=(n, TILED_AB_F)), dtype=torch.float32, device=device)
+    return TiledAbProblem(adj, ts, h0, c), occ
+
+
+def tiled_ab_steps(problem: TiledAbProblem) -> Dict[str, Callable]:
+    """The four chained steps of the A/B (``tiled_spmm_ab.py:112-133``): the
+    forward ``A·h·1e-6 + h`` and the gradient step ``h - 1e-9·∇(A·h · c)``,
+    through the CSR SpMM and through X7."""
+    spmms = {"csr": lambda h: csr_spmm(problem.adj, h),
+             "tiled": lambda h: tiled_spmm(problem.tiles, h)}
+
+    def fwd(spmm):
+        return lambda h: (spmm(h) * 1e-6 + h,)
+
+    def fwd_bwd(spmm):
+        def step(h):
+            hh = h.detach().requires_grad_()
+            (g,) = torch.autograd.grad(torch.vdot(spmm(hh).flatten(), problem.c.flatten()), hh)
+            return (h - 1e-9 * g,)
+        return step
+
+    return {"csr_fwd": fwd(spmms["csr"]), "tiled_fwd": fwd(spmms["tiled"]),
+            "csr_fwd_bwd": fwd_bwd(spmms["csr"]), "tiled_fwd_bwd": fwd_bwd(spmms["tiled"])}
+
+
+def tiled_ab(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, device="cuda") -> dict:
+    """``benchmarks/tiled_spmm_ab.py`` on the card: per graph its occupancy
+    line, then (when its tiles fit the budget) the four paths' step times
+    (``measure_step_time``), then one ``VERDICT`` line per graph. Returns
+    {graph: {"occupancy": ..., "ms": {path: ms} or None}}."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the A/B times on a CUDA device, got {device}")
+    out = {}
+    for name, edge_index, n in tiled_ab_graphs(num_nodes, num_edges):
+        problem, occ = build_tiled_ab(name, edge_index, n, device=device)
+        out[name] = {"occupancy": occ, "ms": None}
+        if problem is None:
+            continue
+        e = edge_index.shape[1]
+        roofline = estimate_spmm_roofline(problem.adj.num_edges, n, TILED_AB_F)
+        print(f"[{name}] one float32 SpMM pass at its byte bound: {roofline / 1e6:.1f}M "
+              f"edges/s", flush=True)
+        steps, ms = tiled_ab_steps(problem), {}
+        for label in TILED_AB_PATHS:
+            dt = measure_step_time(steps[label], (problem.h,), **TILED_AB_TIMING)
+            ms[label] = dt * 1e3
+            print(f"[{name}] {label}: {dt * 1e3:.4f} ms ({e / dt / 1e6:.1f}M edges/s)",
+                  flush=True)
+        out[name]["ms"] = ms
+        del problem, steps
+        torch.cuda.empty_cache()
+    for name, res in out.items():
+        if res["ms"] is None:
+            print(f"VERDICT {name}: tiles don't fit memory — ELL wins by default "
+                  f"(occupancy too low)", flush=True)
+            continue
+        speedup = res["ms"]["csr_fwd_bwd"] / res["ms"]["tiled_fwd_bwd"]
+        res["speedup"] = speedup
+        print(f"VERDICT {name}: tiled/ELL fwd+bwd speedup {speedup:.2f}x "
+              f"({'tiled wins' if speedup > 1 else 'ELL wins'})", flush=True)
+    return out
+
 
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the nine workloads on ``device`` and print their JSON lines; with
+    """Run the twelve workloads on ``device`` and print their JSON lines; with
     ``profile``, also print each workload's per-kernel device time (for the
     halo workloads, each rank's and the card's busy time).
     ``num_nodes``/``num_edges`` size the arxiv graph (the halo workloads'
@@ -911,7 +1191,12 @@ if __name__ == "__main__":
     parser.add_argument("--no-dense-bf16", action="store_true")
     parser.add_argument("--profile", action="store_true",
                         help="also print per-kernel device time (torch.profiler)")
+    parser.add_argument("--tiled-ab", action="store_true",
+                        help="run the tiled SpMM A/B (benchmarks/tiled_spmm_ab.py) instead")
     args = parser.parse_args()
-    main(args.num_nodes, args.num_edges, args.steps, args.device,
-         spmm_bf16=not args.no_spmm_bf16, dense_bf16=not args.no_dense_bf16,
-         profile=args.profile)
+    if args.tiled_ab:
+        tiled_ab(args.num_nodes, args.num_edges, args.device)
+    else:
+        main(args.num_nodes, args.num_edges, args.steps, args.device,
+             spmm_bf16=not args.no_spmm_bf16, dense_bf16=not args.no_dense_bf16,
+             profile=args.profile)

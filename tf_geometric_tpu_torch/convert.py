@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dict_from_flax",
            "sage_state_dict_from_flax", "gin_classifier_state_dict_from_flax",
-           "sharded_params_from_numpy",
+           "sharded_params_from_numpy", "propagation_state_dict_from_flax",
            "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
@@ -54,6 +54,15 @@ def gat_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``key_kernel``, ``key_bias``, ``kernel`` and ``bias``) as a
     ``state_dict`` for the port's ``layers.GAT``, whose parameters carry the
     same names and shapes."""
+    return _state_dict_from_flax(variables)
+
+
+def propagation_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``SGC``, ``TAGCN``, ``APPNP``, ``SSGC``, ``ChebyNet`` or
+    ``LEConv`` layer's params (``kernel``/``bias``; ``kernel_i``/``bias_i``;
+    ``self_kernel``, ``aggr_self_kernel``, ``aggr_neighbor_kernel`` and their
+    biases) as a ``state_dict`` for the port's layer of the same name, whose
+    parameters carry the same names and [in, units] layouts."""
     return _state_dict_from_flax(variables)
 
 

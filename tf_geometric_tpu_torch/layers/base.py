@@ -14,7 +14,7 @@ import torch
 
 from ..sparse.matrix import SparseMatrix
 
-__all__ = ["unpack_inputs", "unpack_edge_inputs", "glorot_uniform"]
+__all__ = ["unpack_inputs", "unpack_edge_inputs", "glorot_uniform", "l2_loss"]
 
 
 def unpack_inputs(inputs) -> Tuple[Any, SparseMatrix]:
@@ -57,3 +57,16 @@ def glorot_uniform(shape, generator=None, dtype=torch.float32):
     fan_in, fan_out = shape[-2], shape[-1]
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     return torch.empty(shape, dtype=dtype).uniform_(-limit, limit, generator=generator)
+
+
+def l2_loss(params, weight: float, key_filter: str = "kernel"):
+    """Sum of 0.5·‖w‖² over the parameters whose name has a dotted part
+    containing ``key_filter``, times ``weight``: the JAX function's rule
+    over a flax params tree, here over a module's ``named_parameters()`` or
+    a {name: tensor} dict (the reference demos' L2 on kernels)."""
+    items = params.named_parameters() if isinstance(params, torch.nn.Module) else params.items()
+    total = 0.0
+    for name, leaf in items:
+        if any(key_filter in part for part in name.split(".")):
+            total = total + 0.5 * torch.sum(leaf ** 2)
+    return total * weight

@@ -74,12 +74,14 @@ def _wrappers():
     from ..ops import spmm_heads as sh
     from ..ops.csr_spmm import launch_csr_spmm
     from ..ops.sorted_segment import launch_sorted_segment_sum
+    from ..ops.tiled_spmm import launch_tiled_spmm
     return {"csr_spmm": launch_csr_spmm, "sorted_segment_sum": launch_sorted_segment_sum,
             "gat_forward": ga.launch_gat_forward, "gat_backward_dst": ga.launch_gat_backward_dst,
             "gat_backward_src": ga.launch_gat_backward_src,
             "fixed_k_draw": fk.launch_draw_fixed_k, "fixed_k_forward": fk.launch_fixed_k_forward,
             "fixed_k_backward": fk.launch_fixed_k_backward,
-            "spmm_heads": sh.launch_spmm_heads, "sddmm_heads": sh.launch_sddmm_heads}
+            "spmm_heads": sh.launch_spmm_heads, "sddmm_heads": sh.launch_sddmm_heads,
+            "tiled_spmm": launch_tiled_spmm}
 
 
 def kernel_launch_counts() -> Dict[str, int]:
@@ -203,9 +205,10 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str, device: st
 
 
 def run_ranks(jobs_per_rank: Sequence[List[ShardJob]], backend: str = "gloo",
-              device: str = "cpu", timeout_s: float = 600.0) -> List[List[dict]]:
+              device: str = "cuda", timeout_s: float = 600.0) -> List[List[dict]]:
     """Run rank r's jobs in process r of ``len(jobs_per_rank)`` spawned
-    ranks; returns each rank's list of results (see ``run_job``)."""
+    ranks on ``device`` (the card unless the caller asks for the CPU);
+    returns each rank's list of results (see ``run_job``)."""
     world = len(jobs_per_rank)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="tfg_ranks_") as work_dir:

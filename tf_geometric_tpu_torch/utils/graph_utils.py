@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _segment_core as _seg
 from .union_utils import convert_union_to_numpy
 
 __all__ = [
@@ -20,7 +21,11 @@ __all__ = [
     "convert_edge_to_upper",
     "convert_edge_to_directed",
     "remove_self_loop_edge",
+    "mask_self_loop_edge",
     "add_self_loop_edge",
+    "get_laplacian",
+    "adj_norm_edge",
+    "LaplacianMaxEigenvalue",
 ]
 
 
@@ -114,6 +119,19 @@ def remove_self_loop_edge(edge_index, edge_weight=None):
     return edge_index, edge_weight
 
 
+def mask_self_loop_edge(edge_index, num_nodes: int, edge_weight=None):
+    """Self-loops become padded edges (row and col ``num_nodes``, weight 0),
+    so the edge count stays the same; tensors in, tensors out."""
+    edge_index = torch.as_tensor(edge_index)
+    is_loop = edge_index[0] == edge_index[1]
+    masked_index = torch.where(is_loop[None, :], torch.full_like(edge_index, num_nodes),
+                               edge_index)
+    if edge_weight is None:
+        return masked_index, None
+    edge_weight = torch.as_tensor(edge_weight, device=edge_index.device)
+    return masked_index, torch.where(is_loop, torch.zeros_like(edge_weight), edge_weight)
+
+
 def add_self_loop_edge(edge_index, num_nodes: int, edge_weight=None, fill_weight=1.0):
     """Append the diagonal ``(i, i)`` for every node with ``fill_weight``,
     also where a self-loop exists already: E edges become E + num_nodes.
@@ -137,3 +155,104 @@ def add_self_loop_edge(edge_index, num_nodes: int, edge_weight=None, fill_weight
         edge_weight = convert_union_to_numpy(edge_weight, np.float32)
     fill = np.full(num_nodes, fill_weight, np.float32)
     return new_index, np.concatenate([edge_weight, fill])
+
+
+def _edge_tensors(edge_index, edge_weight):
+    """(int64 index, float32 weight; ones for None) as tensors, on the
+    index's device when it is a tensor, else on the CPU."""
+    if not isinstance(edge_index, torch.Tensor):
+        edge_index = torch.as_tensor(convert_union_to_numpy(edge_index, np.int64))
+    edge_index = edge_index.long()
+    if edge_weight is None:
+        return edge_index, torch.ones(edge_index.shape[1], dtype=torch.float32,
+                                      device=edge_index.device)
+    if not isinstance(edge_weight, torch.Tensor):
+        edge_weight = torch.as_tensor(convert_union_to_numpy(edge_weight, np.float32))
+    return edge_index, edge_weight.to(device=edge_index.device, dtype=torch.float32)
+
+
+def get_laplacian(edge_index, num_nodes: int, edge_weight=None, normalization_type=None,
+                  fill_weight=1.0):
+    """The graph "Laplacian" as an edge list, as the JAX function and the
+    reference compute it (the adjacency term is NOT negated):
+
+    - "sym": D^-1/2 A D^-1/2 entries plus ``fill_weight`` self-loops;
+    - "rw": D^-1 A entries plus ``fill_weight`` self-loops;
+    - None: self-loops appended, then each entry (r, c, w) becomes
+      deg[r] - w, deg from the original edges; padded rows stay 0.
+
+    Returns (index [2, E + N] int64, weight [E + N] float32) as tensors on
+    ``edge_index``'s device (the CPU for numpy input)."""
+    edge_index, edge_weight = _edge_tensors(edge_index, edge_weight)
+    dev = edge_index.device
+    row = edge_index[0]
+    deg = _seg.segment_sum(edge_weight, row, num_nodes)
+    diag = torch.arange(num_nodes, dtype=edge_index.dtype, device=dev).repeat(2, 1)
+    new_index = torch.cat([edge_index, diag], dim=1)
+    fill = torch.full((num_nodes,), float(fill_weight), dtype=torch.float32, device=dev)
+    if normalization_type is None:
+        all_weight = torch.cat([edge_weight, fill])
+        safe_row = new_index[0].clamp(0, num_nodes - 1)
+        in_range = new_index[0] < num_nodes
+        return new_index, torch.where(in_range, deg[safe_row] - all_weight,
+                                      torch.zeros_like(all_weight))
+    safe_row = edge_index[0].clamp(0, num_nodes - 1)
+    safe_col = edge_index[1].clamp(0, num_nodes - 1)
+    if normalization_type == "sym":
+        dinv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)), torch.zeros_like(deg))
+        normed = dinv[safe_row] * edge_weight * dinv[safe_col]
+    elif normalization_type == "rw":
+        dinv = torch.where(deg > 0, 1.0 / deg.clamp_min(1e-12), torch.zeros_like(deg))
+        normed = dinv[safe_row] * edge_weight
+    else:
+        raise ValueError(f"unknown normalization_type: {normalization_type}")
+    return new_index, torch.cat([normed, fill])
+
+
+def adj_norm_edge(edge_index, num_nodes: int, edge_weight=None, add_self_loop: bool = False,
+                  cache=None):
+    """Symmetric degree normalization D^-1/2 A D^-1/2 (used by MinCutPool),
+    with the JAX function's cache key ``adj_normed_edge_{add_self_loop}``.
+    Returns tensors (index int64, weight float32)."""
+    key = f"adj_normed_edge_{add_self_loop}"
+    if cache is not None:
+        cached = cache.get(key, None)
+        if cached is not None:
+            return cached
+    edge_index, edge_weight = _edge_tensors(edge_index, edge_weight)
+    if add_self_loop:
+        edge_index, edge_weight = add_self_loop_edge(edge_index, num_nodes, edge_weight)
+    row, col = edge_index[0], edge_index[1]
+    deg = _seg.segment_sum(edge_weight, row, num_nodes)
+    dinv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)), torch.zeros_like(deg))
+    normed = dinv[row.clamp(0, num_nodes - 1)] * edge_weight * dinv[col.clamp(0, num_nodes - 1)]
+    result = (edge_index, normed)
+    if cache is not None:
+        cache[key] = result
+    return result
+
+
+class LaplacianMaxEigenvalue:
+    """λ_max of the (normalized) Laplacian by scipy's ``eigsh`` on the host,
+    with the JAX class's solver arguments (k=1, which="LM"). Self-loops are
+    removed first, as the JAX class does."""
+
+    def __init__(self, edge_index, num_nodes=None, edge_weight=None):
+        self.edge_index = convert_union_to_numpy(edge_index, np.int32)
+        self.edge_weight = (None if edge_weight is None
+                            else convert_union_to_numpy(edge_weight, np.float32))
+        self.num_nodes = (int(self.edge_index.max()) + 1
+                          if num_nodes is None else int(num_nodes))
+
+    def __call__(self, normalization_type="sym"):
+        import scipy.sparse as sp
+        from scipy.sparse.linalg import eigsh
+        edge_index, edge_weight = remove_self_loop_edge(self.edge_index, self.edge_weight)
+        lap_index, lap_weight = get_laplacian(edge_index, self.num_nodes, edge_weight,
+                                              normalization_type)
+        lap_index, lap_weight = lap_index.cpu().numpy(), lap_weight.cpu().numpy()
+        lap = sp.csr_matrix((lap_weight.astype(np.float32),
+                             (lap_index[0].astype(np.int32), lap_index[1].astype(np.int32))),
+                            shape=(self.num_nodes, self.num_nodes))
+        vals = eigsh(lap, k=1, which="LM", return_eigenvectors=False)
+        return float(vals[0])
