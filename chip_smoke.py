@@ -16,9 +16,19 @@ Phases, each of which raises (non-zero exit) on failure:
    against their plain PyTorch versions on the same inputs (float32:
    rtol = atol = 1e-4, order of summation only; bfloat16: rtol = atol =
    2e-2, one bf16 rounding of differently ordered float32 sums), and the
-   composed product against ``torch.sparse.mm`` in float32. Time each
-   kernel, its plain version and ``torch.sparse.mm`` (the library yardstick,
-   never called by the port) with CUDA events, beside its byte bound.
+   composed product against ``torch.sparse.mm`` in float32, and Kernel A
+   against a second run of the same call, bit for bit. Print each side's
+   longest row beside the longest serial walks (the most edges one lane
+   group of Kernel A reads, the most partials Kernel B adds into one row).
+   Time each kernel, its plain version and ``torch.sparse.mm`` (the library
+   yardstick, never called by the port) with CUDA events, beside its byte
+   bound and, for Kernel A, the time every edge's gather would take from
+   device memory; Kernel A, Kernel B and their library calls also by their
+   device time under ``torch.profiler`` (CUDA events around back-to-back
+   calls of a short kernel time the host's launches). Then time Kernel A +
+   B on the forward side at hub split widths 32, 64 (``SPLIT_WIDTH``), 128
+   and 256, at F = 40 float32 and F = 256 bfloat16 (events and device
+   time), each held against its plain version.
 4. GAT kernels: on the self-looped arxiv graph's ``CsrGatLayout``, at
    H = 8, d = 32, at the odd shape H = 2, d = 20, at one wide head
    (H = 1, d = 256) and at (H, d) = (4, 8), (8, 4), (4, 64), which give
@@ -48,10 +58,13 @@ Phases, each of which raises (non-zero exit) on failure:
    (values float32, so the result and ``dy`` are float32): the forward and
    ``dh`` SpMM and the ``dv`` SDDMM against their plain versions (float32
    1e-4, bfloat16 2e-2), the forward and ``dh`` against a second run of the
-   same call, bit for bit. Time each kernel, its plain version and the
-   library yardsticks the port never calls (``torch.sparse.mm`` on a
-   prebuilt CSR, ``torch.sparse.sampled_addmm`` in float32), and print the
-   views' build (the stable sorts) beside the bounds.
+   same call, bit for bit, and the forward against itself with the weights
+   gathered into view order first (the same bits), timed. Print each view's
+   longest row beside the SpMM's longest serial walks (``row_split``). Time
+   each kernel, its plain version and the library yardsticks the port never
+   calls (``torch.sparse.mm`` on a prebuilt CSR,
+   ``torch.sparse.sampled_addmm`` in float32), and print the views' build
+   (the stable sorts) beside the bounds.
 7. Multi-head SpMM kernels: on the self-looped arxiv ``CsrGatLayout`` at
    (H, d_v) in {(8, 8), (8, 32), (4, 64)} (the first is workload 5's),
    float32 and bfloat16: the forward (SpMM, destination side), ``dV``
@@ -61,11 +74,14 @@ Phases, each of which raises (non-zero exit) on failure:
    [H, N, N] sparse COO with the values viewed [H, N, d] for the forward and
    ``dV``, a batched ``torch.sparse.sampled_addmm`` on its [H, N, N] CSR
    pattern for ``d_att``), whose results are held against the kernels'
-   (1e-4). PyTorch has no bfloat16 kernel for either call.
+   (1e-4). PyTorch has no bfloat16 kernel for either call. The forward
+   also runs with its weights gathered into view order (the same bits),
+   timed.
 8. GIN kernels: on the GIN batch's own padded edge list (values one, as
    ``gin`` makes them), the COO SpMM forward at widths 4 and 64 and its
    ``dh`` at 64 against their plain versions and ``torch.sparse.mm``
-   (float32, 1e-4), timed.
+   (float32, 1e-4), timed by events and by device time (both calls are
+   short enough for the host to set the events' pace).
 9. Main path: zero the launch counters, build the bench problem and train
    ``bench`` workloads 1, 1b, 3 (the 8-head GAT), 5 (the GAT with
    d_q = 1, d_v = 8, the merged-head branch) and 10-12 (SGC, APPNP and SSGC
@@ -77,8 +93,10 @@ Phases, each of which raises (non-zero exit) on failure:
    two backward launches per step; SAGE: two draws, two aggregations
    forward and two backward calls per step, each backward call launching
    its sort's kernels and the gather; merged-head GAT: two SpMM and one
-   SDDMM launches per step; GIN: five SpMM launches per step, three forward
-   and two ``dh``; SGC, APPNP and SSGC: Kernel A forward and ``dh`` per
+   SDDMM calls per step; GIN: five SpMM calls per step, three forward and
+   two ``dh``, each SpMM call two launches (its chunks' and its rows',
+   ``ops.spmm_heads.spmm_heads_launches``); SGC, APPNP and SSGC: Kernel A
+   forward and ``dh`` per
    hop, 2, 10 and 10 hops, and Kernel B per hop and split side). Then train
    3 steps of each arxiv workload at a small size and of each GIN workload
    on its batch through the kernels and through the plain versions on the
@@ -92,8 +110,11 @@ Phases, each of which raises (non-zero exit) on failure:
     (square, split diagonal) and remote block (rectangular, mostly empty
     rows), at F = 64 and 40, float32 and bfloat16: Kernel A and Kernel B
     forward and ``dh`` against their plain versions (float32 1e-4, bfloat16
-    2e-2) and, in float32, the product against ``torch.sparse.mm`` on the
-    same block; the ``diff_values`` SDDMM (``ops.ell.side_value_grad``)
+    2e-2), Kernel A against a second run of the same call, bit for bit, and,
+    in float32, the product against ``torch.sparse.mm`` on the same block;
+    each block side's longest serial walks beside its longest row; Kernel A
+    and ``torch.sparse.mm`` in float32 also by device time; the
+    ``diff_values`` SDDMM (``ops.ell.side_value_grad``)
     against its plain version; each block side's hub rows and rows without
     entries printed; timed beside the byte bound and ``torch.sparse.mm``.
 11. X5 kernels (``gat_attention_ell``): on every rank's rectangular GAT
@@ -193,6 +214,34 @@ def _cuda_ms(fn, iters=TIMED_ITERS, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters=TIMED_ITERS, tries=3):
+    """Device time of one call of ``fn``: its kernels' time under
+    ``torch.profiler`` over ``iters`` calls. For calls so short that CUDA
+    events around back-to-back calls time the host's launches instead. A
+    trace whose kernel count is not a whole number per call lost records
+    and is taken again; None when no try gives a whole trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from tf_geometric_tpu_torch.utils.profiling import device_time_by_kernel
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        # a warm-up step while the tracer starts (it can miss the first
+        # kernels), then the recorded step
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = device_time_by_kernel(prof, iters)
+        per_call = sum(k[2] for k in kernels)
+        if kernels and abs(per_call - round(per_call)) < 1e-6:
+            return sum(k[1] for k in kernels)
+    return None
+
+
 def _max_err(got, want, tol, what):
     import torch
     got, want = got.float(), want.float()
@@ -232,7 +281,7 @@ def kernel_phase(problem, normed):
         print(f"{side_name} side: rows={side.num_rows} hub_rows="
               f"{0 if side.owner_rows is None else int(side.owner_rows.shape[0])} "
               f"virtual_rows={side.num_virtual} nnz={int(side.col.shape[0])} "
-              f"max_row_len={int(side.row_ptr.diff().max())}", flush=True)
+              f"{_walk_line(side)}", flush=True)
     for dtype in (torch.float32, torch.bfloat16):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         elt = 4 if dtype == torch.float32 else 2
@@ -246,6 +295,7 @@ def kernel_phase(problem, normed):
                 out_p, part_p = csr_spmm_plain(*args)
                 torch.cuda.synchronize()
                 tag = f"{side_name} F={width} {str(dtype)[6:]}"
+                _check_same_bits(launch_csr_spmm, args, (out_k, part_k), f"csr_spmm {tag}")
                 err_a = max(_max_err(out_k, out_p, tol, f"csr_spmm out {tag}"),
                             _max_err(part_k, part_p, F32_TOL, f"csr_spmm partial {tag}"))
                 nnz = int(side.col.shape[0])
@@ -269,7 +319,9 @@ def kernel_phase(problem, normed):
                     library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, h)),
                     bound_ms=1e3 * max(a_bytes / HBM_BYTES_PER_S, a_flops / F32_FLOPS_PER_S),
                     bound_by="bytes" if a_bytes / HBM_BYTES_PER_S >= a_flops / F32_FLOPS_PER_S
-                    else "operations"))
+                    else "operations", gather_ms=_gather_ms(nnz, width, elt),
+                    device_ms=_device_ms(lambda: launch_csr_spmm(*args)),
+                    library_device_ms=_device_ms(lambda: torch.sparse.mm(lib, h))))
                 if not side.num_virtual:
                     continue
                 # Kernel B as the main path runs it: the hubs' partials added
@@ -305,14 +357,89 @@ def kernel_phase(problem, normed):
                                                                      lengths=lengths)),
                     bound_ms=1e3 * max(b_bytes / HBM_BYTES_PER_S, b_flops / F32_FLOPS_PER_S),
                     bound_by="bytes" if b_bytes / HBM_BYTES_PER_S >= b_flops / F32_FLOPS_PER_S
-                    else "operations"))
-    print("kernel check (name side F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
+                    else "operations",
+                    device_ms=_device_ms(lambda: launch_sorted_segment_sum(
+                        part_k, owner_ptr, scratch, True, owner_rows)),
+                    library_device_ms=_device_ms(lambda: torch.segment_reduce(
+                        part_k, "sum", lengths=lengths))))
+    print("kernel check (name side F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms; "
+          "Kernel A: every row's gather from device memory; device ms of the kernel and the "
+          "library call under the profiler)")
     for r in rows:
+        gather = f", gather {r['gather_ms']:.4f}" if "gather_ms" in r else ""
         print(f"  {r['name']} {r['side']} F={r['width']} {r['dtype']}: "
               f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, "
               f"{r['library_ms']:.4f}, "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){gather}{_device_note(r)}", flush=True)
     return rows
+
+
+def _device_note(r):
+    if "device_ms" not in r:
+        return ""
+    return (f"; device {_ms_text(r['device_ms'])}, "
+            f"library device {_ms_text(r['library_device_ms'])}")
+
+
+def _ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _check_same_bits(launch, args, first, what):
+    """A second run of the same call gives the same bits (a fixed summation
+    order, no float atomics)."""
+    import torch
+    again = launch(*args)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(first, again)),
+           f"{what}: two runs on the same inputs differ")
+
+
+def _gather_ms(nnz, width, elt):
+    """Every entry's row of h read from device memory, the traffic of a
+    gather the 50 MB L2 does not absorb (the byte bound reads each row once)."""
+    return 1e3 * nnz * width * elt / HBM_BYTES_PER_S
+
+
+def _walk_line(side):
+    """A CSR side's longest row beside the longest serial walks of Kernel A
+    (edges one lane group reads) and Kernel B (partials added into one row)."""
+    import torch
+    from tf_geometric_tpu_torch.ops.csr_spmm import serial_walks
+    rows = _side_rows(side)
+    longest = int(torch.bincount(rows).max()) if rows.numel() else 0
+    edges, partials = serial_walks(side)
+    return (f"max_row_len={longest} longest serial walk: Kernel A {edges} edges, "
+            f"Kernel B {partials} partials")
+
+
+def split_sweep(normed):
+    """Kernel A + B (``side_matmul``) on the forward side at hub split widths
+    around ``SPLIT_WIDTH``, at the propagation family's F = 40 float32 and
+    the canonical step's F = 256 bf16, each against its plain version: the
+    card's numbers behind the split width."""
+    import torch
+    from tf_geometric_tpu_torch.ops.csr_spmm import (SPLIT_WIDTH, CsrAdj, side_matmul,
+                                                     side_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = normed.shape[0]
+    cases = [(40, torch.float32, F32_TOL), (256, torch.bfloat16, BF16_TOL)]
+    hs = {w: torch.randn(n, w, generator=gen, device="cuda").to(dt) for w, dt, _ in cases}
+    for split in (32, SPLIT_WIDTH, 128, 256):
+        adj = CsrAdj.from_coo(normed.index, normed.value, normed.shape, split_diag=True,
+                              split_width=split, device="cuda")
+        times = []
+        for width, dtype, tol in cases:
+            h = hs[width]
+            _max_err(side_matmul(adj.fwd, h, adj.diag_val),
+                     side_matmul_plain(adj.fwd, h, adj.diag_val), tol,
+                     f"split {split} A+B F={width}")
+            def call():
+                return side_matmul(adj.fwd, h, adj.diag_val)
+            times.append(f"F={width} {str(dtype)[6:]} {_cuda_ms(call):.4f} ms "
+                         f"(device {_ms_text(_device_ms(call))})")
+        print(f"split width {split}: {adj.fwd.num_virtual} virtual rows, {_walk_line(adj.fwd)};"
+              f" A+B {', '.join(times)}", flush=True)
 
 
 def gat_kernel_phase(layout, edges):
@@ -560,8 +687,8 @@ def spmm_kernel_phase(normed, num_nodes):
     fwd, bwd = views["fwd"](), views["dh"]()
     nnz_f, nnz_b = int(fwd.row_ptr[-1]), int(bwd.row_ptr[-1])
     print(f"x6 edges: {index.shape[1]} ({int(index.shape[1] * X6_SINK_SHARE)} sinks, "
-          f"{X6_BAD_COLS} out-of-range cols); forward view {nnz_f} entries, dh view {nnz_b}",
-          flush=True)
+          f"{X6_BAD_COLS} out-of-range cols); forward view {nnz_f} entries, "
+          f"{_view_walk_line(fwd)}; dh view {nnz_b}, {_view_walk_line(bwd)}", flush=True)
     lib_fwd = _x6_library(fwd, value, n, n)
     lib_bwd = _x6_library(bwd, value, n, n)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -608,18 +735,55 @@ def spmm_kernel_phase(normed, num_nodes):
                     plain_ms=_cuda_ms(plain, iters=3, warmup=1),
                     library_ms=None if library is None else _cuda_ms(library),
                     bound_ms=bound_ms, bound_by=bound_by))
+                if case == "x6 forward":
+                    rows[-1]["view_order_ms"] = _view_order_ms(fwd, w, h, 1, torch.float32, got,
+                                                               f"{case} {tag}")
                 del got, want
             print(f"x6 {tag}: view build {view_ms['fwd']:.4f} ms (forward, dv), "
                   f"{view_ms['dh']:.4f} ms (dh); bounds {', '.join(bounds)}", flush=True)
     del lib_fwd, lib_bwd, lib_h
     torch.cuda.empty_cache()
-    print("x6 kernel check (name case F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
+    print("x6 kernel check (name case F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms; "
+          "forward: with the weights in view order)")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} {r['case']} F={r['width']} {r['dtype']}: {r['max_abs_err']:.3e}, "
               f"{r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, {r['bound_ms']:.4f} "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}){_view_order_note(r)}", flush=True)
     return rows
+
+
+def _view_walk_line(view):
+    """A view's longest row beside the SpMM kernel's longest serial walks
+    (``row_split``): the most entries one warp reads in sequence and the
+    most chunk partials it adds into one row."""
+    from tf_geometric_tpu_torch.ops.spmm_heads import CHUNK, row_split
+    plan = row_split(view.row_ptr)
+    lens = view.row_ptr.diff()
+    direct = int((plan.direct_end - view.row_ptr[:-1].long()).max())
+    merge = int((plan.chunk_hi - plan.chunk_lo).max())
+    return (f"max_row_len={int(lens.max())} longest serial walk: "
+            f"{max(direct, CHUNK if merge else 0)} entries, {merge} partials "
+            f"({int((lens > CHUNK).sum())} rows over {CHUNK})")
+
+
+def _view_order_ms(view, w, src, heads, out_dtype, got, what):
+    """The SpMM with each entry's weights gathered into view order first
+    (identity edge ids, so the kernel reads them in sequence): the same bits
+    as ``got``; returns its time, the weight gather's cost read off against
+    the kernel's."""
+    import torch
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    ids = torch.arange(view.eid.shape[0], dtype=torch.int32, device=view.eid.device)
+    view_vo = sh.CsrView(view.row_ptr, view.nbr, ids, view.row)
+    w_vo = w[view.eid.long()].contiguous()
+    _check(torch.equal(sh.launch_spmm_heads(view_vo, w_vo, src, heads, out_dtype), got),
+           f"spmm_heads {what}: weights in view order change the result")
+    return _cuda_ms(lambda: sh.launch_spmm_heads(view_vo, w_vo, src, heads, out_dtype))
+
+
+def _view_order_note(r):
+    return f", view order {r['view_order_ms']:.4f}" if "view_order_ms" in r else ""
 
 
 def _x3_library(layout, w, heads):
@@ -657,6 +821,8 @@ def multihead_kernel_phase(layout):
     from tf_geometric_tpu_torch.ops import spmm_heads as sh
     n, E = layout.num_nodes, layout.num_edges
     nnz = int(layout.dst.nbr.shape[0])
+    print(f"x3 destination side: {_view_walk_line(layout.dst)}; source side: "
+          f"{_view_walk_line(layout.src)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for heads, d in X3_SHAPES:
@@ -701,7 +867,6 @@ def multihead_kernel_phase(layout):
                 if library is not None:
                     err = max(err, _max_err(*align(got, library()), F32_TOL,
                                             f"{name} {case} {tag} vs the library call"))
-                del got, want
                 bound_ms, bound_by = _bound(nbytes, sh.pass_flops(nnz, width))
                 rows.append(dict(
                     name=name, case=case, width=d, dtype=str(dtype)[6:], heads=heads,
@@ -709,6 +874,10 @@ def multihead_kernel_phase(layout):
                     plain_ms=_cuda_ms(plain, iters=3, warmup=1),
                     library_ms=None if library is None else _cuda_ms(library),
                     bound_ms=bound_ms, bound_by=bound_by))
+                if case == "x3 forward":
+                    rows[-1]["view_order_ms"] = _view_order_ms(layout.dst, w, v, heads, v.dtype,
+                                                               got, f"{case} {tag}")
+                del got, want
             del att, w, v, dy, v3, dy3, lib
             torch.cuda.empty_cache()
     print("x3 kernel check (name case H d_v dtype: max_abs_err, ms, plain_ms, library_ms, "
@@ -717,7 +886,7 @@ def multihead_kernel_phase(layout):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} {r['case']} H={r['heads']} d_v={r['width']} {r['dtype']}: "
               f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){_view_order_note(r)}", flush=True)
     return rows
 
 
@@ -755,13 +924,16 @@ def gin_kernel_phase(graph_problem):
             max_abs_err=err, ms=_cuda_ms(lambda: sh.launch_spmm_heads(view, w, src, 1)),
             plain_ms=_cuda_ms(lambda: sh.spmm_heads_plain(view, w, src, 1), iters=3, warmup=1),
             library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, src)),
-            bound_ms=bound_ms, bound_by=bound_by))
+            bound_ms=bound_ms, bound_by=bound_by,
+            device_ms=_device_ms(lambda: sh.launch_spmm_heads(view, w, src, 1)),
+            library_device_ms=_device_ms(lambda: torch.sparse.mm(lib, src))))
     print(f"gin kernel check ({int(fwd.row_ptr[-1])} of {index.shape[1]} edges in the views; "
-          f"name case F: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
+          f"name case F: max_abs_err, ms, plain_ms, library_ms, bound_ms; device ms under the "
+          f"profiler)")
     for r in rows:
         print(f"  {r['name']} {r['case']} F={r['width']}: {r['max_abs_err']:.3e}, "
               f"{r['ms']:.4f}, {r['plain_ms']:.4f}, {r['library_ms']:.4f}, "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){_device_note(r)}", flush=True)
     return rows
 
 
@@ -802,6 +974,7 @@ def main_path_phase(gpu, sage_problem, graph_problem):
     bench results."""
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import fixed_k as fk
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
     _zero_launch_counts()
     problem = bench.build_problem(device="cuda")
     adj = problem.adj
@@ -824,8 +997,12 @@ def main_path_phase(gpu, sage_problem, graph_problem):
             spmms = bench.SPMM_PAIRS[name]
             expected.update(csr_spmm=steps * spmms * 2, sorted_segment_sum=steps * spmms * hubs)
         elif name == "gat_merged_arxiv_fwd_bwd":
-            # per step: the multi-head SpMM forward and dV, the d_att SDDMM
-            expected.update(spmm_heads=2 * steps, sddmm_heads=steps)
+            # per step: the multi-head SpMM forward and dV (each its chunks'
+            # and its rows' launch), the d_att SDDMM
+            layout = problem.gat_layout
+            expected.update(spmm_heads=steps * (sh.spmm_heads_launches(layout.dst.nbr.shape[0])
+                                                + sh.spmm_heads_launches(layout.src.nbr.shape[0])),
+                            sddmm_heads=steps)
         elif wl.problem == "arxiv":
             # per step: one forward and two backward attention launches (hub
             # rows are blocks of the same launches)
@@ -834,7 +1011,8 @@ def main_path_phase(gpu, sage_problem, graph_problem):
             # per step: each GIN layer's forward SpMM, dh for layers 2 and 3
             # (layer 1's input is data); the values are constants: no dv
             layers = bench.GIN_LAYERS
-            expected.update(spmm_heads=steps * (2 * layers - 1))
+            per_call = sh.spmm_heads_launches(graph_problem.edge_index.shape[1])
+            expected.update(spmm_heads=steps * (2 * layers - 1) * per_call)
         else:
             # per step and layer: one draw, one aggregation forward, one
             # backward call (its sort's launches and the gather)
@@ -1230,8 +1408,8 @@ def x2_kernel_phase(halo):
                       f"{int(side.col.shape[0])} entries, "
                       f"{0 if side.owner_rows is None else side.owner_rows.shape[0]} hub rows, "
                       f"{side.num_virtual} virtual rows, {int((deg == 0).sum())} rows without "
-                      f"entries{', split diagonal' if adj.diag_val is not None else ''}",
-                      flush=True)
+                      f"entries{', split diagonal' if adj.diag_val is not None else ''}, "
+                      f"{_walk_line(side)}", flush=True)
             libs = {s: _block_library(adj, s) for s in ("fwd", "bwd")}
             for dtype in (torch.float32, torch.bfloat16):
                 f32 = dtype == torch.float32
@@ -1247,6 +1425,8 @@ def x2_kernel_phase(halo):
                         full = side_matmul(side, h, adj.diag_val)
                         torch.cuda.synchronize()
                         case = "forward" if side_name == "fwd" else "dh"
+                        _check_same_bits(launch_csr_spmm, args, (out_k, part_k),
+                                         f"x2 Kernel A {case} {tag}")
                         err = max(_max_err(out_k, out_p, tol, f"x2 Kernel A {case} {tag}"),
                                   _max_err(part_k, part_p, F32_TOL, f"x2 partial {case} {tag}"),
                                   _max_err(full, side_matmul_plain(side, h, adj.diag_val), tol,
@@ -1264,6 +1444,11 @@ def x2_kernel_phase(halo):
                             plain_ms=_cuda_ms(lambda: csr_spmm_plain(*args), iters=3, warmup=1),
                             library_ms=_cuda_ms(lambda: torch.sparse.mm(libs[side_name], h))
                             if f32 else None, bound_ms=bound_ms, bound_by=bound_by))
+                        if f32:
+                            rows[-1].update(
+                                device_ms=_device_ms(lambda: launch_csr_spmm(*args)),
+                                library_device_ms=_device_ms(
+                                    lambda: torch.sparse.mm(libs[side_name], h)))
                         if side.num_virtual:
                             base = out_k.clone()
                             got = launch_sorted_segment_sum(part_k, side.owner_ptr, base.clone(),
@@ -1310,12 +1495,12 @@ def x2_kernel_phase(halo):
             del adj, libs
             torch.cuda.empty_cache()
     print("x2 kernel check (name case rank F dtype: max_abs_err, ms, plain_ms, library_ms, "
-          "bound_ms)")
+          "bound_ms; Kernel A float32: device ms under the profiler)")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} {r['case']} rank {r['rank']} F={r['width']} {r['dtype']}: "
               f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){_device_note(r)}", flush=True)
     return rows
 
 
@@ -1628,6 +1813,7 @@ def main():
     print(f"arxiv problem built in {time.perf_counter() - t0:.1f} s: {problem.adj}",
           flush=True)
     rows = _phase("kernels A/B", kernel_phase, problem, normed)
+    _phase("split sweep", split_sweep, normed)
     rows += _phase("x6", spmm_kernel_phase, normed, n)
     del normed
     rows += _phase("gat kernels", gat_kernel_phase, problem.gat_layout, problem.gat_edges)

@@ -209,7 +209,7 @@ PROFILE_STEPS, PROFILE_TOP = 5, 12  # steps traced, kernels listed per workload
 # names; "fixed_k_" covers the draw, the gather and the backward's sort
 PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel", "gat_forward_kernel",
                 "gat_backward_dst_kernel", "gat_backward_src_kernel", "fixed_k_",
-                "spmm_heads_kernel", "sddmm_heads_kernel")
+                "spmm_heads_kernel", "spmm_heads_chunk_kernel", "sddmm_heads_kernel")
 SAGE_FANOUTS, SAGE_HIDDEN = (25, 10), 256
 SAGE_DRAW_SEED = 0  # the draws' torch.Generator seed at the initial weights
 # workload 5's units and query/key units (bench_node_cls_early_stop_gat.py:44)

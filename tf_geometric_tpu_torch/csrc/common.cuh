@@ -1,10 +1,15 @@
 // Shared helpers of the hand-written Hopper kernels (sm_90a).
 //
-// Every kernel here gives one warp one output row: the lanes stride the
-// feature dimension (lane, lane + 32, ...), so each row of h is read as
-// whole 32-element runs, and each lane keeps NK float32 accumulators, which
-// covers up to 32 * NK features in one pass. NK is picked at launch from F
-// (1, 2, 4 or 8), so F = 40 runs two feature slices, not eight.
+// Two ways to cover an output row. Kernel B (sorted_segment.cu) gives one
+// warp one row: the lanes stride the feature dimension (lane, lane + 32,
+// ...), so each row is read as whole 32-element runs, and each lane keeps NK
+// float32 accumulators, which covers up to 32 * NK features in one pass. NK
+// is picked at launch from F (1, 2, 4 or 8), so F = 40 runs two feature
+// slices, not eight. The other kernels load lane vectors of up to 16 bytes
+// (helpers below); csr_spmm.cu and fixed_k.cu give a row a group of
+// 2^lanes_log2 lanes, the next power of two of its vectors, so several
+// narrow rows share a warp.
+
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,8 +47,15 @@ inline unsigned grid_for_rows(long long rows) {
   return static_cast<unsigned>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+// blocks for one group of 2^lanes_log2 lanes per row
+inline unsigned grid_for_groups(long long rows, int lanes_log2) {
+  const long long threads = rows << lanes_log2;
+  const long long block = kWarp * kWarpsPerBlock;
+  return static_cast<unsigned>((threads + block - 1) / block);
+}
+
 // ---------------------------------------------------------------------------
-// Lane vectors (fixed_k.cu, gat_attention.cu, spmm_heads.cu): a lane loads
+// Lane vectors (csr_spmm.cu, fixed_k.cu, gat_attention.cu, spmm_heads.cu): a lane loads
 // VEC consecutive elements, up to 16 bytes, with one instruction; a group of
 // 2^lanes_log2 lanes covers a row of lane vectors.
 // ---------------------------------------------------------------------------
@@ -62,6 +74,18 @@ __device__ __forceinline__ void unpack(const RawT<T, VEC>& r, float* x) {
   const T* p = reinterpret_cast<const T*>(&r);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) x[i] = to_f32(p[i]);
+}
+
+// x[0 .. VEC) = the VEC float32 values at p (aligned to the vector, or to 16
+// bytes when the vector is wider)
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float* x) {
+  if constexpr (VEC * 4 <= 16) {
+    unpack<float, VEC>(*reinterpret_cast<const RawT<float, VEC>*>(p), x);
+  } else {
+    load_f32<VEC / 2>(p, x);
+    load_f32<VEC / 2>(p + VEC / 2, x + VEC / 2);
+  }
 }
 
 // x[0 .. VEC) rounded to OutT and stored at p (aligned to the vector, or to

@@ -416,11 +416,6 @@ fixed_k_row_ptr_kernel(const int* __restrict__ keys, long long total, int n,
   }
 }
 
-inline unsigned grid_for(long long rows, int lanes_log2) {
-  const long long rows_per_block = static_cast<long long>(kWarpsPerBlock) * (kWarp >> lanes_log2);
-  return static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block);
-}
-
 inline unsigned grid_stride_blocks(long long total) {
   const long long blocks = (total + kBlock - 1) / kBlock;
   return static_cast<unsigned>(blocks < 132LL * 64 ? blocks : 132LL * 64);
@@ -514,11 +509,11 @@ void launch_pass(const void* a, const void* idx, const void* w, void* b, int n, 
                  int F, int ll, Transposed tr, cudaStream_t st) {
   constexpr int U = NV == 1 ? 8 : NV == 2 ? 4 : 2;  // slot gathers in flight per lane
   if constexpr (PASS == 0) {
-    fixed_k_gather_kernel<T, T, VEC, NV, U><<<grid_for(S, ll), kBlock, 0, st>>>(
+    fixed_k_gather_kernel<T, T, VEC, NV, U><<<grid_for_groups(S, ll), kBlock, 0, st>>>(
         static_cast<const T*>(a), n, static_cast<const int*>(idx), static_cast<const float*>(w),
         nullptr, k, static_cast<T*>(b), S, F, ll);
   } else {
-    fixed_k_gather_kernel<T, float, VEC, NV, U><<<grid_for(n, ll), kBlock, 0, st>>>(
+    fixed_k_gather_kernel<T, float, VEC, NV, U><<<grid_for_groups(n, ll), kBlock, 0, st>>>(
         static_cast<const T*>(a), S, reinterpret_cast<const int*>(tr.pairs),
         reinterpret_cast<const float*>(tr.pairs) + 1, tr.row_ptr, 0, static_cast<float*>(b), n,
         F, ll);

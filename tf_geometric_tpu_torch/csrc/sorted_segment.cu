@@ -21,6 +21,8 @@
 // contracted a one-hot 512 x 512 rank matrix with each message chunk on the
 // MXU and folded the chunks afterwards; on Hopper a segment owns a warp, so
 // no plan, no fold and no atomics are needed, and the sum is deterministic.
+// The warp loads several of the segment's rows before it adds any, so a hub
+// of 45 partials costs a few trips to memory, not 45.
 #include "common.cuh"
 
 namespace {
@@ -46,12 +48,24 @@ sorted_segment_sum_kernel(const TM* __restrict__ msg, const int* __restrict__ se
     float acc[NK];
 #pragma unroll
     for (int k = 0; k < NK; ++k) acc[k] = 0.f;
-    for (int i = start; i < end; ++i) {
-      const TM* m = msg + static_cast<size_t>(i) * F;
+    // U rows loaded before any is added, then added in order: the sum
+    // runs in segment order with U * NK = 32 loads per lane in flight
+    constexpr int U = 32 / NK;
+    for (int i0 = start; i0 < end; i0 += U) {
+      float x[U][NK];
 #pragma unroll
-      for (int k = 0; k < NK; ++k) {
-        const int f = f0 + k * kWarp + lane;
-        if (f < F) acc[k] += to_f32(m[f]);
+      for (int u = 0; u < U; ++u) {
+        const TM* m = msg + static_cast<size_t>(i0 + u) * F;
+#pragma unroll
+        for (int k = 0; k < NK; ++k) {
+          const int f = f0 + k * kWarp + lane;
+          x[u][k] = (i0 + u < end && f < F) ? to_f32(m[f]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < NK; ++k) acc[k] += x[u][k];
       }
     }
 #pragma unroll

@@ -26,28 +26,40 @@
 //
 // Design. The view is a stable sort of the COO edge list by row (built by
 // the caller), so every row's entries come in one fixed order and no float
-// atomics are needed: both kernels give the same bits in every run. One
-// warp owns one row. Its lanes form S sub-groups of L lanes: the L lanes of
-// a sub-group split the row's vectors (L = 32 for a row of 32 or more lane
-// vectors, else the next power of two), the S = 32 / L sub-groups split its
-// entries (sub-group s takes entries s, s + S, s + 2S, ...). So a narrow row
-// with many entries (a hub of the skewed arxiv graph: 2,839 entries) is
-// walked by 32 lanes at once and not by one, which a warp shared by 32
-// narrow rows did (1.6 ms for the F = 4 forward, against 0.04 ms on the
-// column-sorted view, whose rows are short). Each lane holds vectors of VEC
-// elements, up to 16 bytes, where VEC divides d, so a vector lies in one
-// head, and loads U entries' ids and rows before using any, so U gathers per
-// lane are in flight. Rows wider than L * NV vectors take several passes.
-// spmm reads each vector's head weight w[eid, h] (one address per sub-group
-// when H = 1) and, after its entries, adds the S sub-groups' partial sums by
-// a butterfly of shuffles; sub-group 0 writes the row. sddmm keeps its row
-// of a in registers for the pass and sums each entry's per-lane products
+// atomics are needed: both kernels give the same bits in every run. Each
+// lane holds vectors of VEC elements, up to 16 bytes, where VEC divides d, so
+// a vector lies in one head; rows wider than the lanes' vectors take several
+// passes.
+//
+// spmm. A group of L lanes owns one row (L = the next power of two of the
+// row's lane vectors, at most 32), so several narrow rows share a warp and
+// an empty row costs a lane group; the group walks its row in entry order
+// and loads U entries' ids, then their rows and weights w[eid, h], before it
+// adds any, so U gathers per lane are in flight (the weight rides beside the
+// row: a transaction, not a trip to memory). Long rows are split across
+// groups: the view's entries fall into chunks of kChunk (64) entries, and a
+// row with more than kChunk entries is long (the arxiv graph's largest has
+// 2,839). spmm_heads_chunk_kernel gives a lane group to each chunk; the
+// chunk's row is the row of its first entry, read from the view's row of
+// each entry (entry_row, which the caller's sort already made), and when
+// that row is long the group sums the row's entries inside the chunk into
+// the chunk's float32 partial. spmm_heads_kernel then sums each short row
+// from its entries and each long row from its entries before its first
+// chunk boundary, then the partials of the chunks that start inside it, in
+// chunk order. So no group reads more than 64 entries of a row in sequence
+// (and at most 45 partials on the arxiv graph), with no search and no sync.
+//
+// sddmm. One warp owns one row. Its lanes form S sub-groups of L lanes: the
+// L lanes of a sub-group split the row's vectors, the S = 32 / L sub-groups
+// split its entries (sub-group s takes entries s, s + S, s + 2S, ...); each
+// lane loads U entries' ids and rows before using any. The warp keeps its
+// row of a in registers for the pass and sums each entry's per-lane products
 // over the lanes of each head: when a head's vectors lie in one sub-group
 // (the vectors per head a power of two, at most L), one segmented butterfly
 // sums every head of a slice at once; otherwise a butterfly over the
 // sub-group per head. One lane writes each head's value (a head split over
-// two passes adds the second pass's part to its own first write). A wide
-// row with many entries is still walked by one warp.
+// two passes adds the second pass's part to its own first write). A wide row
+// with many entries is walked by one warp.
 #include "common.cuh"
 
 namespace {
@@ -56,8 +68,10 @@ using namespace tfg;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = kWarp * kWarpsPerBlock;
+constexpr int kChunk = 64;  // entries per chunk (ops/spmm_heads.py CHUNK)
 
-// Where one lane sits: its warp's row, its sub-group and its lane in it.
+// Where one lane of the SDDMM sits: its warp's row, its sub-group and its
+// lane in it.
 struct WarpRow {
   long long r;
   int lig, sub, L, S;
@@ -74,7 +88,7 @@ __device__ __forceinline__ WarpRow warp_row(int lanes_log2) {
   return wr;
 }
 
-// Entry j of the row (0 for both ids past the row's end): its neighbour,
+// Entry start + j of the view (0 for both ids when !ok): its neighbour,
 // clamped to [0, n - 1], and its edge id.
 __device__ __forceinline__ void entry_ids(const int* __restrict__ nbr,
                                           const int* __restrict__ eid, int start, int j,
@@ -83,66 +97,174 @@ __device__ __forceinline__ void entry_ids(const int* __restrict__ nbr,
   *e = ok ? eid[start + j] : 0;
 }
 
-template <typename T, typename OutT, int VEC, int NV, int U>
+// Where one lane of the SpMM sits: its group's row (or chunk) and its lane
+// in the group of L lanes; a lane past the last one has no row.
+struct GroupLane {
+  long long g;
+  int lig, L;
+  bool valid;
+};
+
+__device__ __forceinline__ GroupLane group_lane(int lanes_log2, long long groups) {
+  GroupLane gl;
+  gl.L = 1 << lanes_log2;
+  gl.lig = threadIdx.x & (gl.L - 1);
+  gl.g = (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> lanes_log2;
+  gl.valid = gl.g < groups;
+  return gl;
+}
+
+// acc += w[eid_j, h] * src[nbr_j] over entries j in [lo, hi) of the view, on
+// this lane's vectors (head[q] the head of vector q), in entry order; U
+// entries' ids, then U entries' rows and weights, loaded before any is added
+template <typename T, int VEC, int NV, int U>
+__device__ __forceinline__ void add_entries(float* acc, const int* head, const GroupLane& gl,
+                                            int v0, int nvec, int lo, int hi,
+                                            const int* __restrict__ nbr,
+                                            const int* __restrict__ eid,
+                                            const float* __restrict__ w, int H,
+                                            const T* __restrict__ src, int n_src, int F) {
+  for (int jb = lo; jb < hi; jb += U) {
+    RawT<T, VEC> raw[U][NV];
+    float wu[U][NV];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = jb + u < hi;
+      int c, e;
+      entry_ids(nbr, eid, jb, u, ok, n_src, &c, &e);
+      const T* row = src + static_cast<size_t>(c) * F;
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const int v = v0 + q * gl.L + gl.lig;
+        const bool vok = ok && v < nvec;
+        raw[u][q] = vok ? *reinterpret_cast<const RawT<T, VEC>*>(row + v * VEC)
+                        : RawT<T, VEC>{};
+        wu[u][q] = vok ? w[static_cast<size_t>(e) * H + head[q]] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        float x[VEC];
+        unpack<T, VEC>(raw[u][q], x);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[q * VEC + i] += wu[u][q] * x[i];
+      }
+    }
+  }
+}
+
+// acc += the float32 chunk partials [c_lo, c_hi) on this lane's vectors, in
+// chunk order, UP of them loaded before any is added
+template <int VEC, int NV, int UP>
+__device__ __forceinline__ void add_partials(float* acc, const GroupLane& gl, int v0, int nvec,
+                                             int c_lo, int c_hi,
+                                             const float* __restrict__ partial, int F) {
+  for (int cb = c_lo; cb < c_hi; cb += UP) {
+    float x[UP][NV * VEC];
+#pragma unroll
+    for (int u = 0; u < UP; ++u) {
+      const float* prow = partial + static_cast<size_t>(cb + u) * F;
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const int v = v0 + q * gl.L + gl.lig;
+        if (cb + u < c_hi && v < nvec) {
+          load_f32<VEC>(prow + v * VEC, x[u] + q * VEC);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) x[u][q * VEC + i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UP; ++u) {
+#pragma unroll
+      for (int i = 0; i < NV * VEC; ++i) acc[i] += x[u][i];
+    }
+  }
+}
+
+// the head of each of this lane's NV vectors in the pass from v0
+template <int NV>
+__device__ __forceinline__ void vector_heads(int* head, const GroupLane& gl, int v0, int vpd) {
+#pragma unroll
+  for (int q = 0; q < NV; ++q) head[q] = (v0 + q * gl.L + gl.lig) / vpd;
+}
+
+// One lane group per chunk of kChunk entries: the part of a long row inside
+// the chunk, as its float32 partial [chunks, H * d]. The chunk's row is the
+// row of its first entry (entry_row, the view's row of each entry); a chunk
+// whose row is short writes nothing.
+template <typename T, int VEC, int NV, int U>
 __global__ void __launch_bounds__(kBlock)
-spmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
-                  const int* __restrict__ eid, const float* __restrict__ w, int H, int d,
-                  const T* __restrict__ src, int n_src, OutT* __restrict__ out, int rows,
-                  int lanes_log2) {
-  const WarpRow wr = warp_row(lanes_log2);
-  if (wr.r >= rows) return;  // warp-uniform
+spmm_heads_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ entry_row,
+                        const int* __restrict__ nbr, const int* __restrict__ eid,
+                        const float* __restrict__ w, int H, int d, const T* __restrict__ src,
+                        int n_src, float* __restrict__ partial, int rows, int chunks,
+                        int lanes_log2) {
+  const GroupLane gl = group_lane(lanes_log2, chunks);
+  if (!gl.valid) return;  // no shuffles below: lanes may leave
+  const int lo = static_cast<int>(gl.g) * kChunk;
+  if (lo >= row_ptr[rows]) return;
+  const int r = entry_row[lo];
+  const int end = row_ptr[r + 1];
+  if (end - row_ptr[r] <= kChunk) return;  // a short row: spmm_heads_kernel's
+  const int hi = min(end, lo + kChunk);
   const int F = H * d;
   const int nvec = F / VEC;
-  const int vpd = d / VEC;  // vectors per head
-  const int start = row_ptr[wr.r];
-  const int count = row_ptr[wr.r + 1] - start;
-  for (int v0 = 0; v0 < nvec; v0 += wr.L * NV) {
+  for (int v0 = 0; v0 < nvec; v0 += gl.L * NV) {
     float acc[NV * VEC];
     int head[NV];
 #pragma unroll
     for (int i = 0; i < NV * VEC; ++i) acc[i] = 0.f;
-#pragma unroll
-    for (int q = 0; q < NV; ++q) head[q] = (v0 + q * wr.L + wr.lig) / vpd;
-    for (int jb = 0; jb < count; jb += wr.S * U) {
-      RawT<T, VEC> raw[U][NV];
-      float wu[U][NV];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = jb + u * wr.S + wr.sub;
-        const bool ok = j < count;
-        int c, e;
-        entry_ids(nbr, eid, start, j, ok, n_src, &c, &e);
-        const T* row = src + static_cast<size_t>(c) * F;
-#pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          const int v = v0 + q * wr.L + wr.lig;
-          const bool vok = ok && v < nvec;
-          raw[u][q] = vok ? *reinterpret_cast<const RawT<T, VEC>*>(row + v * VEC)
-                          : RawT<T, VEC>{};
-          wu[u][q] = vok ? w[static_cast<size_t>(e) * H + head[q]] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          float x[VEC];
-          unpack<T, VEC>(raw[u][q], x);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[q * VEC + i] += wu[u][q] * x[i];
-        }
-      }
-    }
-    // the sub-groups' partial sums, added in a fixed order
-    for (int o = wr.L; o < kWarp; o <<= 1) {
-#pragma unroll
-      for (int i = 0; i < NV * VEC; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], o);
-    }
-    if (wr.sub != 0) continue;
-    OutT* orow = out + static_cast<size_t>(wr.r) * F;
+    vector_heads<NV>(head, gl, v0, d / VEC);
+    add_entries<T, VEC, NV, U>(acc, head, gl, v0, nvec, lo, hi, nbr, eid, w, H, src, n_src, F);
+    float* prow = partial + static_cast<size_t>(gl.g) * F;
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
-      const int v = v0 + q * wr.L + wr.lig;
+      const int v = v0 + q * gl.L + gl.lig;
+      if (v < nvec) store_vec<float, VEC>(prow + v * VEC, acc + q * VEC);
+    }
+  }
+}
+
+// One lane group per row: a short row from its entries; a long row from its
+// entries before its first chunk boundary, then the partials of the chunks
+// that start inside it (written by spmm_heads_chunk_kernel), in chunk order.
+template <typename T, typename OutT, int VEC, int NV, int U>
+__global__ void __launch_bounds__(kBlock)
+spmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
+                  const int* __restrict__ eid, const float* __restrict__ w, int H, int d,
+                  const T* __restrict__ src, int n_src, const float* __restrict__ partial,
+                  OutT* __restrict__ out, int rows, int lanes_log2) {
+  // as many bytes of partials in flight as of the entries' rows
+  constexpr int UP = U * static_cast<int>(sizeof(T)) / 4 > 0
+                         ? U * static_cast<int>(sizeof(T)) / 4 : 1;
+  const GroupLane gl = group_lane(lanes_log2, rows);
+  if (!gl.valid) return;  // no shuffles below: lanes may leave
+  const int F = H * d;
+  const int nvec = F / VEC;
+  const int start = row_ptr[gl.g];
+  const int end = row_ptr[gl.g + 1];
+  const bool long_row = end - start > kChunk;
+  // a long row's chunks are those that start inside it
+  const int c_lo = long_row ? (start + kChunk - 1) / kChunk : 0;
+  const int c_hi = long_row ? (end - 1) / kChunk + 1 : 0;
+  const int direct_end = long_row ? c_lo * kChunk : end;
+  for (int v0 = 0; v0 < nvec; v0 += gl.L * NV) {
+    float acc[NV * VEC];
+    int head[NV];
+#pragma unroll
+    for (int i = 0; i < NV * VEC; ++i) acc[i] = 0.f;
+    vector_heads<NV>(head, gl, v0, d / VEC);
+    add_entries<T, VEC, NV, U>(acc, head, gl, v0, nvec, start, direct_end, nbr, eid, w, H, src,
+                               n_src, F);
+    if (long_row) add_partials<VEC, NV, UP>(acc, gl, v0, nvec, c_lo, c_hi, partial, F);
+    OutT* orow = out + static_cast<size_t>(gl.g) * F;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int v = v0 + q * gl.L + gl.lig;
       if (v < nvec) store_vec<OutT, VEC>(orow + v * VEC, acc + q * VEC);
     }
   }
@@ -238,34 +360,49 @@ sddmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
 // in-flight gathers per lane for NV vectors per lane
 constexpr int unroll_for(int nv) { return nv == 1 ? 8 : nv == 2 ? 4 : 2; }
 
+// the SpMM's operands, as the C entry receives them
+struct SpmmArgs {
+  const int* row_ptr;
+  const int* entry_row;
+  const int* nbr;
+  const int* eid;
+  const float* w;
+  int H, d;
+  const void* src;
+  int n_src;
+  float* partial;
+  void* out;
+  int rows, chunks, ll;
+};
+
+template <typename T, typename OutT, int VEC, int NV>
+void launch_spmm_nv(const SpmmArgs& a, cudaStream_t st) {
+  constexpr int U = unroll_for(NV);
+  auto src = static_cast<const T*>(a.src);
+  if (a.chunks > 0)
+    spmm_heads_chunk_kernel<T, VEC, NV, U><<<grid_for_groups(a.chunks, a.ll), kBlock, 0, st>>>(
+        a.row_ptr, a.entry_row, a.nbr, a.eid, a.w, a.H, a.d, src, a.n_src, a.partial, a.rows,
+        a.chunks, a.ll);
+  spmm_heads_kernel<T, OutT, VEC, NV, U><<<grid_for_groups(a.rows, a.ll), kBlock, 0, st>>>(
+      a.row_ptr, a.nbr, a.eid, a.w, a.H, a.d, src, a.n_src, a.partial,
+      static_cast<OutT*>(a.out), a.rows, a.ll);
+}
+
 template <typename T, typename OutT, int VEC>
-void launch_spmm_vec(int nv, unsigned grid, cudaStream_t st, const int* row_ptr, const int* nbr,
-                     const int* eid, const float* w, int H, int d, const T* src, int n_src,
-                     OutT* out, int rows, int ll) {
-  if (nv == 1)
-    spmm_heads_kernel<T, OutT, VEC, 1, unroll_for(1)><<<grid, kBlock, 0, st>>>(
-        row_ptr, nbr, eid, w, H, d, src, n_src, out, rows, ll);
-  else if (nv == 2)
-    spmm_heads_kernel<T, OutT, VEC, 2, unroll_for(2)><<<grid, kBlock, 0, st>>>(
-        row_ptr, nbr, eid, w, H, d, src, n_src, out, rows, ll);
-  else
-    spmm_heads_kernel<T, OutT, VEC, 4, unroll_for(4)><<<grid, kBlock, 0, st>>>(
-        row_ptr, nbr, eid, w, H, d, src, n_src, out, rows, ll);
+void launch_spmm_vec(int nv, const SpmmArgs& a, cudaStream_t st) {
+  if (nv == 1) launch_spmm_nv<T, OutT, VEC, 1>(a, st);
+  else if (nv == 2) launch_spmm_nv<T, OutT, VEC, 2>(a, st);
+  else launch_spmm_nv<T, OutT, VEC, 4>(a, st);
 }
 
 template <typename T, typename OutT>
-void launch_spmm(int vec, int nv, unsigned grid, cudaStream_t st, const int* row_ptr,
-                 const int* nbr, const int* eid, const float* w, int H, int d, const void* src,
-                 int n_src, void* out, int rows, int ll) {
-  auto s = static_cast<const T*>(src);
-  auto o = static_cast<OutT*>(out);
+void launch_spmm(int vec, int nv, const SpmmArgs& a, cudaStream_t st) {
   switch (vec) {
-    case 1: launch_spmm_vec<T, OutT, 1>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll); break;
-    case 2: launch_spmm_vec<T, OutT, 2>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll); break;
-    case 4: launch_spmm_vec<T, OutT, 4>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll); break;
+    case 1: launch_spmm_vec<T, OutT, 1>(nv, a, st); break;
+    case 2: launch_spmm_vec<T, OutT, 2>(nv, a, st); break;
+    case 4: launch_spmm_vec<T, OutT, 4>(nv, a, st); break;
     default:
-      if constexpr (sizeof(T) == 2)
-        launch_spmm_vec<T, OutT, 8>(nv, grid, st, row_ptr, nbr, eid, w, H, d, s, n_src, o, rows, ll);
+      if constexpr (sizeof(T) == 2) launch_spmm_vec<T, OutT, 8>(nv, a, st);
   }
 }
 
@@ -315,33 +452,35 @@ bool bad_shape(int rows, int n, int H, int d, int vec, int max_vec) {
 // out [rows, H * d] (dtype out_dtype) = the view's rows of w-weighted rows of
 // src [n_src, H * d] (dtype src_dtype): float32 -> float32, bfloat16 ->
 // bfloat16 or float32. w float32 [E, H]. Row starts aligned to vec elements.
-extern "C" int tfg_spmm_heads(const void* row_ptr, const void* nbr, const void* eid,
-                              const void* w, int H, int d, const void* src, int src_dtype,
-                              int n_src, void* out, int out_dtype, int rows, int vec,
-                              void* stream) {
+// chunks: 0 when the view holds at most kChunk entries (no row can be long),
+// else ceil(E / kChunk), with entry_row [E] the row of each stored entry and
+// partial float32 [chunks, H * d] as scratch; then two kernels are launched
+// (the chunks', then the rows').
+extern "C" int tfg_spmm_heads(const void* row_ptr, const void* entry_row, const void* nbr,
+                              const void* eid, const void* w, int H, int d, const void* src,
+                              int src_dtype, int n_src, void* out, int out_dtype, int rows,
+                              int vec, void* partial, int chunks, void* stream) {
   const int max_vec = src_dtype == kFloat32 ? 4 : src_dtype == kBFloat16 ? 8 : 0;
   if (bad_shape(rows, n_src, H, d, vec, max_vec) ||
       (src_dtype == kFloat32 && out_dtype != kFloat32) ||
-      (out_dtype != kFloat32 && out_dtype != kBFloat16))
+      (out_dtype != kFloat32 && out_dtype != kBFloat16) || chunks < 0 ||
+      (chunks > 0 && (partial == nullptr || entry_row == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
   const int nvec = H * d / vec;
   const int ll = pick_lanes_log2(nvec);
   const int nv = pick_nv(nvec, 1 << ll);
-  const unsigned grid = grid_for_rows(rows);  // one warp per row
+  const SpmmArgs a{static_cast<const int*>(row_ptr), static_cast<const int*>(entry_row),
+                   static_cast<const int*>(nbr), static_cast<const int*>(eid),
+                   static_cast<const float*>(w), H, d, src, n_src,
+                   static_cast<float*>(partial), out, rows, chunks, ll};
   auto st = static_cast<cudaStream_t>(stream);
-  auto rp = static_cast<const int*>(row_ptr);
-  auto nb = static_cast<const int*>(nbr);
-  auto ei = static_cast<const int*>(eid);
-  auto wt = static_cast<const float*>(w);
   if (src_dtype == kFloat32)
-    launch_spmm<float, float>(vec, nv, grid, st, rp, nb, ei, wt, H, d, src, n_src, out, rows, ll);
+    launch_spmm<float, float>(vec, nv, a, st);
   else if (out_dtype == kBFloat16)
-    launch_spmm<__nv_bfloat16, __nv_bfloat16>(vec, nv, grid, st, rp, nb, ei, wt, H, d, src,
-                                              n_src, out, rows, ll);
+    launch_spmm<__nv_bfloat16, __nv_bfloat16>(vec, nv, a, st);
   else
-    launch_spmm<__nv_bfloat16, float>(vec, nv, grid, st, rp, nb, ei, wt, H, d, src, n_src, out,
-                                      rows, ll);
+    launch_spmm<__nv_bfloat16, float>(vec, nv, a, st);
   return static_cast<int>(cudaGetLastError());
 }
 

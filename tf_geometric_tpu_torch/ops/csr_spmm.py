@@ -8,16 +8,17 @@ kernel on a transposed layout with the same diagonal.
 
 What carries over and what does not. The JAX layout groups rows into
 degree buckets with a slot width each, chosen by a TPU cost model; on
-Hopper a warp walks a CSR row of any length, so the port drops the buckets
-and the cost model. It keeps the hub split: a row with more than
-``split_width`` (256) edges owns none of them itself; they are cut into
-virtual rows of at most ``split_width`` edges, stored after the ordinary
-rows, so that no warp walks a 2,838-edge row while the rest of the grid
-idles. Kernel A (``csrc/csr_spmm.cu``) writes every ordinary row of the
-output and one float32 partial per virtual row; Kernel B
-(``ops/sorted_segment.py``) then adds the partials of each hub into its
-owner row. The JAX layout instead keeps a hub's remainder edges in the
-owner row; the sums are the same.
+Hopper a lane group walks a CSR row of any length, so the port drops the
+buckets and the cost model. It keeps the hub split, with a width set by the
+card: a row with more than ``split_width`` (``SPLIT_WIDTH``, 64) edges owns
+none of them itself; they are cut into virtual rows of at most
+``split_width`` edges, stored after the ordinary rows, so that no lane
+group walks a 2,838-edge row while the rest of the grid idles. Kernel A
+(``csrc/csr_spmm.cu``) writes every ordinary row of the output and one
+float32 partial per virtual row; Kernel B (``ops/sorted_segment.py``) then
+adds the partials of each hub into its owner row, in order. The JAX layout
+instead keeps a hub's remainder edges in the owner row; the sums are the
+same.
 
 Bound on the H100: bytes. Per call the kernel must read h, row_ptr, col,
 val (and the diagonal) and write the output once; it does 2 flops per
@@ -38,12 +39,20 @@ import torch
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from .sorted_segment import segment_sum_csr, sorted_segment_sum_plain
+from .spmm_heads import _vec_elements
 
 __all__ = ["CsrSide", "CsrAdj", "csr_spmm", "side_matmul", "side_matmul_plain",
-           "csr_spmm_plain", "launch_csr_spmm", "SPLIT_WIDTH"]
+           "csr_spmm_plain", "launch_csr_spmm", "serial_walks", "SPLIT_WIDTH"]
 
-# the JAX layout's widest slot group (_MAX_CAP in ops/ell_bucketed.py)
-SPLIT_WIDTH = 256
+# The longest row one lane group of Kernel A walks; a longer row is cut into
+# virtual rows whose float32 partials Kernel B adds into it. A group keeps 8
+# gathers in flight, so a walk of w edges is about 2 + w / 8 dependent trips
+# to memory. chip_smoke.py's split sweep on the H100 (PERF.md §6) puts 64
+# within 3% of the fastest width at both main-path widths (F = 40 float32,
+# F = 256 bf16), while 256, the JAX layout's widest slot group (_MAX_CAP in
+# ops/ell_bucketed.py), is 40% slower at F = 40; 64 keeps every walk short,
+# Kernel B's too (45 partials for the largest arxiv hub).
+SPLIT_WIDTH = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -122,6 +131,15 @@ def csr_spmm_plain(row_ptr, col, val, h, diag, num_rows: int):
     return out.to(h.dtype), acc[num_rows:]
 
 
+def serial_walks(side: CsrSide):
+    """The longest serial walks of one product direction: the most edges
+    one lane group of Kernel A reads (its longest stored row) and the most
+    partials Kernel B adds into one hub row."""
+    edges = int(side.row_ptr.diff().max()) if side.row_ptr.shape[0] > 1 else 0
+    partials = int(side.owner_ptr.diff().max()) if side.num_virtual else 0
+    return edges, partials
+
+
 def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int):
     """Launch Kernel A. ``row_ptr`` int32 [R' + 1], ``col`` int32 and ``val``
     float32 [nnz], ``h`` [n_src, F] float32 or bfloat16, ``diag`` float32
@@ -164,13 +182,14 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int):
         "csr_spmm.cu", "tfg_csr_spmm",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = fn(row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), h.data_ptr(),
                 _DTYPE_CODES[h.dtype], None if diag is None else diag.data_ptr(),
                 out.data_ptr(), partial.data_ptr() if num_virtual else None,
-                num_rows, num_virtual, num_features, stream)
+                num_rows, num_virtual, num_features,
+                _vec_elements(num_features, [h], [out, partial]), stream)
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: cudaError {rc}")
     launch_csr_spmm.launches += 1

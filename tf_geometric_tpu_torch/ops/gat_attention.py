@@ -60,12 +60,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 class GatSide(NamedTuple):
     """One CSR view of the edge list. ``nbr`` is the source of each entry
     on the destination side and its destination on the source side;
-    ``hubs`` lists the rows with more than ``hub_degree`` entries."""
+    ``hubs`` lists the rows with more than ``hub_degree`` entries; ``row``
+    is each entry's row (the multi-head SpMM's chunks read it)."""
     row_ptr: torch.Tensor   # [num_rows + 1] int32
     nbr: torch.Tensor       # [nnz] int32
     eid: torch.Tensor       # [nnz] int32, index into the input edge list
     hubs: torch.Tensor      # [num_hubs] int32
     hub_degree: int
+    row: torch.Tensor       # [nnz] int32
 
 
 def _build_side(keys, nbrs, eids, num_rows: int, hub_degree: int, device) -> GatSide:
@@ -78,7 +80,7 @@ def _build_side(keys, nbrs, eids, num_rows: int, hub_degree: int, device) -> Gat
 
     return GatSide(row_ptr=as_int32(row_ptr), nbr=as_int32(nbrs[order]),
                    eid=as_int32(eids[order]), hubs=as_int32(np.nonzero(deg > hub_degree)[0]),
-                   hub_degree=int(hub_degree))
+                   hub_degree=int(hub_degree), row=as_int32(keys[order]))
 
 
 class CsrGatLayout(NamedTuple):
@@ -118,7 +120,7 @@ class CsrGatLayout(NamedTuple):
         """The same layout with its tensors on ``device``."""
         def move(side):
             return side._replace(**{f: getattr(side, f).to(device)
-                                    for f in ("row_ptr", "nbr", "eid", "hubs")})
+                                    for f in ("row_ptr", "nbr", "eid", "hubs", "row")})
         return self._replace(dst=move(self.dst), src=move(self.src))
 
     def __repr__(self):

@@ -18,6 +18,16 @@ the gathered operand and an edge id (a row of the [E, H] weight or output).
 row's entries keep their edge order and the kernels sum in that order with
 no atomics: the same bits in every run. ``GatSide`` is a view too.
 
+The SpMM kernel splits long rows across lane groups: the view's entries
+fall into chunks of ``CHUNK`` (64); a row with more entries is a long row,
+and a first kernel sums each long row's entries inside each chunk that
+starts in it into a float32 partial, which the row kernel adds after the
+row's entries before its first chunk boundary, in chunk order
+(``row_split`` mirrors the plan on the host side). A chunk's row is the
+view's ``row`` at its first entry: the sorted keys of ``build_csr_view``
+(so a view built on the device needs no host sync) or the host-built
+``GatSide.row``.
+
 Each op has a plain PyTorch version with the same contract. A CPU tensor
 takes the plain version, a CUDA tensor launches the kernel, and a failed
 launch raises; inside ``ops.config.use_plain_versions()`` the plain versions
@@ -28,7 +38,7 @@ Bound on the H100: bytes (``spmm_pass_bytes``, ``sddmm_pass_bytes``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,19 +47,27 @@ from . import config as _config
 
 __all__ = ["CsrView", "build_csr_view", "spmm_heads", "sddmm_heads", "spmm_heads_plain",
            "sddmm_heads_plain", "launch_spmm_heads", "launch_sddmm_heads", "spmm_multihead",
-           "view_entries", "spmm_pass_bytes", "sddmm_pass_bytes", "pass_flops"]
+           "view_entries", "spmm_pass_bytes", "sddmm_pass_bytes", "pass_flops", "CHUNK",
+           "RowSplit", "row_split", "spmm_heads_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# Entries per chunk of the SpMM kernel (kChunk in csrc/spmm_heads.cu), the
+# same width as Kernel A's SPLIT_WIDTH: a lane group keeps 8 gathers in
+# flight, so a 64-entry piece is a few trips to memory.
+CHUNK = 64
+
 
 class CsrView(NamedTuple):
-    """A CSR view of a COO edge list (see the module docstring); ``nbr`` and
-    ``eid`` have one entry per input edge, those past ``row_ptr[-1]``
-    unused."""
+    """A CSR view of a COO edge list (see the module docstring); ``nbr``,
+    ``eid`` and ``row`` have one entry per input edge, those past
+    ``row_ptr[-1]`` unused. ``row`` is each entry's row, which the SpMM's
+    chunks read (None on a view that only the SDDMM reads)."""
     row_ptr: torch.Tensor   # [R + 1] int32
     nbr: torch.Tensor       # [E] int32, clamped to the gathered operand's rows
     eid: torch.Tensor       # [E] int32
+    row: Optional[torch.Tensor] = None   # [E] int32, R past row_ptr[-1]
 
 
 def build_csr_view(keys, nbrs, num_rows: int, num_nbrs: int) -> CsrView:
@@ -69,7 +87,7 @@ def build_csr_view(keys, nbrs, num_rows: int, num_nbrs: int) -> CsrView:
     row_ptr = torch.searchsorted(sorted_keys, torch.arange(num_rows + 1, dtype=torch.int32,
                                                            device=keys.device))
     nbr = nbrs.long()[perm].clamp(0, max(num_nbrs - 1, 0))
-    return CsrView(row_ptr.int(), nbr.int(), perm.int())
+    return CsrView(row_ptr.int(), nbr.int(), perm.int(), sorted_keys)
 
 
 def view_entries(view):
@@ -79,6 +97,47 @@ def view_entries(view):
     rows = torch.repeat_interleave(torch.arange(ptr.shape[0] - 1, device=ptr.device),
                                    ptr[1:] - ptr[:-1], output_size=nnz)
     return rows, view.nbr[:nnz].long(), view.eid[:nnz].long()
+
+
+class RowSplit(NamedTuple):
+    """How the SpMM kernel covers each row of a view (``row_split``): row
+    r's entries ``row_ptr[r]:direct_end[r]`` are summed directly, then the
+    partials of chunks ``chunk_lo[r]:chunk_hi[r]`` (empty for a short row),
+    where chunk c holds the row's entries ``c·CHUNK:min(c·CHUNK + CHUNK,
+    row_ptr[r + 1])``. ``chunk_row`` [chunks] is the row that holds each
+    chunk's first entry (-1 past the stored entries), as the kernel finds it."""
+    direct_end: torch.Tensor   # [R] int64
+    chunk_lo: torch.Tensor     # [R] int64
+    chunk_hi: torch.Tensor     # [R] int64
+    chunk_row: torch.Tensor    # [chunks] int64
+
+
+def _num_chunks(num_entries: int) -> int:
+    """The chunk kernel's grid: 0 when a view holds at most ``CHUNK``
+    entries (no row can be long), else one chunk per ``CHUNK`` entries."""
+    return 0 if num_entries <= CHUNK else -(-num_entries // CHUNK)
+
+
+def spmm_heads_launches(num_entries: int) -> int:
+    """Kernel launches of one SpMM call on a view of ``num_entries``
+    entries (``view.nbr``'s length): the chunks' and the rows', or the rows'
+    alone when no row can be long."""
+    return 1 + (_num_chunks(num_entries) > 0)
+
+
+def row_split(row_ptr) -> RowSplit:
+    """The SpMM kernel's plan for a view's ``row_ptr``, on its device."""
+    ptr = row_ptr.long()
+    start, end = ptr[:-1], ptr[1:]
+    long_row = end - start > CHUNK
+    chunk_lo = torch.where(long_row, (start + CHUNK - 1) // CHUNK, 0)
+    chunk_hi = torch.where(long_row, (end - 1) // CHUNK + 1, 0)
+    direct_end = torch.where(long_row, chunk_lo * CHUNK, end)
+    nnz = int(ptr[-1])
+    firsts = torch.arange(0, max(nnz, 1), CHUNK, device=ptr.device)
+    chunk_row = torch.searchsorted(ptr, firsts, right=True) - 1
+    chunk_row = torch.where(firsts < nnz, chunk_row, -1)
+    return RowSplit(direct_end, chunk_lo, chunk_hi, chunk_row)
 
 
 # ---------------------------------------------------------------------------
@@ -147,9 +206,11 @@ def _vec_elements(head_width: int, loaded, stored=()) -> int:
 
 
 def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
-    """Launch the SpMM kernel; returns ``out`` as ``spmm_heads_plain`` does
+    """Launch the SpMM kernels; returns ``out`` as ``spmm_heads_plain`` does
     (``out_dtype``: ``src``'s, or float32 for a bfloat16 ``src``). ``w``
-    float32 [E, H]. Counts each launch in ``.launches``."""
+    float32 [E, H]. Counts each launch in ``.launches``: two a call (the
+    chunks', then the rows'; ``spmm_heads_launches``), one for a view of at
+    most ``CHUNK`` entries."""
     _check_view(view, src.device)
     _check_dense("src", src, src.device, num_heads)
     out_dtype = src.dtype if out_dtype is None else out_dtype
@@ -166,16 +227,25 @@ def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
         raise ValueError("src has no rows to gather")
     d = width // num_heads
     vec = _vec_elements(d, [src], [out])
-    fn = _build.kernel_function("spmm_heads.cu", "tfg_spmm_heads", [_P] * 4 + [_I, _I, _P] + [_I] * 2
-                                + [_P] + [_I] * 3 + [_P])
+    chunks = _num_chunks(view.nbr.shape[0])
+    if chunks and (view.row is None or view.row.shape != view.nbr.shape
+                   or view.row.dtype != torch.int32 or view.row.device != src.device
+                   or not view.row.is_contiguous()):
+        raise ValueError("the SpMM's chunks need view.row: contiguous int32, one per entry, "
+                         "on the device")
+    partial = torch.empty((chunks, width), dtype=torch.float32, device=src.device)
+    fn = _build.kernel_function("spmm_heads.cu", "tfg_spmm_heads", [_P] * 5 + [_I, _I, _P]
+                                + [_I] * 2 + [_P] + [_I] * 3 + [_P, _I, _P])
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = fn(view.row_ptr.data_ptr(), view.nbr.data_ptr(), view.eid.data_ptr(), w.data_ptr(),
-                num_heads, d, src.data_ptr(), _DTYPE_CODES[src.dtype], src.shape[0],
-                out.data_ptr(), _DTYPE_CODES[out_dtype], rows, vec, stream)
+        rc = fn(view.row_ptr.data_ptr(), view.row.data_ptr() if chunks else None,
+                view.nbr.data_ptr(), view.eid.data_ptr(), w.data_ptr(), num_heads, d,
+                src.data_ptr(), _DTYPE_CODES[src.dtype], src.shape[0], out.data_ptr(),
+                _DTYPE_CODES[out_dtype], rows, vec, partial.data_ptr() if chunks else None,
+                chunks, stream)
     if rc != 0:
         raise RuntimeError(f"spmm_heads kernel launch failed: cudaError {rc}")
-    launch_spmm_heads.launches += 1
+    launch_spmm_heads.launches += 1 + (chunks > 0)
     return out
 
 
