@@ -43,14 +43,26 @@ Phases, each of which raises (non-zero exit) on failure:
    nodes, 11,606,919 edges), hold the draw kernel against its plain
    version at k = 25 on the same random integers, exactly (the main path's
    unweighted draw, and a draw with a weight table and self ids), and the
-   fixed-k aggregation forward and backward kernels against their plain
-   versions at (k, F) in {(25, 128), (10, 128), (25, 602), (4, 41)}, float32
-   (rtol = atol = 1e-4: order of summation) and bfloat16 (2e-2), on draws
-   made by the draw kernel, and the backward against its own second run,
-   bit for bit (its sums run in slot order). Time each kernel and
-   its plain version, and the aggregations' library yardstick
+   fixed-k aggregation forward and backward against their plain versions
+   at (k, F) in {(25, 128), (10, 128), (25, 602), (4, 41)}, float32
+   (rtol = atol = 1e-4: order of summation) and bfloat16 (forward 2e-2;
+   backward 1e-4, since both sides read the same ``dy`` and sum in
+   float32), on draws made by the draw kernel, each against its own second
+   run, bit for bit. Then the same at k = 25, F = 128 on two skewed draws
+   over the arxiv-like graph (as built, and transposed, whose hub sources
+   hold thousands of slots; the backward's sums within 1e-4 times their
+   sum of magnitudes), and the forward and backward at three shapes
+   off the main path (one source; three; 600,000 sources, two radix
+   passes). Print the most slots one source holds beside
+   the backward's longest serial walk, and each result's first SHA-256
+   digits (to compare two trees of the code on one draw). Time each
+   kernel (events; device time under the profiler, split into the
+   backward's transpose and gather, by kernel) beside its plain version,
+   its bound, every slot's row read from device memory, at F = 128 the
+   forward gather over a table the L2 holds, and the library yardstick
    ``torch.sparse.mm`` (a CSR matrix of k entries per row built from the
-   draw, and its transpose, in the case's dtype), beside the bound.
+   draw, and its transpose: prebuilt, and built from the draw inside the
+   timer), in the case's dtype.
 6. COO SpMM kernels (``csrc/spmm_heads.cu``, one head): on the arxiv
    graph's normalized COO, its edges shuffled by a seeded permutation, 1%
    sink edges (row = col = N) and a few in-range rows with out-of-range
@@ -159,6 +171,7 @@ Each phase prints its seconds. The second-to-last line of output is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import hashlib
 import json
 import math
 import subprocess
@@ -184,6 +197,7 @@ X6_SINK_SHARE, X6_BAD_COLS = 0.01, 8  # appended sink edges, in-range rows with 
 X3_SHAPES = ((8, 8), (8, 32), (4, 64))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+L2_TABLE_BYTES = 24 * 2 ** 20  # a gather table well inside the H100's 50 MB L2
 TIMED_ITERS = 20
 
 
@@ -214,10 +228,11 @@ def _cuda_ms(fn, iters=TIMED_ITERS, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=TIMED_ITERS, tries=3):
-    """Device time of one call of ``fn``: its kernels' time under
-    ``torch.profiler`` over ``iters`` calls. For calls so short that CUDA
-    events around back-to-back calls time the host's launches instead. A
+def _device_kernels(fn, iters=TIMED_ITERS, tries=3):
+    """Device time of one call of ``fn`` by kernel, ``[(name, ms, launches)]``
+    per call, under ``torch.profiler`` over ``iters`` calls. For calls so
+    short that CUDA events around back-to-back calls time the host's
+    launches instead, and to split a call's time between its kernels. A
     trace whose kernel count is not a whole number per call lost records
     and is taken again; None when no try gives a whole trace."""
     import torch
@@ -238,8 +253,14 @@ def _device_ms(fn, iters=TIMED_ITERS, tries=3):
         kernels = device_time_by_kernel(prof, iters)
         per_call = sum(k[2] for k in kernels)
         if kernels and abs(per_call - round(per_call)) < 1e-6:
-            return sum(k[1] for k in kernels)
+            return kernels
     return None
+
+
+def _device_ms(fn, iters=TIMED_ITERS, tries=3):
+    """Device time of one call of ``fn`` (``_device_kernels`` summed)."""
+    kernels = _device_kernels(fn, iters, tries)
+    return None if kernels is None else sum(k[1] for k in kernels)
 
 
 def _max_err(got, want, tol, what):
@@ -528,26 +549,256 @@ def gat_kernel_phase(layout, edges):
     return rows
 
 
-def _sparse_library(idx, w, num_src):
-    """The draw as torch CSR matrices, ``[S, n]`` (k entries per row, ids
-    clipped) and its transpose ``[n, S]``, for the ``torch.sparse.mm``
-    yardstick of the aggregation forward and backward."""
+def _draw_csr(idx, w, num_src):
+    """The draw as a torch CSR matrix ``[S, n]``, k entries per row (ids
+    clipped): the forward's ``torch.sparse.mm`` yardstick. Its rows are the
+    draw's, so it needs no sort."""
     import torch
     k, S = idx.shape
     cols = idx.t().reshape(-1).long().clamp(0, num_src - 1)
-    vals = w.t().reshape(-1)
     crow = torch.arange(0, k * S + 1, k, device=idx.device)
-    fwd = torch.sparse_csr_tensor(crow, cols, vals, (S, num_src))
-    rows = torch.arange(S, device=idx.device).repeat_interleave(k)
-    bwd = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals,
-                                  (num_src, S)).coalesce().to_sparse_csr()
-    return fwd, bwd
+    return torch.sparse_csr_tensor(crow, cols, w.t().reshape(-1), (S, num_src))
 
 
-def sage_kernel_phase(sage_problem):
+def _draw_csr_t(idx, w, num_src):
+    """The transposed draw as a torch CSR matrix ``[n, S]`` built from the
+    draw (``to_sparse_csr`` of its COO, which sorts by source): the
+    backward's yardstick, timed with its build or prebuilt."""
+    import torch
+    k, S = idx.shape
+    cols = idx.reshape(-1).long().clamp(0, num_src - 1)
+    rows = torch.arange(S, device=idx.device).repeat(k)
+    return torch.sparse_coo_tensor(torch.stack([cols, rows]), w.reshape(-1),
+                                   (num_src, S)).to_sparse_csr()
+
+
+def _s1_device_split(fn):
+    """Device ms of one S1 call, of its transpose (every kernel but the
+    gather) and of its gather, by kernel name, and the per-kernel text
+    (``name ms``); None and "" where not measured."""
+    kernels = _device_kernels(fn)
+    if kernels is None:
+        return None, None, None, ""
+    gather = sum(ms for name, ms, _ in kernels if _is_s1_gather(name))
+    total = sum(ms for _, ms, _ in kernels)
+    text = ", ".join(f"{_short_name(name)} {ms:.4f}" for name, ms, _ in kernels)
+    return total, total - gather, gather, text
+
+
+def _is_s1_gather(name):
+    return any(part in name for part in ("gather_kernel", "tile_kernel"))
+
+
+def _short_name(name):
+    """A kernel's function name out of the profiler's signature."""
+    import re
+    found = re.search(r"(\w+_kernel)", name)
+    return found.group(1) if found else name[:40]
+
+
+def _sum_err(got, want, scale, tol, what):
+    """``_max_err`` for sums of many terms: |got - want| <= atol + rtol *
+    scale, where ``scale`` is the same sum over the terms' magnitudes (a
+    float32 sum's rounding grows with it, not with the result, which can
+    cancel to near 0)."""
+    import torch
+    got, want = got.float(), want.float()
+    _check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    _check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    diff = (got - want).abs()
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * scale).all())
+    err = float(diff.max()) if got.numel() else 0.0
+    _check(ok, f"{what}: max abs err {err:.3e} outside atol={tol['atol']} + "
+               f"rtol={tol['rtol']} x the sum of magnitudes")
+    return err
+
+
+def _digest(t):
+    """The first hex digits of a tensor's bytes' SHA-256: bits to compare
+    across trees of the code on the same draw."""
+    import torch
+    return hashlib.sha256(t.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:12]
+
+
+def _s1_rows(fk, n, k, width, dtype, idx, w, gen, tag, graph, timed=True, long_sums=False):
+    """The S1 forward and backward at one case, each against its plain
+    version (forward: float32 1e-4, bfloat16 2e-2; backward: 1e-4 in both
+    dtypes, since both sides read the same ``dy`` and sum in float32; with
+    ``long_sums``, where a source sums thousands of slots, the backward
+    within 1e-4 times its sum of magnitudes, ``_sum_err``) and a second run
+    of the same call (bit for bit); in float32 also against
+    ``torch.sparse.mm``. Timed (CUDA events, and device time split into
+    transpose and gather) beside the plain version, the library calls
+    (prebuilt CSR, and the CSR built from the draw inside the timer), the
+    bound, every slot's row gathered from device memory and, at F = 128,
+    the same gather over a table the L2 holds (the floor of any scheme
+    that keeps the table in the L2)."""
+    import torch
+    f32 = dtype == torch.float32
+    tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
+    src = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+    wd = w.to(dtype)
+    fwd_lib, bwd_lib = _draw_csr(idx, wd, n), _draw_csr_t(idx, wd, n)
+    scale = fk.fixed_k_backward_plain(dy.abs(), idx, w.abs(), n) if long_sums else None
+
+    def err_of(backward, got, want, what):
+        if not backward:
+            return _max_err(got, want, tol, what)
+        if long_sums:
+            return _sum_err(got, want, scale, F32_TOL, what)
+        return _max_err(got, want, F32_TOL, what)
+    calls = ((fk.launch_fixed_k_forward, fk.fixed_k_forward_plain, (src, idx, w), fwd_lib, src,
+              lambda: torch.sparse.mm(_draw_csr(idx, wd, n), src)),
+             (fk.launch_fixed_k_backward, fk.fixed_k_backward_plain, (dy, idx, w, n), bwd_lib,
+              dy, lambda: torch.sparse.mm(_draw_csr_t(idx, wd, n), dy)))
+    flops = fk.aggregate_pass_flops(k, n, width)
+    rows = []
+    for backward, (kernel, plain, args, lib, dense, from_draw) in enumerate(calls):
+        name = "fixed_k_backward" if backward else "fixed_k_forward"
+        what = f"{name} {tag}"
+        want = plain(*args)
+
+        def call():
+            return kernel(*args)
+        got = call()
+        torch.cuda.synchronize()
+        _check_same_bits(lambda: (call(),), (), (got,), what)
+        err = err_of(backward, got, want, what)
+        if f32:
+            err = max(err, err_of(backward, got, torch.sparse.mm(lib, dense),
+                                  f"{what} vs torch.sparse.mm"))
+        nbytes = fk.aggregate_pass_bytes(n, k, n, width, elt, backward=bool(backward))
+        bound_ms, bound_by = _bound(nbytes, flops)
+        row = dict(name=name, graph=graph, k=k, width=width, dtype=str(dtype)[6:],
+                   max_abs_err=err, sha256=_digest(got), bound_ms=bound_ms, bound_by=bound_by,
+                   hbm_gather_ms=_gather_ms(k * n, width, elt))
+        del got
+        if timed:
+            device, transpose, gathered, by_kernel = _s1_device_split(call)
+            row.update(ms=_cuda_ms(call), device_ms=device, device_transpose_ms=transpose,
+                       device_gather_ms=gathered, device_kernels=by_kernel,
+                       plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1),
+                       library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, dense)),
+                       library_from_draw_ms=_cuda_ms(from_draw))
+            if not backward and width == 128:
+                rows_l2 = L2_TABLE_BYTES // (width * elt)
+                idx_l2, src_l2 = idx % rows_l2, src[:rows_l2]
+                row.update(l2_table_ms=_cuda_ms(lambda: kernel(src_l2, idx_l2, w)))
+        rows.append(row)
+    return rows
+
+
+def _skew_graphs(graph):
+    """The arxiv-like graph's edges for the skewed draws: as built (rows are
+    the skewed destinations, the drawn columns uniform: the most slots one
+    source holds stays near a hundred) and transposed (the drawn columns are
+    the skewed ones: hub sources hold thousands of slots)."""
+    import numpy as np
+    edge_index = np.asarray(graph.edge_index)
+    return [("arxiv", edge_index, graph.num_nodes),
+            ("arxiv transposed", edge_index[::-1].copy(), graph.num_nodes)]
+
+
+# S1 backward shapes off the main path: (sources, rows, k, F): every slot
+# on one source (hub segments over several chunks), three sources, and more
+# tiles than one radix digit holds (two passes and the tiles' run starts)
+S1_EDGE_CASES = ((1, 4096, 3, 8), (3, 1000, 5, 128), (600_000, 600_000, 4, 16))
+
+
+def s1_edge_cases(fk, gen):
+    """The S1 forward and backward on uniform draws at S1_EDGE_CASES,
+    float32, against their plain versions (the backward within 1e-4 times
+    its sum of magnitudes) and their own second runs, bit for bit."""
+    import torch
+    for n, S, k, width in S1_EDGE_CASES:
+        idx = torch.randint(0, n, (k, S), generator=gen, device="cuda", dtype=torch.int32)
+        w = torch.rand((k, S), generator=gen, device="cuda")
+        src = torch.randn(n, width, generator=gen, device="cuda")
+        dy = torch.randn(S, width, generator=gen, device="cuda")
+        tag = f"n={n} S={S} k={k} F={width}"
+        out = fk.launch_fixed_k_forward(src, idx, w)
+        d_src = fk.launch_fixed_k_backward(dy, idx, w, n)
+        torch.cuda.synchronize()
+        _check_same_bits(lambda: (fk.launch_fixed_k_forward(src, idx, w),
+                                  fk.launch_fixed_k_backward(dy, idx, w, n)), (), (out, d_src),
+                         f"fixed_k {tag}")
+        err = _max_err(out, fk.fixed_k_forward_plain(src, idx, w), F32_TOL, f"forward {tag}")
+        scale = fk.fixed_k_backward_plain(dy.abs(), idx, w, n)
+        err = max(err, _sum_err(d_src, fk.fixed_k_backward_plain(dy, idx, w, n), scale,
+                                F32_TOL, f"backward {tag}"))
+        print(f"fixed_k {tag} (passes {fk.backward_plan(n, width, 4, 4).passes}): "
+              f"max_abs_err {err:.3e}, {_walk_text(fk, idx, n)}", flush=True)
+
+
+def sage_skew_rows(fk, label, edge_index, num_nodes, gen):
+    """S1 on a skewed draw: k = 25 over an arxiv-like graph (the
+    Reddit-shaped graph's in-degrees are Poisson): the draw kernel exactly
+    against its plain version, the aggregations as ``_s1_rows`` at F = 128
+    in float32 (timed) and bfloat16, the backward's sums of thousands of
+    slots within 1e-4 times their sum of magnitudes; prints the
+    most slots one source holds beside the backward's longest serial walk."""
+    import torch
+    from tf_geometric_tpu_torch.nn.sampling.device_sampler import (DeviceNeighborSampler,
+                                                                    _random_ints)
+    sampler = DeviceNeighborSampler(edge_index, num_nodes=num_nodes, device="cuda")
+    csr = sampler.csr()
+    r = _random_ints(gen, SAGE_DRAW_K, num_nodes, "cuda")
+    args = (r, csr["row_start"], sampler.degree, csr["sorted_col"])
+    idx, w = fk.launch_draw_fixed_k(*args)
+    idx_p, w_p = fk.draw_fixed_k_plain(*args)
+    torch.cuda.synchronize()
+    _check(torch.equal(idx, idx_p) and torch.equal(w, w_p),
+           f"fixed_k draw on the {label} graph differs from plain")
+    print(f"skewed draw ({label}, k={SAGE_DRAW_K}): {_walk_text(fk, idx, num_nodes)}",
+          flush=True)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows += _s1_rows(fk, num_nodes, SAGE_DRAW_K, 128, dtype, idx, w, gen,
+                         f"{label} k={SAGE_DRAW_K} F=128 {str(dtype)[6:]}", label,
+                         timed=dtype == torch.float32, long_sums=True)
+    return rows
+
+
+def _walk_text(fk, idx, num_src):
+    import torch
+    most = int(torch.bincount(idx.reshape(-1).long().clamp(0, num_src - 1),
+                              minlength=num_src).max())
+    walk, partials = fk.serial_walks(idx, num_src)
+    return (f"most slots one source holds {most}, longest serial walk of the backward "
+            f"{walk} slots and {partials} partials")
+
+
+def _print_s1_rows(rows):
+    """One line per S1 case."""
+    for r in rows:
+        head = f"  {r['name']} {r.get('graph', 'reddit')} k={r['k']} F={r.get('width', '-')} " \
+               f"{r.get('dtype', 'int32')}"
+        if r["name"] == "fixed_k_draw":
+            print(f"{head}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, none, "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+            continue
+        if "ms" not in r:
+            print(f"{head}: {r['max_abs_err']:.3e} (checked, not timed), bits {r['sha256']}",
+                  flush=True)
+            continue
+        line = (f"{head}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, "
+                f"{r['library_ms']:.4f} / {r['library_from_draw_ms']:.4f}, "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}), HBM gather {r['hbm_gather_ms']:.4f}, "
+                f"device {_ms_text(r['device_ms'])} / {_ms_text(r['device_transpose_ms'])} / "
+                f"{_ms_text(r['device_gather_ms'])}")
+        if "l2_table_ms" in r:
+            line += f", the gather over a table the L2 holds {r['l2_table_ms']:.4f}"
+        if r["name"] == "fixed_k_backward" and r["device_kernels"]:
+            line += f" ({r['device_kernels']})"
+        print(f"{line}, bits {r['sha256']}", flush=True)
+
+
+def sage_kernel_phase(sage_problem, skew_graphs):
     """The draw kernel and both aggregation kernels against their plain
-    versions on the Reddit-shaped graph; returns one row per kernel and
-    case."""
+    versions on the Reddit-shaped graph, and the aggregations on skewed
+    draws over ``skew_graphs`` (``(label, edge_index, num_nodes)``, from
+    ``_skew_graphs``); returns one row per kernel and case."""
     import torch
     from tf_geometric_tpu_torch.nn.sampling.device_sampler import _random_ints
     from tf_geometric_tpu_torch.ops import fixed_k as fk
@@ -575,6 +826,7 @@ def sage_kernel_phase(sage_problem):
                                 (ww, ww_p, "weight")):
             _check(torch.equal(got, want), f"fixed_k draw k={k}: {what} differs from plain")
         draws[k] = (idx, w)
+        print(f"reddit draw k={k}: {_walk_text(fk, idx, n)}", flush=True)
         if k == SAGE_DRAW_K:
             args = (r, csr["row_start"], deg, csr["sorted_col"])
             nbytes = fk.draw_pass_bytes(k, n, nnz, False)
@@ -585,56 +837,24 @@ def sage_kernel_phase(sage_problem):
                              library_ms=None, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
                              bound_by="bytes"))
         del r, widx, ww, widx_p, ww_p, idx_p, w_p
+    print("sage kernel check (name graph k F dtype: max_abs_err, ms, plain_ms, library_ms "
+          "prebuilt / from the draw, bound_ms, every gather from HBM, device ms total / "
+          "transpose / gather, bits)")
+    _print_s1_rows(rows)
     for k, width in SAGE_SHAPES:
         idx, w = draws[k]
-        libs = _sparse_library(idx, w, n)
         for dtype in (torch.float32, torch.bfloat16):
-            f32 = dtype == torch.float32
-            tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
-            fwd_lib, bwd_lib = (m.to(dtype) for m in libs)
-            src = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
-            dy = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
-            out = fk.launch_fixed_k_forward(src, idx, w)
-            d_src = fk.launch_fixed_k_backward(dy, idx, w, n)
-            torch.cuda.synchronize()
-            tag = f"k={k} F={width} {str(dtype)[6:]}"
-            _check(torch.equal(d_src, fk.launch_fixed_k_backward(dy, idx, w, n)),
-                   f"fixed_k backward {tag}: two runs on the same inputs differ")
-            errs = (_max_err(out, fk.fixed_k_forward_plain(src, idx, w), tol,
-                             f"fixed_k forward {tag}"),
-                    _max_err(d_src, fk.fixed_k_backward_plain(dy, idx, w, n), tol,
-                             f"fixed_k backward {tag}"))
-            if f32:
-                errs = (max(errs[0], _max_err(out, torch.sparse.mm(fwd_lib, src), tol,
-                                              f"fixed_k forward vs torch.sparse.mm {tag}")),
-                        max(errs[1], _max_err(d_src, torch.sparse.mm(bwd_lib, dy), tol,
-                                              f"fixed_k backward vs torch.sparse.mm {tag}")))
-            flops = fk.aggregate_pass_flops(k, n, width)
-            calls = ((fk.launch_fixed_k_forward, fk.fixed_k_forward_plain, (src, idx, w),
-                      fwd_lib, src),
-                     (fk.launch_fixed_k_backward, fk.fixed_k_backward_plain, (dy, idx, w, n),
-                      bwd_lib, dy))
-            for backward, ((kernel, plain, args, lib, dense), err) in enumerate(zip(calls, errs)):
-                nbytes = fk.aggregate_pass_bytes(n, k, n, width, elt, backward=bool(backward))
-                byte_s, flop_s = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-                rows.append(dict(
-                    name="fixed_k_backward" if backward else "fixed_k_forward", k=k,
-                    width=width, dtype=str(dtype)[6:], max_abs_err=err,
-                    ms=_cuda_ms(lambda: kernel(*args)),
-                    plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1),
-                    library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, dense)),
-                    bound_ms=1e3 * max(byte_s, flop_s),
-                    bound_by="bytes" if byte_s >= flop_s else "operations"))
-            del src, dy, out, d_src
-            del fwd_lib, bwd_lib
-        del libs
+            case = _s1_rows(fk, n, k, width, dtype, idx, w, gen,
+                            f"k={k} F={width} {str(dtype)[6:]}", "reddit")
+            _print_s1_rows(case)
+            rows += case
+            torch.cuda.empty_cache()
+    for skew in skew_graphs:
+        case = sage_skew_rows(fk, *skew, gen)
+        _print_s1_rows(case)
+        rows += case
         torch.cuda.empty_cache()
-    print("sage kernel check (name k F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms)")
-    for r in rows:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {r['name']} k={r['k']} F={r.get('width', '-')} {r.get('dtype', 'int32')}: "
-              f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    s1_edge_cases(fk, gen)
     return rows
 
 
@@ -1824,7 +2044,7 @@ def main():
     t0 = time.perf_counter()
     sage_problem = bench.build_sage_problem(device="cuda")
     print(f"reddit problem built in {time.perf_counter() - t0:.1f} s", flush=True)
-    rows += _phase("sage kernels", sage_kernel_phase, sage_problem)
+    rows += _phase("sage kernels", sage_kernel_phase, sage_problem, _skew_graphs(graph))
     torch.cuda.empty_cache()
     graph_problem = bench.build_graph_problem(device="cuda")
     print(f"gin batch: {graph_problem.num_graphs} graphs, {graph_problem.x.shape[0]} padded "
@@ -1861,7 +2081,7 @@ def main():
     # the H-head SpMM as the COO forward on the arxiv COO at GIN's F=64 in
     # float32, the H-head SDDMM at workload 5's d_att (H=8, d_v=8, float32)
     spmm_rep = dict(side="fwd", width=256, dtype="bfloat16")
-    sage_rep = dict(k=25, width=128, dtype="float32")
+    sage_rep = dict(graph="reddit", k=25, width=128, dtype="float32")
     sage_src = ("tf_geometric_tpu_torch/csrc/fixed_k.cu",
                 "tf_geometric_tpu/nn/conv/graph_sage.py:67", sage_rep, "k=25, F=128, float32")
     gat_rep = dict(heads=8, width=32, dtype="bfloat16", keep=False)
@@ -1910,6 +2130,9 @@ def main():
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "shape": shape}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
+        if name in ("fixed_k_forward", "fixed_k_backward"):
+            entry.update(library_from_draw_ms=rep["library_from_draw_ms"],
+                         hbm_gather_ms=rep["hbm_gather_ms"])
         kernels.append(entry)
     kernels += halo_kernel_entries(halo_rows, halo_totals)
     for name, res in results.items():

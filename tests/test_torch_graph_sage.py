@@ -137,11 +137,13 @@ def test_fixed_k_weights_are_constants():
     assert launch_fixed_k_forward.launches == before
 
 
-@pytest.mark.parametrize("num_src,launches", [(1, 7), (512, 7), (513, 12), (232_965, 12),
-                                              (2 ** 18 + 1, 17)])
+@pytest.mark.parametrize("num_src,launches", [(1, 6), (512, 6), (513, 6), (232_965, 6),
+                                              (2 ** 18 + 1, 6)])
 def test_fixed_k_backward_launches(num_src, launches):
-    """Kernels per backward call: five per radix pass of at most 9 key bits
-    (at least one pass), then the row pointers and the gather."""
+    """Kernels per backward call: five per radix pass over the source tiles
+    (tiles of at most 512 sources, digits of at most 10 bits: one pass up
+    to 1,024 tiles, 524,288 sources), the tiles' run starts after several
+    passes, then the tile kernel."""
     assert fixed_k_backward_launches(num_src) == launches
 
 

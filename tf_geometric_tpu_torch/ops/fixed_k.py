@@ -26,17 +26,24 @@ takes the plain version, a CUDA tensor launches the kernel, and a failed
 launch raises; inside ``ops.config.use_plain_versions()`` the plain
 versions run on any device (the on-card reference of ``chip_smoke.py``).
 
-The backward gathers too: it sorts the draw by source id (on the card a
-stable radix sort, so each source's slots keep their slot order), then
-gathers ``w · dy`` rows into each source row, as the forward gathers source
-rows into each destination, with no float atomics: the kernel's sums run in
-one order in every run, so the backward is bitwise reproducible.
+The backward gathers too (no float atomics): on the card it buckets the
+draw's slots by source tile (source ``c`` in tile ``c % tiles``) in one
+stable radix pass, then sorts each tile's run by source in shared memory,
+stably, and gathers ``w · dy`` rows into each source row as the forward
+gathers source rows into each destination. A source with more than
+``SPLIT`` slots is cut into ``SPLIT``-slot segments whose partials are
+added in order. ``backward_plan`` sizes the tiles and the shared memory.
+
+Every order is fixed, so both directions are bitwise reproducible. The
+forward sums each row's slots in slot order, as ``fixed_k_forward_plain``
+does; ``fixed_k_backward_order_plain`` emulates the backward's order.
 
 Bound on the H100: bytes (``draw_pass_bytes``, ``aggregate_pass_bytes``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -45,11 +52,25 @@ from . import config as _config
 
 __all__ = ["draw_fixed_k_plain", "launch_draw_fixed_k", "draw_fixed_k_from_ints",
            "fixed_k_aggregate", "fixed_k_forward_plain", "fixed_k_backward_plain",
+           "fixed_k_backward_order_plain",
            "launch_fixed_k_forward", "launch_fixed_k_backward", "draw_pass_bytes",
-           "fixed_k_backward_launches", "aggregate_pass_bytes", "aggregate_pass_flops"]
+           "fixed_k_backward_launches", "aggregate_pass_bytes", "aggregate_pass_flops",
+           "BackwardPlan", "backward_plan", "serial_walks",
+           "SPLIT"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+# the backward (csrc/fixed_k.cu): slots one lane group sums before a hub's
+# partials are added, tiles of at most 512 sources, radix digits of at most
+# 10 bits; the tile kernel's block: 1024 threads (32 warps) holding up to 8
+# slots each (8,192 a chunk), one block an SM of the H100's 132 (a wave)
+SPLIT = 64
+MAX_TILE, MAX_DIGIT_BITS = 512, 10
+TILE_THREADS, TILE_WARPS, TILE_CAP = 1024, 32, 8192
+TILE_SMEM_BYTES = 231_424     # of the 232,448 an H100 block may use
+H100_SMS = 132
+PART_FLOATS = 4096            # shared floats for a round of hub partials
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +193,105 @@ def fixed_k_backward_plain(dy, idx, w, num_src: int):
     return d_src
 
 
+def _lanes(nvec: int):
+    """(lanes_log2, vectors per lane and pass) of a row of ``nvec`` lane
+    vectors: csrc/common.cuh's ``pick_lanes_log2`` and ``pick_nv``."""
+    ll = 0
+    while ll < 5 and (1 << ll) < nvec:
+        ll += 1
+    lanes = 1 << ll
+    return ll, 1 if nvec <= lanes else 2 if nvec <= 2 * lanes else 4
+
+
+def _sum_in_segments(terms):
+    """A hub's sum as the kernels take it: ``SPLIT``-slot segments, each
+    from zero slot by slot, added in order; a shorter list slot by slot."""
+    step = SPLIT if terms.shape[0] > SPLIT else terms.shape[0]
+    total = None
+    for s0 in range(0, terms.shape[0], max(step, 1)):
+        part = torch.zeros_like(terms[0])
+        for x in terms[s0:s0 + step]:
+            part = part + x
+        total = part if total is None else total + part
+    return total
+
+
+def fixed_k_backward_order_plain(dy, idx, w, num_src: int, plan):
+    """Plain emulation of the backward kernel's order, float32: each
+    source's slots in slot order, cut where its tile's run (the slots of
+    sources ``c`` with one ``c % tiles``) is cut into chunks of ``plan.cap``
+    slots. Within a chunk a source of more than ``SPLIT`` slots sums
+    ``SPLIT``-slot segments from zero and adds them in order, a shorter one
+    its slots one by one; the first chunk's sum is stored and later chunks'
+    sums are added to it. ``plan``: ``backward_plan``'s for the shapes."""
+    k, S = idx.shape
+    ids = idx.long().clamp(0, num_src - 1).reshape(-1)
+    rows = torch.arange(k * S, device=dy.device) % S
+    wf = w.reshape(-1)
+    g = dy.float()
+    d_src = torch.zeros((num_src, dy.shape[1]), dtype=torch.float32, device=dy.device)
+    num_tiles = -(-num_src // plan.tile)     # source c in tile c % num_tiles
+    order = torch.sort(ids % num_tiles, stable=True).indices   # the tiles' runs
+    starts = torch.searchsorted(ids[order] % num_tiles,
+                                torch.arange(num_tiles + 1, device=dy.device))
+    for t in range(num_tiles):
+        run = order[starts[t]:starts[t + 1]]
+        for a0 in range(0, run.shape[0], plan.cap):
+            chunk = run[a0:a0 + plan.cap]
+            for c in torch.unique(ids[chunk]).tolist():
+                mine = chunk[ids[chunk] == c]
+                terms = g[rows[mine]] * wf[mine][:, None]
+                if a0 > 0:
+                    d_src[c] = d_src[c] + _sum_in_segments(terms)
+                else:
+                    d_src[c] = _sum_in_segments(terms)
+    return d_src
+
+
+class BackwardPlan(NamedTuple):
+    tile: int           # sources per tile (at most; tile t: t, t + tiles, ...)
+    passes: int         # radix passes over the tile ids
+    digit_bits: int     # bits of a pass's digit
+    cap: int            # slots of a tile's run sorted in shared memory at a time
+    part_groups: int    # lane groups of a round of hub segments
+    smem: int           # shared bytes of the tile kernel's block
+
+
+def backward_plan(num_src: int, width: int, elt_bytes: int, vec: int) -> BackwardPlan:
+    """The backward's tiles and shared memory for ``num_src`` sources and
+    rows of ``width`` elements of ``elt_bytes`` loaded ``vec`` at a time:
+    as many tiles as whole waves of the tile kernel's blocks fill within one
+    10-bit radix digit (924), of at most ``MAX_TILE`` sources each (more
+    tiles, and radix passes, beyond); as many slots of a run in shared
+    memory as its budget leaves beside the kernel's other arrays (its
+    carving)."""
+    wave_tiles = H100_SMS * max(1, (1 << MAX_DIGIT_BITS) // H100_SMS)
+    tile = min(MAX_TILE, max(1, -(-num_src // wave_tiles)))
+    key_bits = max(-(-num_src // tile) - 1, 0).bit_length()
+    passes = 1 if key_bits <= MAX_DIGIT_BITS else -(-key_bits // MAX_DIGIT_BITS)
+    digit_bits = max(1, -(-key_bits // passes))
+    nvec = width // vec
+    ll, nv = _lanes(nvec)
+    pw = (1 << ll) * nv * vec
+    fpad = -(-nvec // ((1 << ll) * nv)) * pw
+    part_groups = max(1, min(TILE_THREADS >> ll, PART_FLOATS // pw))
+    fixed = 4 * (tile * (TILE_WARPS + 1) + 2 * (tile + 1)) + 4 * part_groups * pw + 8 * fpad
+    cap = min(TILE_CAP, (TILE_SMEM_BYTES - fixed) // 8 // 2 * 2)
+    if cap < TILE_THREADS:
+        raise ValueError(f"rows of {width} elements leave no room for the backward's "
+                         f"slots in {TILE_SMEM_BYTES} bytes of shared memory")
+    return BackwardPlan(tile, passes, digit_bits, cap, part_groups, fixed + 8 * cap)
+
+
+def serial_walks(idx, num_src: int):
+    """(longest serial walk, partials) of the backward on this draw: the
+    most slots one lane group sums (a source's, up to ``SPLIT``) and the
+    segment partials added into the source with the most slots."""
+    most = int(torch.bincount(idx.reshape(-1).long().clamp(0, num_src - 1),
+                              minlength=num_src).max()) if idx.numel() else 0
+    return min(most, SPLIT), (-(-most // SPLIT) if most > SPLIT else 0)
+
+
 def _vec_elements(width: int, elt_bytes: int, tensors) -> int:
     """Elements per lane vector: the largest power of two that divides
     ``width``, spans at most 16 bytes and keeps every base address aligned."""
@@ -197,20 +317,25 @@ def _check_aggregate(dense, idx, w):
     if w.requires_grad:
         raise ValueError("the fixed-k kernels take w as a constant (sampler weights); "
                          "w.requires_grad is set")
+    if idx.numel() >= 2 ** 31:
+        raise ValueError(f"the fixed-k kernels index the {tuple(idx.shape)} draw with int32")
 
 
-def _launch_aggregate(symbol: str, dense, idx, w, out, num_src: int, *extra):
+def _launch_aggregate(symbol: str, dense, idx, w, out, num_src: int, extra=None):
+    """Call ``symbol`` with the arguments every aggregation entry takes, then
+    ``extra(vec)`` where given: the entry's own ``(ctypes type, value)``
+    pairs for the lane-vector width ``vec``."""
     k, S = idx.shape
     F = dense.shape[1]
-    if k * S >= 2 ** 31:
-        raise ValueError(f"the fixed-k kernels index the {k} x {S} draw with int32")
     vec = _vec_elements(F, dense.element_size(), [dense, out])
+    pairs = extra(vec) if extra is not None else []
+    types, values = [t for t, _ in pairs], [v for _, v in pairs]
     fn = _build.kernel_function("fixed_k.cu", symbol,
-                                [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I] + [_P] * (len(extra) + 1))
+                                [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, *types, _P])
     with torch.cuda.device(dense.device):
         stream = torch.cuda.current_stream(dense.device).cuda_stream
         rc = fn(dense.data_ptr(), _DTYPE_CODES[dense.dtype], vec, idx.data_ptr(), w.data_ptr(),
-                out.data_ptr(), num_src, S, k, F, *extra, stream)
+                out.data_ptr(), num_src, S, k, F, *values, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
 
@@ -231,12 +356,13 @@ def launch_fixed_k_forward(src, idx, w):
 
 
 def launch_fixed_k_backward(dy, idx, w, num_src: int):
-    """Launch the backward: the draw transposed by source (a stable radix
-    sort: per pass a digit count, a three-launch scan and a scatter; then
-    the row pointers) and a gather through it. Returns ``d_src`` float32
-    [num_src, F] as ``fixed_k_backward_plain`` does. Adds each kernel it
-    launches to ``.launches`` (``fixed_k_backward_launches(num_src)`` per
-    call) and each call to ``.calls``."""
+    """Launch the backward: the draw bucketed by source tile (a stable
+    radix pass: a digit count, a three-launch scan and a scatter), then the
+    tile kernel's gather of the tiles' runs (``backward_plan`` sizes it).
+    Returns ``d_src`` float32 [num_src, F] as ``fixed_k_backward_plain``
+    does. Adds each kernel it launches to ``.launches``
+    (``fixed_k_backward_launches(num_src)`` per call) and each call to
+    ``.calls``."""
     _check_aggregate(("dy", dy), idx, w)
     if dy.shape[0] != idx.shape[1]:
         raise ValueError(f"dy must have {idx.shape[1]} rows, got {dy.shape[0]}")
@@ -249,8 +375,12 @@ def launch_fixed_k_backward(dy, idx, w, num_src: int):
                                     [_I, ctypes.c_longlong], restype=ctypes.c_longlong)
     scratch = torch.empty(nbytes(num_src, idx.numel()), dtype=torch.uint8, device=dy.device)
     launched = ctypes.c_int(0)
-    _launch_aggregate("tfg_fixed_k_backward", dy, idx, w, d_src, num_src, scratch.data_ptr(),
-                      ctypes.addressof(launched))
+
+    def extra(vec):
+        plan = backward_plan(num_src, dy.shape[1], dy.element_size(), vec)
+        return [(_I, plan.tile), (_I, plan.cap), (_I, plan.part_groups),
+                (_P, scratch.data_ptr()), (_P, ctypes.addressof(launched))]
+    _launch_aggregate("tfg_fixed_k_backward", dy, idx, w, d_src, num_src, extra)
     launch_fixed_k_backward.launches += launched.value
     launch_fixed_k_backward.calls += 1
     return d_src
@@ -258,10 +388,11 @@ def launch_fixed_k_backward(dy, idx, w, num_src: int):
 
 def fixed_k_backward_launches(num_src: int) -> int:
     """Kernels one backward call launches for ``num_src`` sources: five per
-    radix pass (count, three scan launches, scatter), one pass per 9 bits of
-    ``num_src - 1`` (at least one), then the row pointers and the gather."""
-    bits = max(num_src - 1, 0).bit_length()
-    return 5 * max(1, -(-bits // 9)) + 2
+    radix pass over the tile ids (count, three scan launches, scatter; one
+    pass up to 1,024 tiles: 524,288 sources), the tiles' run starts when
+    there are several passes, then the tile kernel: 6 in one pass."""
+    passes = backward_plan(num_src, 1, 4, 1).passes
+    return 5 * passes + (passes > 1) + 1
 
 
 launch_fixed_k_forward.launches = 0
