@@ -31,14 +31,28 @@ Phases, each of which raises (non-zero exit) on failure:
    time), each held against its plain version.
 4. GAT kernels: on the self-looped arxiv graph's ``CsrGatLayout``, at
    H = 8, d = 32, at the odd shape H = 2, d = 20, at one wide head
-   (H = 1, d = 256) and at (H, d) = (4, 8), (8, 4), (4, 64), which give
-   every other lane-group size (1, 2 and 16 lanes per head), in float32 and
+   (H = 1, d = 256), at (H, d) = (4, 8), (8, 4), (4, 64), which give
+   every other lane-group size (1, 2 and 16 lanes per head), and at an odd
+   head width (H = 3, d = 5: one-element vectors), in float32 and
    bfloat16, with no dropout and with a 0.3 keep mask, hold the forward
    kernel and both backward kernels against their plain versions on the
    same inputs (float32: rtol = atol = 1e-4 for out and lse, 1e-3 for the
-   gradients and D, whose sums chain through a recomputed softmax; bfloat16:
-   2e-2). Time each kernel and its plain version with CUDA events beside
-   its bound; print the destination side's hub rows and longest row.
+   gradients and D, whose sums chain through a recomputed softmax;
+   bfloat16: 2e-2; the destination pass's per-edge weights w 1e-3 in both
+   dtypes, as both sides compute them in float32), the plain source pass
+   reading the kernel's w; the backward's dQ, D, w, dK and dV bit for bit
+   against a second run. The same on the transposed layout, whose source
+   side holds the skewed destinations (518 rows over 64 entries: the source
+   pass's hub blocks). Time each kernel at H = 8, d = 32 with CUDA events
+   and by device time beside its bound (the source pass's: its own gather,
+   Q, dy and w read, dK and dV written), its plain version, its registers
+   per thread and resident warps per SM, every gathered row read from
+   device memory, the time of the w array's writes beside the destination
+   pass (outside its bound) and, for the source pass, the library
+   yardstick ``torch.bmm`` of the source
+   side's per-head sparse COO weights with Q and dy (float32, built outside
+   the timer; never called by the port); print the destination side's hub
+   rows and longest row.
 5. SAGE kernels: on the Reddit-shaped graph's device sampler (232,965
    nodes, 11,606,919 edges), hold the draw kernel against its plain
    version at k = 25 on the same random integers, exactly (the main path's
@@ -133,9 +147,10 @@ Phases, each of which raises (non-zero exit) on failure:
     layout (``npp`` rows reading ``npp + 4·cap``) at (H, d) = (8, 8),
     (1, 64), (8, 32), float32 and bfloat16, without dropout and with a 0.6
     dropout mask: the three attention kernels against their plain versions
-    (1e-4 out and lse, 1e-3 gradients, bfloat16 2e-2), and every row without
-    entries exactly 0 (out, lse, dQ, D; dK, dV); hub and empty rows printed;
-    the main path's float32 masked cases timed on rank 0.
+    and the backward bit for bit, as in phase 4, and every row without
+    entries exactly 0 (out, lse, dQ, D; dK, dV); hub and empty rows
+    printed; the main path's float32 masked cases timed on rank 0, as in
+    phase 4.
 12. The graph-parallel main path, "4 ranks sharing one H100 over gloo":
     ``bench.run_halo_workload`` trains the halo GCN and the fused halo GAT
     (workloads 8 and 9) at full arxiv size on 4 spawned ranks with CUDA
@@ -182,9 +197,11 @@ F32_TOL = dict(rtol=1e-4, atol=1e-4)
 F32_GRAD_TOL = dict(rtol=1e-3, atol=1e-3)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # (heads, head width): the bench's, an odd width, one head over two slices,
-# and the lane groups the others miss (float32 / bfloat16 lanes per head:
-# (4, 8) 2 / 1, (8, 4) 1 / 1, (4, 64) 16 / 8)
-GAT_SHAPES = ((8, 32), (2, 20), (1, 256), (4, 8), (8, 4), (4, 64))
+# the lane groups the others miss (float32 / bfloat16 lanes per head:
+# (4, 8) 2 / 1, (8, 4) 1 / 1, (4, 64) 16 / 8), and an odd head width, whose
+# one-element vectors (4 / 2 bytes) take the destination pass's narrowest
+# ring copies
+GAT_SHAPES = ((8, 32), (2, 20), (1, 256), (4, 8), (8, 4), (4, 64), (3, 5))
 GAT_KEEP_RATE = 0.3
 WIDTHS = (40, 128, 256)
 # SAGE aggregation cases (k, F): both layers of the bench (128-wide after the
@@ -422,6 +439,140 @@ def _gather_ms(nnz, width, elt):
     return 1e3 * nnz * width * elt / HBM_BYTES_PER_S
 
 
+def _gat_case(layout, Q, K, V, dy, heads, keep, tag):
+    """The three attention kernels against their plain versions on one case
+    (float32: 1e-4 for out and lse, 1e-3 for the gradients and D; bfloat16
+    2e-2; w 1e-3 in both, as both sides compute it in float32): out and
+    lse; dQ, D and w on the side's edges; dK and dV, the plain source pass
+    reading the kernel's w as the kernel does. dQ, D,
+    w, dK and dV must give the same bits in a second run. Returns the
+    largest error of each kernel, each kernel's (kernel, plain, args) and the
+    outputs."""
+    import torch
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    f32 = Q.dtype == torch.float32
+    fwd_tol, grad_tol = (F32_TOL, F32_GRAD_TOL) if f32 else (BF16_TOL, BF16_TOL)
+    eids = layout.dst.eid.long()
+    fwd_args = (layout.dst, Q, K, V, heads, keep)
+    out, lse = ga.launch_gat_forward(*fwd_args)
+    out_p, lse_p = ga.gat_forward_plain(*fwd_args)
+    dst_args = (layout.dst, Q, K, V, out, lse, dy, heads, keep)
+    dQ, D, w = ga.launch_gat_backward_dst(*dst_args)
+    dQ_p, D_p, w_p = ga.gat_backward_dst_plain(*dst_args)
+    src_args = (layout.src, Q, dy, w, heads)
+    dK, dV = ga.launch_gat_backward_src(*src_args)
+    dK_p, dV_p = ga.gat_backward_src_plain(*src_args)
+    torch.cuda.synchronize()
+    errs = (
+        max(_max_err(out, out_p, fwd_tol, f"gat forward out {tag}"),
+            _max_err(lse, lse_p, fwd_tol, f"gat forward lse {tag}")),
+        max(_max_err(dQ, dQ_p, grad_tol, f"gat backward dQ {tag}"),
+            _max_err(D, D_p, grad_tol, f"gat backward D {tag}"),
+            _max_err(w[eids], w_p[eids], F32_GRAD_TOL, f"gat backward w {tag}")),
+        max(_max_err(dK, dK_p, grad_tol, f"gat backward dK {tag}"),
+            _max_err(dV, dV_p, grad_tol, f"gat backward dV {tag}")))
+    del out_p, lse_p, dQ_p, D_p, w_p, dK_p, dV_p
+    dQ2, D2, w2 = ga.launch_gat_backward_dst(*dst_args)
+    dK2, dV2 = ga.launch_gat_backward_src(*src_args)
+    torch.cuda.synchronize()
+    _check(torch.equal(dQ, dQ2) and torch.equal(D, D2) and torch.equal(w[eids], w2[eids])
+           and torch.equal(dK, dK2) and torch.equal(dV, dV2),
+           f"gat backward {tag}: two runs on the same inputs differ")
+    del dQ2, D2, w2, dK2, dV2
+    calls = ((ga.launch_gat_forward, ga.gat_forward_plain, fwd_args),
+             (ga.launch_gat_backward_dst, ga.gat_backward_dst_plain, dst_args),
+             (ga.launch_gat_backward_src, ga.gat_backward_src_plain, src_args))
+    return errs, calls, dict(out=out, lse=lse, dQ=dQ, D=D, w=w, dK=dK, dV=dV)
+
+
+def _src_library(layout, Q, dy, w, heads):
+    """The library yardstick of the source pass (never called by the port):
+    given w, dK and dV are per-head weighted SpMMs, ``torch.bmm`` of the
+    source side's [H, S, N] sparse COO weights (built here, outside the
+    timer) with Q and dy viewed [H, N, d], in float32 (PyTorch has no
+    bfloat16 kernel for it). Returns the call and a function that lays its
+    results out as the kernel's [S, H·d]."""
+    import torch
+    from tf_geometric_tpu_torch.ops.spmm_heads import view_entries
+    cols, rows, eids = view_entries(layout.src)
+    n, S, width = Q.shape[0], layout.num_src, Q.shape[1]
+    d = width // heads
+    hh = torch.arange(heads, device=Q.device).repeat_interleave(cols.shape[0])
+    index = torch.stack([hh, cols.repeat(heads), rows.repeat(heads)])
+    we = w[eids]
+    ak, av = (torch.sparse_coo_tensor(index, we[:, part].t().reshape(-1), (heads, S, n)).coalesce()
+              for part in (slice(heads, None), slice(None, heads)))
+    q3, dy3 = (t.float().view(n, heads, d).transpose(0, 1).contiguous() for t in (Q, dy))
+
+    def call():
+        return torch.bmm(ak, q3), torch.bmm(av, dy3)
+
+    def layout_of(res):
+        return [r.transpose(0, 1).reshape(S, width) for r in res]
+    return call, layout_of
+
+
+def _gat_rows(layout, heads, width, dtype, keep, errs, calls, outs, timed, **key):
+    """One row per attention kernel of a checked case; a timed case adds its
+    times (``_gat_timing``) and, for the source pass, its library yardstick
+    (checked against the kernel's dK and dV, 1e-3)."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    f32 = dtype == torch.float32
+    rows = []
+    for kind, ((kernel, plain, args), err) in enumerate(zip(calls, errs)):
+        # the source pass's own function reads w in place of K, V, lse, D
+        bound_ms, bound_by = _bound(*(
+            bench.gat_src_gather_work(layout, heads, width, 4 if f32 else 2) if kind == 2 else
+            (bench.gat_pass_bytes(layout, kind, heads, width, 4 if f32 else 2, keep is not None),
+             bench.gat_pass_flops(layout, kind, heads, width))))
+        row = dict(name=("gat_forward", "gat_backward_dst", "gat_backward_src")[kind],
+                   heads=heads, width=width, dtype=str(dtype)[6:], keep=keep is not None,
+                   max_abs_err=err, ms=None, plain_ms=None, library_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by, **key)
+        if timed:
+            row.update(_gat_timing(kernel, plain, args, kind, layout, heads, width, dtype))
+            if kind == 2:
+                call, layout_of = _src_library(layout, args[1], args[2], args[3], heads)
+                for got, want, what in zip((outs["dK"], outs["dV"]), layout_of(call()),
+                                           ("dK", "dV")):
+                    row["max_abs_err"] = max(row["max_abs_err"], _max_err(
+                        got, want, F32_GRAD_TOL if f32 else BF16_TOL,
+                        f"gat backward {what} vs the library call"))
+                row["library_ms"] = _cuda_ms(call)
+        rows.append(row)
+    return rows
+
+
+def _gat_timing(kernel, plain, args, kind, layout, heads, width, dtype):
+    """A timed attention pass: its events and device time, its plain
+    version's time, its instance's registers per thread and resident warps
+    per SM, every gathered row (two per entry) read from device memory, and
+    for the destination pass the time of writing the [E, 2H] float32 weight
+    array (the design's bytes, outside its bound; the source pass's bound
+    holds its read)."""
+    import torch
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    regs, warps = ga.kernel_info(kind, heads, width, dtype)
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nnz = int(layout.dst.nbr.shape[0])
+    return dict(ms=_cuda_ms(lambda: kernel(*args)), device_ms=_device_ms(lambda: kernel(*args)),
+                plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1), regs=regs,
+                warps_per_sm=warps, hbm_gather_ms=_gather_ms(nnz, 2 * heads * width, elt),
+                w_ms=_gather_ms(nnz, 2 * heads, 4) if kind == 1 else 0.0)
+
+
+def _gat_row_text(r):
+    """The timing part of a GAT check line (``_gat_timing``'s fields)."""
+    if r["ms"] is None:
+        return "not timed, not timed"
+    lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} (float32)"
+    w = f", w written {r['w_ms']:.4f}" if r["w_ms"] else ""
+    return (f"{r['ms']:.4f} (device {_ms_text(r['device_ms'])}), {r['plain_ms']:.4f}{lib}, "
+            f"{r['regs']} regs, {r['warps_per_sm']} warps/SM, every gathered row from HBM "
+            f"{r['hbm_gather_ms']:.4f}{w}")
+
+
 def _walk_line(side):
     """A CSR side's longest row beside the longest serial walks of Kernel A
     (edges one lane group reads) and Kernel B (partials added into one row)."""
@@ -465,25 +616,29 @@ def split_sweep(normed):
 
 def gat_kernel_phase(layout, edges):
     """The three attention kernels against their plain versions at each GAT
-    shape, dtype and dropout setting; returns one row per kernel and case.
-    Also times the bench-shape forward and destination-side backward on the
-    same graph with every row walked by one warp (no hub blocks), which
-    shows what the hub rows would cost without them."""
+    shape, dtype and dropout setting (``_gat_case``), on the self-looped
+    arxiv layout and on its transpose, whose source side holds the skewed
+    destinations (rows over ``CHUNK`` (64) entries: the source pass's hub
+    blocks); returns one row per kernel and case of the first. Also times
+    the bench-shape forward and destination-side backward on the same graph
+    with every row walked by one warp (no hub blocks), which shows what the
+    hub rows would cost without them."""
     import torch
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import gat_attention as ga
-    deg = layout.dst.row_ptr.diff()
+    n = layout.num_nodes
+    flipped = ga.CsrGatLayout.build(edges.flip(0), n, device="cuda")
     hub_cost = None
-    print(f"gat layout: {layout}; destination side: {int(layout.dst.hubs.shape[0])} hub rows "
-          f"(> {layout.dst.hub_degree} edges), longest row {int(deg.max())}; source side: "
-          f"{int(layout.src.hubs.shape[0])} hub rows, longest row "
-          f"{int(layout.src.row_ptr.diff().max())}", flush=True)
+    for what, lay in (("gat layout", layout), ("transposed gat layout", flipped)):
+        print(f"{what}: {lay}; destination side: {int(lay.dst.hubs.shape[0])} hub rows "
+              f"(> {lay.dst.hub_degree} edges), longest row {int(lay.dst.row_ptr.diff().max())}; "
+              f"source side: {int(lay.src.hubs.shape[0])} hub rows (> {lay.src.hub_degree} "
+              f"entries), longest row {int(lay.src.row_ptr.diff().max())}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    n, rows = layout.num_nodes, []
+    rows, flipped_errs = [], []
     for heads, width in GAT_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
-            fwd_tol, grad_tol = (F32_TOL, F32_GRAD_TOL) if f32 else (BF16_TOL, BF16_TOL)
             Q, K, V, dy = (torch.randn(n, heads * width, generator=gen, device="cuda").to(dtype)
                            for _ in range(4))
             for with_keep in (False, True):
@@ -493,58 +648,28 @@ def gat_kernel_phase(layout, edges):
                              >= GAT_KEEP_RATE).float() / (1.0 - GAT_KEEP_RATE))
                 tag = (f"H={heads} d={width} {str(dtype)[6:]} "
                        f"{'keep 0.7' if with_keep else 'no dropout'}")
-                fwd_args = (layout.dst, Q, K, V, heads, keep)
-                out, lse = ga.launch_gat_forward(*fwd_args)
-                out_p, lse_p = ga.gat_forward_plain(*fwd_args)
-                dst_args = (layout.dst, Q, K, V, out, lse, dy, heads, keep)
-                dQ, D = ga.launch_gat_backward_dst(*dst_args)
-                dQ_p, D_p = ga.gat_backward_dst_plain(*dst_args)
-                src_args = (layout.src, Q, K, V, dy, lse, D, heads, keep)
-                dK, dV = ga.launch_gat_backward_src(*src_args)
-                dK_p, dV_p = ga.gat_backward_src_plain(*src_args)
-                torch.cuda.synchronize()
-                errs = (
-                    max(_max_err(out, out_p, fwd_tol, f"gat forward out {tag}"),
-                        _max_err(lse, lse_p, fwd_tol, f"gat forward lse {tag}")),
-                    max(_max_err(dQ, dQ_p, grad_tol, f"gat backward dQ {tag}"),
-                        _max_err(D, D_p, grad_tol, f"gat backward D {tag}")),
-                    max(_max_err(dK, dK_p, grad_tol, f"gat backward dK {tag}"),
-                        _max_err(dV, dV_p, grad_tol, f"gat backward dV {tag}")))
-                del out_p, lse_p, dQ_p, D_p, dK_p, dV_p
+                errs, calls, outs = _gat_case(layout, Q, K, V, dy, heads, keep, tag)
                 timed = heads == bench.GAT_HEADS and width == bench.GAT_UNITS // bench.GAT_HEADS
-                calls = ((ga.launch_gat_forward, ga.gat_forward_plain, fwd_args),
-                         (ga.launch_gat_backward_dst, ga.gat_backward_dst_plain, dst_args),
-                         (ga.launch_gat_backward_src, ga.gat_backward_src_plain, src_args))
-                for kind, ((kernel, plain, args), err) in enumerate(zip(calls, errs)):
-                    nbytes = bench.gat_pass_bytes(layout, kind, heads, width, 2 if not f32 else 4,
-                                                  with_keep)
-                    flops = bench.gat_pass_flops(layout, kind, heads, width)
-                    rows.append(dict(
-                        name=("gat_forward", "gat_backward_dst", "gat_backward_src")[kind],
-                        heads=heads, width=width, dtype=str(dtype)[6:], keep=with_keep,
-                        max_abs_err=err,
-                        ms=_cuda_ms(lambda: kernel(*args)) if timed else None,
-                        plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1)
-                        if timed else None,
-                        library_ms=None,
-                        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S),
-                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-                        else "operations"))
+                rows += _gat_rows(layout, heads, width, dtype, keep, errs, calls, outs, timed)
                 if timed and not f32 and not with_keep:
                     flat = ga.CsrGatLayout.build(edges, n, hub_degree=n + 1, device="cuda")
+                    out, lse, dy_ = outs["out"], outs["lse"], dy
                     hub_cost = (_cuda_ms(lambda: ga.launch_gat_forward(flat.dst, Q, K, V, heads)),
                                 _cuda_ms(lambda: ga.launch_gat_backward_dst(
-                                    flat.dst, Q, K, V, out, lse, dy, heads)))
+                                    flat.dst, Q, K, V, out, lse, dy_, heads)))
                     del flat
+                del outs
+                flipped_errs.append(max(_gat_case(flipped, Q, K, V, dy, heads, keep,
+                                                  f"transposed {tag}")[0]))
                 torch.cuda.empty_cache()
     print(f"gat hub rows walked by single warps (H=8, d=32, bfloat16): forward "
           f"{hub_cost[0]:.4f} ms, backward dst {hub_cost[1]:.4f} ms", flush=True)
+    print(f"gat kernels on the transposed layout, every shape, dtype and dropout setting: "
+          f"max abs err {max(flipped_errs):.3e}", flush=True)
     print("gat kernel check (name H d dtype dropout: max_abs_err, ms, plain_ms, bound_ms)")
     for r in rows:
-        times = (f"{r['ms']:.4f}, {r['plain_ms']:.4f}" if r["ms"] is not None
-                 else "not timed, not timed")
         print(f"  {r['name']} H={r['heads']} d={r['width']} {r['dtype']} "
-              f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {times}, "
+              f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {_gat_row_text(r)}, "
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return rows
 
@@ -1727,12 +1852,10 @@ def x2_kernel_phase(halo):
 def x5_kernel_phase(halo):
     """The three attention kernels on every rank's rectangular GAT layout at
     ``X5_SHAPES``, float32 and bfloat16, without dropout and with a 0.6 keep
-    mask, against their plain versions; rows without entries must come back
-    exactly 0. The main path's cases (float32 with the mask) are timed on
-    rank 0."""
+    mask, against their plain versions (``_gat_case``); rows without entries
+    must come back exactly 0. The main path's cases (float32 with the mask)
+    are timed on rank 0."""
     import torch
-    from tf_geometric_tpu_torch import bench
-    from tf_geometric_tpu_torch.ops import gat_attention as ga
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = []
     for r in range(halo.num_parts):
@@ -1747,7 +1870,6 @@ def x5_kernel_phase(halo):
         for heads, width in X5_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
                 f32 = dtype == torch.float32
-                fwd_tol, grad_tol = (F32_TOL, F32_GRAD_TOL) if f32 else (BF16_TOL, BF16_TOL)
                 Q, dy = (torch.randn(n, heads * width, generator=gen, device="cuda").to(dtype)
                          for _ in range(2))
                 K, V = (torch.randn(S, heads * width, generator=gen, device="cuda").to(dtype)
@@ -1759,55 +1881,21 @@ def x5_kernel_phase(halo):
                                  >= X5_KEEP_RATE).float() / (1.0 - X5_KEEP_RATE))
                     tag = (f"rank {r} H={heads} d={width} {str(dtype)[6:]} "
                            f"{'keep 0.4' if with_keep else 'no dropout'}")
-                    fwd_args = (layout.dst, Q, K, V, heads, keep)
-                    out, lse = ga.launch_gat_forward(*fwd_args)
-                    out_p, lse_p = ga.gat_forward_plain(*fwd_args)
-                    dst_args = (layout.dst, Q, K, V, out, lse, dy, heads, keep)
-                    dQ, D = ga.launch_gat_backward_dst(*dst_args)
-                    dQ_p, D_p = ga.gat_backward_dst_plain(*dst_args)
-                    src_args = (layout.src, Q, K, V, dy, lse, D, heads, keep)
-                    dK, dV = ga.launch_gat_backward_src(*src_args)
-                    dK_p, dV_p = ga.gat_backward_src_plain(*src_args)
-                    torch.cuda.synchronize()
-                    for what, t, empty in (("out", out, empty_dst), ("lse", lse, empty_dst),
-                                           ("dQ", dQ, empty_dst), ("D", D, empty_dst),
-                                           ("dK", dK, empty_src), ("dV", dV, empty_src)):
-                        _check(bool((t[empty] == 0).all()),
+                    errs, calls, outs = _gat_case(layout, Q, K, V, dy, heads, keep, f"x5 {tag}")
+                    for what, empty in (("out", empty_dst), ("lse", empty_dst), ("dQ", empty_dst),
+                                        ("D", empty_dst), ("dK", empty_src), ("dV", empty_src)):
+                        _check(bool((outs[what][empty] == 0).all()),
                                f"x5 {what} {tag}: a row without entries is not exactly 0")
-                    errs = (
-                        max(_max_err(out, out_p, fwd_tol, f"x5 forward out {tag}"),
-                            _max_err(lse, lse_p, fwd_tol, f"x5 forward lse {tag}")),
-                        max(_max_err(dQ, dQ_p, grad_tol, f"x5 backward dQ {tag}"),
-                            _max_err(D, D_p, grad_tol, f"x5 backward D {tag}")),
-                        max(_max_err(dK, dK_p, grad_tol, f"x5 backward dK {tag}"),
-                            _max_err(dV, dV_p, grad_tol, f"x5 backward dV {tag}")))
-                    del out_p, lse_p, dQ_p, D_p, dK_p, dV_p
-                    timed = r == 0 and f32 and with_keep
-                    calls = ((ga.launch_gat_forward, ga.gat_forward_plain, fwd_args),
-                             (ga.launch_gat_backward_dst, ga.gat_backward_dst_plain, dst_args),
-                             (ga.launch_gat_backward_src, ga.gat_backward_src_plain, src_args))
-                    for kind, ((kernel, plain, args), err) in enumerate(zip(calls, errs)):
-                        bound_ms, bound_by = _bound(
-                            bench.gat_pass_bytes(layout, kind, heads, width, 4 if f32 else 2,
-                                                 with_keep),
-                            bench.gat_pass_flops(layout, kind, heads, width))
-                        rows.append(dict(
-                            name=("gat_forward", "gat_backward_dst", "gat_backward_src")[kind],
-                            case="x5", rank=r, heads=heads, width=width, dtype=str(dtype)[6:],
-                            keep=with_keep, max_abs_err=err,
-                            ms=_cuda_ms(lambda: kernel(*args)) if timed else None,
-                            plain_ms=_cuda_ms(lambda: plain(*args), iters=3, warmup=1)
-                            if timed else None,
-                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                    rows += _gat_rows(layout, heads, width, dtype, keep, errs, calls, outs,
+                                      r == 0 and f32 and with_keep, case="x5", rank=r)
+                    del outs
                 del Q, K, V, dy
         del layout
         torch.cuda.empty_cache()
     print("x5 kernel check (name rank H d dtype dropout: max_abs_err, ms, plain_ms, bound_ms)")
     for r in rows:
-        times = (f"{r['ms']:.4f}, {r['plain_ms']:.4f}" if r["ms"] is not None
-                 else "not timed, not timed")
         print(f"  {r['name']} rank {r['rank']} H={r['heads']} d={r['width']} {r['dtype']} "
-              f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {times}, "
+              f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {_gat_row_text(r)}, "
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return rows
 

@@ -16,7 +16,7 @@ dropout and with an explicit per-edge keep mask (on the JAX side the fused
 VJP is called with ``keep_slots`` / ``keep_tail`` built from the mask
 through ``slot_eid`` / ``tail_eid``). Tolerance 1e-5 for out, 1e-4 for the
 gradients (the backward recomputes the softmax from lse and sums in
-another order).
+another order); bfloat16 compute 2e-2.
 """
 import jax
 import jax.numpy as jnp
@@ -164,6 +164,22 @@ def test_gat_pass_bytes_charge_only_rows_read():
         6 * n * row + 8 * H * n + 4 * (n + 1) + 8 * e + 4 * square.num_edges * H)
 
 
+def test_gat_src_gather_work_counts_what_the_kernel_moves():
+    """The source-pass kernel's own bound: Q and dy on the destination rows
+    an entry names, w (2H float32) per stored entry, the side's ids, dK and
+    dV on every source row; 4 flops per entry and feature."""
+    from tf_geometric_tpu_torch import bench
+    H, d = 2, 4
+    ei, q, k, _, _ = _rect_gat(np.random.default_rng(6), H=H, d=d)
+    n, s = q.shape[0], k.shape[0]
+    layout = CsrGatLayout.build(ei, n, device="cpu", num_src=s)
+    ok = ei[0] < n
+    n_read, nnz = len(np.unique(ei[0][ok])), int(ok.sum())
+    row = H * d * 2
+    assert bench.gat_src_gather_work(layout, H, d, 2) == (
+        (2 * n_read + 2 * s) * row + 4 * 2 * H * nnz + 4 * (s + 1) + 8 * nnz, 4 * nnz * H * d)
+
+
 def _rect_gat(rng, n_dst=20, n_src=33, H=2, d=4):
     """A rectangular attention graph: destination rows 17-19 without edges,
     sources 28-32 never read, one destination hub, padded edges (row =
@@ -180,8 +196,8 @@ def _rect_gat(rng, n_dst=20, n_src=33, H=2, d=4):
 def _port_attention(layout, q, k, v, dy, H, **kw):
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     out = gat_attention_ell(layout, tq, tk, tv, H, **kw)
-    out.backward(torch.tensor(dy))
-    return [t.detach().numpy() for t in (out, tq.grad, tk.grad, tv.grad)]
+    out.backward(torch.tensor(dy).to(out.dtype))
+    return [t.detach().float().numpy() for t in (out, tq.grad, tk.grad, tv.grad)]
 
 
 def _check(got, want):
@@ -190,25 +206,43 @@ def _check(got, want):
                                    **(OUT_TOL if name == "out" else GRAD_TOL))
 
 
-@pytest.mark.parametrize("H,d", [(2, 4), (1, 8)])
-def test_gat_attention_ell_matches_jax(H, d):
+def _check_bf16(got, want):
+    """bfloat16 compute: 2e-2 (JAX rounds to bfloat16 where the port sums in
+    float32)."""
+    for name, g, w in zip(("out", "dQ", "dK", "dV"), got, want):
+        np.testing.assert_allclose(g, np.asarray(w, np.float32), err_msg=name, rtol=2e-2,
+                                   atol=2e-2)
+
+
+# (heads, head width) cases beyond the small ones: the halo GAT's two layers
+# and the 8-head GAT's, float32 and bfloat16 compute, through the port's two
+# backward passes (the destination pass's per-edge weights feed the source
+# pass's weighted gather)
+SPLIT_CASES = [(H, d, bf16) for H, d in [(8, 8), (1, 64), (8, 32)] for bf16 in (False, True)]
+
+
+@pytest.mark.parametrize("H,d,bf16", [(2, 4, False), (1, 8, False)] + SPLIT_CASES)
+def test_gat_attention_ell_matches_jax(H, d, bf16):
     rng = np.random.default_rng(3)
     ei, q, k, v, dy = _rect_gat(rng, H=H, d=d)
     n_dst, n_src = q.shape[0], k.shape[0]
+    cd = jnp.bfloat16 if bf16 else None
     jlayout = jatt.build_gat_layout(EllAdj.from_coo(ei, None, (n_dst, n_src)))
-    out, vjp = jax.vjp(lambda a, b, c: jatt.gat_attention_ell(jlayout, a, b, c, H),
+    out, vjp = jax.vjp(lambda a, b, c: jatt.gat_attention_ell(jlayout, a, b, c, H,
+                                                              compute_dtype=cd),
                        *map(jnp.asarray, (q, k, v)))
-    want = (out,) + vjp(jnp.asarray(dy))
+    want = (out,) + vjp(jnp.asarray(dy).astype(out.dtype))
     layout = CsrGatLayout.build(ei, n_dst, device="cpu", num_src=n_src)
-    got = _port_attention(layout, q, k, v, dy, H)
-    _check(got, want)
+    got = _port_attention(layout, q, k, v, dy, H,
+                          compute_dtype=torch.bfloat16 if bf16 else None)
+    (_check_bf16 if bf16 else _check)(got, want)
     assert np.abs(got[0][-3:]).max() == 0.0  # destination rows without edges
     assert np.abs(got[2][-5:]).max() == 0.0 and np.abs(got[3][-5:]).max() == 0.0  # unread
 
 
-def test_gat_attention_ell_keep_mask_matches_jax_fused_vjp():
+@pytest.mark.parametrize("H,d,bf16", [(2, 4, False)] + SPLIT_CASES)
+def test_gat_attention_ell_keep_mask_matches_jax_fused_vjp(H, d, bf16):
     rng = np.random.default_rng(4)
-    H, d = 2, 4
     ei, q, k, v, dy = _rect_gat(rng, H=H, d=d)
     n_dst, n_src, E = q.shape[0], k.shape[0], ei.shape[1]
     mask = ((rng.random((E, H)) < 0.6) / 0.6).astype(np.float32)
@@ -217,19 +251,23 @@ def test_gat_attention_ell_keep_mask_matches_jax_fused_vjp():
     padded = np.concatenate([mask, np.zeros((1, H), np.float32)])
     keep_slots = jnp.asarray(padded[np.clip(np.asarray(jell.slot_eid), 0, E)])
     keep_tail = jnp.asarray(padded[np.clip(np.asarray(jell.tail_eid), 0, E)])
+    cd = jnp.bfloat16 if bf16 else jnp.float32
 
     def fn(a, b, c):
+        a, b, c = (t.astype(cd) for t in (a, b, c))
         return jatt._fused_vjp(n_dst, E, H, d, jell.slots_col, jell.slot_eid, jell.tail_row,
                                jell.tail_col, jell.diag_eid, jell.t_slots_col,
                                jlayout.t_slot_pos, jell.t_tail_row, jell.t_tail_col,
                                jlayout.t_tail_pos, a, b, c, keep_slots, keep_tail,
-                               jnp.ones((), jnp.float32))
+                               jnp.ones((), jnp.float32)).astype(jnp.float32)
 
     out, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
     layout = CsrGatLayout.build(ei, n_dst, device="cpu", num_src=n_src)
     got = _port_attention(layout, q, k, v, dy, H, training=True, edge_drop_rate=0.4,
-                          keep_mask=torch.tensor(mask))
-    _check(got, (out,) + vjp(jnp.asarray(dy)))
+                          keep_mask=torch.tensor(mask),
+                          compute_dtype=torch.bfloat16 if bf16 else None)
+    (_check_bf16 if bf16 else _check)(got, (out,) + vjp(jnp.asarray(dy)))
+    assert np.abs(got[2][-5:]).max() == 0.0 and np.abs(got[3][-5:]).max() == 0.0  # unread
 
 
 def test_gat_attention_ell_contract():

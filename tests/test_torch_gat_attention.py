@@ -14,13 +14,23 @@ import numpy as np
 import pytest
 import torch
 
+from tf_geometric_tpu import _segment_core as jseg
 from tf_geometric_tpu.ops import ell_attention_bucketed as jatt
 from tf_geometric_tpu_torch.nn.conv.gat import _segment_attention
-from tf_geometric_tpu_torch.ops.gat_attention import CsrGatLayout, gat_attention_csr
+from tf_geometric_tpu_torch.ops.gat_attention import (CsrGatLayout, gat_attention_csr,
+                                                      gat_backward_dst_plain,
+                                                      gat_forward_plain)
+from tf_geometric_tpu_torch.ops.spmm_heads import CHUNK
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-3)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# the destination pass's per-edge weights against the segment path's:
+# float32 rounding of the same softmax (its 1e-16 and the segment path's 1e-8
+# in the denominator agree to rounding)
+W_TOL = dict(rtol=1e-5, atol=1e-6)
+# (heads, head width): the halo GAT's two layers and the bench's 8-head GAT
+SPLIT_SHAPES = [(8, 8), (1, 64), (8, 32)]
 
 
 def _skewed_graph(rng, n, H, d, hub_deg=40, num_pad=3):
@@ -61,14 +71,39 @@ def _assert_all(got, want, fwd_tol, grad_tol):
         np.testing.assert_allclose(g, w, err_msg=name, **tol)
 
 
-@pytest.mark.parametrize("layout_mode,H,d", [("auto", 4, 8), ("bucketed", 4, 8),
-                                             ("classic", 4, 8), ("classic", 2, 20)])
-def test_attention_matches_jax_bucketed(rng, layout_mode, H, d):
+def _bucketed(jlayout, H, d, cd=None, mask=None):
+    """``gat_attention_bucketed`` at compute dtype ``cd`` (None: the
+    package's default); with an [E, H] edge-order mask, its fused VJP with
+    the mask handed to its slot and tail lanes (sentinel lanes read 0), its
+    output in float32."""
+    if mask is None:
+        return lambda q, k, v: jatt.gat_attention_bucketed(jlayout, q, k, v, H, compute_dtype=cd)
+    padded = np.concatenate([mask, np.zeros((1, H), np.float32)])
+    keep_slots = tuple(jnp.asarray(padded[np.asarray(g.slot_eid)]) for g in jlayout.fwd.groups)
+    keep_tail = jnp.asarray(padded[np.asarray(jlayout.fwd.tail_eid)])
+
+    def fn(q, k, v):
+        if cd is not None:
+            q, k, v = (t.astype(cd) for t in (q, k, v))
+        return jatt._fused_vjp(jlayout, H, d, q, k, v, keep_slots, keep_tail,
+                               jnp.ones((), jnp.float32),
+                               jnp.zeros((0,), jnp.int32)).astype(jnp.float32)
+    return fn
+
+
+# (heads, head width) cases, each on the skewed graph with small caps (the
+# hub overflows into the JAX layout's tail lanes): one small shape and the
+# halo GAT's two layers and the bench's 8-head GAT (SPLIT_SHAPES), through
+# the port's two backward passes (the destination pass hands its per-edge
+# weights to the source pass's weighted gather)
+@pytest.mark.parametrize("layout_mode,H,d,caps", [
+    ("auto", 4, 8, None), ("bucketed", 4, 8, None), ("classic", 4, 8, None),
+    ("classic", 2, 20, None)] + [("bucketed", H, d, [2, 8]) for H, d in SPLIT_SHAPES])
+def test_attention_matches_jax_bucketed(rng, layout_mode, H, d, caps):
     n = 25
-    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d)
-    jlayout = jatt.build_gat_layout_bucketed(ei, n, layout=layout_mode)
-    want = _jax_grads(lambda q, k, v: jatt.gat_attention_bucketed(jlayout, q, k, v, H),
-                      Q, K, V, dy)
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d, hub_deg=40 if caps is None else 30)
+    jlayout = jatt.build_gat_layout_bucketed(ei, n, caps=caps, layout=layout_mode)
+    want = _jax_grads(_bucketed(jlayout, H, d), Q, K, V, dy)
     layout = CsrGatLayout.build(ei, n, device="cpu")
     got = _port_grads(layout, Q, K, V, dy, H)
     _assert_all(got, want, F32_TOL, GRAD_TOL)
@@ -76,33 +111,35 @@ def test_attention_matches_jax_bucketed(rng, layout_mode, H, d):
     assert all(np.isfinite(g).all() for g in got)
 
 
-def test_attention_bf16_compute_matches_jax(rng):
-    n, H, d = 25, 4, 8
-    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d)
-    jlayout = jatt.build_gat_layout_bucketed(ei, n, layout="bucketed")
-    want = _jax_grads(lambda q, k, v: jatt.gat_attention_bucketed(
-        jlayout, q, k, v, H, compute_dtype=jnp.bfloat16), Q, K, V, dy)
-    got = _port_grads(CsrGatLayout.build(ei, n, device="cpu"), Q, K, V, dy, H,
-                      compute_dtype=torch.bfloat16)
+@pytest.mark.parametrize("H,d,with_keep", [(4, 8, False)] + [
+    (H, d, keep) for H, d in SPLIT_SHAPES for keep in (False, True)])
+def test_attention_bf16_compute_matches_jax(rng, H, d, with_keep):
+    n = 25
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d, hub_deg=30)
+    E = ei.shape[1]
+    jlayout = jatt.build_gat_layout_bucketed(ei, n, caps=[2, 8], layout="bucketed")
+    kwargs = dict(compute_dtype=torch.bfloat16)
+    mask = None
+    if with_keep:
+        mask = (rng.random((E, H)) < 0.7).astype(np.float32) / 0.7
+        kwargs.update(training=True, edge_drop_rate=0.3, keep_mask=torch.as_tensor(mask))
+    want = _jax_grads(_bucketed(jlayout, H, d, jnp.bfloat16, mask), Q, K, V, dy)
+    got = _port_grads(CsrGatLayout.build(ei, n, device="cpu"), Q, K, V, dy, H, **kwargs)
     _assert_all(got, want, BF16_TOL, BF16_TOL)
 
 
-def test_dropout_mask_matches_jax_fused_vjp(rng):
+@pytest.mark.parametrize("H,d", [(2, 4)] + SPLIT_SHAPES)
+def test_dropout_mask_matches_jax_fused_vjp(rng, H, d):
     """One [E, H] edge-order mask, handed to JAX's custom VJP through its
     slot and tail lanes (sentinel lanes read 0) and to the port as is."""
-    n, H, d, rate = 21, 2, 4, 0.3
+    n, rate = 21, 0.3
     ei, Q, K, V, dy = _skewed_graph(rng, n, H, d, hub_deg=30)
     E = ei.shape[1]
     mask = (rng.random((E, H)) < 1 - rate).astype(np.float32) / (1 - rate)
     # small caps so that the hub overflows into the JAX layout's tail lanes
     jlayout = jatt.build_gat_layout_bucketed(ei, n, caps=[2, 8], layout="bucketed")
     assert jlayout.fwd.tail_prow.shape[0] > 0
-    padded = np.concatenate([mask, np.zeros((1, H), np.float32)])
-    keep_slots = tuple(jnp.asarray(padded[np.asarray(g.slot_eid)]) for g in jlayout.fwd.groups)
-    keep_tail = jnp.asarray(padded[np.asarray(jlayout.fwd.tail_eid)])
-    want = _jax_grads(lambda q, k, v: jatt._fused_vjp(
-        jlayout, H, d, q, k, v, keep_slots, keep_tail, jnp.ones((), jnp.float32),
-        jnp.zeros((0,), jnp.int32)), Q, K, V, dy)
+    want = _jax_grads(_bucketed(jlayout, H, d, mask=mask), Q, K, V, dy)
     layout = CsrGatLayout.build(ei, n, device="cpu")
     got = _port_grads(layout, Q, K, V, dy, H, edge_drop_rate=rate, training=True,
                       keep_mask=torch.as_tensor(mask))
@@ -165,3 +202,57 @@ def test_contract_errors():
     # the passes take their plain versions on CPU tensors only
     with pytest.raises(NotImplementedError, match="no GAT attention kernel"):
         gat_attention_csr(layout, q.to("meta"), q.to("meta"), q.to("meta"), 2)
+
+
+@pytest.mark.parametrize("H,d", SPLIT_SHAPES)
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_dst_pass_weights_match_jax_segment_vjp(rng, H, d, with_keep):
+    """The destination pass's ``w`` [E, 2H] against an independent JAX
+    computation: ``a·keep`` is the segment softmax of the scores times the
+    mask, and ``ds`` is ``jax.vjp`` of scores → ``segment_softmax`` →
+    weighted ``segment_sum``, divided by √d (the port's ds is the gradient of
+    the unscaled dot product). Edges outside the layout (padding) get 0."""
+    n = 25
+    ei, Q, K, V, dy = _skewed_graph(rng, n, H, d, hub_deg=30)
+    E = ei.shape[1]
+    mask = ((rng.random((E, H)) < 0.7).astype(np.float32) / 0.7 if with_keep
+            else np.ones((E, H), np.float32))
+    ok = (ei[0] < n) & (ei[1] < n)
+    rows, cols, keep = ei[0][ok], ei[1][ok], mask[ok]
+    s = (Q[rows] * K[cols]).reshape(-1, H, d).sum(-1) / np.sqrt(d)
+
+    def aggregate(scores):
+        a = jseg.segment_softmax(scores, jnp.asarray(rows), n)
+        msg = (a * keep)[:, :, None] * jnp.asarray(V[cols]).reshape(-1, H, d)
+        return jseg.segment_sum(msg, jnp.asarray(rows), n)
+
+    _, vjp = jax.vjp(aggregate, jnp.asarray(s))
+    (ds,) = vjp(jnp.asarray(dy).reshape(n, H, d))
+    a = np.asarray(jseg.segment_softmax(jnp.asarray(s), jnp.asarray(rows), n))
+    layout = CsrGatLayout.build(ei, n, device="cpu")
+    q, k, v, g = map(torch.as_tensor, (Q, K, V, dy))
+    keep_t = torch.as_tensor(mask) if with_keep else None
+    out, lse = gat_forward_plain(layout.dst, q, k, v, H, keep_t)
+    _, _, w = gat_backward_dst_plain(layout.dst, q, k, v, out, lse, g, H, keep_t)
+    w = w.numpy()
+    assert w.shape == (E, 2 * H)
+    np.testing.assert_allclose(w[ok, :H], a * keep, err_msg="a*keep", **W_TOL)
+    np.testing.assert_allclose(w[ok, H:], np.asarray(ds) / np.sqrt(d), err_msg="ds", **W_TOL)
+    assert not w[~ok].any()
+
+
+def test_source_side_hubs_split_at_chunk():
+    """The source side's hubs are its rows of more than ``CHUNK`` entries
+    (the source pass's lane groups walk at most that many), whatever the
+    destination side's ``hub_degree``."""
+    n = 80
+    src_hub = np.stack([np.arange(n), np.full(n, 7)])          # source 7: n entries
+    src_short = np.stack([np.arange(CHUNK), np.full(CHUNK, 9)])  # source 9: 64
+    layout = CsrGatLayout.build(np.concatenate([src_hub, src_short], 1), n, device="cpu")
+    assert layout.src.hub_degree == CHUNK == 64 and layout.dst.hub_degree == 256
+    np.testing.assert_array_equal(layout.src.hubs.numpy(), [7])
+    assert layout.dst.hubs.numel() == 0
+    assert layout.dst.num_edges == layout.src.num_edges == layout.num_edges == n + CHUNK
+    small = CsrGatLayout.build(src_hub, n, hub_degree=10, device="cpu")
+    assert small.src.hub_degree == CHUNK and small.dst.hub_degree == 10
+    np.testing.assert_array_equal(small.src.hubs.numpy(), [7])

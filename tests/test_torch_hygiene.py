@@ -132,7 +132,13 @@ def test_gat_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ga.launch_gat_backward_dst(layout.dst, q, q, q, q, stats, q, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        ga.launch_gat_backward_src(layout.src, q, q, q, q, stats, stats, 2)
+        ga.launch_gat_backward_src(layout.src, q, q, torch.zeros(layout.num_edges, 4), 2)
+    # arrays indexed by edge id must hold the layout's edges (else the kernel
+    # would read past them)
+    with pytest.raises(ValueError, match=r"w must be float32 \[3, 4\]"):
+        ga.launch_gat_backward_src(layout.src, q, q, torch.zeros(layout.num_edges - 1, 4), 2)
+    with pytest.raises(ValueError, match=r"keep must be float32 \[3, 2\]"):
+        ga.launch_gat_forward(layout.dst, q, q, q, 2, keep=torch.ones(layout.num_edges - 1, 2))
     assert [w.launches for w in wrappers] == before
 
 

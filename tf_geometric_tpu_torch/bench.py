@@ -126,7 +126,11 @@ halo blocks and layouts leave many rows unread):
   (inputs on the rows with an entry, outputs on every row); each pass also
   reads its side's row pointers and neighbour ids
   (4·(N + 1) + 4·nnz bytes) and, under dropout, the edge ids that index
-  the mask (4·nnz) and the [E, H] float32 mask (``gat_pass_bytes``);
+  the mask (4·nnz) and the [E, H] float32 mask (``gat_pass_bytes``). The
+  source-pass kernel's own row in chip_smoke.py is bound by what its
+  function moves instead: given the destination pass's [E, 2H] float32
+  weights, Q and dy read, w read on the side's edges, dK and dV written
+  (``gat_src_gather_work``);
 - the SAGE step's two draws (the random integers read, idx and weight
   written, row starts and degrees, the picked column entries;
   ``ops.fixed_k.draw_pass_bytes``) and its two aggregations forward (the
@@ -191,7 +195,8 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "init_gat_merged_params", "init_sage_params", "init_gin_flax_params",
            "precomputed_loss", "canonical_loss", "gat_loss", "sage_loss",
            "gin_loss", "GinMlp", "GinClassifier", "make_step", "run_workload",
-           "profile_workload", "gat_pass_bytes", "gat_pass_flops", "sage_step_bytes",
+           "profile_workload", "gat_pass_bytes", "gat_pass_flops", "gat_src_gather_work",
+           "sage_step_bytes",
            "gin_step_bytes", "Workload", "WORKLOADS", "GCN_WORKLOADS", "GIN_READOUTS",
            "SAGE_FANOUTS", "HaloProblem", "build_halo_problem", "halo_jobs",
            "run_halo_workload", "halo_pass_bytes", "csr_pass_bytes", "csr_rows_read",
@@ -689,6 +694,22 @@ def gat_pass_flops(layout: CsrGatLayout, kind: int, num_heads: int, head_width: 
     """Flops of attention pass ``kind`` on these edges: 2 per multiply-add
     of each per-edge dot product and each weighted row sum."""
     return _GAT_PASS_FLOPS[kind] * int(layout.dst.nbr.shape[0]) * num_heads * head_width
+
+
+def gat_src_gather_work(layout: CsrGatLayout, num_heads: int, head_width: int,
+                        elt_bytes: int) -> tuple:
+    """(least bytes, flops) of the source-pass kernel's own function, the
+    two-output weighted gather ``dK[c] = Σ w[e, H + h]·Q[r]``, ``dV[c] = Σ
+    w[e, h]·dy[r]``: the Q and dy rows an entry names, w on the side's edges
+    (2H float32 each), the side's row pointers, neighbours and edge ids
+    read, dK and dV written on every source row; 2 flops per multiply-add
+    of each output. ``gat_pass_bytes(kind=2)`` is the attention backward's
+    own work (K, V, lse and D in place of w)."""
+    s, nnz = layout.num_src, int(layout.src.nbr.shape[0])
+    n_read = int((layout.dst.row_ptr.diff() > 0).sum())
+    nbytes = ((2 * n_read + 2 * s) * num_heads * head_width * elt_bytes
+              + 4 * 2 * num_heads * nnz + 4 * (s + 1) + 8 * nnz)
+    return nbytes, 4 * nnz * num_heads * head_width
 
 
 def _gat_step_bytes(problem: ArxivProblem) -> int:

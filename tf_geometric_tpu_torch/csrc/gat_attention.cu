@@ -1,5 +1,6 @@
 // GAT attention over a CSR graph: the forward kernel and the two backward
-// kernels (destination side: dQ; source side: dK and dV).
+// kernels (destination side: dQ, D and the per-edge weights w; source side:
+// dK and dV from w).
 //
 // Replaces: tf_geometric_tpu/ops/ell_attention_bucketed.py,
 // gat_attention_bucketed (its _fused_core forward and _fused_bwd backward
@@ -11,10 +12,10 @@
 // Q, out, dy, dQ are [N, H*d] and K, V, dK, dV [S, H*d] (S = N for a square
 // layout), row-major and head-blocked (head h owns columns h*d .. h*d + d -
 // 1), float32 or bfloat16; lse and D are [N, H] float32; keep is null or
-// [E, H] float32 (the dropout mask, its 1/(1 - rate) scale included),
-// indexed by edge id. The destination side has N rows whose neighbours are
-// source rows, the source side S rows whose neighbours are destination rows.
-// Sums run in float32.
+// [E, H] float32 (the dropout mask, its 1/(1 - rate) scale included) and w
+// [E, 2H] float32, both indexed by edge id. The destination side has N rows
+// whose neighbours are source rows, the source side S rows whose neighbours
+// are destination rows. Sums run in float32.
 //
 //   forward, per destination row r and head h, over r's in-edges e = (r <- c):
 //     s_e    = <Q[r], K[c]>_h / sqrt(d)
@@ -24,38 +25,69 @@
 //   backward, destination side, per row r:
 //     D[r]  = <dy[r], out[r]>_h          (= sum_e a_e da_e, no second pass)
 //     da_e  = keep_e <dy[r], V[c]>_h,    ds_e = a_e (da_e - D[r]) / sqrt(d)
-//     dQ[r] = sum_e ds_e K[c]
-//   backward, source side, per column c over c's out-edges (r <- c), with
-//   the same recompute:  dV[c] = sum_e a_e keep_e dy[r],  dK[c] = sum_e ds_e Q[r]
+//     dQ[r] = sum_e ds_e K[c],           w[e] = [a_e keep_e (H) | ds_e (H)]
+//   backward, source side, per column c over c's out-edges (r <- c):
+//     dV[c] = sum_e w[e, h] dy[r],       dK[c] = sum_e w[e, H + h] Q[r]
+//   (the JAX package's _flat_weights: the per-edge weights move from the
+//   destination pass to the source pass instead of being computed twice).
 // Every row of a side is written, so the outputs need no zero fill: a
 // destination row without edges writes out = 0, lse = 0, dQ = 0 and D =
 // <dy, 0> = 0, a source row without edges dK = dV = 0 (the halo layouts
 // have many: padding rows, unaddressed received slots, nodes that are the
-// source of no edge).
+// source of no edge). w is written on the side's edges only.
 //
 // Bound on the H100: bytes. Each edge gathers two rows of H*d elements and
 // does ~4 flops per gathered element, under the ~20 flops per byte where
 // float32 FMA throughput would bind. The least traffic is each dense
 // operand read once, each output written once, the row pointers and
-// neighbour ids, lse / D, and under dropout the edge ids and the keep mask.
+// neighbour ids, lse / D, and under dropout the edge ids and the keep mask;
+// w (E * 2H floats written, then read) is the design's, outside that bound.
 //
-// Design. A warp owns a row (for H * d up to 32 lanes x 2 slices x one
-// vector, every row of the bench: one warp per row, all heads). Each lane
-// holds VEC consecutive features of one head, loaded as one vector of up to
-// 16 bytes, so a 256-wide bf16 row is one load instruction per warp; the
-// lanes of a head are a power-of-two group, and a per-head dot product is
-// VEC local products and an xor-shuffle reduction inside the group. Every
-// lane of a head so holds its score and the online softmax state (running
-// max and sum) without shared memory. Edges go U at a time: their gathered
-// rows are all loaded, still packed, before any is used, so U row gathers
-// per warp are in flight. Rows with more than hub_degree edges (29 on the
-// arxiv graph, the largest 2,839) get a block of 8 warps, placed first in
-// the grid so they start first; each warp walks one chunk of the row and
-// warp 0 merges the chunks' states from a scratch buffer in a fixed order.
-// No atomics: the result does not depend on scheduling.
+// Forward design. A warp owns a row (for H * d up to 32 lanes x 2 slices x
+// one vector, every row of the bench: one warp per row, all heads). Each
+// lane holds VEC consecutive features of one head, loaded as one vector of
+// up to 16 bytes, so a 256-wide bf16 row is one load instruction per warp;
+// the lanes of a head are a power-of-two group, and a per-head dot product
+// is VEC local products and an xor-shuffle reduction inside the group.
+// Every lane of a head so holds its score and the online softmax state
+// (running max and sum) without shared memory. Edges go U at a time: their
+// gathered rows are all loaded, still packed, before any is used, so U row
+// gathers per warp are in flight. Rows with more than hub_degree edges (29
+// on the arxiv graph, the largest 2,839) get a block of 8 warps, placed
+// first in the grid so they start first; each warp walks one chunk of the
+// row and warp 0 merges the chunks' states from a scratch buffer in a fixed
+// order. No atomics: the result does not depend on scheduling.
+//
+// Destination-pass design. The forward's lanes, rows and hub blocks, and:
+// (1) when a row's heads take one slice of fewer than 32 lanes (H = 8, d = 8
+// and H = 1, d = 64 in float32: 16 lanes), the free lane groups take further
+// edges of the row, and their dQ partials are added by a fixed butterfly
+// before the store; (2) each warp keeps the next batches' K and V rows (and
+// keep values) in flight in a ring in shared memory filled by cp.async: 3
+// stages of 2 edges per edge group for one-slice rows (2 stages for two-slice
+// rows), so batch b + 2 is loading while batch b is used, and the gathered
+// rows take no registers while in flight; (3) the first 32 ids go out with
+// the row's own loads. Why a cp.async ring and not register double-buffering:
+// on the H100 the kernel before this design held 94 registers at H = 8, d =
+// 32, bf16, so 16 resident warps per SM, and every register buffer more
+// costs resident warps (measured: a second buffer ran slower than one),
+// while the ring fits 64 registers under a 4-block bound with 54 KB of
+// shared memory a block: 32 resident warps per SM (PERF.md, section 6).
+//
+// Source-pass design: lane_gather.cuh's lane-group weighted gather with two
+// outputs (the gather of spmm_heads_kernel): a group of L lanes owns a source
+// row and adds, per entry, w[e, H + h] Q[r] and w[e, h] dy[r], with one read
+// of the entry ids for both; no K, V, lse, D or keep reads, no dot products,
+// no exp. A row with more than kChunk (64) entries is long and listed as a
+// hub (the layout's source side has hub_degree = kChunk): it gets a block of
+// its own, placed first in the grid, in the same launch. The block's first
+// lane group sums the row's entries before its first chunk boundary while the
+// other groups take the row's chunks round robin and write their float32
+// partials to scratch; after a barrier the first group adds the partials in
+// chunk order (RowSplit, as spmm_heads_kernel does). No atomics.
 #include <math.h>
 
-#include "common.cuh"
+#include "lane_gather.cuh"
 
 namespace {
 
@@ -236,11 +268,6 @@ __device__ __forceinline__ float keep_of(const HeadArgs& h, int e, int head, boo
              ? h.keep[static_cast<size_t>(e) * h.H + head] : 1.f;
 }
 
-__device__ __forceinline__ float stat_of(const float* __restrict__ st, const HeadArgs& h,
-                                         long long row, int head, bool ok) {
-  return (ok && head < h.H) ? st[row * h.H + head] : 0.f;
-}
-
 // Calls body(c, e, count) for the edges [e0, e1) in batches of U: the
 // neighbour ids (and, under dropout, the edge ids that index the keep mask)
 // are read 32 at a time, coalesced, and broadcast by shuffle; count
@@ -397,136 +424,289 @@ gat_forward_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q, const T* __r
   store_row<T, NS, VEC>(out + t.row * m.HD, o, lm);
 }
 
+// ---------------------------------------------------------------------------
+// Backward, destination side
+// ---------------------------------------------------------------------------
+
+// Edge groups one warp of the destination pass splits into: when a row's
+// heads take one slice of fewer than 32 lanes, the free lane groups take
+// further edges of the same row (at most kWarp / U groups, so a batch of U
+// edges per group stays inside one 32-edge run of ids).
+__host__ __device__ inline int edge_groups(const HeadMap& m, int U) {
+  if (m.slices > 1) return 1;
+  int lanes = 1;
+  while (lanes < m.H * m.group) lanes <<= 1;
+  return kWarp / (lanes > U ? lanes : U);
+}
+
+// One lane vector of B bytes copied from device to shared memory without
+// passing through registers (cp.async; zero-filled and not read when !ok).
+// cp.async copies 4, 8 or 16 bytes: a 2-byte vector goes through a register.
+template <int B>
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem, bool ok) {
+  if constexpr (B >= 4) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    const int n = ok ? B : 0;
+    if constexpr (B == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                   "r"(n)
+                   : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+                   "n"(B), "r"(n)
+                   : "memory");
+    }
+  } else {
+    *static_cast<unsigned short*>(smem) = ok ? *static_cast<const unsigned short*>(gmem) : 0;
+  }
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The destination pass's ring in shared memory, per warp: kStages stages of
+// U edges (per edge group), each edge's K and V vectors of every lane, then
+// each edge's keep values.
 template <typename T, int NS, int VEC, int U>
-__global__ void __launch_bounds__(kBlock)
+struct DstRing {
+  static constexpr int kStages = NS == 1 ? 3 : 2;
+  static constexpr int kVecBytes = VEC * static_cast<int>(sizeof(T));
+  static constexpr int kRowBytes = NS * kWarp * kVecBytes;  // one row's vectors, all lanes
+  static constexpr int kRowsBytes = kStages * U * 2 * kRowBytes;
+  static constexpr int kWarpBytes = kRowsBytes + kStages * U * NS * kWarp * 4;
+  unsigned char* base;
+  int lane;
+  __device__ void* row(int stage, int u, int kv, int j) const {
+    return base + ((stage * U + u) * 2 + kv) * kRowBytes + (j * kWarp + lane) * kVecBytes;
+  }
+  __device__ float* keep(int stage, int u, int j) const {
+    return reinterpret_cast<float*>(base + kRowsBytes) + ((stage * U + u) * NS + j) * kWarp +
+           lane;
+  }
+};
+
+template <typename T, int NS, int VEC, int U>
+__global__ void __launch_bounds__(kBlock, NS == 1 ? 4 : 3)
 gat_backward_dst_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q,
                         const T* __restrict__ K, const T* __restrict__ V,
                         const T* __restrict__ out, const T* __restrict__ dy,
                         const float* __restrict__ lse, T* __restrict__ dQ,
-                        float* __restrict__ D, float* __restrict__ scratch) {
+                        float* __restrict__ D, float* __restrict__ w,
+                        float* __restrict__ scratch) {
+  using Ring = DstRing<T, NS, VEC, U>;
+  constexpr int kStages = Ring::kStages;
+  extern __shared__ __align__(16) unsigned char ring_mem[];
   const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
   const HeadMap m(h.H, h.d, VEC);
   const Task t = resolve(s, m, warp);
   if (!t.active) return;
-  const LaneMap<NS, VEC> lm(m, t.task, lane);
+  const Ring ring{ring_mem + warp * Ring::kWarpBytes, lane};
+  const int P = edge_groups(m, U);
+  const int gl = kWarp / P;  // lanes per edge group
+  const int grp = lane / gl, li = lane % gl;
+  const LaneMap<NS, VEC> lm(m, t.task, li);
+  // the first run of ids goes out with the row's own loads
+  int c_lane = 0, e_lane = 0;
+  if (t.e0 + lane < t.e1) {
+    c_lane = s.nbr[t.e0 + lane];
+    e_lane = s.eid[t.e0 + lane];
+  }
   float q[NS * VEC], g[NS * VEC], acc[NS * VEC], dsum[NS], lse_r[NS];
   load_row<T, NS, VEC>(q, Q + t.row * m.HD, lm);
   load_row<T, NS, VEC>(g, dy + t.row * m.HD, lm);
   load_row<T, NS, VEC>(acc, out + t.row * m.HD, lm);
+#pragma unroll
+  for (int j = 0; j < NS; ++j) lse_r[j] = lm.head[j] < h.H ? lse[t.row * h.H + lm.head[j]] : 0.f;
   head_dots<NS, VEC>(dsum, g, acc, m);
 #pragma unroll
-  for (int j = 0; j < NS; ++j) lse_r[j] = stat_of(lse, h, t.row, lm.head[j], true);
-#pragma unroll
   for (int k = 0; k < NS * VEC; ++k) acc[k] = 0.f;
+  // the lanes that write a head's a * keep and ds: its first and its second
+  // vector's lane (the first, when a head has one lane)
+  bool put_a[NS], put_ds[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int vi = m.head_slices > 1 ? j * kWarp + li : li % m.group;
+    const bool mine = lm.head[j] < m.H;
+    put_a[j] = mine && vi == 0;
+    put_ds[j] = mine && vi == (m.group > 1 ? 1 : 0);
+  }
+  const int step = U * P;  // edges per batch, a divisor of kWarp
 
-  for_edge_batches<U>(s, h, t.e0, t.e1, lane, [&](const auto& c, const auto& e, int cnt) {
-    RawT<T, VEC> kr[U][NS], vr[U][NS];
-    float kp[U][NS];
+  // batch b of the current run of n ids into stage b % kStages: group grp's
+  // u-th edge is b step + u P + grp
+  auto fetch = [&](int b, int n) {
+    const int stage = b % kStages;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const bool ok = u < cnt;
-      load_raw<T, NS, VEC>(kr[u], K + static_cast<size_t>(c[u]) * m.HD, lm, ok);
-      load_raw<T, NS, VEC>(vr[u], V + static_cast<size_t>(c[u]) * m.HD, lm, ok);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) kp[u][j] = keep_of(h, e[u], lm.head[j], ok);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[NS * VEC], vf[NS * VEC], sc[NS], da[NS];
+      const int i = b * step + u * P + grp;
+      const bool ok = i < n;
+      const int c = __shfl_sync(kFull, c_lane, i & (kWarp - 1));
+      const int e = __shfl_sync(kFull, e_lane, i & (kWarp - 1));
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
-        unpack<T, VEC>(kr[u][j], kf + j * VEC);
-        unpack<T, VEC>(vr[u][j], vf + j * VEC);
-      }
-      head_dots<NS, VEC>(sc, q, kf, m);
-      head_dots<NS, VEC>(da, g, vf, m);
-      if (u < cnt) {
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const float ds =
-              expf(sc[j] * h.scale - lse_r[j]) * (da[j] * kp[u][j] - dsum[j]) * h.scale;
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[j * VEC + i] += ds * kf[j * VEC + i];
+        const bool vok = ok && lm.col[j] >= 0;
+        const size_t off = static_cast<size_t>(c) * m.HD + (vok ? lm.col[j] : 0);
+        copy_async<Ring::kVecBytes>(ring.row(stage, u, 0, j), K + off, vok);
+        copy_async<Ring::kVecBytes>(ring.row(stage, u, 1, j), V + off, vok);
+        if (h.keep != nullptr) {
+          const bool kok = ok && lm.head[j] < h.H;
+          copy_async<4>(ring.keep(stage, u, j),
+                        h.keep + static_cast<size_t>(e) * h.H + (kok ? lm.head[j] : 0), kok);
         }
       }
     }
-  });
+  };
+  auto consume = [&](int b, int n) {
+    const int stage = b % kStages;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = b * step + u * P + grp;
+      const bool ok = i < n;
+      const int e = __shfl_sync(kFull, e_lane, i & (kWarp - 1));
+      float kf[NS * VEC], vf[NS * VEC], sc[NS], da[NS], kp[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        unpack<T, VEC>(*static_cast<const RawT<T, VEC>*>(ring.row(stage, u, 0, j)), kf + j * VEC);
+        unpack<T, VEC>(*static_cast<const RawT<T, VEC>*>(ring.row(stage, u, 1, j)), vf + j * VEC);
+        kp[j] = h.keep != nullptr ? *ring.keep(stage, u, j) : 1.f;
+      }
+      head_dots<NS, VEC>(sc, q, kf, m);
+      head_dots<NS, VEC>(da, g, vf, m);
+      if (ok) {
+        float* wrow = w + static_cast<size_t>(e) * 2 * m.H;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float a = expf(sc[j] * h.scale - lse_r[j]);
+          const float ds = a * (da[j] * kp[j] - dsum[j]) * h.scale;
+          if (put_a[j]) wrow[lm.head[j]] = a * kp[j];
+          if (put_ds[j]) wrow[m.H + lm.head[j]] = ds;
+#pragma unroll
+          for (int i2 = 0; i2 < VEC; ++i2) acc[j * VEC + i2] += ds * kf[j * VEC + i2];
+        }
+      }
+    }
+  };
 
+  // a kStages-deep pipeline per run of 32 ids: batch b + kStages - 1 is in
+  // flight while batch b is used
+  for (int base = t.e0; base < t.e1; base += kWarp) {
+    if (base != t.e0) {
+      c_lane = e_lane = 0;
+      if (base + lane < t.e1) {
+        c_lane = s.nbr[base + lane];
+        e_lane = s.eid[base + lane];
+      }
+    }
+    const int n = min(kWarp, t.e1 - base);
+    const int nb = (n + step - 1) / step;
+#pragma unroll
+    for (int b = 0; b < kStages - 1; ++b) {
+      if (b < nb) fetch(b, n);
+      async_commit();
+    }
+    for (int b = 0; b < nb; ++b) {
+      if (b + kStages - 1 < nb) fetch(b + kStages - 1, n);
+      async_commit();
+      async_wait<kStages - 1>();
+      consume(b, n);
+    }
+  }
+
+  // the edge groups' partials, added in a fixed butterfly order
+  for (int o = gl; o < kWarp; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < NS * VEC; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], o);
+  }
   if (t.hub && !merge_sums(acc, scratch, warp, lane)) return;
+  if (grp != 0) return;
   store_row<T, NS, VEC>(dQ + t.row * m.HD, acc, lm);
 #pragma unroll
   for (int j = 0; j < NS; ++j)
     if (lm.leader[j]) D[t.row * m.H + lm.head[j]] = dsum[j];
 }
 
-template <typename T, int NS, int VEC, int U>
-__global__ void __launch_bounds__(kBlock)
-gat_backward_src_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q,
-                        const T* __restrict__ K, const T* __restrict__ V,
-                        const T* __restrict__ dy, const float* __restrict__ lse,
-                        const float* __restrict__ D, T* __restrict__ dK,
-                        T* __restrict__ dV, float* __restrict__ scratch) {
-  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
-  const HeadMap m(h.H, h.d, VEC);
-  const Task t = resolve(s, m, warp);  // t.row is a source column here
-  if (!t.active) return;
-  const LaneMap<NS, VEC> lm(m, t.task, lane);
-  constexpr int N = NS * VEC;
-  float k[N], v[N], acc[2 * N];  // acc[0, N): dK, acc[N, 2N): dV
-  load_row<T, NS, VEC>(k, K + t.row * m.HD, lm);
-  load_row<T, NS, VEC>(v, V + t.row * m.HD, lm);
-#pragma unroll
-  for (int i = 0; i < 2 * N; ++i) acc[i] = 0.f;
+// ---------------------------------------------------------------------------
+// Backward, source side: a two-output weighted gather
+// ---------------------------------------------------------------------------
 
-  for_edge_batches<U>(s, h, t.e0, t.e1, lane, [&](const auto& r, const auto& e, int cnt) {
-    RawT<T, VEC> qr[U][NS], gr[U][NS];
-    float kp[U][NS], lse_u[U][NS], d_u[U][NS];
+// One lane group of L = 2^lanes_log2 lanes per source row (g.F = H d, w
+// [E, 2H]: output 0 is dK from Q by w[e, H + h], output 1 dV from dy by
+// w[e, h]). A row of more than kChunk entries is a hub and is summed by a
+// block of its own, placed first in the grid (see the header); partial
+// [ceil(nnz / kChunk), 2 H d] float32 scratch holds its chunks' sums, which
+// the first lane group adds one at a time (a hub's few dozen partials do not
+// pay for the registers of more in flight).
+template <typename T, int VEC, int NV, int U>
+__global__ void __launch_bounds__(kBlock, 3)
+gat_backward_src_kernel(SideArgs s, Gather<T, 2> g, T* __restrict__ dK, T* __restrict__ dV,
+                        float* partial, int lanes_log2) {
+  const int nvec = g.F / VEC;
+  const int groups = kBlock >> lanes_log2;
+  const int group = threadIdx.x >> lanes_log2;
+  const bool hub = blockIdx.x < static_cast<unsigned>(s.num_hubs);
+  GroupLane gl = group_lane(lanes_log2);
+  if (hub) {
+    gl.g = s.hubs[blockIdx.x];
+  } else {
+    gl.g = (static_cast<long long>(blockIdx.x) - s.num_hubs) * groups + group;
+    if (gl.g >= s.num_rows) return;  // no barrier below outside hub blocks: lanes may leave
+  }
+  const int start = s.row_ptr[gl.g];
+  const int end = s.row_ptr[gl.g + 1];
+  if (!hub && end - start > kChunk) return;  // a hub block owns the row
+  for (int v0 = 0; v0 < nvec; v0 += gl.L * NV) {
+    float acc[2][NV * VEC] = {};
+    if (!hub) {
+      add_entries<T, VEC, NV, U, 2>(acc, gl, v0, nvec, start, end, g);
+    } else {
+      const RowSplit split(start, end);
+      if (group == 0) {
+        add_entries<T, VEC, NV, U, 2>(acc, gl, v0, nvec, start, split.direct_end, g);
+      } else {
+        for (int c = split.c_lo + group - 1; c < split.c_hi; c += groups - 1) {
+          const int lo = c * kChunk;
+          add_entries<T, VEC, NV, U, 2>(acc, gl, v0, nvec, lo, min(end, lo + kChunk), g);
+          float* const prow[2] = {partial + static_cast<size_t>(c) * 2 * g.F,
+                                  partial + (static_cast<size_t>(c) * 2 + 1) * g.F};
+          store_rows<float, VEC, NV, 2>(prow, acc, gl, v0, nvec);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool ok = u < cnt;
-      load_raw<T, NS, VEC>(qr[u], Q + static_cast<size_t>(r[u]) * m.HD, lm, ok);
-      load_raw<T, NS, VEC>(gr[u], dy + static_cast<size_t>(r[u]) * m.HD, lm, ok);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        kp[u][j] = keep_of(h, e[u], lm.head[j], ok);
-        lse_u[u][j] = stat_of(lse, h, r[u], lm.head[j], ok);
-        d_u[u][j] = stat_of(D, h, r[u], lm.head[j], ok);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float qf[N], gf[N], sc[NS], da[NS];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        unpack<T, VEC>(qr[u][j], qf + j * VEC);
-        unpack<T, VEC>(gr[u][j], gf + j * VEC);
-      }
-      head_dots<NS, VEC>(sc, qf, k, m);
-      head_dots<NS, VEC>(da, gf, v, m);
-      if (u < cnt) {
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const float a = expf(sc[j] * h.scale - lse_u[u][j]);
-          const float ds = a * (da[j] * kp[u][j] - d_u[u][j]) * h.scale;
-          const float w = a * kp[u][j];
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) {
-            acc[j * VEC + i] += ds * qf[j * VEC + i];
-            acc[N + j * VEC + i] += w * gf[j * VEC + i];
-          }
+          for (int i = 0; i < NV * VEC; ++i) acc[0][i] = acc[1][i] = 0.f;
         }
       }
+      __syncthreads();  // the chunks' partials of this pass are written
+      if (group != 0) continue;  // each pass writes other columns: no second barrier
+      add_partials<VEC, NV, 1, 2>(acc, gl, v0, nvec, split.c_lo, split.c_hi, partial, g.F);
     }
-  });
-
-  if (t.hub && !merge_sums(acc, scratch, warp, lane)) return;
-  store_row<T, NS, VEC>(dK + t.row * m.HD, acc, lm);
-  store_row<T, NS, VEC>(dV + t.row * m.HD, acc + N, lm);
+    T* const rows[2] = {dK + gl.g * g.F, dV + gl.g * g.F};
+    store_rows<T, VEC, NV, 2>(rows, acc, gl, v0, nvec);
+  }
 }
 
-// floats of hub scratch per warp and lane, for pass 0 (forward), 1 or 2
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// the source pass's lanes per row (log2) and vectors per lane and pass
+struct SrcPlan {
+  int ll, nv;
+};
+
+inline SrcPlan src_plan(int H, int d, int vec) {
+  const int nvec = H * d / vec;
+  const int ll = pick_lanes_log2(nvec);
+  return {ll, pick_nv(nvec, 1 << ll)};
+}
+
+// floats of hub scratch for pass 0 (forward) or 1, per warp and lane
 __host__ __device__ constexpr int scratch_slots(int pass, int ns, int vec) {
-  return pass == 0 ? ns * (vec + 2) : pass == 1 ? ns * vec : 2 * ns * vec;
+  return pass == 0 ? ns * (vec + 2) : ns * vec;
 }
 
 unsigned grid_of(const SideArgs& s, const HeadMap& m) {
@@ -535,53 +715,98 @@ unsigned grid_of(const SideArgs& s, const HeadMap& m) {
                                (warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-// pass: 0 forward, 1 backward destination side, 2 backward source side
+// registers per thread and resident warps per SM of one kernel instance
+struct KernelInfo {
+  int regs;
+  int warps_per_sm;
+};
+
+template <class Kernel>
+void query(Kernel kernel, KernelInfo* info, int smem = 0) {
+  cudaFuncAttributes a{};
+  cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBlock, smem);
+  info->regs = a.numRegs;
+  info->warps_per_sm = blocks * kWarpsPerBlock;
+}
+
+// pass 0 (forward) or 1 (backward, destination side); with info set, the
+// instance that would launch is queried, not launched
 template <typename T, int NS, int VEC>
 void launch_pass(int pass, unsigned grid, cudaStream_t st, const SideArgs& s, const HeadArgs& h,
-                 const void* const* in, void* const* outs, float* scratch) {
-  constexpr int U = NS == 1 ? 4 : 2;  // edges per batch
+                 const void* const* in, void* const* outs, float* scratch, KernelInfo* info) {
+  constexpr int U = NS == 1 ? 4 : 2;  // edges per batch (and edge group)
   auto I = [&](int i) { return static_cast<const T*>(in[i]); };
   if (pass == 0) {
+    if (info != nullptr) return query(gat_forward_kernel<T, NS, VEC, U>, info);
     gat_forward_kernel<T, NS, VEC, U><<<grid, kBlock, 0, st>>>(
         s, h, I(0), I(1), I(2), static_cast<T*>(outs[0]), static_cast<float*>(outs[1]),
         scratch);
-  } else if (pass == 1) {
-    gat_backward_dst_kernel<T, NS, VEC, U><<<grid, kBlock, 0, st>>>(
-        s, h, I(0), I(1), I(2), I(3), I(4), static_cast<const float*>(in[5]),
-        static_cast<T*>(outs[0]), static_cast<float*>(outs[1]), scratch);
   } else {
-    gat_backward_src_kernel<T, NS, VEC, U><<<grid, kBlock, 0, st>>>(
-        s, h, I(0), I(1), I(2), I(3), static_cast<const float*>(in[4]),
-        static_cast<const float*>(in[5]), static_cast<T*>(outs[0]),
-        static_cast<T*>(outs[1]), scratch);
+    constexpr int UD = 2;  // edges per stage and edge group
+    constexpr int smem = DstRing<T, NS, VEC, UD>::kWarpBytes * kWarpsPerBlock;
+    static const bool sized = cudaFuncSetAttribute(gat_backward_dst_kernel<T, NS, VEC, UD>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   smem) == cudaSuccess;
+    (void)sized;
+    if (info != nullptr) return query(gat_backward_dst_kernel<T, NS, VEC, UD>, info, smem);
+    gat_backward_dst_kernel<T, NS, VEC, UD><<<grid, kBlock, smem, st>>>(
+        s, h, I(0), I(1), I(2), I(3), I(4), static_cast<const float*>(in[5]),
+        static_cast<T*>(outs[0]), static_cast<float*>(outs[1]), static_cast<float*>(outs[2]),
+        scratch);
   }
+}
+
+template <typename T, int VEC, int NV>
+void launch_src_nv(unsigned grid, cudaStream_t st, const SideArgs& s, const HeadArgs& h,
+                   const void* const* in, void* const* outs, float* scratch, int ll,
+                   KernelInfo* info) {
+  constexpr int U = unroll_for(NV, 2);
+  if (info != nullptr) return query(gat_backward_src_kernel<T, VEC, NV, U>, info);
+  const int F = h.H * h.d;
+  const Gather<T, 2> g{s.nbr, s.eid, static_cast<const float*>(in[2]), 2 * h.H, {h.H, 0},
+                       {static_cast<const T*>(in[0]), static_cast<const T*>(in[1])}, F,
+                       h.d / VEC};
+  gat_backward_src_kernel<T, VEC, NV, U><<<grid, kBlock, 0, st>>>(
+      s, g, static_cast<T*>(outs[0]), static_cast<T*>(outs[1]), scratch, ll);
 }
 
 template <typename T, int VEC>
 void launch_vec(int pass, const HeadMap& m, unsigned grid, cudaStream_t st, const SideArgs& s,
-                const HeadArgs& h, const void* const* in, void* const* outs, float* scratch) {
-  if (m.slices == 1) {
-    launch_pass<T, 1, VEC>(pass, grid, st, s, h, in, outs, scratch);
+                const HeadArgs& h, const void* const* in, void* const* outs, float* scratch,
+                KernelInfo* info) {
+  if (pass == 2) {
+    const SrcPlan p = src_plan(h.H, h.d, VEC);
+    if (p.nv == 1) launch_src_nv<T, VEC, 1>(grid, st, s, h, in, outs, scratch, p.ll, info);
+    else if (p.nv == 2) launch_src_nv<T, VEC, 2>(grid, st, s, h, in, outs, scratch, p.ll, info);
+    else launch_src_nv<T, VEC, 4>(grid, st, s, h, in, outs, scratch, p.ll, info);
+  } else if (m.slices == 1) {
+    launch_pass<T, 1, VEC>(pass, grid, st, s, h, in, outs, scratch, info);
   } else {
-    launch_pass<T, kMaxSlices, VEC>(pass, grid, st, s, h, in, outs, scratch);
+    launch_pass<T, kMaxSlices, VEC>(pass, grid, st, s, h, in, outs, scratch, info);
   }
 }
 
 template <typename T>
 int dispatch(int pass, int max_vec_bytes, const SideArgs& s, const HeadArgs& h,
-             const void* const* in, void* const* outs, float* scratch, cudaStream_t st) {
+             const void* const* in, void* const* outs, float* scratch, cudaStream_t st,
+             KernelInfo* info = nullptr) {
   const int vec = pick_vec(h.d, static_cast<int>(sizeof(T)), max_vec_bytes);
   const HeadMap m(h.H, h.d, vec);
   if (!m.supported) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = grid_of(s, m);
-  if (grid == 0) return static_cast<int>(cudaSuccess);
+  const unsigned grid =
+      pass == 2 ? static_cast<unsigned>(s.num_hubs) +
+                      grid_for_groups(s.num_rows, src_plan(h.H, h.d, vec).ll)
+                : grid_of(s, m);
+  if (grid == 0 && info == nullptr) return static_cast<int>(cudaSuccess);
   switch (vec) {
-    case 1: launch_vec<T, 1>(pass, m, grid, st, s, h, in, outs, scratch); break;
-    case 2: launch_vec<T, 2>(pass, m, grid, st, s, h, in, outs, scratch); break;
-    case 4: launch_vec<T, 4>(pass, m, grid, st, s, h, in, outs, scratch); break;
+    case 1: launch_vec<T, 1>(pass, m, grid, st, s, h, in, outs, scratch, info); break;
+    case 2: launch_vec<T, 2>(pass, m, grid, st, s, h, in, outs, scratch, info); break;
+    case 4: launch_vec<T, 4>(pass, m, grid, st, s, h, in, outs, scratch, info); break;
     default:
       if constexpr (sizeof(T) == 2) {
-        launch_vec<T, 8>(pass, m, grid, st, s, h, in, outs, scratch);
+        launch_vec<T, 8>(pass, m, grid, st, s, h, in, outs, scratch, info);
         break;
       }
       return static_cast<int>(cudaErrorInvalidValue);
@@ -611,16 +836,41 @@ int run(int pass, const void* row_ptr, const void* nbr, const void* eid, const v
 }  // namespace
 
 // Floats of hub scratch that pass 0, 1 or 2 needs for these heads, element
-// size and largest vector, or -1 when the head width is not supported (a
-// head wider than 64 vectors).
+// size and largest vector over a side of num_entries entries, or -1 when the
+// head width is not supported (a head wider than 64 vectors). Pass 2 keeps
+// one partial of its two outputs per kChunk entries of the side.
 extern "C" long long tfg_gat_scratch_floats(int pass, int num_hubs, int H, int d, int elt_bytes,
-                                            int max_vec_bytes) {
-  if (H <= 0 || d <= 0 || (elt_bytes != 2 && elt_bytes != 4)) return -1;
+                                            int max_vec_bytes, int num_entries) {
+  if (H <= 0 || d <= 0 || num_entries < 0 || (elt_bytes != 2 && elt_bytes != 4)) return -1;
   const int vec = pick_vec(d, elt_bytes, max_vec_bytes);
   const HeadMap m(H, d, vec);
   if (!m.supported) return -1;
+  if (pass == 2)
+    return num_hubs == 0 ? 0
+                         : static_cast<long long>((num_entries + kChunk - 1) / kChunk) * 2 * H * d;
   return static_cast<long long>(num_hubs) * m.tasks * kWarpsPerBlock *
          scratch_slots(pass, m.slices, vec) * kWarp;
+}
+
+// Registers per thread and resident warps per SM of the instance that pass
+// 0, 1 or 2 would launch for these heads, dtype and largest vector; returns
+// cudaGetLastError() (0 on success).
+extern "C" int tfg_gat_kernel_info(int pass, int H, int d, int dtype, int max_vec_bytes,
+                                   int* regs, int* warps_per_sm) {
+  if (H <= 0 || d <= 0 || pass < 0 || pass > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const SideArgs s{nullptr, nullptr, nullptr, nullptr, 0, 0, 0};
+  const HeadArgs h{H, d, 1.f, nullptr};
+  KernelInfo info{0, 0};
+  const int rc = dtype == kFloat32
+                     ? dispatch<float>(pass, max_vec_bytes, s, h, nullptr, nullptr, nullptr,
+                                       nullptr, &info)
+                 : dtype == kBFloat16
+                     ? dispatch<__nv_bfloat16>(pass, max_vec_bytes, s, h, nullptr, nullptr,
+                                               nullptr, nullptr, &info)
+                     : static_cast<int>(cudaErrorInvalidValue);
+  *regs = info.regs;
+  *warps_per_sm = info.warps_per_sm;
+  return rc;
 }
 
 // Each returns cudaGetLastError() after its launch (0 on success). keep may
@@ -637,27 +887,32 @@ extern "C" int tfg_gat_forward(const void* row_ptr, const void* nbr, const void*
              dtype, max_vec_bytes, in, outs, scratch, stream);
 }
 
+// w float32 [E, 2H]: w[e, h] = a_e keep_e and w[e, H + h] = ds_e for every
+// edge e of the side (rows of edges outside the layout are not written).
 extern "C" int tfg_gat_backward_dst(const void* row_ptr, const void* nbr, const void* eid,
                                     const void* hubs, int num_hubs, int num_rows,
                                     int hub_degree, int H, int d, float scale,
                                     const void* keep, int dtype, int max_vec_bytes,
                                     const void* Q, const void* K, const void* V,
                                     const void* out, const void* dy, const void* lse,
-                                    void* dQ, void* D, void* scratch, void* stream) {
+                                    void* dQ, void* D, void* w, void* scratch, void* stream) {
   const void* in[] = {Q, K, V, out, dy, lse};
-  void* outs[] = {dQ, D};
+  void* outs[] = {dQ, D, w};
   return run(1, row_ptr, nbr, eid, hubs, num_hubs, num_rows, hub_degree, H, d, scale, keep,
              dtype, max_vec_bytes, in, outs, scratch, stream);
 }
 
+// dK and dV [S, H d] from Q and dy [N, H d] and the destination pass's w;
+// the side is the source side, whose hubs are its rows of more than
+// hub_degree = kChunk entries; scale and keep are not read (w holds them).
 extern "C" int tfg_gat_backward_src(const void* row_ptr, const void* nbr, const void* eid,
                                     const void* hubs, int num_hubs, int num_rows,
                                     int hub_degree, int H, int d, float scale,
                                     const void* keep, int dtype, int max_vec_bytes,
-                                    const void* Q, const void* K, const void* V,
-                                    const void* dy, const void* lse, const void* D, void* dK,
+                                    const void* Q, const void* dy, const void* w, void* dK,
                                     void* dV, void* scratch, void* stream) {
-  const void* in[] = {Q, K, V, dy, lse, D};
+  if (hub_degree != kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  const void* in[] = {Q, dy, w};
   void* outs[] = {dK, dV};
   return run(2, row_ptr, nbr, eid, hubs, num_hubs, num_rows, hub_degree, H, d, scale, keep,
              dtype, max_vec_bytes, in, outs, scratch, stream);

@@ -11,9 +11,10 @@
 //          d_att[e, h] = <dy[r_e] block h, v[c_e] block h>.
 //
 // The view: rows 0 .. R - 1, row r's entries at row_ptr[r] .. row_ptr[r + 1];
-// entry i names a row nbr[i] of the gathered operand (clamped here to
-// [0, n - 1]) and an edge id eid[i], the row of the [E, H] weight (spmm) or
-// output (sddmm) array. Dense operands are [rows, H * d] row-major, head h
+// entry i names a row nbr[i] of the gathered operand (the SDDMM clamps it
+// to [0, n - 1]; the SpMM reads it as is: build_csr_view clamps its views'
+// ids and a CsrGatLayout side holds in-range edges only) and an edge id
+// eid[i], the row of the [E, H] weight (spmm) or output (sddmm) array. Dense operands are [rows, H * d] row-major, head h
 // in columns h * d .. h * d + d - 1. Float32 or bfloat16; sums in float32,
 // in the view's entry order.
 //   spmm:  out[r, h * d + j] = sum_{i in row r} w[eid_i, h] * src[nbr_i, h * d + j]
@@ -31,23 +32,21 @@
 // a vector lies in one head; rows wider than the lanes' vectors take several
 // passes.
 //
-// spmm. A group of L lanes owns one row (L = the next power of two of the
-// row's lane vectors, at most 32), so several narrow rows share a warp and
-// an empty row costs a lane group; the group walks its row in entry order
-// and loads U entries' ids, then their rows and weights w[eid, h], before it
-// adds any, so U gathers per lane are in flight (the weight rides beside the
-// row: a transaction, not a trip to memory). Long rows are split across
-// groups: the view's entries fall into chunks of kChunk (64) entries, and a
-// row with more than kChunk entries is long (the arxiv graph's largest has
-// 2,839). spmm_heads_chunk_kernel gives a lane group to each chunk; the
-// chunk's row is the row of its first entry, read from the view's row of
-// each entry (entry_row, which the caller's sort already made), and when
-// that row is long the group sums the row's entries inside the chunk into
-// the chunk's float32 partial. spmm_heads_kernel then sums each short row
-// from its entries and each long row from its entries before its first
-// chunk boundary, then the partials of the chunks that start inside it, in
-// chunk order. So no group reads more than 64 entries of a row in sequence
-// (and at most 45 partials on the arxiv graph), with no search and no sync.
+// spmm. The lane-group weighted gather of lane_gather.cuh with one output:
+// a group of L lanes owns one row (L = the next power of two of the row's
+// lane vectors, at most 32), so several narrow rows share a warp and an
+// empty row costs a lane group, with U entries in flight per lane. A row with
+// more than kChunk (64) entries is long (the arxiv graph's largest has
+// 2,839): spmm_heads_chunk_kernel gives a lane group to each kChunk-entry
+// chunk of the view; the chunk's row is the row of its first entry, read
+// from the view's row of each entry (entry_row, which the caller's sort
+// already made), and when that row is long the group sums the row's entries
+// inside the chunk into the chunk's float32 partial. spmm_heads_kernel then
+// sums each row as lane_gather.cuh's RowSplit says: its entries before its
+// first chunk boundary, then the partials of the chunks that start inside
+// it, in chunk order. So no group reads more than 64 entries of a row in
+// sequence (and at most 45 partials on the arxiv graph), with no search and
+// no sync.
 //
 // sddmm. One warp owns one row. Its lanes form S sub-groups of L lanes: the
 // L lanes of a sub-group split the row's vectors, the S = 32 / L sub-groups
@@ -60,7 +59,7 @@
 // sub-group per head. One lane writes each head's value (a head split over
 // two passes adds the second pass's part to its own first write). A wide row
 // with many entries is walked by one warp.
-#include "common.cuh"
+#include "lane_gather.cuh"
 
 namespace {
 
@@ -68,7 +67,6 @@ using namespace tfg;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = kWarp * kWarpsPerBlock;
-constexpr int kChunk = 64;  // entries per chunk (ops/spmm_heads.py CHUNK)
 
 // Where one lane of the SDDMM sits: its warp's row, its sub-group and its
 // lane in it.
@@ -97,101 +95,6 @@ __device__ __forceinline__ void entry_ids(const int* __restrict__ nbr,
   *e = ok ? eid[start + j] : 0;
 }
 
-// Where one lane of the SpMM sits: its group's row (or chunk) and its lane
-// in the group of L lanes; a lane past the last one has no row.
-struct GroupLane {
-  long long g;
-  int lig, L;
-  bool valid;
-};
-
-__device__ __forceinline__ GroupLane group_lane(int lanes_log2, long long groups) {
-  GroupLane gl;
-  gl.L = 1 << lanes_log2;
-  gl.lig = threadIdx.x & (gl.L - 1);
-  gl.g = (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> lanes_log2;
-  gl.valid = gl.g < groups;
-  return gl;
-}
-
-// acc += w[eid_j, h] * src[nbr_j] over entries j in [lo, hi) of the view, on
-// this lane's vectors (head[q] the head of vector q), in entry order; U
-// entries' ids, then U entries' rows and weights, loaded before any is added
-template <typename T, int VEC, int NV, int U>
-__device__ __forceinline__ void add_entries(float* acc, const int* head, const GroupLane& gl,
-                                            int v0, int nvec, int lo, int hi,
-                                            const int* __restrict__ nbr,
-                                            const int* __restrict__ eid,
-                                            const float* __restrict__ w, int H,
-                                            const T* __restrict__ src, int n_src, int F) {
-  for (int jb = lo; jb < hi; jb += U) {
-    RawT<T, VEC> raw[U][NV];
-    float wu[U][NV];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool ok = jb + u < hi;
-      int c, e;
-      entry_ids(nbr, eid, jb, u, ok, n_src, &c, &e);
-      const T* row = src + static_cast<size_t>(c) * F;
-#pragma unroll
-      for (int q = 0; q < NV; ++q) {
-        const int v = v0 + q * gl.L + gl.lig;
-        const bool vok = ok && v < nvec;
-        raw[u][q] = vok ? *reinterpret_cast<const RawT<T, VEC>*>(row + v * VEC)
-                        : RawT<T, VEC>{};
-        wu[u][q] = vok ? w[static_cast<size_t>(e) * H + head[q]] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int q = 0; q < NV; ++q) {
-        float x[VEC];
-        unpack<T, VEC>(raw[u][q], x);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[q * VEC + i] += wu[u][q] * x[i];
-      }
-    }
-  }
-}
-
-// acc += the float32 chunk partials [c_lo, c_hi) on this lane's vectors, in
-// chunk order, UP of them loaded before any is added
-template <int VEC, int NV, int UP>
-__device__ __forceinline__ void add_partials(float* acc, const GroupLane& gl, int v0, int nvec,
-                                             int c_lo, int c_hi,
-                                             const float* __restrict__ partial, int F) {
-  for (int cb = c_lo; cb < c_hi; cb += UP) {
-    float x[UP][NV * VEC];
-#pragma unroll
-    for (int u = 0; u < UP; ++u) {
-      const float* prow = partial + static_cast<size_t>(cb + u) * F;
-#pragma unroll
-      for (int q = 0; q < NV; ++q) {
-        const int v = v0 + q * gl.L + gl.lig;
-        if (cb + u < c_hi && v < nvec) {
-          load_f32<VEC>(prow + v * VEC, x[u] + q * VEC);
-        } else {
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) x[u][q * VEC + i] = 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UP; ++u) {
-#pragma unroll
-      for (int i = 0; i < NV * VEC; ++i) acc[i] += x[u][i];
-    }
-  }
-}
-
-// the head of each of this lane's NV vectors in the pass from v0
-template <int NV>
-__device__ __forceinline__ void vector_heads(int* head, const GroupLane& gl, int v0, int vpd) {
-#pragma unroll
-  for (int q = 0; q < NV; ++q) head[q] = (v0 + q * gl.L + gl.lig) / vpd;
-}
-
 // One lane group per chunk of kChunk entries: the part of a long row inside
 // the chunk, as its float32 partial [chunks, H * d]. The chunk's row is the
 // row of its first entry (entry_row, the view's row of each entry); a chunk
@@ -199,33 +102,23 @@ __device__ __forceinline__ void vector_heads(int* head, const GroupLane& gl, int
 template <typename T, int VEC, int NV, int U>
 __global__ void __launch_bounds__(kBlock)
 spmm_heads_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ entry_row,
-                        const int* __restrict__ nbr, const int* __restrict__ eid,
-                        const float* __restrict__ w, int H, int d, const T* __restrict__ src,
-                        int n_src, float* __restrict__ partial, int rows, int chunks,
+                        Gather<T, 1> g, float* __restrict__ partial, int rows, int chunks,
                         int lanes_log2) {
-  const GroupLane gl = group_lane(lanes_log2, chunks);
-  if (!gl.valid) return;  // no shuffles below: lanes may leave
+  GroupLane gl = group_lane(lanes_log2);
+  gl.g = (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> lanes_log2;
+  if (gl.g >= chunks) return;  // no shuffles below: lanes may leave
   const int lo = static_cast<int>(gl.g) * kChunk;
   if (lo >= row_ptr[rows]) return;
   const int r = entry_row[lo];
   const int end = row_ptr[r + 1];
   if (end - row_ptr[r] <= kChunk) return;  // a short row: spmm_heads_kernel's
   const int hi = min(end, lo + kChunk);
-  const int F = H * d;
-  const int nvec = F / VEC;
+  const int nvec = g.F / VEC;
+  float* const prow[1] = {partial + static_cast<size_t>(gl.g) * g.F};
   for (int v0 = 0; v0 < nvec; v0 += gl.L * NV) {
-    float acc[NV * VEC];
-    int head[NV];
-#pragma unroll
-    for (int i = 0; i < NV * VEC; ++i) acc[i] = 0.f;
-    vector_heads<NV>(head, gl, v0, d / VEC);
-    add_entries<T, VEC, NV, U>(acc, head, gl, v0, nvec, lo, hi, nbr, eid, w, H, src, n_src, F);
-    float* prow = partial + static_cast<size_t>(gl.g) * F;
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      const int v = v0 + q * gl.L + gl.lig;
-      if (v < nvec) store_vec<float, VEC>(prow + v * VEC, acc + q * VEC);
-    }
+    float acc[1][NV * VEC] = {};
+    add_entries<T, VEC, NV, U, 1>(acc, gl, v0, nvec, lo, hi, g);
+    store_rows<float, VEC, NV, 1>(prow, acc, gl, v0, nvec);
   }
 }
 
@@ -234,39 +127,24 @@ spmm_heads_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__
 // that start inside it (written by spmm_heads_chunk_kernel), in chunk order.
 template <typename T, typename OutT, int VEC, int NV, int U>
 __global__ void __launch_bounds__(kBlock)
-spmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
-                  const int* __restrict__ eid, const float* __restrict__ w, int H, int d,
-                  const T* __restrict__ src, int n_src, const float* __restrict__ partial,
-                  OutT* __restrict__ out, int rows, int lanes_log2) {
+spmm_heads_kernel(const int* __restrict__ row_ptr, Gather<T, 1> g,
+                  const float* __restrict__ partial, OutT* __restrict__ out, int rows,
+                  int lanes_log2) {
   // as many bytes of partials in flight as of the entries' rows
   constexpr int UP = U * static_cast<int>(sizeof(T)) / 4 > 0
                          ? U * static_cast<int>(sizeof(T)) / 4 : 1;
-  const GroupLane gl = group_lane(lanes_log2, rows);
-  if (!gl.valid) return;  // no shuffles below: lanes may leave
-  const int F = H * d;
-  const int nvec = F / VEC;
+  GroupLane gl = group_lane(lanes_log2);
+  gl.g = (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> lanes_log2;
+  if (gl.g >= rows) return;  // no shuffles below: lanes may leave
+  const int nvec = g.F / VEC;
   const int start = row_ptr[gl.g];
-  const int end = row_ptr[gl.g + 1];
-  const bool long_row = end - start > kChunk;
-  // a long row's chunks are those that start inside it
-  const int c_lo = long_row ? (start + kChunk - 1) / kChunk : 0;
-  const int c_hi = long_row ? (end - 1) / kChunk + 1 : 0;
-  const int direct_end = long_row ? c_lo * kChunk : end;
+  const RowSplit split(start, row_ptr[gl.g + 1]);
+  OutT* const orow[1] = {out + static_cast<size_t>(gl.g) * g.F};
   for (int v0 = 0; v0 < nvec; v0 += gl.L * NV) {
-    float acc[NV * VEC];
-    int head[NV];
-#pragma unroll
-    for (int i = 0; i < NV * VEC; ++i) acc[i] = 0.f;
-    vector_heads<NV>(head, gl, v0, d / VEC);
-    add_entries<T, VEC, NV, U>(acc, head, gl, v0, nvec, start, direct_end, nbr, eid, w, H, src,
-                               n_src, F);
-    if (long_row) add_partials<VEC, NV, UP>(acc, gl, v0, nvec, c_lo, c_hi, partial, F);
-    OutT* orow = out + static_cast<size_t>(gl.g) * F;
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      const int v = v0 + q * gl.L + gl.lig;
-      if (v < nvec) store_vec<OutT, VEC>(orow + v * VEC, acc + q * VEC);
-    }
+    float acc[1][NV * VEC] = {};
+    add_entries<T, VEC, NV, U, 1>(acc, gl, v0, nvec, start, split.direct_end, g);
+    add_partials<VEC, NV, UP, 1>(acc, gl, v0, nvec, split.c_lo, split.c_hi, partial, g.F);
+    store_rows<OutT, VEC, NV, 1>(orow, acc, gl, v0, nvec);
   }
 }
 
@@ -357,9 +235,6 @@ sddmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
   }
 }
 
-// in-flight gathers per lane for NV vectors per lane
-constexpr int unroll_for(int nv) { return nv == 1 ? 8 : nv == 2 ? 4 : 2; }
-
 // the SpMM's operands, as the C entry receives them
 struct SpmmArgs {
   const int* row_ptr;
@@ -369,7 +244,6 @@ struct SpmmArgs {
   const float* w;
   int H, d;
   const void* src;
-  int n_src;
   float* partial;
   void* out;
   int rows, chunks, ll;
@@ -377,15 +251,14 @@ struct SpmmArgs {
 
 template <typename T, typename OutT, int VEC, int NV>
 void launch_spmm_nv(const SpmmArgs& a, cudaStream_t st) {
-  constexpr int U = unroll_for(NV);
-  auto src = static_cast<const T*>(a.src);
+  constexpr int U = unroll_for(NV, 1);
+  const Gather<T, 1> g{a.nbr, a.eid, a.w, a.H, {0}, {static_cast<const T*>(a.src)},
+                       a.H * a.d, a.d / VEC};
   if (a.chunks > 0)
     spmm_heads_chunk_kernel<T, VEC, NV, U><<<grid_for_groups(a.chunks, a.ll), kBlock, 0, st>>>(
-        a.row_ptr, a.entry_row, a.nbr, a.eid, a.w, a.H, a.d, src, a.n_src, a.partial, a.rows,
-        a.chunks, a.ll);
+        a.row_ptr, a.entry_row, g, a.partial, a.rows, a.chunks, a.ll);
   spmm_heads_kernel<T, OutT, VEC, NV, U><<<grid_for_groups(a.rows, a.ll), kBlock, 0, st>>>(
-      a.row_ptr, a.nbr, a.eid, a.w, a.H, a.d, src, a.n_src, a.partial,
-      static_cast<OutT*>(a.out), a.rows, a.ll);
+      a.row_ptr, g, a.partial, static_cast<OutT*>(a.out), a.rows, a.ll);
 }
 
 template <typename T, typename OutT, int VEC>
@@ -472,7 +345,7 @@ extern "C" int tfg_spmm_heads(const void* row_ptr, const void* entry_row, const 
   const int nv = pick_nv(nvec, 1 << ll);
   const SpmmArgs a{static_cast<const int*>(row_ptr), static_cast<const int*>(entry_row),
                    static_cast<const int*>(nbr), static_cast<const int*>(eid),
-                   static_cast<const float*>(w), H, d, src, n_src,
+                   static_cast<const float*>(w), H, d, src,
                    static_cast<float*>(partial), out, rows, chunks, ll};
   auto st = static_cast<cudaStream_t>(stream);
   if (src_dtype == kFloat32)

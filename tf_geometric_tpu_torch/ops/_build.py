@@ -16,13 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "build_all", "kernel_function"]
+__all__ = ["SOURCES", "build_all", "kernel_function", "header_constant"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -102,6 +103,17 @@ def build_all() -> Dict[str, Path]:
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
         return paths
+
+
+def header_constant(header: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in ``csrc/<header>``:
+    a number the kernels and the host code must agree on, kept in one place
+    (read on any machine, no build needed)."""
+    text = (CSRC_DIR / header).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    if len(found) != 1:
+        raise RuntimeError(f"csrc/{header} must define constexpr int {name} once")
+    return int(found[0])
 
 
 def kernel_function(source: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):

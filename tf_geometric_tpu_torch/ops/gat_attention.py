@@ -8,29 +8,34 @@ dropout by a keep mask, and ``out[r] = Σ a_e·keep_e·V[c]``; the backward
 gives dQ, dK and dV.
 
 What carries over and what does not. The JAX layout's degree buckets, its
-permuted row space, the flat weight array and ``w_scatter_pos`` were tuned
-to TPU costs; none is ported. ``CsrGatLayout`` holds two CSR views of the
-self-looped edge list: the destination side (per row: source ``nbr`` and
-edge id) for the forward and dQ, the source side (per column: destination
-``nbr`` and edge id) for dK and dV, so no pass needs atomics or moves
-weights between edge orders. A layout may be rectangular: ``num_nodes``
-destination rows (Q, out, dy, dQ, lse, D) read ``num_src`` source rows (K,
-V, dK, dV), as the graph-parallel GAT's ``[local ‖ received]`` source space
-needs (``gat_attention_ell``); the square layout has both equal. The
-backward recomputes each weight from ``lse`` (saved by the forward) and
-``D[r] = <dy[r], out[r]>_h``, which equals the JAX package's ``gsum``
-because ``Σ a·keep·<dy, V> = <dy, out>``.
+permuted row space and ``w_scatter_pos`` were tuned to TPU costs; none is
+ported. ``CsrGatLayout`` holds two CSR views of the self-looped edge list:
+the destination side (per row: source ``nbr`` and edge id) for the forward
+and dQ, the source side (per column: destination ``nbr`` and edge id) for
+dK and dV, so no pass needs atomics. A layout may be rectangular:
+``num_nodes`` destination rows (Q, out, dy, dQ, lse, D) read ``num_src``
+source rows (K, V, dK, dV), as the graph-parallel GAT's ``[local ‖
+received]`` source space needs (``gat_attention_ell``); the square layout
+has both equal. The backward recomputes each weight from ``lse`` (saved by
+the forward) and ``D[r] = <dy[r], out[r]>_h``, which equals the JAX
+package's ``gsum`` because ``Σ a·keep·<dy, V> = <dy, out>``. The
+destination pass hands each edge's weights on to the source pass in the
+JAX package's flat weight array: ``w`` float32 [E, 2H] by edge id,
+``w[e, :H] = a_e·keep_e`` and ``w[e, H:] = ds_e`` (85.5 MB on the arxiv
+graph at H = 8), so the source pass is a two-output weighted gather of Q
+and dy, with no K, V, lse, D or mask reads.
 
 The three passes and their kernels (``csrc/gat_attention.cu``):
 forward (destination side, online softmax; out and lse), backward on the
-destination side (dQ and D) and backward on the source side (dK and dV).
-Each has a plain PyTorch version with the same contract; ``_run_pass``
-dispatches on the device of Q: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel, and a failed launch raises. Every pass writes
-every row of its outputs, rows without entries included (out, lse, dQ, D,
-dK and dV are 0 there), so the wrappers allocate them uninitialized. Inside
-``ops.config.use_plain_versions()`` it takes the plain versions on any
-device (the on-card reference of ``chip_smoke.py``).
+destination side (dQ, D and w) and backward on the source side (dK and dV
+from w). Each has a plain PyTorch version with the same contract;
+``_run_pass`` dispatches on the device of Q: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel, and a failed launch raises.
+Every pass writes every row of its outputs, rows without entries included
+(out, lse, dQ, D, dK and dV are 0 there), so the wrappers allocate them
+uninitialized; the kernel writes the rows of ``w`` of the side's edges
+only. Inside ``ops.config.use_plain_versions()`` it takes the plain
+versions on any device (the on-card reference of ``chip_smoke.py``).
 
 Bound on the H100: bytes (each edge gathers two rows of H·d elements for
 ~4 flops per element).
@@ -46,12 +51,16 @@ import torch
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from . import config as _config
+from .spmm_heads import CHUNK
 
 __all__ = ["GatSide", "CsrGatLayout", "gat_attention_csr", "gat_attention_ell", "HUB_DEGREE",
            "gat_forward_plain", "gat_backward_dst_plain", "gat_backward_src_plain",
-           "launch_gat_forward", "launch_gat_backward_dst", "launch_gat_backward_src"]
+           "launch_gat_forward", "launch_gat_backward_dst", "launch_gat_backward_src",
+           "kernel_info"]
 
-# rows with more edges than this get a block of 8 warps in the kernels
+# destination rows with more edges than this get a block of 8 warps in the
+# kernels; on the source side a row is a hub when it has more than CHUNK
+# entries (the lane-group gather's chunk, read from csrc/lane_gather.cuh)
 HUB_DEGREE = 256
 _EPS = 1e-16  # added to the softmax denominator, as the JAX kernel does
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,16 +70,20 @@ class GatSide(NamedTuple):
     """One CSR view of the edge list. ``nbr`` is the source of each entry
     on the destination side and its destination on the source side;
     ``hubs`` lists the rows with more than ``hub_degree`` entries; ``row``
-    is each entry's row (the multi-head SpMM's chunks read it)."""
+    is each entry's row (the multi-head SpMM's chunks read it); every edge
+    id is below ``num_edges``, the row count of the arrays they index (a
+    keep mask, the backward's per-edge weights)."""
     row_ptr: torch.Tensor   # [num_rows + 1] int32
     nbr: torch.Tensor       # [nnz] int32
     eid: torch.Tensor       # [nnz] int32, index into the input edge list
     hubs: torch.Tensor      # [num_hubs] int32
     hub_degree: int
     row: torch.Tensor       # [nnz] int32
+    num_edges: int
 
 
-def _build_side(keys, nbrs, eids, num_rows: int, hub_degree: int, device) -> GatSide:
+def _build_side(keys, nbrs, eids, num_rows: int, hub_degree: int, num_edges: int,
+                device) -> GatSide:
     order = np.argsort(keys, kind="stable")
     deg = np.bincount(keys, minlength=num_rows)
     row_ptr = np.concatenate([[0], np.cumsum(deg)])
@@ -80,7 +93,8 @@ def _build_side(keys, nbrs, eids, num_rows: int, hub_degree: int, device) -> Gat
 
     return GatSide(row_ptr=as_int32(row_ptr), nbr=as_int32(nbrs[order]),
                    eid=as_int32(eids[order]), hubs=as_int32(np.nonzero(deg > hub_degree)[0]),
-                   hub_degree=int(hub_degree), row=as_int32(keys[order]))
+                   hub_degree=int(hub_degree), row=as_int32(keys[order]),
+                   num_edges=int(num_edges))
 
 
 class CsrGatLayout(NamedTuple):
@@ -112,8 +126,8 @@ class CsrGatLayout(NamedTuple):
         ok = (rows >= 0) & (rows < num_nodes) & (cols >= 0) & (cols < num_src)
         rows, cols = rows[ok], cols[ok]
         eids = np.nonzero(ok)[0]
-        return cls(dst=_build_side(rows, cols, eids, num_nodes, hub_degree, device),
-                   src=_build_side(cols, rows, eids, num_src, hub_degree, device),
+        return cls(dst=_build_side(rows, cols, eids, num_nodes, hub_degree, num_edges, device),
+                   src=_build_side(cols, rows, eids, num_src, CHUNK, num_edges, device),
                    num_nodes=int(num_nodes), num_edges=int(num_edges), num_src=int(num_src))
 
     def to(self, device) -> "CsrGatLayout":
@@ -186,25 +200,13 @@ def gat_forward_plain(side: GatSide, Q, K, V, num_heads: int, keep=None):
 
 
 def gat_backward_dst_plain(side: GatSide, Q, K, V, out, lse, dy, num_heads: int, keep=None):
-    """Plain version of the destination-side backward kernel: ``(dQ, D)``,
-    ``dQ`` [N, H·d] in Q's dtype, ``D = <dy, out>_h`` [N, H] float32."""
+    """Plain version of the destination-side backward kernel: ``(dQ, D, w)``,
+    ``dQ`` [N, H·d] in Q's dtype, ``D = <dy, out>_h`` [N, H] float32 and the
+    per-edge weights ``w`` float32 [side.num_edges, 2H] by edge id: ``w[e, :H]
+    = a_e·keep_e``, ``w[e, H:] = ds_e`` (0 on edges outside the side)."""
     H = num_heads
     rows, cols, eids = _entries(side)
     D = _head_dot(dy, out, H)
-    a = torch.exp(_scores(Q, K, H, rows, cols) - lse[rows])
-    da = _head_dot(dy[rows], V[cols], H)
-    if keep is not None:
-        da = da * keep[eids]
-    ds = a * (da - D[rows]) * _scale(Q.shape[1] // H)
-    dQ = torch.zeros(Q.shape, device=Q.device).index_add_(0, rows, _per_head(K[cols], ds, H))
-    return dQ.to(Q.dtype), D
-
-
-def gat_backward_src_plain(side: GatSide, Q, K, V, dy, lse, D, num_heads: int, keep=None):
-    """Plain version of the source-side backward kernel: ``(dK, dV)`` in
-    Q's dtype, over the source side (``side.nbr`` is the destination)."""
-    H = num_heads
-    cols, rows, eids = _entries(side)
     a = torch.exp(_scores(Q, K, H, rows, cols) - lse[rows])
     da = _head_dot(dy[rows], V[cols], H)
     ak = a
@@ -212,8 +214,23 @@ def gat_backward_src_plain(side: GatSide, Q, K, V, dy, lse, D, num_heads: int, k
         da = da * keep[eids]
         ak = a * keep[eids]
     ds = a * (da - D[rows]) * _scale(Q.shape[1] // H)
-    dK = torch.zeros(K.shape, device=K.device).index_add_(0, cols, _per_head(Q[rows], ds, H))
-    dV = torch.zeros(V.shape, device=V.device).index_add_(0, cols, _per_head(dy[rows], ak, H))
+    dQ = torch.zeros(Q.shape, device=Q.device).index_add_(0, rows, _per_head(K[cols], ds, H))
+    w = torch.zeros((side.num_edges, 2 * H), device=Q.device)
+    w[eids] = torch.cat([ak, ds], dim=1)
+    return dQ.to(Q.dtype), D, w
+
+
+def gat_backward_src_plain(side: GatSide, Q, dy, w, num_heads: int):
+    """Plain version of the source-side backward kernel: ``(dK, dV)`` [S,
+    H·d] in Q's dtype over the source side (``side.nbr`` is the
+    destination), ``dK[c] = Σ w[e, H + h]·Q[r]`` and ``dV[c] = Σ w[e, h]·dy[r]``
+    per head h with the destination pass's ``w``."""
+    H = num_heads
+    cols, rows, eids = _entries(side)
+    we = w[eids]
+    shape = (side.row_ptr.shape[0] - 1, Q.shape[1])
+    dK = torch.zeros(shape, device=Q.device).index_add_(0, cols, _per_head(Q[rows], we[:, H:], H))
+    dV = torch.zeros(shape, device=Q.device).index_add_(0, cols, _per_head(dy[rows], we[:, :H], H))
     return dK.to(Q.dtype), dV.to(Q.dtype)
 
 
@@ -226,33 +243,28 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIDE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I]
 
 
-def _check_launch(side: GatSide, num_heads: int, dense, source, stats=(), keep=None,
-                  side_rows: str = "Q"):
-    """Raise unless every tensor is a contiguous CUDA tensor on Q's device
-    of the type and shape the kernels take: ``dense`` (Q first) with Q's
-    shape, ``source`` (K first) with K's, K as wide as Q, ``stats`` [N_Q, H]
-    float32, and the side with as many rows as ``side_rows`` ("Q" for the
-    destination side, "K" for the source side); returns (N_Q, H, d)."""
-    q, k = dense[0][1], source[0][1]
-    tensors = list(dense) + list(source) + list(stats) + [
-        ("row_ptr", side.row_ptr), ("nbr", side.nbr), ("eid", side.eid), ("hubs", side.hubs)]
-    if keep is not None:
-        tensors.append(("keep", keep))
-    for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, Q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _check_launch(side: GatSide, num_heads: int, dense, source=(), stats=(), keep=None,
+                  weights=None):
+    """Raise unless every tensor has the type and shape the kernels take
+    (checked first) and is a contiguous CUDA tensor on Q's device: ``dense``
+    (Q first) with Q's shape, ``source`` (K first, for the destination-side
+    passes) with K's, K as wide as Q, ``stats`` [N_Q, H] float32, ``keep``
+    float32 [E, H] and ``weights`` float32 [E, 2H] with E =
+    ``side.num_edges`` (the kernels index them by edge id), and a
+    destination side with Q's rows; returns (N_Q, H, d)."""
+    q = dense[0][1]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"Q must be float32 or bfloat16, got {q.dtype}")
     n, width = q.shape if q.dim() == 2 else (None, None)
     if n is None or num_heads < 1 or width % num_heads:
         raise ValueError(f"Q must be [N, H·d] with H = {num_heads}, got {tuple(q.shape)}")
-    if k.dim() != 2 or k.shape[1] != width:
-        raise ValueError(f"K must be [S, {width}], got {tuple(k.shape)}")
-    for like, group in ((q, dense), (k, source)):
+    groups = [(q, dense)]
+    if source:
+        k = source[0][1]
+        if k.dim() != 2 or k.shape[1] != width:
+            raise ValueError(f"K must be [S, {width}], got {tuple(k.shape)}")
+        groups.append((k, source))
+    for like, group in groups:
         for name, t in group:
             if t.dtype != q.dtype or t.shape != like.shape:
                 raise ValueError(f"{name} must be {q.dtype} {tuple(like.shape)}: "
@@ -260,16 +272,25 @@ def _check_launch(side: GatSide, num_heads: int, dense, source, stats=(), keep=N
     for name, t in stats:
         if t.dtype != torch.float32 or t.shape != (n, num_heads):
             raise ValueError(f"{name} must be float32 [{n}, {num_heads}]")
-    if keep is not None and (keep.dtype != torch.float32 or keep.dim() != 2
-                             or keep.shape[1] != num_heads):
-        raise ValueError(f"keep must be float32 [E, {num_heads}]")
+    for name, t, cols in (("keep", keep, num_heads), ("w", weights, 2 * num_heads)):
+        if t is not None and (t.dtype != torch.float32 or t.shape != (side.num_edges, cols)):
+            raise ValueError(f"{name} must be float32 [{side.num_edges}, {cols}] (the "
+                             f"layout's edges), got {t.dtype} {tuple(t.shape)}")
     for name in ("row_ptr", "nbr", "eid", "hubs"):
         if getattr(side, name).dtype != torch.int32:
             raise TypeError(f"side.{name} must be int32")
-    rows = n if side_rows == "Q" else k.shape[0]
-    if side.row_ptr.shape != (rows + 1,):
-        raise ValueError(f"the layout side has {side.row_ptr.shape[0] - 1} rows, "
-                         f"{side_rows} has {rows}")
+    if source and side.row_ptr.shape != (n + 1,):
+        raise ValueError(f"the layout side has {side.row_ptr.shape[0] - 1} rows, Q has {n}")
+    tensors = list(dense) + list(source) + list(stats) + [
+        ("row_ptr", side.row_ptr), ("nbr", side.nbr), ("eid", side.eid), ("hubs", side.hubs)]
+    tensors += [(name, t) for name, t in (("keep", keep), ("w", weights)) if t is not None]
+    for name, t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, Q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     return n, num_heads, width // num_heads
 
 
@@ -295,8 +316,9 @@ def _launch(kind: int, symbol: str, side: GatSide, num_heads: int, d: int, keep,
     num_hubs = int(side.hubs.shape[0])
     vec_bytes = _max_vec_bytes([t for t in tensors if t.dtype == q.dtype])
     floats = _build.kernel_function(
-        "gat_attention.cu", "tfg_gat_scratch_floats", [_I] * 6,
-        restype=ctypes.c_longlong)(kind, num_hubs, num_heads, d, q.element_size(), vec_bytes)
+        "gat_attention.cu", "tfg_gat_scratch_floats", [_I] * 7,
+        restype=ctypes.c_longlong)(kind, num_hubs, num_heads, d, q.element_size(), vec_bytes,
+                                   side.nbr.shape[0])
     if floats < 0:
         raise ValueError(f"head width {d} is wider than the kernels' 32 vectors per head")
     scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
@@ -328,26 +350,33 @@ def launch_gat_forward(side: GatSide, Q, K, V, num_heads: int, keep=None):
 
 
 def launch_gat_backward_dst(side: GatSide, Q, K, V, out, lse, dy, num_heads: int, keep=None):
-    """Launch the destination-side backward kernel; returns ``(dQ, D)`` as
-    ``gat_backward_dst_plain`` does. Counts each launch in ``.launches``."""
+    """Launch the destination-side backward kernel; returns ``(dQ, D, w)`` as
+    ``gat_backward_dst_plain`` does, except that the rows of ``w`` of edges
+    outside the side (padding) are left unwritten. Counts each launch in
+    ``.launches``."""
     n, H, d = _check_launch(side, num_heads, [("Q", Q), ("out", out), ("dy", dy)],
                             [("K", K), ("V", V)], [("lse", lse)], keep)
     dQ = torch.empty_like(Q)
     D = torch.empty((n, H), dtype=torch.float32, device=Q.device)
-    if _launch(1, "tfg_gat_backward_dst", side, H, d, keep, [Q, K, V, out, dy, lse, dQ, D],
-               [_P] * 8):
+    w = torch.empty((side.num_edges, 2 * H), dtype=torch.float32, device=Q.device)
+    if _launch(1, "tfg_gat_backward_dst", side, H, d, keep, [Q, K, V, out, dy, lse, dQ, D, w],
+               [_P] * 9):
         launch_gat_backward_dst.launches += 1
-    return dQ, D
+    return dQ, D, w
 
 
-def launch_gat_backward_src(side: GatSide, Q, K, V, dy, lse, D, num_heads: int, keep=None):
-    """Launch the source-side backward kernel; returns ``(dK, dV)`` as
+def launch_gat_backward_src(side: GatSide, Q, dy, w, num_heads: int):
+    """Launch the source-side backward kernel, the weighted gather of Q and
+    dy by the destination pass's ``w``; returns ``(dK, dV)`` as
     ``gat_backward_src_plain`` does. Counts each launch in ``.launches``."""
-    _, H, d = _check_launch(side, num_heads, [("Q", Q), ("dy", dy)], [("K", K), ("V", V)],
-                            [("lse", lse), ("D", D)], keep, side_rows="K")
-    dK, dV = torch.empty_like(K), torch.empty_like(V)
-    if _launch(2, "tfg_gat_backward_src", side, H, d, keep, [Q, K, V, dy, lse, D, dK, dV],
-               [_P] * 8):
+    _, H, d = _check_launch(side, num_heads, [("Q", Q), ("dy", dy)], weights=w)
+    if side.hub_degree != CHUNK:
+        raise ValueError(f"the source side's hubs must be its rows of more than {CHUNK} "
+                         f"entries, got hub_degree {side.hub_degree}")
+    shape = (side.row_ptr.shape[0] - 1, Q.shape[1])
+    dK = torch.empty(shape, dtype=Q.dtype, device=Q.device)
+    dV = torch.empty(shape, dtype=Q.dtype, device=Q.device)
+    if _launch(2, "tfg_gat_backward_src", side, H, d, None, [Q, dy, w, dK, dV], [_P] * 5):
         launch_gat_backward_src.launches += 1
     return dK, dV
 
@@ -355,6 +384,21 @@ def launch_gat_backward_src(side: GatSide, Q, K, V, dy, lse, D, num_heads: int, 
 launch_gat_forward.launches = 0
 launch_gat_backward_dst.launches = 0
 launch_gat_backward_src.launches = 0
+
+
+def kernel_info(kind: int, num_heads: int, head_width: int, dtype,
+                vec_bytes: int = 16) -> tuple:
+    """(registers per thread, resident warps per SM) of the kernel instance
+    that pass ``kind`` (0 forward, 1 and 2 the backward sides) launches for
+    these heads and dtype on the card, from ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    regs, warps = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.kernel_function("gat_attention.cu", "tfg_gat_kernel_info", [_I] * 5 + [_P, _P])(
+        kind, num_heads, head_width, _DTYPE_CODES[dtype], vec_bytes, ctypes.byref(regs),
+        ctypes.byref(warps))
+    if rc != 0:
+        raise RuntimeError(f"tfg_gat_kernel_info failed: cudaError {rc}")
+    return regs.value, warps.value
 
 
 _KERNELS = (launch_gat_forward, launch_gat_backward_dst, launch_gat_backward_src)
@@ -388,8 +432,8 @@ class _GatAttention(torch.autograd.Function):
         Q, K, V, out, lse, keep = ctx.saved_tensors
         layout, H, plain = ctx.layout, ctx.num_heads, ctx.plain
         dy = dy.contiguous()
-        dQ, D = _run_pass(1, plain, layout.dst, Q, K, V, out, lse, dy, H, keep)
-        dK, dV = _run_pass(2, plain, layout.src, Q, K, V, dy, lse, D, H, keep)
+        dQ, _, w = _run_pass(1, plain, layout.dst, Q, K, V, out, lse, dy, H, keep)
+        dK, dV = _run_pass(2, plain, layout.src, Q, dy, w, H)
         return dQ, dK, dV, None, None, None, None
 
 

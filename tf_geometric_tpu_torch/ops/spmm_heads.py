@@ -53,10 +53,11 @@ __all__ = ["CsrView", "build_csr_view", "spmm_heads", "sddmm_heads", "spmm_heads
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-# Entries per chunk of the SpMM kernel (kChunk in csrc/spmm_heads.cu), the
-# same width as Kernel A's SPLIT_WIDTH: a lane group keeps 8 gathers in
-# flight, so a 64-entry piece is a few trips to memory.
-CHUNK = 64
+# Entries per chunk of the lane-group gather (kChunk in csrc/lane_gather.cuh,
+# read from there; the SpMM kernel's and the GAT source pass's), the same
+# width as Kernel A's SPLIT_WIDTH: a lane group keeps 8 gathers in flight, so
+# a 64-entry piece is a few trips to memory.
+CHUNK = _build.header_constant("lane_gather.cuh", "kChunk")
 
 
 class CsrView(NamedTuple):
