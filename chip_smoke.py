@@ -41,9 +41,9 @@ Phases, each of which raises (non-zero exit) on failure:
    bfloat16: 2e-2; the destination pass's per-edge weights w 1e-3 in both
    dtypes, as both sides compute them in float32), the plain source pass
    reading the kernel's w; the backward's dQ, D, w, dK and dV bit for bit
-   against a second run. The same on the transposed layout, whose source
-   side holds the skewed destinations (518 rows over 64 entries: the source
-   pass's hub blocks). Time each kernel at H = 8, d = 32 with CUDA events
+   against a second run, and the forward's out and lse too. The same on the
+   transposed layout, whose source side holds the skewed destinations (518
+   rows over 64 entries: the source pass's hub blocks). Time each kernel at H = 8, d = 32 with CUDA events
    and by device time beside its bound (the source pass's: its own gather,
    Q, dy and w read, dK and dV written), its plain version, its registers
    per thread and resident warps per SM, every gathered row read from
@@ -52,7 +52,9 @@ Phases, each of which raises (non-zero exit) on failure:
    yardstick ``torch.bmm`` of the source
    side's per-head sparse COO weights with Q and dy (float32, built outside
    the timer; never called by the port); print the destination side's hub
-   rows and longest row.
+   rows and longest row. Time the forward and the destination pass at
+   H = 8, d = 32, bfloat16 with hub blocks for rows over 64, 128 and 256
+   (``HUB_DEGREE``) edges and with none (the numbers behind the value).
 5. SAGE kernels: on the Reddit-shaped graph's device sampler (232,965
    nodes, 11,606,919 edges), hold the draw kernel against its plain
    version at k = 25 on the same random integers, exactly (the main path's
@@ -83,14 +85,16 @@ Phases, each of which raises (non-zero exit) on failure:
    columns appended, at F in {4, 64, 128} with ``h`` float32 and bfloat16
    (values float32, so the result and ``dy`` are float32): the forward and
    ``dh`` SpMM and the ``dv`` SDDMM against their plain versions (float32
-   1e-4, bfloat16 2e-2), the forward and ``dh`` against a second run of the
-   same call, bit for bit, and the forward against itself with the weights
-   gathered into view order first (the same bits), timed. Print each view's
-   longest row beside the SpMM's longest serial walks (``row_split``). Time
-   each kernel, its plain version and the library yardsticks the port never
-   calls (``torch.sparse.mm`` on a prebuilt CSR,
-   ``torch.sparse.sampled_addmm`` in float32), and print the views' build
-   (the stable sorts) beside the bounds.
+   1e-4, bfloat16 2e-2), ``dv`` in float32 also against
+   ``torch.sparse.sampled_addmm`` (1e-4), all three against a second run of
+   the same call, bit for bit, and the forward against itself with the
+   weights gathered into view order first (the same bits), timed. Print each
+   view's longest row beside the SpMM's and the SDDMM's longest serial walks
+   (``row_split``; the SDDMM's 64-entry chunks). Time each kernel, its plain
+   version and the library yardsticks the port never calls
+   (``torch.sparse.mm`` on a prebuilt CSR, ``torch.sparse.sampled_addmm`` in
+   float32; ``dv`` and its yardstick also by device time), and print the
+   views' build (the stable sorts) beside the bounds.
 7. Multi-head SpMM kernels: on the self-looped arxiv ``CsrGatLayout`` at
    (H, d_v) in {(8, 8), (8, 32), (4, 64)} (the first is workload 5's),
    float32 and bfloat16: the forward (SpMM, destination side), ``dV``
@@ -100,9 +104,10 @@ Phases, each of which raises (non-zero exit) on failure:
    [H, N, N] sparse COO with the values viewed [H, N, d] for the forward and
    ``dV``, a batched ``torch.sparse.sampled_addmm`` on its [H, N, N] CSR
    pattern for ``d_att``), whose results are held against the kernels'
-   (1e-4). PyTorch has no bfloat16 kernel for either call. The forward
-   also runs with its weights gathered into view order (the same bits),
-   timed.
+   (1e-4); each kernel against a second run, bit for bit; ``d_att`` and its
+   yardstick in float32 also by device time. PyTorch has no bfloat16 kernel
+   for either call. The forward also runs with its weights gathered into
+   view order (the same bits), timed.
 8. GIN kernels: on the GIN batch's own padded edge list (values one, as
    ``gin`` makes them), the COO SpMM forward at widths 4 and 64 and its
    ``dh`` at 64 against their plain versions and ``torch.sparse.mm``
@@ -141,8 +146,11 @@ Phases, each of which raises (non-zero exit) on failure:
     each block side's longest serial walks beside its longest row; Kernel A
     and ``torch.sparse.mm`` in float32 also by device time; the
     ``diff_values`` SDDMM (``ops.ell.side_value_grad``)
-    against its plain version; each block side's hub rows and rows without
-    entries printed; timed beside the byte bound and ``torch.sparse.mm``.
+    against its plain version, a second run (bit for bit) and, in float32,
+    ``torch.sparse.sampled_addmm`` on the block (1e-4); each block side's
+    hub rows and rows without entries printed; timed beside the byte bound
+    and ``torch.sparse.mm``; the ``dv`` call also by device time, on rank 0
+    at F = 64 kernel by kernel.
 11. X5 kernels (``gat_attention_ell``): on every rank's rectangular GAT
     layout (``npp`` rows reading ``npp + 4·cap``) at (H, d) = (8, 8),
     (1, 64), (8, 32), float32 and bfloat16, without dropout and with a 0.6
@@ -444,8 +452,8 @@ def _gat_case(layout, Q, K, V, dy, heads, keep, tag):
     (float32: 1e-4 for out and lse, 1e-3 for the gradients and D; bfloat16
     2e-2; w 1e-3 in both, as both sides compute it in float32): out and
     lse; dQ, D and w on the side's edges; dK and dV, the plain source pass
-    reading the kernel's w as the kernel does. dQ, D,
-    w, dK and dV must give the same bits in a second run. Returns the
+    reading the kernel's w as the kernel does. out, lse, dQ, D, w, dK and dV
+    must give the same bits in a second run. Returns the
     largest error of each kernel, each kernel's (kernel, plain, args) and the
     outputs."""
     import torch
@@ -472,13 +480,16 @@ def _gat_case(layout, Q, K, V, dy, heads, keep, tag):
         max(_max_err(dK, dK_p, grad_tol, f"gat backward dK {tag}"),
             _max_err(dV, dV_p, grad_tol, f"gat backward dV {tag}")))
     del out_p, lse_p, dQ_p, D_p, w_p, dK_p, dV_p
+    out2, lse2 = ga.launch_gat_forward(*fwd_args)
     dQ2, D2, w2 = ga.launch_gat_backward_dst(*dst_args)
     dK2, dV2 = ga.launch_gat_backward_src(*src_args)
     torch.cuda.synchronize()
+    _check(torch.equal(out, out2) and torch.equal(lse, lse2),
+           f"gat forward {tag}: two runs on the same inputs differ")
     _check(torch.equal(dQ, dQ2) and torch.equal(D, D2) and torch.equal(w[eids], w2[eids])
            and torch.equal(dK, dK2) and torch.equal(dV, dV2),
            f"gat backward {tag}: two runs on the same inputs differ")
-    del dQ2, D2, w2, dK2, dV2
+    del out2, lse2, dQ2, D2, w2, dK2, dV2
     calls = ((ga.launch_gat_forward, ga.gat_forward_plain, fwd_args),
              (ga.launch_gat_backward_dst, ga.gat_backward_dst_plain, dst_args),
              (ga.launch_gat_backward_src, ga.gat_backward_src_plain, src_args))
@@ -620,15 +631,14 @@ def gat_kernel_phase(layout, edges):
     arxiv layout and on its transpose, whose source side holds the skewed
     destinations (rows over ``CHUNK`` (64) entries: the source pass's hub
     blocks); returns one row per kernel and case of the first. Also times
-    the bench-shape forward and destination-side backward on the same graph
-    with every row walked by one warp (no hub blocks), which shows what the
-    hub rows would cost without them."""
+    the bench-shape forward and destination-side backward at other hub
+    degrees (``_hub_degree_sweep``)."""
     import torch
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import gat_attention as ga
     n = layout.num_nodes
     flipped = ga.CsrGatLayout.build(edges.flip(0), n, device="cuda")
-    hub_cost = None
+    hub_sweep = None
     for what, lay in (("gat layout", layout), ("transposed gat layout", flipped)):
         print(f"{what}: {lay}; destination side: {int(lay.dst.hubs.shape[0])} hub rows "
               f"(> {lay.dst.hub_degree} edges), longest row {int(lay.dst.row_ptr.diff().max())}; "
@@ -652,18 +662,13 @@ def gat_kernel_phase(layout, edges):
                 timed = heads == bench.GAT_HEADS and width == bench.GAT_UNITS // bench.GAT_HEADS
                 rows += _gat_rows(layout, heads, width, dtype, keep, errs, calls, outs, timed)
                 if timed and not f32 and not with_keep:
-                    flat = ga.CsrGatLayout.build(edges, n, hub_degree=n + 1, device="cuda")
-                    out, lse, dy_ = outs["out"], outs["lse"], dy
-                    hub_cost = (_cuda_ms(lambda: ga.launch_gat_forward(flat.dst, Q, K, V, heads)),
-                                _cuda_ms(lambda: ga.launch_gat_backward_dst(
-                                    flat.dst, Q, K, V, out, lse, dy_, heads)))
-                    del flat
+                    hub_sweep = _hub_degree_sweep(layout, edges, Q, K, V, dy, outs, heads)
                 del outs
                 flipped_errs.append(max(_gat_case(flipped, Q, K, V, dy, heads, keep,
                                                   f"transposed {tag}")[0]))
                 torch.cuda.empty_cache()
-    print(f"gat hub rows walked by single warps (H=8, d=32, bfloat16): forward "
-          f"{hub_cost[0]:.4f} ms, backward dst {hub_cost[1]:.4f} ms", flush=True)
+    print(f"gat hub degree sweep (H=8, d=32, bfloat16, no dropout; forward, backward dst: ms "
+          f"(device)): {'; '.join(hub_sweep)}", flush=True)
     print(f"gat kernels on the transposed layout, every shape, dtype and dropout setting: "
           f"max abs err {max(flipped_errs):.3e}", flush=True)
     print("gat kernel check (name H d dtype dropout: max_abs_err, ms, plain_ms, bound_ms)")
@@ -672,6 +677,32 @@ def gat_kernel_phase(layout, edges):
               f"{'keep' if r['keep'] else 'none'}: {r['max_abs_err']:.3e}, {_gat_row_text(r)}, "
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return rows
+
+
+def _hub_degree_sweep(layout, edges, Q, K, V, dy, outs, heads):
+    """The forward and the destination pass at the bench's shape (bf16, no
+    dropout) with hub blocks for the destination rows of more than 64, 128
+    and 256 (``HUB_DEGREE``) edges, and with none (every row one warp): the
+    card's numbers behind ``HUB_DEGREE``, events and device time. Each
+    layout's out and dQ are held against the default layout's (hub blocks
+    change the order of the sums only: 2e-2)."""
+    import torch
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    n = layout.num_nodes
+    lines = []
+    for hub_degree in (64, 128, ga.HUB_DEGREE, None):
+        lay = layout if hub_degree == ga.HUB_DEGREE else ga.CsrGatLayout.build(
+            edges, n, hub_degree=n + 1 if hub_degree is None else hub_degree, device="cuda")
+        calls = (lambda: ga.launch_gat_forward(lay.dst, Q, K, V, heads),
+                 lambda: ga.launch_gat_backward_dst(lay.dst, Q, K, V, outs["out"], outs["lse"],
+                                                    dy, heads))
+        tag = f"hub degree {hub_degree}"
+        _max_err(calls[0]()[0], outs["out"], BF16_TOL, f"gat forward out, {tag}")
+        _max_err(calls[1]()[0], outs["dQ"], BF16_TOL, f"gat backward dQ, {tag}")
+        times = ", ".join(f"{_cuda_ms(c):.4f} ({_ms_text(_device_ms(c))})" for c in calls)
+        lines.append(f"{hub_degree or 'none'} ({int(lay.dst.hubs.shape[0])} hub rows): {times}")
+        del lay
+    return lines
 
 
 def _draw_csr(idx, w, num_src):
@@ -1069,9 +1100,12 @@ def spmm_kernel_phase(normed, num_nodes):
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
                 err = _max_err(got, want, tol, f"{name} {case} {tag}")
-                if name == "spmm_heads":
-                    _check(torch.equal(got, kernel()),
-                           f"{name} {case} {tag}: two runs on the same inputs differ")
+                _check(torch.equal(got, kernel()),
+                       f"{name} {case} {tag}: two runs on the same inputs differ")
+                if name == "sddmm_heads" and library is not None:
+                    err = max(err, _max_err(got[fwd.eid[:nnz_f].long(), 0],
+                                            _sampled_by_entry(fwd, library(), n), F32_TOL,
+                                            f"{name} {case} {tag} vs the library call"))
                 bound_ms, bound_by = _bound(nbytes, sh.pass_flops(nnz, width))
                 bounds.append(f"{case} {bound_ms:.4f} ms")
                 rows.append(dict(
@@ -1080,6 +1114,9 @@ def spmm_kernel_phase(normed, num_nodes):
                     plain_ms=_cuda_ms(plain, iters=3, warmup=1),
                     library_ms=None if library is None else _cuda_ms(library),
                     bound_ms=bound_ms, bound_by=bound_by))
+                if name == "sddmm_heads":
+                    rows[-1].update(device_ms=_device_ms(kernel), library_device_ms=None
+                                    if library is None else _device_ms(library))
                 if case == "x6 forward":
                     rows[-1]["view_order_ms"] = _view_order_ms(fwd, w, h, 1, torch.float32, got,
                                                                f"{case} {tag}")
@@ -1089,19 +1126,20 @@ def spmm_kernel_phase(normed, num_nodes):
     del lib_fwd, lib_bwd, lib_h
     torch.cuda.empty_cache()
     print("x6 kernel check (name case F dtype: max_abs_err, ms, plain_ms, library_ms, bound_ms; "
-          "forward: with the weights in view order)")
+          "forward: with the weights in view order; dv: device ms under the profiler)")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} {r['case']} F={r['width']} {r['dtype']}: {r['max_abs_err']:.3e}, "
               f"{r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, {r['bound_ms']:.4f} "
-              f"({r['bound_by']}){_view_order_note(r)}", flush=True)
+              f"({r['bound_by']}){_view_order_note(r)}{_device_note(r)}", flush=True)
     return rows
 
 
 def _view_walk_line(view):
     """A view's longest row beside the SpMM kernel's longest serial walks
-    (``row_split``): the most entries one warp reads in sequence and the
-    most chunk partials it adds into one row."""
+    (``row_split``): the most entries one lane group reads in sequence and
+    the most chunk partials it adds into one row; and the SDDMM's
+    (``_sddmm_walk``)."""
     from tf_geometric_tpu_torch.ops.spmm_heads import CHUNK, row_split
     plan = row_split(view.row_ptr)
     lens = view.row_ptr.diff()
@@ -1109,7 +1147,26 @@ def _view_walk_line(view):
     merge = int((plan.chunk_hi - plan.chunk_lo).max())
     return (f"max_row_len={int(lens.max())} longest serial walk: "
             f"{max(direct, CHUNK if merge else 0)} entries, {merge} partials "
-            f"({int((lens > CHUNK).sum())} rows over {CHUNK})")
+            f"({int((lens > CHUNK).sum())} rows over {CHUNK}); SDDMM {_sddmm_walk(view)} entries")
+
+
+def _sddmm_walk(view):
+    """The SDDMM kernel's longest serial walk: the most entries one lane
+    group reads in sequence (a chunk of ``CHUNK`` consecutive entries of the
+    view, whatever their rows)."""
+    from tf_geometric_tpu_torch.ops.spmm_heads import CHUNK
+    return min(CHUNK, int(view.row_ptr[-1]))
+
+
+def _sampled_by_entry(view, res, num_cols):
+    """A ``sampled_addmm`` result on the coalesced pattern of ``view``'s
+    matrix (``_x6_library``), one value per stored entry of the view, in
+    view order."""
+    import torch
+    from tf_geometric_tpu_torch.ops.spmm_heads import view_entries
+    rows, nbr, _ = view_entries(view)
+    pos = torch.unique(rows * num_cols + nbr, return_inverse=True)[1]
+    return res.values()[pos]
 
 
 def _view_order_ms(view, w, src, heads, out_dtype, got, what):
@@ -1209,6 +1266,8 @@ def multihead_kernel_phase(layout):
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
                 err = _max_err(got, want, tol, f"{name} {case} {tag}")
+                _check(torch.equal(got, kernel()),
+                       f"{name} {case} {tag}: two runs on the same inputs differ")
                 if library is not None:
                     err = max(err, _max_err(*align(got, library()), F32_TOL,
                                             f"{name} {case} {tag} vs the library call"))
@@ -1219,6 +1278,9 @@ def multihead_kernel_phase(layout):
                     plain_ms=_cuda_ms(plain, iters=3, warmup=1),
                     library_ms=None if library is None else _cuda_ms(library),
                     bound_ms=bound_ms, bound_by=bound_by))
+                if name == "sddmm_heads" and f32:
+                    rows[-1].update(device_ms=_device_ms(kernel),
+                                    library_device_ms=_device_ms(library))
                 if case == "x3 forward":
                     rows[-1]["view_order_ms"] = _view_order_ms(layout.dst, w, v, heads, v.dtype,
                                                                got, f"{case} {tag}")
@@ -1226,12 +1288,14 @@ def multihead_kernel_phase(layout):
             del att, w, v, dy, v3, dy3, lib
             torch.cuda.empty_cache()
     print("x3 kernel check (name case H d_v dtype: max_abs_err, ms, plain_ms, library_ms, "
-          "bound_ms; library: torch.bmm / sampled_addmm, float32 only)")
+          "bound_ms; library: torch.bmm / sampled_addmm, float32 only; d_att float32: device "
+          "ms under the profiler)")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} {r['case']} H={r['heads']} d_v={r['width']} {r['dtype']}: "
               f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, {lib}, "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}){_view_order_note(r)}", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){_view_order_note(r)}"
+              f"{_device_note(r)}", flush=True)
     return rows
 
 
@@ -1706,6 +1770,23 @@ def _block_library(adj, side_name):
     return coo.coalesce().to_sparse_csr()
 
 
+def _block_sampled_by_edge(adj, res):
+    """A ``sampled_addmm`` result on a block's forward pattern
+    (``_block_library``: its entries, virtual rows at their owners, and the
+    diagonal, coalesced) as (edge ids, value of each edge) over the block's
+    stored edges, for the ``diff_values`` SDDMM's [num_edges] result."""
+    import torch
+    side = adj.fwd
+    rows, cols, eids = _side_rows(side), side.col.long(), side.eid.long()
+    if adj.diag_val is not None:
+        diag = torch.arange(adj.shape[0], device=rows.device)
+        rows, cols, eids = (torch.cat([rows, diag]), torch.cat([cols, diag]),
+                            torch.cat([eids, adj.diag_eid.long()]))
+    pos = torch.unique(rows * adj.shape[1] + cols, return_inverse=True)[1]
+    real = eids < adj.num_edges
+    return eids[real], res.values()[pos[real]]
+
+
 def _kernel_a_bytes(adj, side, width, elt):
     """Least bytes of Kernel A on one side: the rows of h that an entry or
     the diagonal reads, the output and the hub partials written, row
@@ -1739,7 +1820,7 @@ def x2_kernel_phase(halo):
     from tf_geometric_tpu_torch.ops.ell import side_value_grad
     from tf_geometric_tpu_torch.ops.sorted_segment import (launch_sorted_segment_sum,
                                                            sorted_segment_sum_plain)
-    from tf_geometric_tpu_torch.ops.spmm_heads import pass_flops
+    from tf_geometric_tpu_torch.ops.spmm_heads import CsrView, pass_flops
     spec = halo.gcn_spec
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
@@ -1749,12 +1830,14 @@ def x2_kernel_phase(halo):
             for side_name in ("fwd", "bwd"):
                 side = getattr(adj, side_name)
                 deg = side.row_ptr.diff()[:side.num_rows]
+                sddmm = (f"; dv SDDMM {_sddmm_walk(CsrView(side.row_ptr, side.col, side.eid))} "
+                         f"entries" if side_name == "fwd" else "")
                 print(f"x2 rank {r} {block_name} {side_name}: {side.num_rows} rows, "
                       f"{int(side.col.shape[0])} entries, "
                       f"{0 if side.owner_rows is None else side.owner_rows.shape[0]} hub rows, "
                       f"{side.num_virtual} virtual rows, {int((deg == 0).sum())} rows without "
                       f"entries{', split diagonal' if adj.diag_val is not None else ''}, "
-                      f"{_walk_line(side)}", flush=True)
+                      f"{_walk_line(side)}{sddmm}", flush=True)
             libs = {s: _block_library(adj, s) for s in ("fwd", "bwd")}
             for dtype in (torch.float32, torch.bfloat16):
                 f32 = dtype == torch.float32
@@ -1825,6 +1908,14 @@ def x2_kernel_phase(halo):
                     want = side_value_grad(adj, h, dy, plain=True)
                     torch.cuda.synchronize()
                     err = _max_err(got, want, tol, f"x2 dv {tag}")
+                    _check(torch.equal(got, side_value_grad(adj, h, dy)),
+                           f"x2 dv {tag}: two runs on the same inputs differ")
+                    library = (lambda: torch.sparse.sampled_addmm(libs["fwd"], dy, h.t(),
+                                                                  beta=0.0)) if f32 else None
+                    if f32:
+                        eid, want_lib = _block_sampled_by_edge(adj, library())
+                        err = max(err, _max_err(got[eid], want_lib, F32_TOL,
+                                                f"x2 dv {tag} vs the library call"))
                     bound_ms, bound_by = _bound(
                         _dv_bytes(adj, width, elt),
                         pass_flops(int(adj.fwd.col.shape[0]) + bench.csr_diag_rows(adj), width))
@@ -1834,13 +1925,22 @@ def x2_kernel_phase(halo):
                         ms=_cuda_ms(lambda: side_value_grad(adj, h, dy)),
                         plain_ms=_cuda_ms(lambda: side_value_grad(adj, h, dy, plain=True),
                                           iters=3, warmup=1),
-                        library_ms=_cuda_ms(lambda: torch.sparse.sampled_addmm(
-                            libs["fwd"], dy, h.t(), beta=0.0)) if f32 else None,
+                        library_ms=None if library is None else _cuda_ms(library),
                         bound_ms=bound_ms, bound_by=bound_by))
+                    if f32:
+                        kernels = _device_kernels(lambda: side_value_grad(adj, h, dy))
+                        rows[-1].update(device_ms=None if kernels is None
+                                        else sum(k[1] for k in kernels),
+                                        library_device_ms=_device_ms(library))
+                        if r == 0 and width == X2_WIDTHS[0] and kernels is not None:
+                            # what the call's time is made of besides the SDDMM
+                            print(f"x2 dv {tag}: {rows[-1]['ms']:.4f} ms, device by kernel "
+                                  + ", ".join(f"{_short_name(k[0])} {k[1]:.4f} x{k[2]:g}"
+                                              for k in kernels), flush=True)
             del adj, libs
             torch.cuda.empty_cache()
     print("x2 kernel check (name case rank F dtype: max_abs_err, ms, plain_ms, library_ms, "
-          "bound_ms; Kernel A float32: device ms under the profiler)")
+          "bound_ms; float32 Kernel A and dv: device ms under the profiler, dv the whole call)")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} {r['case']} rank {r['rank']} F={r['width']} {r['dtype']}: "
@@ -2106,7 +2206,10 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(paths)} sources", flush=True)
     for src, log in _build.build_logs.items():
         usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"  {src}: " + " | ".join(usage[:8]), flush=True)
+        spills = [ln for ln in log.splitlines()
+                  if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+        print(f"  {src}: {len(spills)} of {len(usage)} instances spill; "
+              + " | ".join(usage[:8]), flush=True)
 
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj

@@ -72,18 +72,25 @@ def test_ell_spmm_forward_and_dh_match_jax(shape, split_diag):
     assert np.abs(got.detach().numpy()[-3:]).max() == 0.0  # empty rows
 
 
-@pytest.mark.parametrize("shape,split_diag", [((30, 30), True), ((24, 41), False)])
-def test_ell_spmm_value_gradient_matches_jax(shape, split_diag):
+@pytest.mark.parametrize("shape,split_diag,hub_deg,width,split", [
+    ((30, 30), True, 13, 5, SPLIT), ((24, 41), False, 13, 5, SPLIT),
+    ((30, 30), True, 70, 64, None), ((24, 41), False, 70, 64, None)],
+    ids=["shape0-True", "shape1-False", "long-row-F64-True", "long-row-F64-False"])
+def test_ell_spmm_value_gradient_matches_jax(shape, split_diag, hub_deg, width, split):
     """diff_values=True: dv[e] = <dy[row_e], h[col_e]> for every stored edge,
     the split diagonal's included, 0 on padded edges; flows to the values
-    given to ``with_edge_values``."""
+    given to ``with_edge_values``. Also at the halo GCN's width 64 with a
+    row of more than 64 edges at the port's own split width (the SDDMM's
+    view holds its virtual rows)."""
     rng = np.random.default_rng(1)
-    ei, ew = _coo(rng, *shape, 60, square=split_diag)
+    ei, ew = _coo(rng, *shape, 60, square=split_diag, hub_deg=hub_deg)
     vals = rng.uniform(0.5, 1.5, ei.shape[1]).astype(np.float32)
     jadj = EllAdj.from_coo(ei, ew, shape, split_diag=split_diag)
-    adj = CsrAdj.from_coo(ei, ew, shape, split_diag=split_diag, split_width=SPLIT, device="cpu")
-    h = rng.normal(size=(shape[1], 5)).astype(np.float32)
-    dy = rng.normal(size=(shape[0], 5)).astype(np.float32)
+    kw = {} if split is None else dict(split_width=split)
+    adj = CsrAdj.from_coo(ei, ew, shape, split_diag=split_diag, device="cpu", **kw)
+    assert adj.fwd.num_virtual > 0
+    h = rng.normal(size=(shape[1], width)).astype(np.float32)
+    dy = rng.normal(size=(shape[0], width)).astype(np.float32)
 
     def jfn(v, x):
         return jell_spmm(jadj.with_edge_values(v), x, diff_values=True)

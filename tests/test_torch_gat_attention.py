@@ -156,6 +156,37 @@ def test_dropout_mask_matches_jax_fused_vjp(rng, H, d):
                           keep_mask=torch.ones(E - 1, H))
 
 
+@pytest.mark.parametrize("H,d", [(8, 8), (1, 64)])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_forward_out_and_lse_on_short_rows_match_jax(rng, H, d, with_keep):
+    """The forward on rows of 0, 1 and 2 edges (where the kernel's edge
+    groups hold no edge, or one each) and a hub: ``out`` against
+    ``gat_attention_bucketed`` (its fused VJP's forward under a mask),
+    ``lse`` against a JAX segment log-sum-exp of the same scores (0 on a row
+    without edges, as the kernel writes it)."""
+    n = 25
+    rows = np.concatenate([[1, 2, 2], np.full(30, 3), rng.integers(4, n - 2, 40)])
+    cols = rng.integers(0, n, rows.shape[0])
+    ei = np.stack([rows, cols])[:, rng.permutation(rows.shape[0])].astype(np.int32)
+    E = ei.shape[1]
+    Q, K, V = (rng.normal(size=(n, H * d)).astype(np.float32) for _ in range(3))
+    mask = (rng.random((E, H)) < 0.7).astype(np.float32) / 0.7 if with_keep else None
+    jlayout = jatt.build_gat_layout_bucketed(ei, n, caps=[2, 8], layout="bucketed")
+    want = np.asarray(jax.jit(_bucketed(jlayout, H, d, mask=mask))(*map(jnp.asarray, (Q, K, V))))
+    s = jnp.asarray((Q[rows] * K[cols]).reshape(-1, H, d).sum(-1) / np.sqrt(d))
+    seg = jnp.asarray(rows)
+    m = jax.ops.segment_max(s, seg, n)
+    total = jax.ops.segment_sum(jnp.exp(s - m[seg]), seg, n)
+    has = np.bincount(rows, minlength=n)[:, None] > 0
+    want_lse = np.where(has, np.asarray(m + jnp.log(total + 1e-16)), 0.0)
+    layout = CsrGatLayout.build(ei, n, device="cpu")
+    keep = None if mask is None else torch.as_tensor(mask)
+    out, lse = gat_forward_plain(layout.dst, *map(torch.as_tensor, (Q, K, V)), H, keep)
+    np.testing.assert_allclose(out.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **F32_TOL)
+    assert not out.numpy()[[0, n - 2, n - 1]].any() and not lse.numpy()[0].any()
+
+
 @pytest.mark.parametrize("with_keep", [False, True])
 def test_plain_backward_matches_autograd_of_segment_path(rng, with_keep):
     """The plain backward formulas (weights recomputed from lse, D = <dy,

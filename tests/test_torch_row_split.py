@@ -5,7 +5,10 @@ edges: a hub's edges are cut into virtual rows, whose float32 partials
 Kernel B adds into the hub's row. The H-head SpMM (``ops/spmm_heads.py``)
 cuts its views into chunks of ``CHUNK`` entries and sums a long row's
 entries chunk by chunk (``row_split`` is its plan; a chunk's row is read
-from the view's ``row`` at the chunk's first entry). Both plans must cover
+from the view's ``row`` at the chunk's first entry). The H-head SDDMM gives
+a lane group each ``CHUNK`` consecutive entries of the view, whatever their
+rows, and reads each entry's row (``sddmm_entry_rows``: the view's ``row``,
+or found from ``row_ptr`` for a view without it). The plans must cover
 every entry of a row exactly once, in the row's order, and the products
 that run on them must match the JAX package.
 
@@ -29,7 +32,8 @@ from tf_geometric_tpu.ops.ell_bucketed import BucketedEllAdj, bucketed_spmm
 from tf_geometric_tpu_torch.ops import spmm as tspmm
 from tf_geometric_tpu_torch.ops.csr_spmm import SPLIT_WIDTH, CsrAdj, csr_spmm, serial_walks
 from tf_geometric_tpu_torch.ops.gat_attention import CsrGatLayout
-from tf_geometric_tpu_torch.ops.spmm_heads import (CHUNK, build_csr_view, row_split,
+from tf_geometric_tpu_torch.ops.spmm_heads import (CHUNK, CsrView, build_csr_view, row_split,
+                                                   sddmm_entry_rows, sddmm_heads_plain,
                                                    spmm_heads_launches, spmm_heads_plain,
                                                    spmm_multihead, view_entries)
 
@@ -217,11 +221,13 @@ def test_row_split_sums_match_the_plain_version(heads):
 
 def test_coo_spmm_on_the_hub_graph_matches_jax():
     """Forward, dh and dv of the COO SpMM against JAX's, float32 and a
-    bfloat16 h (values float32, so JAX forms the product in float32)."""
+    bfloat16 h (values float32, so JAX forms the product in float32) at
+    width 8, and float32 at width 64 (the GIN width), with the SDDMM
+    alone."""
     ei, ew, rng = _graph(4)
-    h = rng.normal(size=(N, 8)).astype(np.float32)
-    ct = rng.normal(size=(N, 8)).astype(np.float32)
-    for bf16 in (False, True):
+    for width, bf16 in ((8, False), (8, True), (64, False)):
+        h = rng.normal(size=(N, width)).astype(np.float32)
+        ct = rng.normal(size=(N, width)).astype(np.float32)
         hj = jnp.asarray(h).astype(jnp.bfloat16) if bf16 else jnp.asarray(h)
         want, vjp = jax.vjp(lambda v_, h_: jspmm.spmm(jnp.asarray(ei), v_, h_, N),
                             jnp.asarray(ew), hj)
@@ -238,9 +244,13 @@ def test_coo_spmm_on_the_hub_graph_matches_jax():
                                np.asarray(want_dh.astype(jnp.float32)), scale)
         else:
             np.testing.assert_allclose(got_dh.numpy(), np.asarray(want_dh), **TOL)
+            # the SDDMM alone: <ct[row_e], h[col_e]> for each edge
+            want_s = jspmm.sddmm(jnp.asarray(ei), jnp.asarray(ct), jnp.asarray(h))
+            got_s = tspmm.sddmm(torch.as_tensor(ei), torch.as_tensor(ct), torch.as_tensor(h))
+            np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **TOL)
 
 
-@pytest.mark.parametrize("heads,d", [(1, 4), (4, 2)])
+@pytest.mark.parametrize("heads,d", [(1, 4), (4, 2), (8, 8), (8, 32), (1, 64)])
 def test_spmm_multihead_on_the_hub_graph_matches_jax(heads, d):
     """Forward, d_att and dV against ``ell_spmm_multihead`` on the hub graph,
     float32; the forward in bfloat16 too."""
@@ -266,3 +276,73 @@ def test_spmm_multihead_on_the_hub_graph_matches_jax(heads, d):
     scale = np.repeat(_dense_abs(ei, np.ones(e, np.float32), (N, N)) @ np.ones((N, 1)),
                       heads * d, axis=1) * np.abs(v).max()
     _assert_bf16_close(got16.float().numpy(), np.asarray(want16.astype(jnp.float32)), scale)
+
+
+# ---------------------------------------------------------------------------
+# the H-head SDDMM's chunks
+# ---------------------------------------------------------------------------
+
+LONGEST = 2_839  # the self-looped arxiv graph's longest row
+
+
+def _chunk_graph(seed):
+    """Row 0 of LONGEST edges, rows 1 and 5 empty, row 2 of one edge, the
+    others of 0 to 130 edges (so long rows start at every offset of a
+    chunk); columns uniform, edges shuffled."""
+    rng = np.random.default_rng(seed)
+    degrees = rng.integers(0, 131, N)
+    degrees[:6] = [LONGEST, 0, 1, 2, 65, 0]
+    rows = np.repeat(np.arange(N), degrees)
+    cols = rng.integers(0, N, rows.shape[0])
+    perm = rng.permutation(rows.shape[0])
+    return np.stack([rows[perm], cols[perm]]).astype(np.int32), rng
+
+
+def _chunk_views(ei):
+    """Views the SDDMM runs on: with ``row`` (the COO views, whose dropped
+    edges sit past the stored entries, a ``CsrGatLayout`` side) and without
+    (the COO view stripped of it, and a ``CsrAdj`` forward side as
+    ``ops/ell.py`` hands it over, its hubs split into virtual rows)."""
+    index = torch.as_tensor(np.concatenate([ei, [[N, N], [0, 1]]], axis=1)).long()
+    coo = build_csr_view(index[0], index[1], N, N)
+    adj = CsrAdj.from_coo(ei, np.ones(ei.shape[1], np.float32), (N, N), device="cpu")
+    return {"coo forward": coo, "coo dh": build_csr_view(index[1], index[0], N, N),
+            "multihead dst": CsrGatLayout.build(ei, N, device="cpu").dst,
+            "no row": CsrView(coo.row_ptr, coo.nbr, coo.eid),
+            "csr adj side": CsrView(adj.fwd.row_ptr, adj.fwd.col, adj.fwd.eid.int())}
+
+
+@pytest.mark.parametrize("name", ["coo forward", "coo dh", "multihead dst", "no row",
+                                  "csr adj side"])
+def test_sddmm_chunks_cover_each_entry_once(name):
+    """The rows the SDDMM kernel reads (``sddmm_entry_rows``) are the view's
+    rows of its stored entries, and the row count past them (dropped edges,
+    which the kernel skips); so its chunks of CHUNK consecutive entries hold
+    each stored entry once, in rows of 0 to LONGEST entries. The SDDMM
+    computed chunk by chunk from those rows, as the kernel does, equals the
+    plain version at (H, d) = (8, 8), (8, 32) and (1, 64)."""
+    ei, rng = _chunk_graph(6)
+    view = _chunk_views(ei)[name]
+    ptr = view.row_ptr.long()
+    rows_count, nnz, entries = ptr.shape[0] - 1, int(ptr[-1]), view.nbr.shape[0]
+    entry_row = sddmm_entry_rows(view)
+    assert entry_row.dtype == torch.int32 and entry_row.shape == view.nbr.shape
+    stored, _, _ = view_entries(view)
+    np.testing.assert_array_equal(entry_row[:nnz].long().numpy(), stored.numpy())
+    assert bool((entry_row[nnz:] == rows_count).all())
+    lens = ptr.diff()
+    if name in ("coo forward", "no row", "multihead dst"):
+        assert int(lens.max()) == LONGEST and int((lens == 0).sum()) >= 2
+    assert entries - nnz == (2 if name in ("coo forward", "no row") else 0)
+    for heads, d in ((8, 8), (8, 32), (1, 64)):
+        a = torch.as_tensor(rng.normal(size=(rows_count, heads * d)).astype(np.float32))
+        b = torch.as_tensor(rng.normal(size=(N, heads * d)).astype(np.float32))
+        got = torch.zeros(ei.shape[1] + 2, heads)
+        for lo in range(0, entries, CHUNK):
+            j = torch.arange(lo, min(entries, lo + CHUNK))
+            r = entry_row[j].long()
+            j, r = j[r < rows_count], r[r < rows_count]
+            prod = a[r] * b[view.nbr[j].long()]
+            got[view.eid[j].long()] = prod.view(-1, heads, d).sum(-1)
+        want = sddmm_heads_plain(view, a, b, heads, torch.zeros(ei.shape[1] + 2, heads))
+        torch.testing.assert_close(got, want, **TOL)

@@ -50,29 +50,33 @@
 // the lanes of a head are a power-of-two group, and a per-head dot product
 // is VEC local products and an xor-shuffle reduction inside the group.
 // Every lane of a head so holds its score and the online softmax state
-// (running max and sum) without shared memory. Edges go U at a time: their
-// gathered rows are all loaded, still packed, before any is used, so U row
-// gathers per warp are in flight. Rows with more than hub_degree edges (29
-// on the arxiv graph, the largest 2,839) get a block of 8 warps, placed
-// first in the grid so they start first; each warp walks one chunk of the
-// row and warp 0 merges the chunks' states from a scratch buffer in a fixed
-// order. No atomics: the result does not depend on scheduling.
+// (running max and sum) without shared memory. Rows with more than
+// hub_degree edges (29 on the arxiv graph, the largest 2,839) get a block of
+// 8 warps, placed first in the grid so they start first; each warp walks one
+// chunk of the row and warp 0 merges the chunks' states from a scratch buffer
+// in a fixed order. No atomics: the result does not depend on scheduling.
 //
-// Destination-pass design. The forward's lanes, rows and hub blocks, and:
-// (1) when a row's heads take one slice of fewer than 32 lanes (H = 8, d = 8
-// and H = 1, d = 64 in float32: 16 lanes), the free lane groups take further
-// edges of the row, and their dQ partials are added by a fixed butterfly
-// before the store; (2) each warp keeps the next batches' K and V rows (and
-// keep values) in flight in a ring in shared memory filled by cp.async: 3
-// stages of 2 edges per edge group for one-slice rows (2 stages for two-slice
-// rows), so batch b + 2 is loading while batch b is used, and the gathered
-// rows take no registers while in flight; (3) the first 32 ids go out with
-// the row's own loads. Why a cp.async ring and not register double-buffering:
-// on the H100 the kernel before this design held 94 registers at H = 8, d =
-// 32, bf16, so 16 resident warps per SM, and every register buffer more
-// costs resident warps (measured: a second buffer ran slower than one),
-// while the ring fits 64 registers under a 4-block bound with 54 KB of
-// shared memory a block: 32 resident warps per SM (PERF.md, section 6).
+// The forward and the destination pass walk a row's edges alike (EdgeRing,
+// walk_edges): (1) when a row's heads take one slice of fewer than 32 lanes
+// (H = 8, d = 8 and H = 1, d = 64 in float32: 16 lanes), the free lane
+// groups take further edges of the row ("edge groups"); (2) each warp keeps
+// the next batches' K and V rows (and keep values) in flight in a ring in
+// shared memory filled by cp.async: 3 stages of 2 edges per edge group for
+// one-slice rows (2 stages for two-slice rows), so batch b + 2 is loading
+// while batch b is used, and the gathered rows take no registers while in
+// flight; (3) the first 32 ids go out with the row's own loads. Why a ring
+// and not registers: every register buffer costs resident warps on the
+// H100. Before this design the forward held 4 edges' K and V in registers
+// (76 registers at H = 8, d = 32, bf16: 24 warps per SM) and the destination
+// pass 94 (16 warps); the ring fits both under a 4-block bound, 64 registers
+// and 54 KB of shared memory a block: 32 resident warps per SM (PERF.md,
+// section 6). In the forward each edge group keeps its own online softmax
+// state; the groups' states merge before the store in a fixed xor butterfly:
+// m' = max(m_a, m_b), each side's sum and accumulator scaled by exp(m - m')
+// and added. A side without edges (m = -inf: a row with fewer edges than
+// groups, or none) adds nothing, so an empty row still writes out = 0 and
+// lse = 0. In the destination pass the groups' dQ partials are added by the
+// same butterfly.
 //
 // Source-pass design: lane_gather.cuh's lane-group weighted gather with two
 // outputs (the gather of spmm_heads_kernel): a group of L lanes owns a source
@@ -208,23 +212,16 @@ __device__ __forceinline__ Task resolve(const SideArgs& s, const HeadMap& m, int
   return t;
 }
 
-template <typename T, int NS, int VEC>
-__device__ __forceinline__ void load_raw(RawT<T, VEC> (&r)[NS], const T* __restrict__ row,
-                                         const LaneMap<NS, VEC>& lm, bool ok) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-    r[j] = (ok && lm.col[j] >= 0) ? *reinterpret_cast<const RawT<T, VEC>*>(row + lm.col[j])
-                                  : RawT<T, VEC>{};
-}
-
-// a row's vectors as floats, slice j at x[j * VEC]
+// a row's vectors as floats, slice j at x[j * VEC] (0 where the lane has none)
 template <typename T, int NS, int VEC>
 __device__ __forceinline__ void load_row(float* x, const T* __restrict__ row,
                                          const LaneMap<NS, VEC>& lm) {
-  RawT<T, VEC> r[NS];
-  load_raw<T, NS, VEC>(r, row, lm, true);
 #pragma unroll
-  for (int j = 0; j < NS; ++j) unpack<T, VEC>(r[j], x + j * VEC);
+  for (int j = 0; j < NS; ++j) {
+    const RawT<T, VEC> r =
+        lm.col[j] >= 0 ? *reinterpret_cast<const RawT<T, VEC>*>(row + lm.col[j]) : RawT<T, VEC>{};
+    unpack<T, VEC>(r, x + j * VEC);
+  }
 }
 
 template <typename T, int NS, int VEC>
@@ -263,38 +260,6 @@ __device__ __forceinline__ void head_dots(float (&out)[NS], const float* a, cons
   }
 }
 
-__device__ __forceinline__ float keep_of(const HeadArgs& h, int e, int head, bool ok) {
-  return (h.keep != nullptr && ok && head < h.H)
-             ? h.keep[static_cast<size_t>(e) * h.H + head] : 1.f;
-}
-
-// Calls body(c, e, count) for the edges [e0, e1) in batches of U: the
-// neighbour ids (and, under dropout, the edge ids that index the keep mask)
-// are read 32 at a time, coalesced, and broadcast by shuffle; count
-// (warp-uniform) is how many of the U are real.
-template <int U, class F>
-__device__ __forceinline__ void for_edge_batches(const SideArgs& s, const HeadArgs& h, int e0,
-                                                 int e1, int lane, F&& body) {
-  const bool with_eid = h.keep != nullptr;
-  for (int base = e0; base < e1; base += kWarp) {
-    int c_lane = 0, e_lane = 0;
-    if (base + lane < e1) {
-      c_lane = s.nbr[base + lane];
-      if (with_eid) e_lane = s.eid[base + lane];
-    }
-    const int n = min(kWarp, e1 - base);
-    for (int i0 = 0; i0 < n; i0 += U) {
-      int c[U], e[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        c[u] = __shfl_sync(kFull, c_lane, (i0 + u) & (kWarp - 1));
-        e[u] = with_eid ? __shfl_sync(kFull, e_lane, (i0 + u) & (kWarp - 1)) : 0;
-      }
-      body(c, e, min(U, n - i0));
-    }
-  }
-}
-
 // A hub block: every warp writes its N per-lane values to the scratch
 // buffer; warp 0 reads them all back (slot w of value k at (w N + k) 32).
 template <int N>
@@ -321,117 +286,15 @@ __device__ __forceinline__ bool merge_sums(float (&acc)[N], float* __restrict__ 
   return true;
 }
 
-template <typename T, int NS, int VEC, int U>
-__global__ void __launch_bounds__(kBlock)
-gat_forward_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q, const T* __restrict__ K,
-                   const T* __restrict__ V, T* __restrict__ out, float* __restrict__ lse,
-                   float* __restrict__ scratch) {
-  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
-  const HeadMap m(h.H, h.d, VEC);
-  const Task t = resolve(s, m, warp);
-  if (!t.active) return;  // warp-uniform; never taken in a hub block
-  const LaneMap<NS, VEC> lm(m, t.task, lane);
-  float q[NS * VEC];
-  load_row<T, NS, VEC>(q, Q + t.row * m.HD, lm);
-  // per slice j: st[j * (VEC + 2)] = running max, + 1 = sum, + 2.. = acc
-  constexpr int W = VEC + 2;
-  float st[NS * W];
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    st[j * W] = -INFINITY;
-#pragma unroll
-    for (int i = 1; i < W; ++i) st[j * W + i] = 0.f;
-  }
-
-  for_edge_batches<U>(s, h, t.e0, t.e1, lane, [&](const auto& c, const auto& e, int cnt) {
-    RawT<T, VEC> kr[U][NS], vr[U][NS];
-    float kp[U][NS];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool ok = u < cnt;
-      load_raw<T, NS, VEC>(kr[u], K + static_cast<size_t>(c[u]) * m.HD, lm, ok);
-      load_raw<T, NS, VEC>(vr[u], V + static_cast<size_t>(c[u]) * m.HD, lm, ok);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) kp[u][j] = keep_of(h, e[u], lm.head[j], ok);
-    }
-    float sc[U][NS];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[NS * VEC];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) unpack<T, VEC>(kr[u][j], kf + j * VEC);
-      head_dots<NS, VEC>(sc[u], q, kf, m);
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      float* sj = st + j * W;
-      float mnew = sj[0];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (u < cnt) mnew = fmaxf(mnew, sc[u][j] * h.scale);
-      const float corr = expf(sj[0] - mnew);  // 0 while the max is -inf
-#pragma unroll
-      for (int i = 1; i < W; ++i) sj[i] *= corr;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (u < cnt) {
-          const float p = expf(sc[u][j] * h.scale - mnew);
-          sj[1] += p;
-          const float w = p * kp[u][j];
-          float vf[VEC];
-          unpack<T, VEC>(vr[u][j], vf);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) sj[2 + i] += w * vf[i];
-        }
-      }
-      sj[0] = mnew;
-    }
-  });
-
-  if (t.hub) {
-    const float* blk = share_partials(st, scratch, warp, lane);
-    if (blk == nullptr) return;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      float big = -INFINITY;
-      for (int w = 0; w < kWarpsPerBlock; ++w)
-        big = fmaxf(big, blk[(w * NS * W + j * W) * kWarp + lane]);
-      float merged[W];
-#pragma unroll
-      for (int i = 1; i < W; ++i) merged[i] = 0.f;
-      for (int w = 0; w < kWarpsPerBlock; ++w) {
-        const float* p = blk + (w * NS * W + j * W) * kWarp + lane;
-        const float f = expf(p[0] - big);  // 0 for an empty chunk (max -inf)
-#pragma unroll
-        for (int i = 1; i < W; ++i) merged[i] += f * p[i * kWarp];
-      }
-      st[j * W] = big;
-#pragma unroll
-      for (int i = 1; i < W; ++i) st[j * W + i] = merged[i];
-    }
-  }
-
-  float o[NS * VEC];
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    const float* sj = st + j * W;
-    const bool any = sj[1] > 0.f;
-    const float inv = any ? 1.f / (sj[1] + 1e-16f) : 0.f;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[j * VEC + i] = sj[2 + i] * inv;
-    if (lm.leader[j]) lse[t.row * m.H + lm.head[j]] = any ? sj[0] + logf(sj[1] + 1e-16f) : 0.f;
-  }
-  store_row<T, NS, VEC>(out + t.row * m.HD, o, lm);
-}
-
 // ---------------------------------------------------------------------------
-// Backward, destination side
+// The destination side's edge walk, shared by the forward and the backward's
+// destination pass: edge groups and a cp.async ring
 // ---------------------------------------------------------------------------
 
-// Edge groups one warp of the destination pass splits into: when a row's
-// heads take one slice of fewer than 32 lanes, the free lane groups take
-// further edges of the same row (at most kWarp / U groups, so a batch of U
-// edges per group stays inside one 32-edge run of ids).
+// Edge groups one warp splits into: when a row's heads take one slice of
+// fewer than 32 lanes, the free lane groups take further edges of the same
+// row (at most kWarp / U groups, so a batch of U edges per group stays inside
+// one 32-edge run of ids).
 __host__ __device__ inline int edge_groups(const HeadMap& m, int U) {
   if (m.slices > 1) return 1;
   int lanes = 1;
@@ -471,26 +334,241 @@ __device__ __forceinline__ void async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The destination pass's ring in shared memory, per warp: kStages stages of
-// U edges (per edge group), each edge's K and V vectors of every lane, then
-// each edge's keep values.
+// One warp's ring in shared memory: kStages stages of U edges per edge
+// group, each edge's K and V vectors of every lane, then each edge's keep
+// values; and where the lane sits. P edge groups of gl lanes split the warp
+// (edge_groups); group grp's u-th edge of batch b of a run of ids is
+// b U P + u P + grp. A lane copies and reads only its own slots, so the ring
+// needs no barrier.
 template <typename T, int NS, int VEC, int U>
-struct DstRing {
+struct EdgeRing {
   static constexpr int kStages = NS == 1 ? 3 : 2;
   static constexpr int kVecBytes = VEC * static_cast<int>(sizeof(T));
   static constexpr int kRowBytes = NS * kWarp * kVecBytes;  // one row's vectors, all lanes
   static constexpr int kRowsBytes = kStages * U * 2 * kRowBytes;
   static constexpr int kWarpBytes = kRowsBytes + kStages * U * NS * kWarp * 4;
   unsigned char* base;
-  int lane;
-  __device__ void* row(int stage, int u, int kv, int j) const {
+  int lane, P, gl, grp;
+  LaneMap<NS, VEC> lm;  // the lane's place in its edge group
+  const T* K;
+  const T* V;
+  const float* keep;
+  int H, HD;
+
+  __device__ EdgeRing(unsigned char* smem, const HeadMap& m, int task, int lane_, const T* K_,
+                      const T* V_, const HeadArgs& h)
+      : base(smem), lane(lane_), P(edge_groups(m, U)), gl(kWarp / P), grp(lane_ / gl),
+        lm(m, task, lane_ % gl), K(K_), V(V_), keep(h.keep), H(h.H), HD(m.HD) {}
+
+  __device__ int step() const { return U * P; }
+  __device__ int edge(int b, int u) const { return b * U * P + u * P + grp; }
+  __device__ void* slot(int stage, int u, int kv, int j) const {
     return base + ((stage * U + u) * 2 + kv) * kRowBytes + (j * kWarp + lane) * kVecBytes;
   }
-  __device__ float* keep(int stage, int u, int j) const {
+  __device__ float* keep_slot(int stage, int u, int j) const {
     return reinterpret_cast<float*>(base + kRowsBytes) + ((stage * U + u) * NS + j) * kWarp +
            lane;
   }
+
+  // batch b of a run of n ids (this lane's c_lane, e_lane) into stage b % kStages
+  __device__ void fetch(int b, int n, int c_lane, int e_lane) const {
+    const int stage = b % kStages;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = edge(b, u);
+      const bool ok = i < n;
+      const int c = __shfl_sync(kFull, c_lane, i & (kWarp - 1));
+      const int e = keep != nullptr ? __shfl_sync(kFull, e_lane, i & (kWarp - 1)) : 0;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const bool vok = ok && lm.col[j] >= 0;
+        const size_t off = static_cast<size_t>(c) * HD + (vok ? lm.col[j] : 0);
+        copy_async<kVecBytes>(slot(stage, u, 0, j), K + off, vok);
+        copy_async<kVecBytes>(slot(stage, u, 1, j), V + off, vok);
+        if (keep != nullptr) {
+          const bool kok = ok && lm.head[j] < H;
+          copy_async<4>(keep_slot(stage, u, j),
+                        keep + static_cast<size_t>(e) * H + (kok ? lm.head[j] : 0), kok);
+        }
+      }
+    }
+  }
+
+  // edge u's K (kv 0) or V (kv 1) vectors in stage as floats, slice j at x[j VEC]
+  __device__ void unpack_row(int stage, int u, int kv, float* x) const {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      unpack<T, VEC>(*static_cast<const RawT<T, VEC>*>(slot(stage, u, kv, j)), x + j * VEC);
+  }
+  __device__ float keep_of(int stage, int u, int j) const {
+    return keep != nullptr ? *keep_slot(stage, u, j) : 1.f;
+  }
 };
+
+// This lane's entry of the run of up to kWarp ids from base: its neighbour
+// and, when with_eid, its edge id (both 0 past e1).
+__device__ __forceinline__ void load_ids(const SideArgs& s, int base, int e1, int lane,
+                                         bool with_eid, int& c, int& e) {
+  c = e = 0;
+  if (base + lane < e1) {
+    c = s.nbr[base + lane];
+    if (with_eid) e = s.eid[base + lane];
+  }
+}
+
+// A task's edges through the ring, in runs of kWarp ids read coalesced (the
+// first run loaded by the caller, with the row's own loads); in each run,
+// batch b + kStages - 1 is in flight while consume(stage, b, n, e_lane) uses
+// batch b of the run's n edges.
+template <class Ring, class Consume>
+__device__ __forceinline__ void walk_edges(const Ring& ring, const SideArgs& s, const Task& t,
+                                           bool with_eid, int c_lane, int e_lane,
+                                           Consume&& consume) {
+  constexpr int kStages = Ring::kStages;
+  const int step = ring.step();
+  for (int base = t.e0; base < t.e1; base += kWarp) {
+    if (base != t.e0) load_ids(s, base, t.e1, ring.lane, with_eid, c_lane, e_lane);
+    const int n = min(kWarp, t.e1 - base);
+    const int nb = (n + step - 1) / step;
+#pragma unroll
+    for (int b = 0; b < kStages - 1; ++b) {
+      if (b < nb) ring.fetch(b, n, c_lane, e_lane);
+      async_commit();
+    }
+    for (int b = 0; b < nb; ++b) {
+      if (b + kStages - 1 < nb) ring.fetch(b + kStages - 1, n, c_lane, e_lane);
+      async_commit();
+      async_wait<kStages - 1>();
+      consume(b % kStages, b, n, e_lane);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+template <typename T, int NS, int VEC, int U>
+__global__ void __launch_bounds__(kBlock, NS == 1 ? 4 : 3)
+gat_forward_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q, const T* __restrict__ K,
+                   const T* __restrict__ V, T* __restrict__ out, float* __restrict__ lse,
+                   float* __restrict__ scratch) {
+  using Ring = EdgeRing<T, NS, VEC, U>;
+  extern __shared__ __align__(16) unsigned char ring_mem[];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const HeadMap m(h.H, h.d, VEC);
+  const Task t = resolve(s, m, warp);
+  if (!t.active) return;  // warp-uniform; never taken in a hub block
+  // the edge ids only index the keep mask; the first run goes out with Q[r]
+  const bool with_eid = h.keep != nullptr;
+  int c_lane, e_lane;
+  load_ids(s, t.e0, t.e1, lane, with_eid, c_lane, e_lane);
+  const Ring ring(ring_mem + warp * Ring::kWarpBytes, m, t.task, lane, K, V, h);
+  const LaneMap<NS, VEC>& lm = ring.lm;
+  float q[NS * VEC];
+  load_row<T, NS, VEC>(q, Q + t.row * m.HD, lm);
+  // per slice j: st[j * (VEC + 2)] = running max, + 1 = sum, + 2.. = acc
+  constexpr int W = VEC + 2;
+  float st[NS * W];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    st[j * W] = -INFINITY;
+#pragma unroll
+    for (int i = 1; i < W; ++i) st[j * W + i] = 0.f;
+  }
+
+  walk_edges(ring, s, t, with_eid, c_lane, e_lane, [&](int stage, int b, int n, int) {
+    float sc[U][NS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[NS * VEC];
+      ring.unpack_row(stage, u, 0, kf);
+      head_dots<NS, VEC>(sc[u], q, kf, m);
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float* sj = st + j * W;
+      float mnew = sj[0];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ring.edge(b, u) < n) mnew = fmaxf(mnew, sc[u][j] * h.scale);
+      // 0 while the max was -inf; 1 (no NaN) while the group has no edge yet
+      const float corr = mnew == sj[0] ? 1.f : expf(sj[0] - mnew);
+#pragma unroll
+      for (int i = 1; i < W; ++i) sj[i] *= corr;
+      sj[0] = mnew;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (ring.edge(b, u) < n) {
+          const float p = expf(sc[u][j] * h.scale - mnew);
+          sj[1] += p;
+          const float w = p * ring.keep_of(stage, u, j);
+          float vf[VEC];
+          unpack<T, VEC>(*static_cast<const RawT<T, VEC>*>(ring.slot(stage, u, 1, j)), vf);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) sj[2 + i] += w * vf[i];
+        }
+      }
+    }
+  });
+
+  // the edge groups' states, merged in a fixed butterfly order: each side's
+  // sum and acc scaled by exp(its max - the larger max); a side without edges
+  // (max -inf) adds nothing, and two such sides stay at -inf, 0
+  for (int o = ring.gl; o < kWarp; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float* sj = st + j * W;
+      const float mo = __shfl_xor_sync(kFull, sj[0], o);
+      const float mnew = fmaxf(sj[0], mo);
+      const float f = sj[0] == -INFINITY ? 0.f : expf(sj[0] - mnew);
+      const float fo = mo == -INFINITY ? 0.f : expf(mo - mnew);
+#pragma unroll
+      for (int i = 1; i < W; ++i) sj[i] = sj[i] * f + __shfl_xor_sync(kFull, sj[i], o) * fo;
+      sj[0] = mnew;
+    }
+  }
+
+  if (t.hub) {
+    const float* blk = share_partials(st, scratch, warp, lane);
+    if (blk == nullptr) return;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float big = -INFINITY;
+      for (int w = 0; w < kWarpsPerBlock; ++w)
+        big = fmaxf(big, blk[(w * NS * W + j * W) * kWarp + lane]);
+      float merged[W];
+#pragma unroll
+      for (int i = 1; i < W; ++i) merged[i] = 0.f;
+      for (int w = 0; w < kWarpsPerBlock; ++w) {
+        const float* p = blk + (w * NS * W + j * W) * kWarp + lane;
+        const float f = expf(p[0] - big);  // 0 for an empty chunk (max -inf)
+#pragma unroll
+        for (int i = 1; i < W; ++i) merged[i] += f * p[i * kWarp];
+      }
+      st[j * W] = big;
+#pragma unroll
+      for (int i = 1; i < W; ++i) st[j * W + i] = merged[i];
+    }
+  }
+  if (ring.grp != 0) return;
+
+  float o[NS * VEC];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const float* sj = st + j * W;
+    const bool any = sj[1] > 0.f;
+    const float inv = any ? 1.f / (sj[1] + 1e-16f) : 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[j * VEC + i] = sj[2 + i] * inv;
+    if (lm.leader[j]) lse[t.row * m.H + lm.head[j]] = any ? sj[0] + logf(sj[1] + 1e-16f) : 0.f;
+  }
+  store_row<T, NS, VEC>(out + t.row * m.HD, o, lm);
+}
+
+// ---------------------------------------------------------------------------
+// Backward, destination side
+// ---------------------------------------------------------------------------
 
 template <typename T, int NS, int VEC, int U>
 __global__ void __launch_bounds__(kBlock, NS == 1 ? 4 : 3)
@@ -500,24 +578,18 @@ gat_backward_dst_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q,
                         const float* __restrict__ lse, T* __restrict__ dQ,
                         float* __restrict__ D, float* __restrict__ w,
                         float* __restrict__ scratch) {
-  using Ring = DstRing<T, NS, VEC, U>;
-  constexpr int kStages = Ring::kStages;
+  using Ring = EdgeRing<T, NS, VEC, U>;
   extern __shared__ __align__(16) unsigned char ring_mem[];
   const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
   const HeadMap m(h.H, h.d, VEC);
   const Task t = resolve(s, m, warp);
   if (!t.active) return;
-  const Ring ring{ring_mem + warp * Ring::kWarpBytes, lane};
-  const int P = edge_groups(m, U);
-  const int gl = kWarp / P;  // lanes per edge group
-  const int grp = lane / gl, li = lane % gl;
-  const LaneMap<NS, VEC> lm(m, t.task, li);
   // the first run of ids goes out with the row's own loads
-  int c_lane = 0, e_lane = 0;
-  if (t.e0 + lane < t.e1) {
-    c_lane = s.nbr[t.e0 + lane];
-    e_lane = s.eid[t.e0 + lane];
-  }
+  int c_lane, e_lane;
+  load_ids(s, t.e0, t.e1, lane, true, c_lane, e_lane);
+  const Ring ring(ring_mem + warp * Ring::kWarpBytes, m, t.task, lane, K, V, h);
+  const LaneMap<NS, VEC>& lm = ring.lm;
+  const int li = lane % ring.gl;
   float q[NS * VEC], g[NS * VEC], acc[NS * VEC], dsum[NS], lse_r[NS];
   load_row<T, NS, VEC>(q, Q + t.row * m.HD, lm);
   load_row<T, NS, VEC>(g, dy + t.row * m.HD, lm);
@@ -537,95 +609,41 @@ gat_backward_dst_kernel(SideArgs s, HeadArgs h, const T* __restrict__ Q,
     put_a[j] = mine && vi == 0;
     put_ds[j] = mine && vi == (m.group > 1 ? 1 : 0);
   }
-  const int step = U * P;  // edges per batch, a divisor of kWarp
 
-  // batch b of the current run of n ids into stage b % kStages: group grp's
-  // u-th edge is b step + u P + grp
-  auto fetch = [&](int b, int n) {
-    const int stage = b % kStages;
+  walk_edges(ring, s, t, true, c_lane, e_lane, [&](int stage, int b, int n, int e_run) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int i = b * step + u * P + grp;
+      const int i = ring.edge(b, u);
       const bool ok = i < n;
-      const int c = __shfl_sync(kFull, c_lane, i & (kWarp - 1));
-      const int e = __shfl_sync(kFull, e_lane, i & (kWarp - 1));
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const bool vok = ok && lm.col[j] >= 0;
-        const size_t off = static_cast<size_t>(c) * m.HD + (vok ? lm.col[j] : 0);
-        copy_async<Ring::kVecBytes>(ring.row(stage, u, 0, j), K + off, vok);
-        copy_async<Ring::kVecBytes>(ring.row(stage, u, 1, j), V + off, vok);
-        if (h.keep != nullptr) {
-          const bool kok = ok && lm.head[j] < h.H;
-          copy_async<4>(ring.keep(stage, u, j),
-                        h.keep + static_cast<size_t>(e) * h.H + (kok ? lm.head[j] : 0), kok);
-        }
-      }
-    }
-  };
-  auto consume = [&](int b, int n) {
-    const int stage = b % kStages;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = b * step + u * P + grp;
-      const bool ok = i < n;
-      const int e = __shfl_sync(kFull, e_lane, i & (kWarp - 1));
-      float kf[NS * VEC], vf[NS * VEC], sc[NS], da[NS], kp[NS];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        unpack<T, VEC>(*static_cast<const RawT<T, VEC>*>(ring.row(stage, u, 0, j)), kf + j * VEC);
-        unpack<T, VEC>(*static_cast<const RawT<T, VEC>*>(ring.row(stage, u, 1, j)), vf + j * VEC);
-        kp[j] = h.keep != nullptr ? *ring.keep(stage, u, j) : 1.f;
-      }
+      const int e = __shfl_sync(kFull, e_run, i & (kWarp - 1));
+      float kf[NS * VEC], vf[NS * VEC], sc[NS], da[NS];
+      ring.unpack_row(stage, u, 0, kf);
+      ring.unpack_row(stage, u, 1, vf);
       head_dots<NS, VEC>(sc, q, kf, m);
       head_dots<NS, VEC>(da, g, vf, m);
       if (ok) {
         float* wrow = w + static_cast<size_t>(e) * 2 * m.H;
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
+          const float kp = ring.keep_of(stage, u, j);
           const float a = expf(sc[j] * h.scale - lse_r[j]);
-          const float ds = a * (da[j] * kp[j] - dsum[j]) * h.scale;
-          if (put_a[j]) wrow[lm.head[j]] = a * kp[j];
+          const float ds = a * (da[j] * kp - dsum[j]) * h.scale;
+          if (put_a[j]) wrow[lm.head[j]] = a * kp;
           if (put_ds[j]) wrow[m.H + lm.head[j]] = ds;
 #pragma unroll
           for (int i2 = 0; i2 < VEC; ++i2) acc[j * VEC + i2] += ds * kf[j * VEC + i2];
         }
       }
     }
-  };
-
-  // a kStages-deep pipeline per run of 32 ids: batch b + kStages - 1 is in
-  // flight while batch b is used
-  for (int base = t.e0; base < t.e1; base += kWarp) {
-    if (base != t.e0) {
-      c_lane = e_lane = 0;
-      if (base + lane < t.e1) {
-        c_lane = s.nbr[base + lane];
-        e_lane = s.eid[base + lane];
-      }
-    }
-    const int n = min(kWarp, t.e1 - base);
-    const int nb = (n + step - 1) / step;
-#pragma unroll
-    for (int b = 0; b < kStages - 1; ++b) {
-      if (b < nb) fetch(b, n);
-      async_commit();
-    }
-    for (int b = 0; b < nb; ++b) {
-      if (b + kStages - 1 < nb) fetch(b + kStages - 1, n);
-      async_commit();
-      async_wait<kStages - 1>();
-      consume(b, n);
-    }
-  }
+  });
 
   // the edge groups' partials, added in a fixed butterfly order
-  for (int o = gl; o < kWarp; o <<= 1) {
+  for (int o = ring.gl; o < kWarp; o <<= 1) {
 #pragma unroll
     for (int k = 0; k < NS * VEC; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], o);
   }
   if (t.hub && !merge_sums(acc, scratch, warp, lane)) return;
-  if (grp != 0) return;
+  if (ring.grp != 0) return;
   store_row<T, NS, VEC>(dQ + t.row * m.HD, acc, lm);
 #pragma unroll
   for (int j = 0; j < NS; ++j)
@@ -736,25 +754,26 @@ void query(Kernel kernel, KernelInfo* info, int smem = 0) {
 template <typename T, int NS, int VEC>
 void launch_pass(int pass, unsigned grid, cudaStream_t st, const SideArgs& s, const HeadArgs& h,
                  const void* const* in, void* const* outs, float* scratch, KernelInfo* info) {
-  constexpr int U = NS == 1 ? 4 : 2;  // edges per batch (and edge group)
+  constexpr int U = 2;  // edges per stage and edge group
+  constexpr int smem = EdgeRing<T, NS, VEC, U>::kWarpBytes * kWarpsPerBlock;
+  const auto fwd = gat_forward_kernel<T, NS, VEC, U>;
+  const auto dst = gat_backward_dst_kernel<T, NS, VEC, U>;
+  static const bool sized =
+      cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) ==
+          cudaSuccess &&
+      cudaFuncSetAttribute(dst, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) == cudaSuccess;
+  (void)sized;
   auto I = [&](int i) { return static_cast<const T*>(in[i]); };
   if (pass == 0) {
-    if (info != nullptr) return query(gat_forward_kernel<T, NS, VEC, U>, info);
-    gat_forward_kernel<T, NS, VEC, U><<<grid, kBlock, 0, st>>>(
-        s, h, I(0), I(1), I(2), static_cast<T*>(outs[0]), static_cast<float*>(outs[1]),
-        scratch);
+    if (info != nullptr) return query(fwd, info, smem);
+    fwd<<<grid, kBlock, smem, st>>>(s, h, I(0), I(1), I(2), static_cast<T*>(outs[0]),
+                                    static_cast<float*>(outs[1]), scratch);
   } else {
-    constexpr int UD = 2;  // edges per stage and edge group
-    constexpr int smem = DstRing<T, NS, VEC, UD>::kWarpBytes * kWarpsPerBlock;
-    static const bool sized = cudaFuncSetAttribute(gat_backward_dst_kernel<T, NS, VEC, UD>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   smem) == cudaSuccess;
-    (void)sized;
-    if (info != nullptr) return query(gat_backward_dst_kernel<T, NS, VEC, UD>, info, smem);
-    gat_backward_dst_kernel<T, NS, VEC, UD><<<grid, kBlock, smem, st>>>(
-        s, h, I(0), I(1), I(2), I(3), I(4), static_cast<const float*>(in[5]),
-        static_cast<T*>(outs[0]), static_cast<float*>(outs[1]), static_cast<float*>(outs[2]),
-        scratch);
+    if (info != nullptr) return query(dst, info, smem);
+    dst<<<grid, kBlock, smem, st>>>(s, h, I(0), I(1), I(2), I(3), I(4),
+                                    static_cast<const float*>(in[5]), static_cast<T*>(outs[0]),
+                                    static_cast<float*>(outs[1]), static_cast<float*>(outs[2]),
+                                    scratch);
   }
 }
 

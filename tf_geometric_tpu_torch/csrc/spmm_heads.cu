@@ -48,17 +48,26 @@
 // sequence (and at most 45 partials on the arxiv graph), with no search and
 // no sync.
 //
-// sddmm. One warp owns one row. Its lanes form S sub-groups of L lanes: the
-// L lanes of a sub-group split the row's vectors, the S = 32 / L sub-groups
-// split its entries (sub-group s takes entries s, s + S, s + 2S, ...); each
-// lane loads U entries' ids and rows before using any. The warp keeps its
-// row of a in registers for the pass and sums each entry's per-lane products
-// over the lanes of each head: when a head's vectors lie in one sub-group
+// sddmm. Each entry's output is written once, by its own edge id, from its
+// own row of a and of b: no value crosses entries, so the view's entries can
+// be cut anywhere. A lane group of L lanes (the next power of two of a row's
+// lane vectors, at most 32) takes one chunk of kChunk consecutive entries of
+// the view, whatever rows they belong to; so no group walks more than kChunk
+// entries (the arxiv graph's longest row has 2,839), narrow rows share a
+// warp, an empty row costs nothing, and there are no partials, no second
+// launch and no atomics. Each entry's
+// row is read from the view's entry_row (the sorted keys a view is built
+// from; the wrapper finds it from row_ptr for a view without it), so the
+// kernel reads no row pointers. The group walks its chunk U entries at a
+// time: the U entries' ids, then their rows of a and b, all loaded before any
+// is used (a row of a comes from L1 or L2 for the entries after a row's
+// first, which the view keeps together). Per entry, each lane's products are
+// summed over the lanes of each head: when a head's vectors lie in one group
 // (the vectors per head a power of two, at most L), one segmented butterfly
-// sums every head of a slice at once; otherwise a butterfly over the
-// sub-group per head. One lane writes each head's value (a head split over
-// two passes adds the second pass's part to its own first write). A wide row
-// with many entries is walked by one warp.
+// sums every head of a slice at once; otherwise a butterfly over the group
+// per head. Shuffles name the group's lanes only. One lane writes each head's
+// value (a head split over two passes adds the second pass's part to its own
+// first write).
 #include "lane_gather.cuh"
 
 namespace {
@@ -67,33 +76,6 @@ using namespace tfg;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = kWarp * kWarpsPerBlock;
-
-// Where one lane of the SDDMM sits: its warp's row, its sub-group and its
-// lane in it.
-struct WarpRow {
-  long long r;
-  int lig, sub, L, S;
-};
-
-__device__ __forceinline__ WarpRow warp_row(int lanes_log2) {
-  WarpRow wr;
-  const int lane = threadIdx.x & (kWarp - 1);
-  wr.r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-  wr.L = 1 << lanes_log2;
-  wr.S = kWarp >> lanes_log2;
-  wr.lig = lane & (wr.L - 1);
-  wr.sub = lane >> lanes_log2;
-  return wr;
-}
-
-// Entry start + j of the view (0 for both ids when !ok): its neighbour,
-// clamped to [0, n - 1], and its edge id.
-__device__ __forceinline__ void entry_ids(const int* __restrict__ nbr,
-                                          const int* __restrict__ eid, int start, int j,
-                                          bool ok, int n, int* c, int* e) {
-  *c = ok ? min(max(nbr[start + j], 0), n - 1) : 0;
-  *e = ok ? eid[start + j] : 0;
-}
 
 // One lane group per chunk of kChunk entries: the part of a long row inside
 // the chunk, as its float32 partial [chunks, H * d]. The chunk's row is the
@@ -150,52 +132,56 @@ spmm_heads_kernel(const int* __restrict__ row_ptr, Gather<T, 1> g,
 
 template <typename T, int VEC, int NV, int U>
 __global__ void __launch_bounds__(kBlock)
-sddmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
+sddmm_heads_kernel(const int* __restrict__ entry_row, const int* __restrict__ nbr,
                    const int* __restrict__ eid, const T* __restrict__ a,
                    const T* __restrict__ b, int n_b, int H, int d, float* __restrict__ out,
-                   int rows, int lanes_log2) {
-  const WarpRow wr = warp_row(lanes_log2);
-  if (wr.r >= rows) return;  // warp-uniform
+                   int rows, int entries, int lanes_log2) {
+  const GroupLane gl = group_lane(lanes_log2);
+  const long long lo =
+      ((static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> lanes_log2) * kChunk;
+  if (lo >= entries) return;  // group-uniform: the shuffles below name the group's lanes only
+  const int hi = static_cast<int>(min(static_cast<long long>(entries), lo + kChunk));
+  const int lane = threadIdx.x & (kWarp - 1);
+  const unsigned mask = gl.L == kWarp ? kFull : ((1u << gl.L) - 1) << (lane & ~(gl.L - 1));
   const int F = H * d;
   const int nvec = F / VEC;
   const int vpd = d / VEC;
-  // a head's vectors in one sub-group: one segmented butterfly per slice
-  const bool segmented = (vpd & (vpd - 1)) == 0 && vpd <= wr.L;
-  const int start = row_ptr[wr.r];
-  const int count = row_ptr[wr.r + 1] - start;
-  const T* arow = a + static_cast<size_t>(wr.r) * F;
-  for (int v0 = 0; v0 < nvec; v0 += wr.L * NV) {
-    // this pass's vectors of a[r] as floats, and the head of each
-    float ar[NV * VEC];
+  // a head's vectors in one group: one segmented butterfly per slice
+  const bool segmented = (vpd & (vpd - 1)) == 0 && vpd <= gl.L;
+  for (int v0 = 0; v0 < nvec; v0 += gl.L * NV) {
     int head[NV];
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
-      const int v = v0 + q * wr.L + wr.lig;
+      const int v = v0 + q * gl.L + gl.lig;
       head[q] = v < nvec ? v / vpd : -1;
-      RawT<T, VEC> r = v < nvec ? *reinterpret_cast<const RawT<T, VEC>*>(arow + v * VEC)
-                                : RawT<T, VEC>{};
-      unpack<T, VEC>(r, ar + q * VEC);
     }
-    // the heads this pass touches (warp-uniform)
+    // the heads this pass touches (group-uniform)
     const int h_lo = v0 / vpd;
-    const int h_hi = min(H - 1, (v0 + wr.L * NV - 1) / vpd);
-    for (int jb = 0; jb < count; jb += wr.S * U) {
-      RawT<T, VEC> raw[U][NV];
+    const int h_hi = min(H - 1, (v0 + gl.L * NV - 1) / vpd);
+    for (int jb = static_cast<int>(lo); jb < hi; jb += U) {
+      RawT<T, VEC> ra[U][NV], rb[U][NV];
       int eu[U];
       bool oku[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int j = jb + u * wr.S + wr.sub;
-        oku[u] = j < count;
-        int c;
-        entry_ids(nbr, eid, start, j, oku[u], n_b, &c, &eu[u]);
-        const T* row = b + static_cast<size_t>(c) * F;
+        const int j = jb + u;
+        const bool in = j < hi;
+        // the three ids in one trip; an entry past the view's (a dropped
+        // edge) has the row count as its row
+        const int r = in ? __ldg(entry_row + j) : rows;
+        const int c = in ? __ldg(nbr + j) : 0;
+        eu[u] = in ? __ldg(eid + j) : 0;
+        oku[u] = r < rows;
+        const T* arow = a + static_cast<size_t>(oku[u] ? r : 0) * F;
+        const T* brow = b + static_cast<size_t>(oku[u] ? min(max(c, 0), n_b - 1) : 0) * F;
 #pragma unroll
         for (int q = 0; q < NV; ++q) {
-          const int v = v0 + q * wr.L + wr.lig;
-          raw[u][q] = (oku[u] && v < nvec)
-                          ? *reinterpret_cast<const RawT<T, VEC>*>(row + v * VEC)
-                          : RawT<T, VEC>{};
+          const int v = v0 + q * gl.L + gl.lig;
+          const bool vok = oku[u] && v < nvec;
+          ra[u][q] = vok ? __ldg(reinterpret_cast<const RawT<T, VEC>*>(arow + v * VEC))
+                         : RawT<T, VEC>{};
+          rb[u][q] = vok ? __ldg(reinterpret_cast<const RawT<T, VEC>*>(brow + v * VEC))
+                         : RawT<T, VEC>{};
         }
       }
 #pragma unroll
@@ -203,11 +189,12 @@ sddmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
         float part[NV];
 #pragma unroll
         for (int q = 0; q < NV; ++q) {
-          float x[VEC];
-          unpack<T, VEC>(raw[u][q], x);
+          float x[VEC], y[VEC];
+          unpack<T, VEC>(ra[u][q], x);
+          unpack<T, VEC>(rb[u][q], y);
           part[q] = 0.f;
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) part[q] += ar[q * VEC + i] * x[i];
+          for (int i = 0; i < VEC; ++i) part[q] += x[i] * y[i];
         }
         float* orow = out + static_cast<size_t>(eu[u]) * H;
         if (segmented) {
@@ -216,18 +203,18 @@ sddmm_heads_kernel(const int* __restrict__ row_ptr, const int* __restrict__ nbr,
 #pragma unroll
           for (int q = 0; q < NV; ++q) {
             float s = part[q];
-            for (int o = vpd >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o, wr.L);
-            const int v = v0 + q * wr.L + wr.lig;
-            if (oku[u] && v < nvec && (wr.lig & (vpd - 1)) == 0) orow[v / vpd] = s;
+            for (int o = vpd >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(mask, s, o, gl.L);
+            const int v = v0 + q * gl.L + gl.lig;
+            if (oku[u] && v < nvec && (gl.lig & (vpd - 1)) == 0) orow[v / vpd] = s;
           }
         } else {
           for (int h = h_lo; h <= h_hi; ++h) {
             float s = 0.f;
 #pragma unroll
             for (int q = 0; q < NV; ++q) s += head[q] == h ? part[q] : 0.f;
-            for (int o = wr.L >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o, wr.L);
+            for (int o = gl.L >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(mask, s, o, gl.L);
             // head h's first vector, h * vpd, lies in this pass or an earlier one
-            if (oku[u] && wr.lig == 0) orow[h] = h * vpd >= v0 ? s : orow[h] + s;
+            if (oku[u] && gl.lig == 0) orow[h] = h * vpd >= v0 ? s : orow[h] + s;
           }
         }
       }
@@ -279,35 +266,42 @@ void launch_spmm(int vec, int nv, const SpmmArgs& a, cudaStream_t st) {
   }
 }
 
+// the SDDMM's operands, as the C entry receives them
+struct SddmmArgs {
+  const int* entry_row;
+  const int* nbr;
+  const int* eid;
+  const void* a;
+  const void* b;
+  int n_b, H, d;
+  float* out;
+  int rows, entries, ll;
+};
+
+template <typename T, int VEC, int NV>
+void launch_sddmm_nv(const SddmmArgs& s, cudaStream_t st) {
+  constexpr int U = unroll_for(NV, 2);  // rows of a and of b in flight: as two outputs
+  const long long chunks = (static_cast<long long>(s.entries) + kChunk - 1) / kChunk;
+  sddmm_heads_kernel<T, VEC, NV, U><<<grid_for_groups(chunks, s.ll), kBlock, 0, st>>>(
+      s.entry_row, s.nbr, s.eid, static_cast<const T*>(s.a), static_cast<const T*>(s.b), s.n_b,
+      s.H, s.d, s.out, s.rows, s.entries, s.ll);
+}
+
 template <typename T, int VEC>
-void launch_sddmm_vec(int nv, unsigned grid, cudaStream_t st, const int* row_ptr, const int* nbr,
-                      const int* eid, const T* a, const T* b, int n_b, int H, int d, float* out,
-                      int rows, int ll) {
-  // U halved against spmm: each entry also costs a shuffle butterfly per head
-  if (nv == 1)
-    sddmm_heads_kernel<T, VEC, 1, 4><<<grid, kBlock, 0, st>>>(row_ptr, nbr, eid, a, b, n_b, H,
-                                                              d, out, rows, ll);
-  else if (nv == 2)
-    sddmm_heads_kernel<T, VEC, 2, 2><<<grid, kBlock, 0, st>>>(row_ptr, nbr, eid, a, b, n_b, H,
-                                                              d, out, rows, ll);
-  else
-    sddmm_heads_kernel<T, VEC, 4, 1><<<grid, kBlock, 0, st>>>(row_ptr, nbr, eid, a, b, n_b, H,
-                                                              d, out, rows, ll);
+void launch_sddmm_vec(int nv, const SddmmArgs& s, cudaStream_t st) {
+  if (nv == 1) launch_sddmm_nv<T, VEC, 1>(s, st);
+  else if (nv == 2) launch_sddmm_nv<T, VEC, 2>(s, st);
+  else launch_sddmm_nv<T, VEC, 4>(s, st);
 }
 
 template <typename T>
-void launch_sddmm(int vec, int nv, unsigned grid, cudaStream_t st, const int* row_ptr,
-                  const int* nbr, const int* eid, const void* a, const void* b, int n_b, int H,
-                  int d, float* out, int rows, int ll) {
-  auto pa = static_cast<const T*>(a);
-  auto pb = static_cast<const T*>(b);
+void launch_sddmm(int vec, int nv, const SddmmArgs& s, cudaStream_t st) {
   switch (vec) {
-    case 1: launch_sddmm_vec<T, 1>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll); break;
-    case 2: launch_sddmm_vec<T, 2>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll); break;
-    case 4: launch_sddmm_vec<T, 4>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll); break;
+    case 1: launch_sddmm_vec<T, 1>(nv, s, st); break;
+    case 2: launch_sddmm_vec<T, 2>(nv, s, st); break;
+    case 4: launch_sddmm_vec<T, 4>(nv, s, st); break;
     default:
-      if constexpr (sizeof(T) == 2)
-        launch_sddmm_vec<T, 8>(nv, grid, st, row_ptr, nbr, eid, pa, pb, n_b, H, d, out, rows, ll);
+      if constexpr (sizeof(T) == 2) launch_sddmm_vec<T, 8>(nv, s, st);
   }
 }
 
@@ -359,24 +353,23 @@ extern "C" int tfg_spmm_heads(const void* row_ptr, const void* entry_row, const 
 
 // out float32 [E, H]: out[eid_i, h] = <a[r] block h, b[nbr_i] block h> for
 // each entry i of row r; a [rows, H * d] and b [n_b, H * d] of one dtype.
-extern "C" int tfg_sddmm_heads(const void* row_ptr, const void* nbr, const void* eid,
+// entry_row, nbr and eid hold `entries` entries; an entry whose row is
+// `rows` (or more) is not one of the view's and is skipped.
+extern "C" int tfg_sddmm_heads(const void* entry_row, const void* nbr, const void* eid,
                                const void* a, const void* b, int dtype, int n_b, int H, int d,
-                               void* out, int rows, int vec, void* stream) {
+                               void* out, int rows, int entries, int vec, void* stream) {
   const int max_vec = dtype == kFloat32 ? 4 : dtype == kBFloat16 ? 8 : 0;
-  if (bad_shape(rows, n_b, H, d, vec, max_vec)) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return static_cast<int>(cudaSuccess);
+  if (bad_shape(rows, n_b, H, d, vec, max_vec) || entries < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || entries == 0) return static_cast<int>(cudaSuccess);
   const int nvec = H * d / vec;
   const int ll = pick_lanes_log2(nvec);
+  const SddmmArgs s{static_cast<const int*>(entry_row), static_cast<const int*>(nbr),
+                    static_cast<const int*>(eid), a, b, n_b, H, d, static_cast<float*>(out),
+                    rows, entries, ll};
   const int nv = pick_nv(nvec, 1 << ll);
-  const unsigned grid = grid_for_rows(rows);  // one warp per row
   auto st = static_cast<cudaStream_t>(stream);
-  auto rp = static_cast<const int*>(row_ptr);
-  auto nb = static_cast<const int*>(nbr);
-  auto ei = static_cast<const int*>(eid);
-  auto o = static_cast<float*>(out);
-  if (dtype == kFloat32)
-    launch_sddmm<float>(vec, nv, grid, st, rp, nb, ei, a, b, n_b, H, d, o, rows, ll);
-  else
-    launch_sddmm<__nv_bfloat16>(vec, nv, grid, st, rp, nb, ei, a, b, n_b, H, d, o, rows, ll);
+  if (dtype == kFloat32) launch_sddmm<float>(vec, nv, s, st);
+  else launch_sddmm<__nv_bfloat16>(vec, nv, s, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,9 +42,10 @@ def with_edge_values(adj: CsrAdj, edge_values) -> CsrAdj:
 
 
 def _virtual_owners(side: CsrSide):
-    """[num_virtual] the owner row of each virtual row."""
+    """[num_virtual] the owner row of each virtual row (the count given, so
+    the host does not wait for the device)."""
     chunks = (side.owner_ptr[1:] - side.owner_ptr[:-1]).long()
-    return torch.repeat_interleave(side.owner_rows.long(), chunks)
+    return torch.repeat_interleave(side.owner_rows.long(), chunks, output_size=side.num_virtual)
 
 
 def side_value_grad(adj: CsrAdj, h, dy, plain: bool = False):

@@ -59,8 +59,10 @@ __all__ = ["GatSide", "CsrGatLayout", "gat_attention_csr", "gat_attention_ell", 
            "kernel_info"]
 
 # destination rows with more edges than this get a block of 8 warps in the
-# kernels; on the source side a row is a hub when it has more than CHUNK
-# entries (the lane-group gather's chunk, read from csrc/lane_gather.cuh)
+# kernels (on the H100, 64 and 128 did no better for either destination-side
+# pass: chip_smoke.py's hub degree sweep); on the source side a row is a hub
+# when it has more than CHUNK entries (the lane-group gather's chunk, read
+# from csrc/lane_gather.cuh)
 HUB_DEGREE = 256
 _EPS = 1e-16  # added to the softmax denominator, as the JAX kernel does
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -26,7 +26,11 @@ row's entries before its first chunk boundary, in chunk order
 (``row_split`` mirrors the plan on the host side). A chunk's row is the
 view's ``row`` at its first entry: the sorted keys of ``build_csr_view``
 (so a view built on the device needs no host sync) or the host-built
-``GatSide.row``.
+``GatSide.row``. The SDDMM needs no split: each entry's output is its own,
+so a lane group takes each ``CHUNK`` consecutive entries of the view,
+whatever their rows, and reads each entry's row (``sddmm_entry_rows``:
+the view's ``row``, or found from ``row_ptr`` on the device for a view
+without one).
 
 Each op has a plain PyTorch version with the same contract. A CPU tensor
 takes the plain version, a CUDA tensor launches the kernel, and a failed
@@ -48,7 +52,7 @@ from . import config as _config
 __all__ = ["CsrView", "build_csr_view", "spmm_heads", "sddmm_heads", "spmm_heads_plain",
            "sddmm_heads_plain", "launch_spmm_heads", "launch_sddmm_heads", "spmm_multihead",
            "view_entries", "spmm_pass_bytes", "sddmm_pass_bytes", "pass_flops", "CHUNK",
-           "RowSplit", "row_split", "spmm_heads_launches"]
+           "RowSplit", "row_split", "spmm_heads_launches", "sddmm_entry_rows"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -63,8 +67,9 @@ CHUNK = _build.header_constant("lane_gather.cuh", "kChunk")
 class CsrView(NamedTuple):
     """A CSR view of a COO edge list (see the module docstring); ``nbr``,
     ``eid`` and ``row`` have one entry per input edge, those past
-    ``row_ptr[-1]`` unused. ``row`` is each entry's row, which the SpMM's
-    chunks read (None on a view that only the SDDMM reads)."""
+    ``row_ptr[-1]`` unused. ``row`` is each entry's row (the row count past
+    ``row_ptr[-1]``), which the SpMM's chunks and the SDDMM read; it may be
+    None on a view that only the SDDMM reads (``sddmm_entry_rows``)."""
     row_ptr: torch.Tensor   # [R + 1] int32
     nbr: torch.Tensor       # [E] int32, clamped to the gathered operand's rows
     eid: torch.Tensor       # [E] int32
@@ -141,6 +146,18 @@ def row_split(row_ptr) -> RowSplit:
     return RowSplit(direct_end, chunk_lo, chunk_hi, chunk_row)
 
 
+def sddmm_entry_rows(view):
+    """Each stored entry's row as the SDDMM kernel reads it, int32 [E], on
+    the view's device: ``view.row`` where the view has it, else found from
+    ``row_ptr`` by a search (no host sync). Past ``row_ptr[-1]`` it is the
+    row count, which the kernel skips."""
+    if view.row is not None:
+        return view.row
+    ptr = view.row_ptr
+    ids = torch.arange(view.nbr.shape[0], dtype=ptr.dtype, device=ptr.device)
+    return (torch.searchsorted(ptr, ids, right=True) - 1).int()
+
+
 # ---------------------------------------------------------------------------
 # plain versions (any device; float32 sums)
 # ---------------------------------------------------------------------------
@@ -180,6 +197,12 @@ def _check_view(view, device):
             raise TypeError(f"view.{name} must be a contiguous 1-D int32 tensor")
     if view.nbr.shape != view.eid.shape:
         raise ValueError("view.nbr and view.eid must have one length")
+
+
+def _check_entry_rows(row, view, device):
+    if (row.shape != view.nbr.shape or row.dtype != torch.int32 or row.device != device
+            or not row.is_contiguous()):
+        raise ValueError("view.row must be contiguous int32, one per entry, on the device")
 
 
 def _check_dense(name, t, device, num_heads):
@@ -229,11 +252,10 @@ def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
     d = width // num_heads
     vec = _vec_elements(d, [src], [out])
     chunks = _num_chunks(view.nbr.shape[0])
-    if chunks and (view.row is None or view.row.shape != view.nbr.shape
-                   or view.row.dtype != torch.int32 or view.row.device != src.device
-                   or not view.row.is_contiguous()):
-        raise ValueError("the SpMM's chunks need view.row: contiguous int32, one per entry, "
-                         "on the device")
+    if chunks:
+        if view.row is None:
+            raise ValueError("the SpMM's chunks need view.row")
+        _check_entry_rows(view.row, view, src.device)
     partial = torch.empty((chunks, width), dtype=torch.float32, device=src.device)
     fn = _build.kernel_function("spmm_heads.cu", "tfg_spmm_heads", [_P] * 5 + [_I, _I, _P]
                                 + [_I] * 2 + [_P] + [_I] * 3 + [_P, _I, _P])
@@ -251,8 +273,10 @@ def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
 
 
 def launch_sddmm_heads(view, a, b, num_heads: int, out):
-    """Launch the SDDMM kernel; writes ``out`` (float32 [E, H], contiguous)
-    as ``sddmm_heads_plain`` does and returns it. ``a`` and ``b`` share one
+    """Launch the SDDMM kernel (one launch: a lane group per ``CHUNK``
+    consecutive entries of the view, each entry's row from
+    ``sddmm_entry_rows``); writes ``out`` (float32 [E, H], contiguous) as
+    ``sddmm_heads_plain`` does and returns it. ``a`` and ``b`` share one
     dtype. Counts each launch in ``.launches``."""
     _check_view(view, a.device)
     _check_dense("a", a, a.device, num_heads)
@@ -271,13 +295,15 @@ def launch_sddmm_heads(view, a, b, num_heads: int, out):
         raise ValueError("b has no rows to gather")
     d = a.shape[1] // num_heads
     vec = _vec_elements(d, [a, b])
+    entry_row = sddmm_entry_rows(view)
+    _check_entry_rows(entry_row, view, a.device)
     fn = _build.kernel_function("spmm_heads.cu", "tfg_sddmm_heads",
-                                [_P] * 5 + [_I] * 4 + [_P] + [_I] * 2 + [_P])
+                                [_P] * 5 + [_I] * 4 + [_P] + [_I] * 3 + [_P])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(view.row_ptr.data_ptr(), view.nbr.data_ptr(), view.eid.data_ptr(), a.data_ptr(),
+        rc = fn(entry_row.data_ptr(), view.nbr.data_ptr(), view.eid.data_ptr(), a.data_ptr(),
                 b.data_ptr(), _DTYPE_CODES[a.dtype], b.shape[0], num_heads, d, out.data_ptr(),
-                rows, vec, stream)
+                rows, view.nbr.shape[0], vec, stream)
     if rc != 0:
         raise RuntimeError(f"sddmm_heads kernel launch failed: cudaError {rc}")
     launch_sddmm_heads.launches += 1
