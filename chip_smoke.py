@@ -72,8 +72,8 @@ Phases, each of which raises (non-zero exit) on failure:
    passes). Print the most slots one source holds beside
    the backward's longest serial walk, and each result's first SHA-256
    digits (to compare two trees of the code on one draw). Time each
-   kernel (events; device time under the profiler, split into the
-   backward's transpose and gather, by kernel) beside its plain version,
+   kernel (events; device time under the profiler, the draw's too, split
+   into the backward's transpose and gather, by kernel) beside its plain version,
    its bound, every slot's row read from device memory, at F = 128 the
    forward gather over a table the L2 holds, and the library yardstick
    ``torch.sparse.mm`` (a CSR matrix of k entries per row built from the
@@ -173,16 +173,21 @@ Phases, each of which raises (non-zero exit) on failure:
 
 13. X7 (``tiled_spmm``, ``csrc/tiled_spmm.cu``), before the main path: the
     kernel against its plain version at the shapes and tiles of
-    ``tests/test_tiled_spmm.py`` (t = 32, 64, 128) and at t = 48 and 256,
-    widths 1 to 130, half the cases with row tiles that hold no tile; then
-    on the A/B's community graph (t = 128, F = 128); every pair of tile
+    ``tests/test_tiled_spmm.py`` (t = 32, 64, 128) and at t = 16, 48, 192
+    and 256, widths 1 to 300 (two F chunks of the bf16-tile kernel at
+    t = 128 and 256), half the cases with row tiles that hold no tile; then
+    on the A/B's community graph (t = 128, F = 128; tiles per row tile, the
+    bf16-tile kernel's registers, shared memory, stages and resident blocks
+    per SM printed); every pair of tile
     dtype (float32: SIMT, bf16: tensor cores) and ``h`` dtype, forward and
     ``dh``: float32 outputs within 1e-4 (both sides round ``h`` to the tiles'
     dtype and sum in float32), bf16 outputs 2e-2; a second run bit for bit;
     empty row tiles exactly 0; a tile that is not a multiple of 16 refused.
     Timed beside its byte bound, its plain version, ``torch.sparse.mm`` on
     the CSR of the same matrix (the library yardstick, never called by the
-    port) and Kernel A on the same graph. After the main path, X7's one
+    port) and Kernel A on the same graph; bf16 tiles also by device time,
+    and the wrapper's cast of the operand (inside the call) apart. After
+    the main path, X7's one
     path: the A/B twin (``bench.tiled_ab``), its occupancy, timing and
     ``VERDICT`` lines, with exact launch counts (1 a forward step, 2 a
     forward-and-backward step); no training path launches X7.
@@ -192,6 +197,12 @@ Each phase prints its seconds. The second-to-last line of output is
 ``gat_attention_ell:<kernel>`` beside the single-process entries, X7 as
 ``tiled_spmm`` with the A/B's launches); the last is
 ``{"ok": true, "device": {...}}``.
+
+With ``--against DIR`` (or ``--trial DIR``) the script instead times another
+checkout's X7 and X8 kernels and workload 4 beside this one's, in turns on
+one card, through each tree's own wrappers (``DIR/tf_geometric_tpu_torch``,
+built from its own ``csrc/``); ``--against`` also holds the two trees'
+outputs equal (the draw exactly), ``--trial`` does not.
 """
 import contextlib
 import hashlib
@@ -932,7 +943,8 @@ def _print_s1_rows(rows):
                f"{r.get('dtype', 'int32')}"
         if r["name"] == "fixed_k_draw":
             print(f"{head}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, none, "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), device {_ms_text(r['device_ms'])}",
+                  flush=True)
             continue
         if "ms" not in r:
             print(f"{head}: {r['max_abs_err']:.3e} (checked, not timed), bits {r['sha256']}",
@@ -988,6 +1000,7 @@ def sage_kernel_phase(sage_problem, skew_graphs):
             nbytes = fk.draw_pass_bytes(k, n, nnz, False)
             rows.append(dict(name="fixed_k_draw", k=k, weighted=False, max_abs_err=0.0,
                              ms=_cuda_ms(lambda: fk.launch_draw_fixed_k(*args)),
+                             device_ms=_device_ms(lambda: fk.launch_draw_fixed_k(*args)),
                              plain_ms=_cuda_ms(lambda: fk.draw_fixed_k_plain(*args), iters=3,
                                                warmup=1),
                              library_ms=None, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
@@ -1548,9 +1561,13 @@ def entry_phase():
 
 # (shape, tile, F): the three of tests/test_tiled_spmm.py's first test, its
 # padded-edge case (t = 32), its bf16 case, the largest tile with one column,
-# and a tile of 48 (a k-chunk cut at the tile's edge) over 130 columns
+# a tile of 48 (a k-chunk cut at the tile's edge) over 130 columns, and
 X7_CASES = (((300, 260), 64, 24), ((130, 130), 128, 24), ((64, 64), 64, 24), ((96, 96), 32, 8),
-            ((200, 200), 64, 16), ((520, 600), 256, 1), ((100, 70), 48, 130))
+            ((200, 200), 64, 16), ((520, 600), 256, 1), ((100, 70), 48, 130),
+            # the bf16-tile kernel's plan edges: two F chunks at t = 256 and at
+            # t = 128, three 64-row slices over two warpgroups, one 16-row tile
+            ((520, 600), 256, 136), ((300, 300), 128, 300), ((400, 380), 192, 72),
+            ((60, 50), 16, 8))
 X7_WIDTH = 128                 # the A/B's F
 BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 
@@ -1656,6 +1673,13 @@ def x7_kernel_phase(small_err):
     b, bt = int(base.a_tiles.shape[0]), int(base.t_a_tiles.shape[0])
     print(f"x7 community graph: {b} tiles ({bt} transposed) of {base.tile}, occupancy "
           f"{base.occupancy:.5f}, packed in {time.perf_counter() - t0:.1f} s", flush=True)
+    for side, ptr in (("forward", base.row_ptr), ("transpose", base.t_row_ptr)):
+        per = ptr.diff().float()
+        print(f"x7 tiles per row tile ({side}): min {int(per.min())} mean "
+              f"{float(per.mean()):.2f} max {int(per.max())}", flush=True)
+    for h_dtype in (torch.float32, torch.bfloat16):
+        print(f"x7 bf16-tile kernel at t={base.tile} F={X7_WIDTH}, h {str(h_dtype)[6:]}: "
+              f"{tsp.kernel_info(base.tile, X7_WIDTH, torch.bfloat16, h_dtype)}", flush=True)
     lib = {"forward": _library_csr(adj, normed.index, normed.value, "fwd"),
            "dh": _library_csr(adj, normed.index, normed.value, "bwd")}
     sides = {"forward": adj.fwd, "dh": adj.bwd}
@@ -1676,10 +1700,14 @@ def x7_kernel_phase(small_err):
             byte_ms, flop_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / flop_rate
             timed = h_dtype == torch.float32
             x32 = x.float()
+            bf16 = a_dtype == torch.bfloat16
             rows.append(dict(
                 name="tiled_spmm", case=case, a_dtype=str(a_dtype)[6:], dtype=str(h_dtype)[6:],
                 width=X7_WIDTH, max_abs_err=err,
                 ms=_cuda_ms(lambda: tsp.tiled_pass(ts, x, transpose)),
+                device_ms=_device_ms(lambda: tsp.tiled_pass(ts, x, transpose)) if bf16 else None,
+                # the wrapper's cast of the operand, inside ms, apart
+                cast_ms=_cuda_ms(lambda: tsp.cast_operand(x, ts.tile)) if bf16 else None,
                 plain_ms=_plain_ms(lambda: tsp.tiled_pass(ts, x, transpose)) if timed else None,
                 library_ms=_cuda_ms(lambda: torch.sparse.mm(lib[case], x32)) if timed else None,
                 kernel_a_ms=_cuda_ms(lambda: side_matmul(sides[case], x32, adj.diag_val))
@@ -1691,13 +1719,16 @@ def x7_kernel_phase(small_err):
     del base, lib, adj, normed
     torch.cuda.empty_cache()
     print("x7 kernel check (name case tiles h: max_abs_err, ms, plain_ms, library_ms "
-          "(torch.sparse.mm, CSR, float32), Kernel A ms (float32), bound_ms)")
+          "(torch.sparse.mm, CSR, float32), Kernel A ms (float32), bound_ms; bf16 tiles: "
+          "device ms, the operand's cast ms inside ms)")
     for r in rows:
         extra = ("not timed" if r["plain_ms"] is None else
                  f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['kernel_a_ms']:.4f}")
+        cast = ("" if r["cast_ms"] is None else
+                f"; device {_ms_text(r['device_ms'])}, cast {r['cast_ms']:.4f}")
         print(f"  {r['name']} {r['case']} tiles {r['a_dtype']} h {r['dtype']}: "
               f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {extra}, {r['bound_ms']:.4f} "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}){cast}", flush=True)
     return rows
 
 
@@ -2186,6 +2217,188 @@ def x7_kernel_entry(x7_rows, ab_launches):
                      "launches of the A/B twin (bench --tiled-ab), 0 on every training path"}
 
 
+# ---------------------------------------------------------------------------
+# another checkout's X7 and X8 beside this one's, in turns on one card:
+#   python3 chip_smoke.py --against DIR   (outputs held equal: a parent tree)
+#   python3 chip_smoke.py --trial DIR     (outputs not held: a throwaway trial)
+# DIR holds a copy of the port package (``DIR/tf_geometric_tpu_torch``),
+# built from its own csrc/ and run through its own wrappers.
+# ---------------------------------------------------------------------------
+
+def _load_tree(root, alias):
+    """The port package under ``root`` imported as ``alias``."""
+    import importlib.util
+    from pathlib import Path
+    pkg = Path(root).resolve() / "tf_geometric_tpu_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ptxas_lines(log, keys):
+    """``(entry, usage)`` of every kernel whose mangled name holds one of
+    ``keys``, from nvcc's ``-Xptxas=-v`` output."""
+    out, entry = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln and entry and any(k in entry for k in keys):
+            out.append((entry, ln.split(":", 1)[1].strip()))
+            entry = None
+    return out
+
+
+def _blocks_per_sm(usage, threads):
+    """Resident blocks per SM of an H100 for a kernel of ``threads`` threads
+    with ptxas's ``usage`` line (registers and static shared memory): 64 Ki
+    registers (allocated per warp in units of 256), 228 KiB of shared memory
+    (1 KiB reserved per block), 2,048 threads, 32 blocks."""
+    import re
+    regs = int(re.search(r"Used (\d+) registers", usage).group(1))
+    smem = re.search(r"(\d+) bytes smem", usage)
+    smem = int(smem.group(1)) if smem else 0
+    warps = -(-threads // 32)
+    by_regs = 65536 // (warps * (-(-regs * 32 // 256) * 256))
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, by_smem, 2048 // threads, 32)
+
+
+def _in_turns(fns, what):
+    """Time ``fns`` ({label: fn}) in turns, first, second, second, first:
+    CUDA events and device time; prints one line per turn."""
+    labels = list(fns)
+    times = {lb: [] for lb in labels}
+    for lb in (labels[0], labels[1], labels[1], labels[0]):
+        ms, dev = _cuda_ms(fns[lb]), _device_ms(fns[lb])
+        times[lb].append((ms, dev))
+        print(f"  {what} {lb}: {ms:.4f} ms (device {_ms_text(dev)})", flush=True)
+    return times
+
+
+def compare_phase(other_dir, hold_outputs):
+    """X7 on the community graph (tiles per row tile, the cast of ``h``
+    alone, each tree's kernel), the X8 draw at k = 25 on the Reddit-shaped
+    sampler and workload 4, each tree through its own wrappers, in turns;
+    with ``hold_outputs`` the two trees' results are held equal (X7 at the
+    kernel check's tolerance, the draw exactly)."""
+    import importlib
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    from tf_geometric_tpu_torch.nn.sampling.device_sampler import _random_ints
+    from tf_geometric_tpu_torch.ops import _build
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    _load_tree(other_dir, "other_tfg")
+    o_build = importlib.import_module("other_tfg.ops._build")
+    o_tsp = importlib.import_module("other_tfg.ops.tiled_spmm")
+    o_fk = importlib.import_module("other_tfg.ops.fixed_k")
+    o_bench = importlib.import_module("other_tfg.bench")
+    t0 = time.perf_counter()
+    _build.build_all()
+    o_build.build_all()
+    print(f"build (this tree and {other_dir}): {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, logs in (("this", _build.build_logs), ("other", o_build.build_logs)):
+        for src, keys in (("tiled_spmm.cu", ("tiled_spmm",)), ("fixed_k.cu", ("draw",))):
+            for entry, usage in _ptxas_lines(logs.get(src, ""), keys):
+                print(f"  {label} {entry}: {usage}; {_blocks_per_sm(usage, 256)} blocks/SM "
+                      f"at 256 threads", flush=True)
+
+    # X7 on the A/B's community graph, bf16 tiles (the A/B's call)
+    ei, n = bench.community_graph(), bench.ARXIV_NODES
+    normed = gcn_norm_adj(SparseMatrix(ei, None, (n, n), device="cuda"), cache={})
+    ts = tsp.build_tiled_spmm(normed.index, normed.value, (n, n), tile=bench.TILED_AB_TILE,
+                              dtype=torch.bfloat16, device="cuda")
+    del normed
+    for side, ptr in (("forward", ts.row_ptr), ("transpose", ts.t_row_ptr)):
+        per = ptr.diff().float()
+        print(f"x7 tiles per row tile ({side}): min {int(per.min())} mean {float(per.mean()):.2f} "
+              f"max {int(per.max())} over {per.shape[0]} row tiles, "
+              f"{int((per == 0).sum())} empty", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    h = torch.randn(n, X7_WIDTH, generator=gen, device="cuda")
+    dy = torch.randn(n, X7_WIDTH, generator=gen, device="cuda")
+    print(f"x7 cast of h [{n}, {X7_WIDTH}] float32 to bfloat16 alone: "
+          f"{_cuda_ms(lambda: h.to(torch.bfloat16)):.4f} ms (device "
+          f"{_ms_text(_device_ms(lambda: h.to(torch.bfloat16)))})", flush=True)
+    for mod, label in ((tsp, "this"), (o_tsp, "other")):
+        info = getattr(mod, "kernel_info", None)
+        if info is not None:
+            print(f"x7 {label} kernel at t={ts.tile} F={X7_WIDTH}: "
+                  f"{info(ts.tile, X7_WIDTH, torch.bfloat16, torch.float32)}", flush=True)
+    for x_dtype in (torch.float32, torch.bfloat16):
+        for case, x, transpose in (("forward", h, False), ("dh", dy, True)):
+            x = x.to(x_dtype)
+            got, mine = o_tsp.tiled_pass(ts, x, transpose), tsp.tiled_pass(ts, x, transpose)
+            torch.cuda.synchronize()
+            tag = f"x7 {case} tiles bfloat16 h {str(x_dtype)[6:]}"
+            if hold_outputs:
+                _max_err(mine, got, F32_TOL if x_dtype == torch.float32 else BF16_TOL,
+                         f"{tag}: this tree against {other_dir}")
+            bound = 1e3 * tsp.tiled_pass_bytes(ts, X7_WIDTH, x.element_size(),
+                                               transpose) / HBM_BYTES_PER_S
+            print(f"{tag} (bound {bound:.4f} ms):", flush=True)
+            _in_turns({"other": lambda: o_tsp.tiled_pass(ts, x, transpose),
+                       "this": lambda: tsp.tiled_pass(ts, x, transpose)}, tag)
+    del ts, h, dy
+    torch.cuda.empty_cache()
+
+    # X8 at k = 25 on the Reddit-shaped sampler
+    sp = bench.build_sage_problem(device="cuda")
+    sampler, csr = sp.sampler, sp.sampler.csr()
+    rows, nnz = sampler.num_nodes, int(sampler.sorted_col.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    r = _random_ints(gen, SAGE_DRAW_K, rows, "cuda")
+    plain = (r, csr["row_start"], sampler.degree, csr["sorted_col"])
+    weighted = plain + (torch.rand(nnz, generator=gen, device="cuda"),
+                        torch.randperm(rows, generator=gen, device="cuda").int())
+    for args, what in ((plain, "unweighted"), (weighted, "weighted, self ids")):
+        a, b = o_fk.launch_draw_fixed_k(*args), fk.launch_draw_fixed_k(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        print(f"x8 draw k={SAGE_DRAW_K} {what}: this tree's output equals the other's: {same}",
+              flush=True)
+        if hold_outputs:
+            _check(same, f"x8 draw {what}: this tree differs from {other_dir}")
+    bound = 1e3 * fk.draw_pass_bytes(SAGE_DRAW_K, rows, nnz, False) / HBM_BYTES_PER_S
+    print(f"x8 draw k={SAGE_DRAW_K} unweighted (bound {bound:.4f} ms):", flush=True)
+    _in_turns({"other": lambda: o_fk.launch_draw_fixed_k(*plain),
+               "this": lambda: fk.launch_draw_fixed_k(*plain)}, "x8 draw")
+    del sp, sampler, csr, r, plain, weighted
+    torch.cuda.empty_cache()
+
+    # workload 4, each tree's own problem and step
+    name = "sage_reddit_fwd_bwd"
+    problems = {"other": o_bench.build_sage_problem(device="cuda"),
+                "this": bench.build_sage_problem(device="cuda")}
+    runners = {"other": o_bench.run_workload, "this": bench.run_workload}
+    for lb in ("other", "this", "this", "other"):
+        res = runners[lb](problems[lb], name)
+        print(f"workload 4 ({name}) {lb}: {res['step_ms']:.4f} ms/step, "
+              f"{res['line']['value']} {res['line']['unit']}", flush=True)
+
+
+def compare_main(argv):
+    import torch
+    if len(argv) != 2 or argv[0] not in ("--against", "--trial"):
+        print("usage: chip_smoke.py [--against DIR | --trial DIR]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = _gpu_line()
+    print(f"gpu: {gpu}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    _phase(f"compare with {argv[1]}", compare_phase, argv[1], argv[0] == "--against")
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2341,4 +2554,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(compare_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

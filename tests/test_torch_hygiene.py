@@ -276,3 +276,29 @@ def test_tiled_ab_and_propagation_layers_ask_for_the_card():
     with pytest.raises((AssertionError, RuntimeError)):
         from tf_geometric_tpu_torch.nn import chebynet_norm_edge
         chebynet_norm_edge([[0, 1], [1, 0]], 2)
+
+
+def _refused_pass(case):
+    """Arguments of one ``launch_tiled_spmm`` call the wrapper refuses."""
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    ts = tsp.build_tiled_spmm([[0, 1], [1, 0]], None, (2, 2), tile=16, dtype=torch.bfloat16,
+                              device="cpu")
+    one = (torch.tensor([0, 1], dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    h = torch.ones(2, 3)
+    return {"cpu": (ts.row_ptr, ts.col_tile, ts.a_tiles, h, 2),
+            "non-contiguous": (ts.row_ptr, ts.col_tile, ts.a_tiles, torch.ones(3, 2).t(), 2),
+            "t=24": one + (torch.zeros(1, 24, 24, dtype=torch.bfloat16), h, 2),
+            "t=272": one + (torch.zeros(1, 272, 272, dtype=torch.bfloat16), h, 2)}[case]
+
+
+@pytest.mark.parametrize("case,match", [("cpu", "CUDA"), ("non-contiguous", "contiguous"),
+                                        ("t=24", "multiple of 16"), ("t=272", "multiple of 16")])
+def test_tiled_spmm_wrapper_refusals_count_no_launch(case, match):
+    """The bf16-tile wrapper refuses CPU tensors, a non-contiguous operand
+    and tiles that are not a multiple of 16 up to 256 before anything runs,
+    and counts no launch."""
+    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    before = tsp.launch_tiled_spmm.launches
+    with pytest.raises(ValueError, match=match):
+        tsp.launch_tiled_spmm(*_refused_pass(case))
+    assert tsp.launch_tiled_spmm.launches == before

@@ -16,11 +16,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from tf_geometric_tpu.nn.sampling.device_sampler import \
     DeviceNeighborSampler as JaxSampler
 from tf_geometric_tpu_torch.nn import DeviceNeighborSampler, draw_fixed_k
-from tf_geometric_tpu_torch.ops.fixed_k import draw_fixed_k_from_ints, draw_fixed_k_plain
+from tf_geometric_tpu_torch.ops.fixed_k import (draw_fixed_k_from_ints, draw_fixed_k_plain,
+                                                reciprocal_remainder, row_divisor)
 
 jds = importlib.import_module("tf_geometric_tpu.nn.sampling.device_sampler")
 tds = importlib.import_module("tf_geometric_tpu_torch.nn.sampling.device_sampler")
@@ -195,3 +198,63 @@ def test_empty_graph_draws_self_ids():
     idx, w = sampler.sample(torch.Generator().manual_seed(0), k=2)
     np.testing.assert_array_equal(idx.numpy(), [[0, 1, 2], [0, 1, 2]])
     assert (w.numpy() == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the draw kernel's per-row reciprocal division (csrc/fixed_k.cu row_divisor,
+# remainder_by), through its numpy mirror, against torch.remainder
+# ---------------------------------------------------------------------------
+
+INT32_MIN = np.iinfo(np.int32).min
+EDGE_DEGREES = (1, 2, 3, 4, 7, 8, 2 ** 16, 2 ** 16 + 1, 2 ** 30, 2 ** 30 + 1, INT32_MAX - 1,
+                INT32_MAX)
+EDGE_INTS = np.array([INT32_MIN, INT32_MIN + 1, -2 ** 30, -3, -2, -1, 0, 1, 2, 3, 2 ** 30,
+                      INT32_MAX - 1, INT32_MAX], np.int32)
+
+
+def _torch_remainder(r, d):
+    return torch.remainder(torch.as_tensor(np.asarray(r, np.int32)),
+                           torch.as_tensor(np.asarray(d, np.int32))).numpy()
+
+
+@given(st.lists(st.integers(INT32_MIN, INT32_MAX), min_size=1, max_size=64),
+       st.integers(1, INT32_MAX))
+@example([INT32_MIN, -1, 0, INT32_MAX], 1)
+@example([INT32_MIN, -1, 0, INT32_MAX], INT32_MAX)
+@example([INT32_MIN, INT32_MAX - 1, -2 ** 31 + 1], 2 ** 30)
+@settings(max_examples=300, deadline=None)
+def test_reciprocal_remainder_matches_torch(ints, degree):
+    """Any int32 r (negatives too) over any degree 1 .. 2^31 - 1: the
+    kernel's reciprocal gives torch.remainder's result exactly."""
+    r = np.array(ints, np.int32)
+    np.testing.assert_array_equal(reciprocal_remainder(r, degree), _torch_remainder(r, degree))
+
+
+@pytest.mark.parametrize("degree", sorted(set(EDGE_DEGREES) | {2 ** p for p in range(2, 31, 4)}))
+def test_reciprocal_remainder_at_edge_degrees(degree):
+    """1, 2, powers of two and INT32_MAX against the int32 extremes and a
+    spread of random integers; the reciprocal fits 32 bits."""
+    rng = np.random.default_rng(degree % 1000)
+    r = np.concatenate([EDGE_INTS, rng.integers(INT32_MIN, INT32_MAX, 4096, dtype=np.int64,
+                                                endpoint=True).astype(np.int32)])
+    np.testing.assert_array_equal(reciprocal_remainder(r, degree), _torch_remainder(r, degree))
+    m, shift = row_divisor(degree)
+    assert 0 < int(m) < 2 ** 32 and 31 <= int(shift) <= 62
+
+
+def test_reciprocal_draw_equals_the_plain_draw():
+    """A draw whose picks use the reciprocal remainder (one divisor per row,
+    as the kernel) equals ``draw_fixed_k_plain``'s, isolated rows aside."""
+    rng = np.random.default_rng(11)
+    ei, _ = _graph(rng, n=40, e=400, isolated=5)
+    sampler = JaxSampler(ei, num_nodes=40)
+    csr = _torch_csr(sampler)
+    r = _ints(12, 25, 40)
+    idx, _ = draw_fixed_k_plain(torch.as_tensor(r), csr["row_start"], csr["degree"],
+                                csr["sorted_col"])
+    deg = csr["degree"].numpy()
+    live = deg > 0
+    pick = csr["row_start"].numpy()[None, :] + reciprocal_remainder(
+        r, np.broadcast_to(np.maximum(deg, 1), r.shape))
+    want = csr["sorted_col"].numpy()[np.clip(pick, 0, csr["sorted_col"].shape[0] - 1)]
+    np.testing.assert_array_equal(idx.numpy()[:, live], want[:, live])

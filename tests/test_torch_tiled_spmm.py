@@ -167,3 +167,83 @@ def test_roofline_and_step_timer_of_the_ab():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             profiling.measure_step_time(lambda h: (h,), (torch.ones(2),))
+
+
+# ---------------------------------------------------------------------------
+# the bf16-tile kernel's host side: its plan and its cast of the operand
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width", [1, 24, 128, 136, 300])
+@pytest.mark.parametrize("tile", [16, 48, 128, 256])
+def test_mma_plan_covers_the_pass_within_the_card(tile, width):
+    """Every row of the tile has a warpgroup, every column a chunk; the
+    fewest F chunks the 128 accumulators a thread allow, balanced atoms;
+    16-byte rows of the cast operand; 3 to 6 stages, as many as the shared
+    memory of the plan's resident blocks holds, and at most 232,448 bytes
+    a block."""
+    p = tsp.mma_plan(tile, width)
+    assert p.slices == -(-tile // 64) and p.wgs == min(2, p.slices)
+    assert p.slices_per_wg == -(-p.slices // p.wgs) and p.threads == 128 * p.wgs + 32
+    need = -(-width // 64)
+    assert p.chunks == -(-need // (4 // p.slices_per_wg))
+    assert p.atoms == -(-need // p.chunks) and p.chunks * p.atoms * 64 >= width
+    assert p.slices_per_wg * p.atoms * 32 <= 128
+    assert p.f_pad % 8 == 0 and width <= p.f_pad < width + 8
+    assert p.stage_bytes == (p.slices + p.atoms) * 8192
+    assert 3 <= p.stages <= 6
+    assert p.smem_bytes == 1024 + p.stages * (p.stage_bytes + 16) <= 232_448
+    assert p.blocks_per_sm in (1, 2) and p.blocks_per_sm * (p.smem_bytes + 1024) <= 233_472
+    if p.blocks_per_sm == 2:
+        assert p.slices_per_wg * p.atoms <= 2
+    budget = 232_448 if p.blocks_per_sm == 1 else 233_472 // 2 - 1024
+    assert p.stages == 6 or 1024 + (p.stages + 1) * (p.stage_bytes + 16) > budget
+
+
+def test_mma_plan_at_the_ab_and_the_edges():
+    """The A/B's call (t = 128, F = 128): one chunk of two atoms, two blocks
+    an SM of three stages; F = 136 at t = 256 takes two chunks; t = 24 and
+    t = 272 are refused."""
+    ab = tsp.mma_plan(128, 128)
+    assert (ab.atoms, ab.chunks, ab.stages, ab.blocks_per_sm, ab.wgs) == (2, 1, 3, 2, 2)
+    assert tsp.mma_plan(256, 136).chunks == 2 and tsp.mma_plan(128, 136).chunks == 1
+    assert (tsp.mma_plan(48, 130).atoms, tsp.mma_plan(48, 130).wgs) == (3, 1)
+    for tile in (0, 24, 272):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tsp.mma_plan(tile, 8)
+
+
+@pytest.mark.parametrize("h_dtype", ["float32", "bfloat16"])
+def test_cast_operand_rounds_once_and_pads_with_zeros(h_dtype):
+    """The operand the bf16-tile kernel reads: ``h`` rounded to bf16 once,
+    zero rows up to whole tiles, zero columns up to a multiple of 8."""
+    rng = np.random.default_rng(8)
+    h = torch.as_tensor(rng.normal(size=(70, 13)), dtype=torch.float32).to(DTYPES[h_dtype][1])
+    hc = tsp.cast_operand(h, 48)
+    assert hc.dtype == torch.bfloat16 and tuple(hc.shape) == (96, 16)
+    assert torch.equal(hc[:70, :13], h.to(torch.bfloat16))
+    assert not hc[70:].any() and not hc[:, 13:].any()
+
+
+@pytest.mark.parametrize("shape,tile,width,h_dtype", [((520, 600), 256, 136, "float32"),
+                                                      ((100, 70), 48, 130, "bfloat16")])
+def test_tiled_spmm_at_the_plans_edges_matches_jax(shape, tile, width, h_dtype):
+    """bf16 tiles where the kernel's plan has edges: F = 136 at t = 256 (two
+    F chunks) and t = 48 (a k chunk cut at the tile's edge) with a bf16
+    ``h``; forward and ``dh`` (bf16 ``h``: 1e-2, one bf16 rounding of the
+    output)."""
+    n, m = shape
+    index, vals, h, cot = _inputs(7, n, m, 6 * n, width)
+    j, t = _both(index, vals, shape, tile, "bfloat16")
+    _assert_same_packing(j, t)
+    jd, td = DTYPES[h_dtype]
+    tol = TOL if h_dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
+    hj = jnp.asarray(h, jd)
+    want = np.asarray(jax_tiled(j, hj), np.float32)
+    want_dh = np.asarray(jax.grad(lambda hh: (jax_tiled(j, hh).astype(jnp.float32)
+                                              * cot).sum())(hj), np.float32)
+    ht = torch.as_tensor(h).to(td).requires_grad_()
+    out = tsp.tiled_spmm(t, ht)
+    (out.float() * torch.as_tensor(cot)).sum().backward()
+    assert out.dtype == td and ht.grad.dtype == td
+    np.testing.assert_allclose(out.detach().float().numpy(), want, **tol)
+    np.testing.assert_allclose(ht.grad.float().numpy(), want_dh, **tol)

@@ -104,6 +104,16 @@ __device__ __forceinline__ void store_vec(OutT* p, const float* x) {
   }
 }
 
+// shared memory a block of the current device may opt into (0 if unknown)
+inline int max_smem_optin() {
+  int device = 0, bytes = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess)
+    return 0;
+  return bytes;
+}
+
 // lanes per row: the next power of two of the row's vectors, at most 32
 inline int pick_lanes_log2(int nvec) {
   int l = 0;

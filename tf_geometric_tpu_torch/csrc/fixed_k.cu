@@ -17,8 +17,8 @@
 // [0, n - 1] before any gather or count, as the JAX function clips them.
 // Sums run in float32.
 //
-// Bound on the H100: bytes. The draw moves ~20 bytes per slot for a
-// remainder and two gathers. Each aggregation slot gathers one row of F
+// Bound on the H100: bytes. The draw moves ~16 bytes per slot (the integer
+// read, idx and w written, the picked column read). Each aggregation slot gathers one row of F
 // elements for 2 * F flops, far under the ~20 flops per byte where float32
 // FMA throughput would bind. A gather reads a row per slot, and the table
 // it reads (the forward's src, the backward's dy: 119 MB at Reddit's
@@ -26,9 +26,25 @@
 // rows come from device memory in good part.
 //
 // Design.
-// - Draw: one thread per slot, grid-stride; the remainder, the clip, the
-//   column gather and the weight write are one pass, so no [k, S] pick
-//   array ever reaches device memory.
+// - Draw: one thread per row, walking the row's k slots (slot j of row s at
+//   j * S + s, so a warp's reads of r and writes of idx and w stay
+//   coalesced): the row's degree and start are read once, and its remainders
+//   take one exact reciprocal computed once per row (row_divisor), not a
+//   division per slot; kDrawUnroll slots' column gathers are in flight at
+//   once, and the next kDrawUnroll integers are loaded while they land. The
+//   integers are read and idx, w written with streaming (evict-first)
+//   accesses, so the column table keeps its place in L2. The remainder,
+//   the clip, the column gather and the weight write are one pass, so no
+//   [k, S] pick array ever reaches device memory.
+//   Device ms at k = 25 on the Reddit-shaped graph (H100 80GB HBM3, 700 W,
+//   chip_smoke.py --trial / --against in turns): this design ~0.059. The
+//   one it replaced: one thread per slot over a grid-stride loop, a 64-bit
+//   i % S and a 32-bit r % deg per slot, degree and start read per slot:
+//   0.130 (0.036 of it without the column gather). Tried and lost: no
+//   streaming accesses 0.067; 4 gathers in flight under an 8-block launch
+//   bound (32 registers) 0.112-0.117; a 5-block bound 0.068; 12 in flight
+//   0.073; the block's stretch of sorted_col staged in shared memory with
+//   one coalesced read (111 registers) 0.061-0.062.
 // - Forward (fixed_k_gather_kernel): a group of L lanes owns one output row
 //   (L = 32 for a row of 32 or more lane vectors, else the next power of
 //   two, so several narrow rows share a warp). Each lane holds vectors of
@@ -79,33 +95,92 @@ using namespace tfg;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = kWarp * kWarpsPerBlock;
+constexpr int kDrawUnroll = 8;  // the draw's column gathers in flight a thread
 
 // ---------------------------------------------------------------------------
 // draw
 // ---------------------------------------------------------------------------
 
+// r mod d with the divisor's sign (torch.remainder, jnp's %) for any int32 r
+// and 1 <= d < 2^31, by one exact reciprocal per row: with l = ceil(log2
+// d), m = ceil(2^(31 + l) / d) < 2^32 gives floor(u / d) = (u * m) >>
+// (31 + l) for every u < 2^31 (the round-up method: m * d - 2^(31 + l) <
+// d <= 2^l). A negative r is taken as u = -r - 1 = ~r, whose remainder
+// mirrors: r mod d = d - 1 - (u mod d). ops/fixed_k.py reciprocal_remainder
+// is the same arithmetic in numpy.
+struct RowDivisor {
+  unsigned m;
+  int shift;
+};
+
+__device__ __forceinline__ RowDivisor row_divisor(int d) {
+  const int l = 32 - __clz(d - 1);  // d = 1: l = 0
+  return {static_cast<unsigned>(((1ull << (31 + l)) + static_cast<unsigned>(d) - 1) /
+                                static_cast<unsigned>(d)),
+          31 + l};
+}
+
+__device__ __forceinline__ int remainder_by(int r, int d, RowDivisor rd) {
+  const unsigned u = static_cast<unsigned>(r ^ (r >> 31));
+  const unsigned q = static_cast<unsigned>((static_cast<unsigned long long>(u) * rd.m) >> rd.shift);
+  const int rho = static_cast<int>(u - q * static_cast<unsigned>(d));
+  return r < 0 ? d - 1 - rho : rho;
+}
+
+// One thread owns row s and walks its k slots j * S + s: neighbouring
+// threads read r and write idx, w at neighbouring addresses (coalesced);
+// the row's degree and start are read once and its divisor is computed
+// once; U slots' column gathers are in flight together.
+template <int U>
 __global__ void __launch_bounds__(kBlock)
 fixed_k_draw_kernel(const int* __restrict__ r, const int* __restrict__ row_start,
                     const int* __restrict__ degree, const int* __restrict__ sorted_col,
                     const float* __restrict__ sorted_weight, const int* __restrict__ self_ids,
-                    int* __restrict__ idx, float* __restrict__ weight, int S, long long total,
-                    int nnz) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int s = static_cast<int>(i % S);
-    const int deg = degree[s];
-    if (deg <= 0) {  // isolated: points at itself with weight 0
-      idx[i] = self_ids != nullptr ? self_ids[s] : s;
-      weight[i] = 0.f;
-      continue;
+                    int* __restrict__ idx, float* __restrict__ weight, int S, int k, int nnz) {
+  const int s = blockIdx.x * kBlock + threadIdx.x;
+  if (s >= S) return;
+  const int deg = degree[s];
+  if (deg == 0) {  // isolated: points at itself with weight 0
+    const int self = self_ids != nullptr ? self_ids[s] : s;
+    for (int j = 0; j < k; ++j) {
+      idx[static_cast<long long>(j) * S + s] = self;
+      weight[static_cast<long long>(j) * S + s] = 0.f;
     }
-    int rem = r[i] % deg;
-    if (rem < 0) rem += deg;  // a remainder with the divisor's sign, as torch / jnp take it
-    long long pick = static_cast<long long>(row_start[s]) + rem;
-    pick = min(max(pick, 0LL), static_cast<long long>(max(nnz - 1, 0)));
-    idx[i] = sorted_col[pick];
-    weight[i] = sorted_weight != nullptr ? sorted_weight[pick] : 1.f;
+    return;
+  }
+  const int d = max(deg, 1);  // the plain version's clamp of the divisor
+  const RowDivisor rd = row_divisor(d);
+  const long long start = row_start[s];
+  const long long last = max(nnz - 1, 0);
+  int nx[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) nx[u] = u < k ? __ldcs(r + static_cast<long long>(u) * S + s) : 0;
+  for (int j0 = 0; j0 < k; j0 += U) {
+    int rv[U], col[U];
+    float wv[U];
+    long long pick[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) rv[u] = nx[u];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      nx[u] = j0 + U + u < k ? __ldcs(r + static_cast<long long>(j0 + U + u) * S + s) : 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      pick[u] = min(max(start + remainder_by(rv[u], d, rd), 0LL), last);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u < k) {
+        col[u] = nnz > 0 ? sorted_col[pick[u]] : 0;
+        wv[u] = sorted_weight == nullptr ? 1.f : nnz > 0 ? sorted_weight[pick[u]] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u < k) {
+        __stcs(idx + static_cast<long long>(j0 + u) * S + s, col[u]);
+        __stcs(weight + static_cast<long long>(j0 + u) * S + s, wv[u]);
+      }
+    }
   }
 }
 
@@ -932,15 +1007,6 @@ inline int check_aggregate(int dtype, int vec, int n, int S, int k, int F) {
   return -1;
 }
 
-int max_smem_optin() {
-  int device = 0, bytes = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-          cudaSuccess)
-    return 0;
-  return bytes;
-}
-
 }  // namespace
 
 // Every entry returns cudaGetLastError() after its launches (0 on success).
@@ -952,14 +1018,13 @@ extern "C" int tfg_fixed_k_draw(const void* r, const void* row_start, const void
                                 const void* sorted_col, const void* sorted_weight,
                                 const void* self_ids, void* idx, void* weight, int k, int S,
                                 int nnz, void* stream) {
-  const long long total = static_cast<long long>(k) * S;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  fixed_k_draw_kernel<<<grid_stride_blocks(total), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  if (k <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  fixed_k_draw_kernel<kDrawUnroll><<<(S + kBlock - 1) / kBlock, kBlock, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(r), static_cast<const int*>(row_start),
       static_cast<const int*>(degree), static_cast<const int*>(sorted_col),
       static_cast<const float*>(sorted_weight), static_cast<const int*>(self_ids),
-      static_cast<int*>(idx), static_cast<float*>(weight), S, total, nnz);
+      static_cast<int*>(idx), static_cast<float*>(weight), S, k, nnz);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,12 +45,14 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
 from . import config as _config
 
 __all__ = ["draw_fixed_k_plain", "launch_draw_fixed_k", "draw_fixed_k_from_ints",
+           "row_divisor", "reciprocal_remainder",
            "fixed_k_aggregate", "fixed_k_forward_plain", "fixed_k_backward_plain",
            "fixed_k_backward_order_plain",
            "launch_fixed_k_forward", "launch_fixed_k_backward", "draw_pass_bytes",
@@ -101,6 +103,32 @@ def draw_fixed_k_plain(r, row_start, degree, sorted_col, sorted_weight=None, sel
         weight = torch.where(isolated[None, :], torch.zeros((), device=r.device),
                              sorted_weight[pick] if nnz else torch.zeros((k, n), device=r.device))
     return idx.int(), weight.float()
+
+
+def row_divisor(degree):
+    """The draw kernel's per-row reciprocal of ``degree`` (int, 1 ≤ d <
+    2³¹, numpy arrays elementwise): ``(m, shift)`` with ``l = ceil(log2
+    d)``, ``m = ceil(2^(31 + l) / d)`` (below 2³²) and ``shift = 31 + l``
+    (``csrc/fixed_k.cu`` ``row_divisor``)."""
+    d = np.asarray(degree, dtype=np.uint64)
+    lg = np.array([int(x - 1).bit_length() for x in d.reshape(-1)],
+                  dtype=np.uint64).reshape(d.shape)
+    return ((np.uint64(1) << (np.uint64(31) + lg)) + d - np.uint64(1)) // d, np.uint64(31) + lg
+
+
+def reciprocal_remainder(r, degree):
+    """``r mod degree`` with the divisor's sign (``torch.remainder``) for
+    int32 ``r`` and ``1 ≤ degree < 2³¹``, by the draw kernel's arithmetic:
+    ``u = r`` or ``~r = -r - 1`` for a negative ``r``, ``q = (u·m) >>
+    shift``, ``ρ = u - q·d``, and ``d - 1 - ρ`` for a negative ``r``. Its
+    numpy mirror, held against ``torch.remainder`` by the tests."""
+    r = np.asarray(r, dtype=np.int32)
+    d = np.broadcast_to(np.asarray(degree, dtype=np.int64), r.shape)
+    m, shift = row_divisor(d)
+    u = (r ^ (r >> 31)).astype(np.uint64)          # below 2^31
+    q = (u * m) >> shift                           # u·m < 2^63: no overflow
+    rho = (u - q * d.astype(np.uint64)).astype(np.int64)
+    return np.where(r < 0, d - 1 - rho, rho).astype(np.int32)
 
 
 def _check_cuda(tensors, device):

@@ -21,6 +21,11 @@ H100 (see ``csrc/tiled_spmm.cu``).
 plain version, a CUDA tensor launches the kernel, and a failed launch
 raises; inside ``ops.config.use_plain_versions()`` the plain version runs
 on any device.
+
+bf16 tiles run on the tensor cores: the wrapper casts ``h`` to bf16 once
+per call (padded to whole tiles of rows and a multiple of 8 columns), and
+the kernel feeds ``wgmma`` from a TMA ring; ``mma_plan`` is its host-side
+plan (F chunks, stages, shared memory), a pure function of ``t`` and F.
 """
 from __future__ import annotations
 
@@ -36,11 +41,95 @@ from . import _build
 from . import config as _config
 
 __all__ = ["TiledSpmm", "build_tiled_spmm", "tiled_spmm", "tiled_pass", "tiled_spmm_plain",
-           "launch_tiled_spmm", "count_occupied_tiles", "tiled_pass_bytes", "MAX_TILE"]
+           "launch_tiled_spmm", "count_occupied_tiles", "tiled_pass_bytes", "MAX_TILE",
+           "MmaPlan", "mma_plan", "cast_operand", "launch_order", "kernel_info"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_TILE = 256  # the kernel's largest tile; t must also be a multiple of 16
+
+# the bf16-tile kernel (csrc/tiled_spmm.cu): 64-row wgmma slices, 64-column
+# atoms, 64-deep stages of one 8 KiB box per slice and per atom, at most two
+# consumer warpgroups and 128 float32 accumulators a thread
+SLICE = _build.header_constant("tiled_spmm.cu", "kSlice")
+ATOM = _build.header_constant("tiled_spmm.cu", "kAtomN")
+MAX_STAGES = _build.header_constant("tiled_spmm.cu", "kMaxStages")
+BOX_BYTES, MAX_ACC = SLICE * ATOM * 2, 128
+SMEM_PER_BLOCK = 232_448   # an H100 block's shared memory (opt-in)
+SMEM_PER_SM = 233_472      # an SM's, 1 KiB of it reserved per resident block
+
+
+class MmaPlan(NamedTuple):
+    """How the bf16-tile kernel covers a pass at tile ``t`` and width F.
+
+    ``wgs`` consumer warpgroups own the tile's ``slices`` 64-row slices,
+    ``slices_per_wg`` each; a block holds ``atoms`` 64-column atoms (its
+    accumulators: ``slices_per_wg · atoms · 32`` floats a thread, at most
+    128) and ``chunks`` blocks cover F; ``f_pad`` is F rounded up to 8 (the
+    cast operand's 16-byte row stride). A stage holds one 8 KiB box per
+    slice and per atom; ``stages`` of them fit the shared memory of
+    ``blocks_per_sm`` blocks an SM, ``smem_bytes`` a block with the 1 KiB
+    alignment slack and the barriers."""
+    slices: int
+    wgs: int
+    slices_per_wg: int
+    atoms: int
+    chunks: int
+    f_pad: int
+    threads: int
+    stage_bytes: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def mma_plan(tile: int, width: int) -> MmaPlan:
+    """The bf16-tile kernel's plan (see ``MmaPlan``); the kernel checks the
+    same rule. Raises for a tile the kernel does not take."""
+    if tile % 16 or not 0 < tile <= MAX_TILE or width < 1:
+        raise ValueError(f"the tiled SpMM kernel takes tiles that are a multiple of 16 up to "
+                         f"{MAX_TILE} and a width of at least 1, got t = {tile}, F = {width}")
+    slices = -(-tile // SLICE)
+    wgs = min(2, slices)
+    per_wg = -(-slices // wgs)
+    max_atoms = MAX_ACC // (32 * per_wg)
+    need = -(-width // ATOM)
+    chunks = -(-need // max_atoms)
+    atoms = -(-need // chunks)
+    stage = (slices + atoms) * BOX_BYTES
+
+    def fit(budget):
+        return min(MAX_STAGES, (budget - 1024) // (stage + 16))
+
+    # two blocks an SM where their accumulators (the kernel's launch bound)
+    # and three stages each fit, else one
+    blocks = 2 if per_wg * atoms <= 2 and fit(SMEM_PER_SM // 2 - 1024) >= 3 else 1
+    stages = fit(SMEM_PER_BLOCK if blocks == 1 else SMEM_PER_SM // 2 - 1024)
+    return MmaPlan(slices, wgs, per_wg, atoms, chunks, -(-width // 8) * 8, wgs * 128 + 32,
+                   stage, stages, 1024 + stages * (stage + 16), blocks)
+
+
+def launch_order(row_ptr):
+    """The row tiles by their number of tiles, most first (ties in id
+    order), int32: the bf16-tile kernel's blocks take them in this order,
+    so the shortest start last."""
+    return torch.argsort(row_ptr[1:] - row_ptr[:-1], descending=True, stable=True).to(
+        torch.int32)
+
+
+def cast_operand(h, tile: int, dtype=torch.bfloat16):
+    """``h`` [n, F] in ``dtype``, padded with zero rows to whole tiles and
+    zero columns to a multiple of 8: the operand the bf16-tile kernel reads
+    (the rounding ``cast()`` of the contract, done once per call)."""
+    n, width = h.shape
+    n_pad, f_pad = -(-n // tile) * tile, -(-width // 8) * 8
+    hc = torch.empty((n_pad, f_pad), dtype=dtype, device=h.device)
+    hc[:n, :width].copy_(h)
+    if n_pad > n:
+        hc[n:].zero_()
+    if f_pad > width:
+        hc[:n, width:].zero_()
+    return hc
 
 
 class TiledSpmm(NamedTuple):
@@ -176,13 +265,12 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
     ``col_tile`` int32 [B], ``a_tiles`` [B, t, t] float32 or bfloat16 with t a
     multiple of 16 up to ``MAX_TILE``, ``h`` [n_src, F] float32 or bfloat16;
     all contiguous CUDA tensors on one device. Allocates and returns ``out``
-    [num_out_rows, F] in ``h``'s dtype. Counts each launch in ``.launches``."""
-    for name, t in (("row_ptr", row_ptr), ("col_tile", col_tile), ("a_tiles", a_tiles),
-                    ("h", h)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != h.device:
-            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    [num_out_rows, F] in ``h``'s dtype; with bf16 tiles, ``h`` is first cast
+    (``cast_operand``). Counts each launch in ``.launches``. Refuses, before
+    anything runs: a non-contiguous tensor, a tile that is not a multiple of
+    16 up to ``MAX_TILE``, wrong dtypes or shapes, then CPU tensors."""
+    tensors = (("row_ptr", row_ptr), ("col_tile", col_tile), ("a_tiles", a_tiles), ("h", h))
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if row_ptr.dtype != torch.int32 or col_tile.dtype != torch.int32:
@@ -193,7 +281,7 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
     if a_tiles.dim() != 3 or a_tiles.shape[1] != a_tiles.shape[2]:
         raise ValueError(f"a_tiles must be [B, t, t], got {tuple(a_tiles.shape)}")
     tile = int(a_tiles.shape[1])
-    if tile % 16 or tile > MAX_TILE:
+    if tile % 16 or not 0 < tile <= MAX_TILE:
         raise ValueError(f"the tiled SpMM kernel takes tiles that are a multiple of 16 up to "
                          f"{MAX_TILE}, got t = {tile}")
     if col_tile.shape != (a_tiles.shape[0],) or row_ptr.dim() != 1:
@@ -203,19 +291,36 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
     num_out_tiles = row_ptr.shape[0] - 1
     if num_out_rows > num_out_tiles * tile or num_out_rows < 0:
         raise ValueError(f"{num_out_rows} output rows do not fit {num_out_tiles} tiles of {tile}")
+    for name, t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
     if a_tiles.data_ptr() % 16:
         raise ValueError("a_tiles must be 16-byte aligned")
     out = torch.empty((num_out_rows, h.shape[1]), dtype=h.dtype, device=h.device)
     if num_out_rows == 0 or h.shape[1] == 0:
         return out
-    fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm",
-                                [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P])
+    n_src, width = h.shape
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = fn(row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(),
-                _DTYPE_CODES[a_tiles.dtype], h.data_ptr(), _DTYPE_CODES[h.dtype],
-                out.data_ptr(), num_out_tiles, tile, h.shape[0], num_out_rows, h.shape[1],
-                stream)
+        if a_tiles.dtype == torch.bfloat16:
+            plan = mma_plan(tile, width)
+            hc = cast_operand(h, tile)
+            order = launch_order(row_ptr)
+            fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm_tma",
+                                        [_P, _P, _P, _P, _I, _P, _I, _I, _P] + [_I] * 10 + [_P])
+            rc = fn(order.data_ptr(), row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(),
+                    a_tiles.shape[0], hc.data_ptr(), hc.shape[0] // tile, plan.f_pad,
+                    out.data_ptr(), _DTYPE_CODES[h.dtype], num_out_tiles, tile, num_out_rows,
+                    width, plan.slices_per_wg, plan.atoms, plan.chunks, plan.wgs, plan.stages,
+                    stream)
+        else:
+            fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm_fma",
+                                        [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P])
+            rc = fn(row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(), h.data_ptr(),
+                    _DTYPE_CODES[h.dtype], out.data_ptr(), num_out_tiles, tile, n_src,
+                    num_out_rows, width, stream)
     if rc != 0:
         raise RuntimeError(f"tiled_spmm kernel launch failed: cudaError {rc}")
     launch_tiled_spmm.launches += 1
@@ -223,6 +328,26 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
 
 
 launch_tiled_spmm.launches = 0
+
+
+def kernel_info(tile: int, width: int, a_dtype, h_dtype) -> dict:
+    """The kernel a pass at ``(tile, width)`` launches: its plan and, for
+    bf16 tiles, its registers, static shared memory and resident blocks per
+    SM on the current card (``cudaFuncGetAttributes``, the occupancy API)."""
+    if a_dtype != torch.bfloat16:
+        return {"kernel": "tiled_spmm_fma_kernel", "threads": 256}
+    plan = mma_plan(tile, width)
+    regs, static, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm_tma_info",
+                                [_I] * 6 + [_P] * 3)
+    rc = fn(_DTYPE_CODES[h_dtype], plan.slices_per_wg, plan.atoms, tile, plan.wgs, plan.stages,
+            ctypes.byref(regs), ctypes.byref(static), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"tiled_spmm kernel attributes: cudaError {rc}")
+    return {"kernel": "tiled_spmm_tma_kernel", "threads": plan.threads, "registers": regs.value,
+            "static_smem": static.value, "dynamic_smem": plan.smem_bytes,
+            "stages": plan.stages, "atoms": plan.atoms, "chunks": plan.chunks,
+            "blocks_per_sm": blocks.value}
 
 
 def tiled_pass(ts: TiledSpmm, h, transpose: bool = False):
