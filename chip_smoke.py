@@ -23,12 +23,20 @@ Phases, each of which raises (non-zero exit) on failure:
    Time each kernel, its plain version and ``torch.sparse.mm`` (the library
    yardstick, never called by the port) with CUDA events, beside its byte
    bound and, for Kernel A, the time every edge's gather would take from
-   device memory; Kernel A, Kernel B and their library calls also by their
-   device time under ``torch.profiler`` (CUDA events around back-to-back
-   calls of a short kernel time the host's launches). Then time Kernel A +
-   B on the forward side at hub split widths 32, 64 (``SPLIT_WIDTH``), 128
-   and 256, at F = 40 float32 and F = 256 bfloat16 (events and device
-   time), each held against its plain version.
+   device memory; Kernel A (as the main path calls it: one launch, the hub
+   merge included), Kernel B (on Kernel A's hub partials without the merge)
+   and their library calls also by their device time under
+   ``torch.profiler`` (CUDA events around back-to-back calls of a short
+   kernel time the host's launches). Then Kernel A's hub merge: on the
+   arxiv adjacency's forward side, the transposed adjacency's backward side
+   and, after the halo problem is built, every halo block side with hub
+   rows, at F = 40 and 256 (halo: 64 and 40), float32 and bfloat16, the
+   merged launch against Kernel A without the merge followed by Kernel B
+   (float32 bit for bit, bfloat16 2e-2), against the plain version and
+   against a second run (bit for bit), the tickets all 0 after. Then time
+   ``side_matmul`` on the forward side at hub split widths 32, 64
+   (``SPLIT_WIDTH``), 128 and 256, at F = 40 float32 and F = 256 bfloat16
+   (events and device time), each held against its plain version.
 4. GAT kernels: on the self-looped arxiv graph's ``CsrGatLayout``, at
    H = 8, d = 32, at the odd shape H = 2, d = 20, at one wide head
    (H = 1, d = 256), at (H, d) = (4, 8), (8, 4), (4, 64), which give
@@ -128,7 +136,8 @@ Phases, each of which raises (non-zero exit) on failure:
    two ``dh``, each SpMM call two launches (its chunks' and its rows',
    ``ops.spmm_heads.spmm_heads_launches``); SGC, APPNP and SSGC: Kernel A
    forward and ``dh`` per
-   hop, 2, 10 and 10 hops, and Kernel B per hop and split side). Then train
+   hop, 2, 10 and 10 hops, each launch merging its side's hubs: no Kernel B
+   on any path). Then train
    3 steps of each arxiv workload at a small size and of each GIN workload
    on its batch through the kernels and through the plain versions on the
    card and compare the losses, the same for a TAGCN, a ChebyNet and an
@@ -164,12 +173,22 @@ Phases, each of which raises (non-zero exit) on failure:
     (workloads 8 and 9) at full arxiv size on 4 spawned ranks with CUDA
     tensors, 3 warm-up and 20 timed steps each; the loss finite and falling
     on every rank and each kernel's launches per rank exactly as the plans
-    imply (GCN per layer: Kernel A forward and ``dh`` on both blocks, Kernel
-    B per block side with hub rows; GAT per layer: one forward and two
-    backward launches). The GCN's step-1 loss and gradients against the
+    imply (GCN per layer: Kernel A forward and ``dh`` on both blocks, no
+    Kernel B; GAT per layer: one forward and two backward launches). The
+    GCN's step-1 loss and gradients against the
     port's single-process GCN over the whole graph (1e-4); 3 steps of both
     at 20,000 nodes through the kernels and through the plain versions
-    (losses within 1e-4); ``entry.dryrun_multichip(4)``.
+    (losses within 1e-4); ``entry.dryrun_multichip(4)`` (GCN, GAT and the
+    sampled SAGE).
+14. The sampled SAGE on 4 ranks (``bench`` workload 13): the draw and S1 at
+    rank 1's shapes (its CSR shard with global self ids, the gathered
+    table of 169,472 rows, 64 wide) against their plain versions as in
+    phase 5, timed; then workload 13 at full size, 3 warm-up, 20 timed and
+    5 profiled steps (the card's busy time and idle share): the loss finite
+    and falling on every rank, per rank and step exactly 2 draws, 2
+    aggregations forward and 2 backward calls of 6 launches; 3 steps at
+    20,000 nodes through the kernels and through the plain versions (rank
+    0's losses within 1e-4).
 
 13. X7 (``tiled_spmm``, ``csrc/tiled_spmm.cu``), before the main path: the
     kernel against its plain version at the shapes and tiles of
@@ -194,15 +213,19 @@ Phases, each of which raises (non-zero exit) on failure:
 
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
-``gat_attention_ell:<kernel>`` beside the single-process entries, X7 as
-``tiled_spmm`` with the A/B's launches); the last is
+``gat_attention_ell:<kernel>`` beside the single-process entries, the draw
+and S1 on workload 13 as ``sampled_sage:<kernel>``, X7 as ``tiled_spmm``
+with the A/B's launches, Kernel B with 0 launches: every hub merge runs in
+Kernel A's launch); the last is
 ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` (or ``--trial DIR``) the script instead times another
-checkout's X7 and X8 kernels and workload 4 beside this one's, in turns on
-one card, through each tree's own wrappers (``DIR/tf_geometric_tpu_torch``,
-built from its own ``csrc/``); ``--against`` also holds the two trees'
-outputs equal (the draw exactly), ``--trial`` does not.
+checkout's hub merge (P1) beside this one's, in turns on one card, through
+each tree's own wrappers (``DIR/tf_geometric_tpu_torch``, built from its own
+``csrc/``): ``side_matmul`` and Kernels A and B alone on the arxiv
+adjacency and a halo block, the launch floor, and workloads 1, 1b and
+10-12; ``--against`` also holds the two trees' products equal (float32 bit
+for bit), ``--trial`` does not.
 """
 import contextlib
 import hashlib
@@ -356,9 +379,11 @@ def kernel_phase(problem, normed):
                 err_a = max(_max_err(out_k, out_p, tol, f"csr_spmm out {tag}"),
                             _max_err(part_k, part_p, F32_TOL, f"csr_spmm partial {tag}"))
                 nnz = int(side.col.shape[0])
+                # h read, out written, row pointers, columns, values and the
+                # diagonal: the product's own traffic (the hub partials are
+                # the launch's scratch)
                 a_bytes = (n_src * width * elt + side.num_rows * width * elt
-                           + side.num_virtual * width * 4 + 4 * side.row_ptr.shape[0]
-                           + 8 * nnz + 4 * side.num_rows)
+                           + 4 * side.row_ptr.shape[0] + 8 * nnz + 4 * side.num_rows)
                 a_flops = 2 * (nnz + side.num_rows) * width
                 lib = library[side_name].to(dtype)
                 if dtype == torch.float32:
@@ -369,20 +394,21 @@ def kernel_phase(problem, normed):
                     err_a = max(err_a, _max_err(side_matmul(side, h, diag),
                                                 side_matmul_plain(side, h, diag), tol,
                                                 f"A+B vs plain {tag}"))
+                # the main path's call: one launch, the hub merge included
                 rows.append(dict(
                     name="csr_spmm", side=side_name, width=width, dtype=str(dtype)[6:],
-                    max_abs_err=err_a, ms=_cuda_ms(lambda: launch_csr_spmm(*args)),
-                    plain_ms=_cuda_ms(lambda: csr_spmm_plain(*args)),
+                    max_abs_err=err_a, ms=_cuda_ms(lambda: side_matmul(side, h, diag)),
+                    plain_ms=_cuda_ms(lambda: side_matmul_plain(side, h, diag)),
                     library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, h)),
                     bound_ms=1e3 * max(a_bytes / HBM_BYTES_PER_S, a_flops / F32_FLOPS_PER_S),
                     bound_by="bytes" if a_bytes / HBM_BYTES_PER_S >= a_flops / F32_FLOPS_PER_S
                     else "operations", gather_ms=_gather_ms(nnz, width, elt),
-                    device_ms=_device_ms(lambda: launch_csr_spmm(*args)),
+                    device_ms=_device_ms(lambda: side_matmul(side, h, diag)),
                     library_device_ms=_device_ms(lambda: torch.sparse.mm(lib, h))))
                 if not side.num_virtual:
                     continue
-                # Kernel B as the main path runs it: the hubs' partials added
-                # into their owner rows of Kernel A's output
+                # Kernel B on the hubs' partials of Kernel A without the
+                # merge, added into their owner rows of its output
                 owner_ptr, owner_rows = side.owner_ptr, side.owner_rows
                 base = out_k.clone()
                 got = launch_sorted_segment_sum(part_k, owner_ptr, base.clone(), True,
@@ -429,6 +455,61 @@ def kernel_phase(problem, normed):
               f"{r['library_ms']:.4f}, "
               f"{r['bound_ms']:.4f} ({r['bound_by']}){gather}{_device_note(r)}", flush=True)
     return rows
+
+
+MERGE_WIDTHS = (40, 256)  # workloads 10-12's width and the canonical step's first layer
+
+
+def _merge_case(side, h, diag, tag):
+    """One side's hub merge in Kernel A's launch against Kernel A without
+    it followed by Kernel B on its partials: float32 bit for bit, bfloat16
+    within 2e-2 (one rounding where two launches round twice); both dtypes
+    against ``side_matmul_plain`` (float32 1e-4, bfloat16 2e-2) and the
+    merged launch bit for bit against a second run; the tickets all 0
+    after the launches. Returns the largest error against the plain
+    version."""
+    import torch
+    from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm, side_matmul_plain
+    from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
+    args = (side.row_ptr, side.col, side.val, h, diag, side.num_rows)
+    hubs = (side.owner_rows, side.owner_ptr, side.tickets)
+    merged = launch_csr_spmm(*args, hubs=hubs)[0]
+    out, part = launch_csr_spmm(*args)
+    two = launch_sorted_segment_sum(part, side.owner_ptr, out, True, side.owner_rows)
+    again = launch_csr_spmm(*args, hubs=hubs)[0]
+    torch.cuda.synchronize()
+    _check(not bool(side.tickets.any()), f"{tag}: tickets left non-zero after the launch")
+    _check(torch.equal(merged, again), f"{tag}: two runs of the merged launch differ")
+    if h.dtype == torch.float32:
+        _check(torch.equal(merged, two),
+               f"{tag}: the merged launch differs from Kernel A + Kernel B")
+        return _max_err(merged, side_matmul_plain(side, h, diag), F32_TOL, f"{tag} vs plain")
+    _max_err(merged, two, BF16_TOL, f"{tag} vs Kernel A + Kernel B")
+    return _max_err(merged, side_matmul_plain(side, h, diag), BF16_TOL, f"{tag} vs plain")
+
+
+def merge_phase(adjs, widths):
+    """Kernel A's hub merge (``_merge_case``) on every side with hub rows of
+    ``adjs`` (``[(label, CsrAdj)]``) at ``widths``, float32 and bfloat16."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    checked, err = 0, 0.0
+    for label, adj in adjs:
+        for side_name, n_src in (("fwd", adj.shape[1]), ("bwd", adj.shape[0])):
+            side = getattr(adj, side_name)
+            if not side.num_virtual:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                for width in widths:
+                    h = torch.randn(n_src, width, generator=gen, device="cuda").to(dtype)
+                    err = max(err, _merge_case(side, h, adj.diag_val,
+                                               f"hub merge {label} {side_name} F={width} "
+                                               f"{str(dtype)[6:]}"))
+            checked += 1
+    _check(checked > 0, "no side with hub rows to check the merge on")
+    print(f"hub merge in Kernel A's launch: {checked} sides with hub rows at F in {widths}, "
+          f"float32 bit for bit against Kernel A + Kernel B, bfloat16 within 2e-2; max abs err "
+          f"against the plain version {err:.3e}", flush=True)
 
 
 def _device_note(r):
@@ -597,21 +678,21 @@ def _gat_row_text(r):
 
 def _walk_line(side):
     """A CSR side's longest row beside the longest serial walks of Kernel A
-    (edges one lane group reads) and Kernel B (partials added into one row)."""
+    (edges one lane group reads, partials its hub merge adds into one row)."""
     import torch
     from tf_geometric_tpu_torch.ops.csr_spmm import serial_walks
     rows = _side_rows(side)
     longest = int(torch.bincount(rows).max()) if rows.numel() else 0
     edges, partials = serial_walks(side)
     return (f"max_row_len={longest} longest serial walk: Kernel A {edges} edges, "
-            f"Kernel B {partials} partials")
+            f"hub merge {partials} partials")
 
 
 def split_sweep(normed):
-    """Kernel A + B (``side_matmul``) on the forward side at hub split widths
-    around ``SPLIT_WIDTH``, at the propagation family's F = 40 float32 and
-    the canonical step's F = 256 bf16, each against its plain version: the
-    card's numbers behind the split width."""
+    """``side_matmul`` (Kernel A, hub merge included) on the forward side at
+    hub split widths around ``SPLIT_WIDTH``, at the propagation family's
+    F = 40 float32 and the canonical step's F = 256 bf16, each against its
+    plain version: the card's numbers behind the split width."""
     import torch
     from tf_geometric_tpu_torch.ops.csr_spmm import (SPLIT_WIDTH, CsrAdj, side_matmul,
                                                      side_matmul_plain)
@@ -627,13 +708,13 @@ def split_sweep(normed):
             h = hs[width]
             _max_err(side_matmul(adj.fwd, h, adj.diag_val),
                      side_matmul_plain(adj.fwd, h, adj.diag_val), tol,
-                     f"split {split} A+B F={width}")
+                     f"split {split} side_matmul F={width}")
             def call():
                 return side_matmul(adj.fwd, h, adj.diag_val)
             times.append(f"F={width} {str(dtype)[6:]} {_cuda_ms(call):.4f} ms "
                          f"(device {_ms_text(_device_ms(call))})")
         print(f"split width {split}: {adj.fwd.num_virtual} virtual rows, {_walk_line(adj.fwd)};"
-              f" A+B {', '.join(times)}", flush=True)
+              f" side_matmul {', '.join(times)}", flush=True)
 
 
 def gat_kernel_phase(layout, edges):
@@ -788,7 +869,8 @@ def _digest(t):
 
 
 def _s1_rows(fk, n, k, width, dtype, idx, w, gen, tag, graph, timed=True, long_sums=False):
-    """The S1 forward and backward at one case, each against its plain
+    """The S1 forward and backward at one case (``n`` sources; the draw
+    ``idx`` [k, S] may have fewer rows), each against its plain
     version (forward: float32 1e-4, bfloat16 2e-2; backward: 1e-4 in both
     dtypes, since both sides read the same ``dy`` and sum in float32; with
     ``long_sums``, where a source sums thousands of slots, the backward
@@ -803,8 +885,9 @@ def _s1_rows(fk, n, k, width, dtype, idx, w, gen, tag, graph, timed=True, long_s
     import torch
     f32 = dtype == torch.float32
     tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
+    rows_out = idx.shape[1]   # the draw's rows (n where every source draws)
     src = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
-    dy = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(rows_out, width, generator=gen, device="cuda").to(dtype)
     wd = w.to(dtype)
     fwd_lib, bwd_lib = _draw_csr(idx, wd, n), _draw_csr_t(idx, wd, n)
     scale = fk.fixed_k_backward_plain(dy.abs(), idx, w.abs(), n) if long_sums else None
@@ -819,7 +902,7 @@ def _s1_rows(fk, n, k, width, dtype, idx, w, gen, tag, graph, timed=True, long_s
               lambda: torch.sparse.mm(_draw_csr(idx, wd, n), src)),
              (fk.launch_fixed_k_backward, fk.fixed_k_backward_plain, (dy, idx, w, n), bwd_lib,
               dy, lambda: torch.sparse.mm(_draw_csr_t(idx, wd, n), dy)))
-    flops = fk.aggregate_pass_flops(k, n, width)
+    flops = fk.aggregate_pass_flops(k, rows_out, width)
     rows = []
     for backward, (kernel, plain, args, lib, dense, from_draw) in enumerate(calls):
         name = "fixed_k_backward" if backward else "fixed_k_forward"
@@ -835,11 +918,11 @@ def _s1_rows(fk, n, k, width, dtype, idx, w, gen, tag, graph, timed=True, long_s
         if f32:
             err = max(err, err_of(backward, got, torch.sparse.mm(lib, dense),
                                   f"{what} vs torch.sparse.mm"))
-        nbytes = fk.aggregate_pass_bytes(n, k, n, width, elt, backward=bool(backward))
+        nbytes = fk.aggregate_pass_bytes(n, k, rows_out, width, elt, backward=bool(backward))
         bound_ms, bound_by = _bound(nbytes, flops)
         row = dict(name=name, graph=graph, k=k, width=width, dtype=str(dtype)[6:],
                    max_abs_err=err, sha256=_digest(got), bound_ms=bound_ms, bound_by=bound_by,
-                   hbm_gather_ms=_gather_ms(k * n, width, elt))
+                   hbm_gather_ms=_gather_ms(k * rows_out, width, elt))
         del got
         if timed:
             device, transpose, gathered, by_kernel = _s1_device_split(call)
@@ -1400,9 +1483,9 @@ def main_path_phase(gpu, sage_problem, graph_problem):
     _zero_launch_counts()
     problem = bench.build_problem(device="cuda")
     adj = problem.adj
-    hubs = int(adj.fwd.num_virtual > 0) + int(adj.bwd.num_virtual > 0)
-    # the precompute P = Â·x is one forward product
-    expected = [1, int(adj.fwd.num_virtual > 0)] + [0] * (len(_KERNELS) - 2)
+    # the precompute P = Â·x is one forward product: one launch, hub merge
+    # included
+    expected = [1] + [0] * (len(_KERNELS) - 1)
     _check(_launch_counts() == expected,
            f"precompute launches {_launch_counts()} != {expected}")
     totals = _launch_counts()
@@ -1415,9 +1498,10 @@ def main_path_phase(gpu, sage_problem, graph_problem):
         steps = res["steps_taken"]
         expected = dict.fromkeys(_KERNELS, 0)
         if name in bench.SPMM_PAIRS:
-            # per step and SpMM: Kernel A forward + backward, Kernel B per split side
+            # per step and SpMM: Kernel A forward + backward, each merging its
+            # side's hubs in its own launch (no Kernel B)
             spmms = bench.SPMM_PAIRS[name]
-            expected.update(csr_spmm=steps * spmms * 2, sorted_segment_sum=steps * spmms * hubs)
+            expected.update(csr_spmm=steps * spmms * 2)
         elif name == "gat_merged_arxiv_fwd_bwd":
             # per step: the multi-head SpMM forward and dV (each its chunks'
             # and its rows' launch), the d_att SDDMM
@@ -1818,14 +1902,6 @@ def _block_sampled_by_edge(adj, res):
     return eids[real], res.values()[pos[real]]
 
 
-def _kernel_a_bytes(adj, side, width, elt):
-    """Least bytes of Kernel A on one side: the rows of h that an entry or
-    the diagonal reads, the output and the hub partials written, row
-    pointers, columns and values, the diagonal."""
-    from tf_geometric_tpu_torch import bench
-    return bench.csr_pass_bytes(adj, side, width, elt) + side.num_virtual * width * 4
-
-
 def _dv_bytes(adj, width, elt):
     """Least bytes of the ``diff_values`` SDDMM over a block: the forward
     side's row pointers, each entry's column and edge id read and its value
@@ -1894,18 +1970,20 @@ def x2_kernel_phase(halo):
                             err = max(err, _max_err(full, torch.sparse.mm(libs[side_name], h),
                                                     F32_TOL, f"x2 {case} vs torch.sparse.mm {tag}"))
                         bound_ms, bound_by = _bound(
-                            _kernel_a_bytes(adj, side, width, elt),
+                            bench.csr_pass_bytes(adj, side, width, elt),
                             2 * (int(side.col.shape[0]) + bench.csr_diag_rows(adj)) * width)
+                        # the main path's call: one launch, the hub merge included
                         rows.append(dict(
                             name="csr_spmm", case=f"x2 {block_name} {case}", rank=r, width=width,
                             dtype=str(dtype)[6:], max_abs_err=err,
-                            ms=_cuda_ms(lambda: launch_csr_spmm(*args)),
-                            plain_ms=_cuda_ms(lambda: csr_spmm_plain(*args), iters=3, warmup=1),
+                            ms=_cuda_ms(lambda: side_matmul(side, h, adj.diag_val)),
+                            plain_ms=_cuda_ms(lambda: side_matmul_plain(side, h, adj.diag_val),
+                                              iters=3, warmup=1),
                             library_ms=_cuda_ms(lambda: torch.sparse.mm(libs[side_name], h))
                             if f32 else None, bound_ms=bound_ms, bound_by=bound_by))
                         if f32:
                             rows[-1].update(
-                                device_ms=_device_ms(lambda: launch_csr_spmm(*args)),
+                                device_ms=_device_ms(lambda: side_matmul(side, h, adj.diag_val)),
                                 library_device_ms=_device_ms(
                                     lambda: torch.sparse.mm(libs[side_name], h)))
                         if side.num_virtual:
@@ -2034,15 +2112,14 @@ def x5_kernel_phase(halo):
 def _halo_expected(halo, name, rank, steps):
     """Each kernel's launches on one rank over ``steps`` steps of a halo
     workload: the GCN runs Kernel A forward and ``dh`` on both blocks in both
-    layers (8 a step) and Kernel B once per layer on each block side with hub
-    rows; the GAT one forward and two backward attention launches per layer."""
+    layers (8 a step; a block side with hub rows merges them in the same
+    launch: no Kernel B); the GAT one forward and two backward attention
+    launches per layer."""
     from tf_geometric_tpu_torch import bench
     expected = dict.fromkeys(_KERNELS, 0)
     if bench.HALO_WORKLOADS[name] == "gcn":
-        blocks = (halo.gcn_spec.local[rank], halo.gcn_spec.remote[rank])
-        hub_sides = sum(int(b.fwd.num_virtual > 0) + int(b.bwd.num_virtual > 0) for b in blocks)
         layers = 2
-        expected.update(csr_spmm=steps * layers * 4, sorted_segment_sum=steps * layers * hub_sides)
+        expected.update(csr_spmm=steps * layers * 4)
     else:
         layers = len(bench.HALO_GAT_DIMS)
         expected.update(gat_forward=steps * layers, gat_backward_dst=steps * layers,
@@ -2152,6 +2229,155 @@ def dryrun_phase():
     print(f"dryrun_multichip(4) ({HALO_LABEL}): losses {losses}", flush=True)
 
 
+SAMPLED_LABEL = "sampled arxiv rank 1"
+
+
+def sampled_sage_kernel_phase(problem):
+    """The draw and S1 on workload 13's path, at rank 1's shapes (its CSR
+    shard, global self ids, the 169,472-row gathered table, 64 wide): the
+    draw at k = 25 and 10 exactly against its plain version; S1 forward and
+    backward in float32 and bfloat16 as ``_s1_rows`` holds them (the
+    backward's transpose over every row of the table). Returns one row per
+    kernel and case (float32 timed)."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.nn.sampling.device_sampler import _random_ints
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    rank = 1
+    csr = {name: torch.as_tensor(a[rank], device="cuda") for name, a in problem.shards.items()}
+    n_table = problem.x.shape[0]
+    n_local = n_table // problem.num_parts
+    width = bench.SAMPLED_SAGE_HIDDEN // 2
+    nnz = int(csr["degree"].sum())
+    self_ids = torch.arange(rank * n_local, (rank + 1) * n_local, dtype=torch.int32,
+                            device="cuda")
+    print(f"sampled SAGE rank {rank}: {n_local} rows, {nnz} edges, "
+          f"{int((csr['degree'] == 0).sum())} rows without edges, table of {n_table} rows, "
+          f"{width} wide; backward passes {fk.backward_plan(n_table, width, 4, 4).passes}",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for k in bench.SAMPLED_SAGE_FANOUTS:
+        r = _random_ints(gen, k, n_local, "cuda")
+        args = (r, csr["row_start"], csr["degree"], csr["sorted_col"], None, self_ids)
+        idx, w = fk.launch_draw_fixed_k(*args)
+        idx_p, w_p = fk.draw_fixed_k_plain(*args)
+        torch.cuda.synchronize()
+        _check(torch.equal(idx, idx_p) and torch.equal(w, w_p),
+               f"fixed_k draw {SAMPLED_LABEL} k={k} differs from plain")
+        _check(bool(((idx >= 0) & (idx < n_table)).all()),
+               f"fixed_k draw {SAMPLED_LABEL} k={k}: an id outside the table")
+        rows.append(dict(name="fixed_k_draw", graph=SAMPLED_LABEL, k=k, weighted=False,
+                         max_abs_err=0.0, ms=_cuda_ms(lambda: fk.launch_draw_fixed_k(*args)),
+                         device_ms=_device_ms(lambda: fk.launch_draw_fixed_k(*args)),
+                         plain_ms=_cuda_ms(lambda: fk.draw_fixed_k_plain(*args), iters=3,
+                                           warmup=1),
+                         library_ms=None,
+                         bound_ms=1e3 * fk.draw_pass_bytes(k, n_local, nnz, False)
+                         / HBM_BYTES_PER_S, bound_by="bytes"))
+        print(f"sampled draw k={k}: {_walk_text(fk, idx, n_table)}", flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            rows += _s1_rows(fk, n_table, k, width, dtype, idx, w, gen,
+                             f"{SAMPLED_LABEL} k={k} F={width} {str(dtype)[6:]}", SAMPLED_LABEL,
+                             timed=dtype == torch.float32)
+    print("sampled SAGE kernel check (name graph k F dtype: max_abs_err, ms, plain_ms, "
+          "library_ms prebuilt / from the draw, bound_ms, every gather from HBM, device ms "
+          "total / transpose / gather, bits)")
+    _print_s1_rows(rows)
+    return rows
+
+
+def _sampled_expected(problem, steps):
+    """Each kernel's launches on one rank over ``steps`` steps of workload
+    13: per layer one draw, one aggregation forward and one backward call
+    (its sort's launches and the gather, over the gathered table's rows)."""
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    layers = len(bench.SAMPLED_SAGE_FANOUTS)
+    expected = dict.fromkeys(_KERNELS, 0)
+    expected.update(fixed_k_draw=steps * layers, fixed_k_forward=steps * layers,
+                    fixed_k_backward=steps * layers
+                    * fk.fixed_k_backward_launches(problem.x.shape[0]))
+    return expected
+
+
+def sampled_sage_main_path_phase(problem, gpu):
+    """Workload 13 at full size on 4 ranks sharing the card (gloo, CUDA
+    tensors), 3 warm-up and 20 timed steps, then the profiled steps: the
+    loss finite and falling on every rank, each kernel's launches per rank
+    exactly as the layers imply. Returns the launch totals over the ranks
+    and the result."""
+    from tf_geometric_tpu_torch import bench
+    res = bench.run_sampled_sage_workload(problem, steps=TIMED_ITERS, profile=True)
+    steps = res["steps_taken"]
+    expected = _sampled_expected(problem, steps)
+    totals = dict.fromkeys(_KERNELS, 0)
+    for rank, (job,) in enumerate(res["ranks"]):
+        got = {k: job["launches"][k] for k in _KERNELS}
+        _check(got == expected, f"workload 13 rank {rank}: launches {got} != expected {expected}")
+        losses = job["losses"]
+        _check(all(math.isfinite(v) for v in losses), f"workload 13: non-finite loss {losses}")
+        _check(losses[-1] < losses[0], f"workload 13: loss did not fall: {losses}")
+        totals = {k: totals[k] + got[k] for k in _KERNELS}
+    per_rank = [float(sorted(job["step_ms"])[len(job["step_ms"]) // 2])
+                for (job,) in res["ranks"]]
+    line, prof = res["line"], res["profile"]
+    print(f"{bench.SAMPLED_SAGE_WORKLOAD} ({HALO_LABEL}): {res['step_ms']:.4f} ms/step (slowest "
+          f"rank's median; ranks {', '.join(f'{v:.4f}' for v in per_rank)}), {line['value']} "
+          f"sampled edges/s, vs_baseline {line['vs_baseline']}, loss "
+          f"{res['ranks'][0][0]['losses'][0]:.5f} -> {res['ranks'][0][0]['losses'][-1]:.5f}, "
+          f"launches per rank per step { {k: v // steps for k, v in expected.items() if v} }; "
+          f"profiled: card busy {prof['card_busy_ms']} ms of {prof['step_ms']:.4f} (ranks "
+          f"{prof['rank_busy_ms']}), idle share {prof['card_idle_share']} on {gpu}", flush=True)
+    print(json.dumps(line), flush=True)
+    print(json.dumps(prof), flush=True)
+    return totals, res
+
+
+def sampled_sage_small_plain_phase():
+    """3 steps of workload 13 at 20,000 nodes on 4 ranks through the
+    kernels and through the plain versions on the card (the same draws):
+    rank 0's losses must agree."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.parallel import run_ranks
+    small = bench.build_sampled_sage_problem(num_nodes=20_000, num_edges=140_000)
+    jobs = [[] for _ in range(small.num_parts)]
+    for plain in (False, True):
+        for r, (job,) in enumerate(bench.sampled_sage_jobs(small, 3, plain=plain)):
+            jobs[r].append(job._replace(name=f"plain={plain}"))
+    results = run_ranks(jobs, backend="gloo", device="cuda")
+    by = {job["name"]: job["losses"] for job in results[0]}
+    kern, plain = by["plain=False"], by["plain=True"]
+    err = _max_err(torch.tensor(kern), torch.tensor(plain), F32_TOL,
+                   f"3-step losses workload 13 (20,000 nodes, {HALO_LABEL})")
+    print(f"small workload 13: kernel {kern} plain {plain} max abs err {err:.3e}", flush=True)
+
+
+def sampled_sage_kernel_entries(rows, totals):
+    """The ``{"kernels"}`` entries of the draw and S1 on workload 13's path,
+    at rank 1's first layer (k = 25, F = 64, float32), launches over the
+    ranks of its main path."""
+    replaces = {"fixed_k_draw": "tf_geometric_tpu/nn/sampling/device_sampler.py:33",
+                "fixed_k_forward": "tf_geometric_tpu/nn/conv/graph_sage.py:67",
+                "fixed_k_backward": "tf_geometric_tpu/nn/conv/graph_sage.py:67"}
+    entries = []
+    for name, path in replaces.items():
+        _check(totals[name] > 0, f"{name} was not launched on the sampled SAGE path")
+        mine = [r for r in rows if r["name"] == name]
+        rep = next(r for r in mine if r["k"] == 25 and r.get("dtype", "float32") == "float32"
+                   and "ms" in r)
+        entries.append({
+            "name": f"sampled_sage:{name}", "route": "cuda",
+            "source": "tf_geometric_tpu_torch/csrc/fixed_k.cu",
+            "replaces": path, "launches": totals[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": f"rank 1, k=25, table 169,472 x 64, float32; {HALO_LABEL}"})
+    return entries
+
+
 def halo_kernel_entries(halo_rows, halo_totals):
     """The ``{"kernels"}`` entries of X2 and X5, each named with the kernel
     that serves it; times at the main path's heaviest call (rank 0's local
@@ -2218,7 +2444,7 @@ def x7_kernel_entry(x7_rows, ab_launches):
 
 
 # ---------------------------------------------------------------------------
-# another checkout's X7 and X8 beside this one's, in turns on one card:
+# another checkout's hub merge (P1) beside this one's, in turns on one card:
 #   python3 chip_smoke.py --against DIR   (outputs held equal: a parent tree)
 #   python3 chip_smoke.py --trial DIR     (outputs not held: a throwaway trial)
 # DIR holds a copy of the port package (``DIR/tf_geometric_tpu_torch``),
@@ -2278,108 +2504,110 @@ def _in_turns(fns, what):
     return times
 
 
+def _launch_floor_ms():
+    """The launch floor: Kernel B on one empty segment (one block that
+    returns at once), CUDA events and device time."""
+    import torch
+    from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
+    msg = torch.zeros((0, 1), device="cuda")
+    seg_ptr = torch.zeros(2, dtype=torch.int32, device="cuda")
+    rows = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = torch.zeros((1, 1), device="cuda")
+
+    def call():
+        return launch_sorted_segment_sum(msg, seg_ptr, out, True, rows)
+    return _cuda_ms(call), _device_ms(call)
+
+
+# side_matmul's cases of the P1 comparison: (problem, side, F, dtype name):
+# the canonical step's first layer, workloads 10-12's width, and the halo
+# GCN's rank-0 local block at its first layer's width
+P1_CASES = (("arxiv", "fwd", 256, "bfloat16"), ("arxiv", "bwd", 256, "bfloat16"),
+            ("arxiv", "fwd", 40, "float32"), ("arxiv", "bwd", 40, "float32"),
+            ("halo rank 0 local", "fwd", 64, "float32"), ("halo rank 0 local", "bwd", 64,
+                                                          "float32"))
+P1_WORKLOADS = ("gcn_arxiv_fwd_bwd", "gcn_arxiv_canonical_fwd_bwd", "sgc_arxiv_fwd_bwd",
+                "appnp_arxiv_fwd_bwd", "ssgc_arxiv_fwd_bwd")
+
+
 def compare_phase(other_dir, hold_outputs):
-    """X7 on the community graph (tiles per row tile, the cast of ``h``
-    alone, each tree's kernel), the X8 draw at k = 25 on the Reddit-shaped
-    sampler and workload 4, each tree through its own wrappers, in turns;
-    with ``hold_outputs`` the two trees' results are held equal (X7 at the
-    kernel check's tolerance, the draw exactly)."""
+    """P1's hub merge beside another tree's, each through its own wrappers,
+    in turns (other, this, this, other; CUDA events and device time):
+    ``side_matmul`` at ``P1_CASES`` (with the merge in Kernel A's launch:
+    one launch; without: Kernel A, then Kernel B), each tree's Kernel A
+    without the merge and its Kernel B alone on the same side, the launch
+    floor (``_launch_floor_ms``), then workloads 1, 1b and 10-12 on each
+    tree's own problem. Both trees read the same ``CsrSide`` (a tree that
+    lacks the merge ignores its tickets). With ``hold_outputs`` the two
+    trees' products are held equal: float32 bit for bit, bfloat16 within
+    2e-2 (the merge rounds once where two launches round twice)."""
     import importlib
     import torch
     from tf_geometric_tpu_torch import bench
-    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
-    from tf_geometric_tpu_torch.nn.sampling.device_sampler import _random_ints
     from tf_geometric_tpu_torch.ops import _build
-    from tf_geometric_tpu_torch.ops import fixed_k as fk
-    from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
-    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    from tf_geometric_tpu_torch.ops import csr_spmm as cs
+    from tf_geometric_tpu_torch.ops import sorted_segment as ss
     _load_tree(other_dir, "other_tfg")
     o_build = importlib.import_module("other_tfg.ops._build")
-    o_tsp = importlib.import_module("other_tfg.ops.tiled_spmm")
-    o_fk = importlib.import_module("other_tfg.ops.fixed_k")
+    o_cs = importlib.import_module("other_tfg.ops.csr_spmm")
+    o_ss = importlib.import_module("other_tfg.ops.sorted_segment")
     o_bench = importlib.import_module("other_tfg.bench")
     t0 = time.perf_counter()
     _build.build_all()
     o_build.build_all()
     print(f"build (this tree and {other_dir}): {time.perf_counter() - t0:.1f} s", flush=True)
     for label, logs in (("this", _build.build_logs), ("other", o_build.build_logs)):
-        for src, keys in (("tiled_spmm.cu", ("tiled_spmm",)), ("fixed_k.cu", ("draw",))):
-            for entry, usage in _ptxas_lines(logs.get(src, ""), keys):
-                print(f"  {label} {entry}: {usage}; {_blocks_per_sm(usage, 256)} blocks/SM "
-                      f"at 256 threads", flush=True)
+        for entry, usage in _ptxas_lines(logs.get("csr_spmm.cu", ""), ("csr_spmm",)):
+            print(f"  {label} {entry}: {usage}; {_blocks_per_sm(usage, 256)} blocks/SM "
+                  f"at 256 threads", flush=True)
+    floor_ms, floor_dev = _launch_floor_ms()
+    print(f"launch floor (Kernel B on one empty segment): {floor_ms:.4f} ms "
+          f"(device {_ms_text(floor_dev)})", flush=True)
 
-    # X7 on the A/B's community graph, bf16 tiles (the A/B's call)
-    ei, n = bench.community_graph(), bench.ARXIV_NODES
-    normed = gcn_norm_adj(SparseMatrix(ei, None, (n, n), device="cuda"), cache={})
-    ts = tsp.build_tiled_spmm(normed.index, normed.value, (n, n), tile=bench.TILED_AB_TILE,
-                              dtype=torch.bfloat16, device="cuda")
-    del normed
-    for side, ptr in (("forward", ts.row_ptr), ("transpose", ts.t_row_ptr)):
-        per = ptr.diff().float()
-        print(f"x7 tiles per row tile ({side}): min {int(per.min())} mean {float(per.mean()):.2f} "
-              f"max {int(per.max())} over {per.shape[0]} row tiles, "
-              f"{int((per == 0).sum())} empty", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(10)
-    h = torch.randn(n, X7_WIDTH, generator=gen, device="cuda")
-    dy = torch.randn(n, X7_WIDTH, generator=gen, device="cuda")
-    print(f"x7 cast of h [{n}, {X7_WIDTH}] float32 to bfloat16 alone: "
-          f"{_cuda_ms(lambda: h.to(torch.bfloat16)):.4f} ms (device "
-          f"{_ms_text(_device_ms(lambda: h.to(torch.bfloat16)))})", flush=True)
-    for mod, label in ((tsp, "this"), (o_tsp, "other")):
-        info = getattr(mod, "kernel_info", None)
-        if info is not None:
-            print(f"x7 {label} kernel at t={ts.tile} F={X7_WIDTH}: "
-                  f"{info(ts.tile, X7_WIDTH, torch.bfloat16, torch.float32)}", flush=True)
-    for x_dtype in (torch.float32, torch.bfloat16):
-        for case, x, transpose in (("forward", h, False), ("dh", dy, True)):
-            x = x.to(x_dtype)
-            got, mine = o_tsp.tiled_pass(ts, x, transpose), tsp.tiled_pass(ts, x, transpose)
-            torch.cuda.synchronize()
-            tag = f"x7 {case} tiles bfloat16 h {str(x_dtype)[6:]}"
-            if hold_outputs:
-                _max_err(mine, got, F32_TOL if x_dtype == torch.float32 else BF16_TOL,
-                         f"{tag}: this tree against {other_dir}")
-            bound = 1e3 * tsp.tiled_pass_bytes(ts, X7_WIDTH, x.element_size(),
-                                               transpose) / HBM_BYTES_PER_S
-            print(f"{tag} (bound {bound:.4f} ms):", flush=True)
-            _in_turns({"other": lambda: o_tsp.tiled_pass(ts, x, transpose),
-                       "this": lambda: tsp.tiled_pass(ts, x, transpose)}, tag)
-    del ts, h, dy
-    torch.cuda.empty_cache()
-
-    # X8 at k = 25 on the Reddit-shaped sampler
-    sp = bench.build_sage_problem(device="cuda")
-    sampler, csr = sp.sampler, sp.sampler.csr()
-    rows, nnz = sampler.num_nodes, int(sampler.sorted_col.shape[0])
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    r = _random_ints(gen, SAGE_DRAW_K, rows, "cuda")
-    plain = (r, csr["row_start"], sampler.degree, csr["sorted_col"])
-    weighted = plain + (torch.rand(nnz, generator=gen, device="cuda"),
-                        torch.randperm(rows, generator=gen, device="cuda").int())
-    for args, what in ((plain, "unweighted"), (weighted, "weighted, self ids")):
-        a, b = o_fk.launch_draw_fixed_k(*args), fk.launch_draw_fixed_k(*args)
+    problems = {"this": bench.build_problem(device="cuda"),
+                "other": o_bench.build_problem(device="cuda")}
+    halo = bench.build_halo_problem()
+    adjs = {"arxiv": problems["this"].adj, "halo rank 0 local": halo.gcn_spec.local[0].to("cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for graph, side_name, width, dtype_name in P1_CASES:
+        adj = adjs[graph]
+        side, diag = getattr(adj, side_name), adj.diag_val
+        dtype = getattr(torch, dtype_name)
+        n_src = adj.shape[1] if side_name == "fwd" else adj.shape[0]
+        h = torch.randn(n_src, width, generator=gen, device="cuda").to(dtype)
+        tag = f"p1 {graph} {side_name} F={width} {dtype_name}"
+        mine, theirs = cs.side_matmul(side, h, diag), o_cs.side_matmul(side, h, diag)
         torch.cuda.synchronize()
-        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-        print(f"x8 draw k={SAGE_DRAW_K} {what}: this tree's output equals the other's: {same}",
-              flush=True)
+        same = torch.equal(mine, theirs)
+        print(f"{tag}: {side.num_virtual} virtual rows of "
+              f"{0 if side.owner_rows is None else side.owner_rows.shape[0]} hubs; this "
+              f"tree's product equals the other's bit for bit: {same}", flush=True)
         if hold_outputs:
-            _check(same, f"x8 draw {what}: this tree differs from {other_dir}")
-    bound = 1e3 * fk.draw_pass_bytes(SAGE_DRAW_K, rows, nnz, False) / HBM_BYTES_PER_S
-    print(f"x8 draw k={SAGE_DRAW_K} unweighted (bound {bound:.4f} ms):", flush=True)
-    _in_turns({"other": lambda: o_fk.launch_draw_fixed_k(*plain),
-               "this": lambda: fk.launch_draw_fixed_k(*plain)}, "x8 draw")
-    del sp, sampler, csr, r, plain, weighted
+            if dtype == torch.float32:
+                _check(same, f"{tag}: this tree differs from {other_dir}")
+            else:
+                _max_err(mine, theirs, BF16_TOL, f"{tag}: this tree against {other_dir}")
+        _in_turns({"other": lambda: o_cs.side_matmul(side, h, diag),
+                   "this": lambda: cs.side_matmul(side, h, diag)}, f"{tag} side_matmul")
+        args = (side.row_ptr, side.col, side.val, h.contiguous(), diag, side.num_rows)
+        _in_turns({"other": lambda: o_cs.launch_csr_spmm(*args),
+                   "this": lambda: cs.launch_csr_spmm(*args)}, f"{tag} Kernel A, no merge")
+        if side.num_virtual:
+            out, part = cs.launch_csr_spmm(*args)
+            merge = (part, side.owner_ptr, out, True, side.owner_rows)
+            _in_turns({"other": lambda: o_ss.launch_sorted_segment_sum(*merge),
+                       "this": lambda: ss.launch_sorted_segment_sum(*merge)},
+                      f"{tag} Kernel B alone")
+    del adjs, halo
     torch.cuda.empty_cache()
 
-    # workload 4, each tree's own problem and step
-    name = "sage_reddit_fwd_bwd"
-    problems = {"other": o_bench.build_sage_problem(device="cuda"),
-                "this": bench.build_sage_problem(device="cuda")}
     runners = {"other": o_bench.run_workload, "this": bench.run_workload}
-    for lb in ("other", "this", "this", "other"):
-        res = runners[lb](problems[lb], name)
-        print(f"workload 4 ({name}) {lb}: {res['step_ms']:.4f} ms/step, "
-              f"{res['line']['value']} {res['line']['unit']}", flush=True)
+    for name in P1_WORKLOADS:
+        for lb in ("other", "this", "this", "other"):
+            res = runners[lb](problems[lb], name)
+            print(f"workload {name} {lb}: {res['step_ms']:.4f} ms/step, "
+                  f"{res['line']['value']} {res['line']['unit']}, losses "
+                  f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f}", flush=True)
 
 
 def compare_main(argv):
@@ -2426,6 +2654,7 @@ def main():
 
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    from tf_geometric_tpu_torch.ops.csr_spmm import CsrAdj
     from tf_geometric_tpu_torch.datasets import synthetic_ogbn_arxiv_like
     from tf_geometric_tpu_torch.sparse import SparseMatrix
     t0 = time.perf_counter()
@@ -2437,6 +2666,12 @@ def main():
     print(f"arxiv problem built in {time.perf_counter() - t0:.1f} s: {problem.adj}",
           flush=True)
     rows = _phase("kernels A/B", kernel_phase, problem, normed)
+    # the transposed adjacency's backward side holds the hubs (dh with a merge)
+    transposed = CsrAdj.from_coo(normed.index.flip(0), normed.value, normed.shape,
+                                 split_diag=True, device="cuda")
+    _phase("hub merge", merge_phase, [("arxiv", problem.adj), ("arxiv transposed", transposed)],
+           MERGE_WIDTHS)
+    del transposed
     _phase("split sweep", split_sweep, normed)
     rows += _phase("x6", spmm_kernel_phase, normed, n)
     del normed
@@ -2464,6 +2699,9 @@ def main():
           f"halo_fraction {halo.gcn_spec.halo_fraction:.4f}; GAT cap {halo.gat_spec.capacity}, "
           f"halo_fraction {halo.gat_spec.halo_fraction:.4f}, {halo.gat_spec.num_edges} edge "
           f"ids per rank", flush=True)
+    _phase("hub merge (halo blocks)", merge_phase,
+           [(f"rank {r} {kind}", getattr(halo.gcn_spec, kind)[r].to("cuda"))
+            for r in range(halo.num_parts) for kind in ("local", "remote")], X2_WIDTHS)
     halo_rows = _phase("x2", x2_kernel_phase, halo) + _phase("x5", x5_kernel_phase, halo)
 
     totals, results = _phase("main path", main_path_phase, gpu, sage_problem, graph_problem)
@@ -2476,6 +2714,12 @@ def main():
     halo_totals, halo_results = _phase("halo main path", halo_main_path_phase, halo, gpu)
     _phase("halo single process", halo_single_process_check, halo, halo_results)
     _phase("halo small plain", halo_small_plain_phase)
+    del halo
+    sampled = bench.build_sampled_sage_problem()
+    sampled_rows = _phase("sampled sage kernels", sampled_sage_kernel_phase, sampled)
+    sampled_totals, sampled_res = _phase("sampled sage main path",
+                                         sampled_sage_main_path_phase, sampled, gpu)
+    _phase("sampled sage small plain", sampled_sage_small_plain_phase)
     _phase("dryrun", dryrun_phase)
 
     # one entry per kernel, at its heaviest main-path call: the SpMM kernels
@@ -2496,7 +2740,8 @@ def main():
                            "fwd side, F=256, bfloat16"),
               "sorted_segment_sum": ("tf_geometric_tpu_torch/csrc/sorted_segment.cu",
                                      "tf_geometric_tpu/ops/pallas_segment.py:84", spmm_rep,
-                                     "fwd side, F=256, bfloat16"),
+                                     "fwd side's hub partials, F=256, bfloat16; the main "
+                                     "path's hub merges run in Kernel A's launch (csr_spmm)"),
               "gat_forward": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
               "gat_backward_dst": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
               "gat_backward_src": gat_src + (gat_rep, "H=8, d=32, bfloat16, no dropout"),
@@ -2526,7 +2771,11 @@ def main():
         path, replaces, rep_key, shape = source[name]
         mine = [r for r in rows if r["name"] == name]
         rep = next(r for r in mine if all(r[k] == v for k, v in rep_key.items()))
-        _check(launches > 0, f"{name} was not launched on the main path")
+        if name == "sorted_segment_sum":
+            # the main path's hub merges run in Kernel A's launch
+            _check(launches == 0, f"Kernel B ran {launches} times on the main path")
+        else:
+            _check(launches > 0, f"{name} was not launched on the main path")
         entry = {
             "name": name, "route": "cuda", "source": path, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -2539,10 +2788,11 @@ def main():
                          hbm_gather_ms=rep["hbm_gather_ms"])
         kernels.append(entry)
     kernels += halo_kernel_entries(halo_rows, halo_totals)
+    kernels += sampled_sage_kernel_entries(sampled_rows, sampled_totals)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)
-    for name, res in halo_results.items():
+    for name, res in [*halo_results.items(), (bench.SAMPLED_SAGE_WORKLOAD, sampled_res)]:
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({HALO_LABEL}; {gpu})", flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all", flush=True)

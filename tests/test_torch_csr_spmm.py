@@ -146,26 +146,72 @@ def test_rectangular_matrix():
         CsrAdj.from_coo(ei, ew, (20, 45), split_diag=True, device="cpu")
 
 
-def test_bf16_compute():
-    ei, ew, rng = _skewed(5, self_loops=True)
-    jadj, tadj = _pair(ei, ew, (30, 30), split_diag=True)
-    h = rng.normal(size=(30, 6)).astype(np.float32)
-    ct = rng.normal(size=(30, 6)).astype(np.float32)
+@pytest.mark.parametrize("shape,split_diag", [((30, 30), True), ((20, 45), False)])
+def test_bf16_compute(shape, split_diag):
+    """bfloat16 compute against JAX (hub rows in both directions: the
+    rectangular case's transpose has them too), and the port's sums rounded
+    about once."""
+    ei, ew, rng = _skewed(5, n_rows=shape[0], n_cols=shape[1], e=220 if split_diag else 160,
+                          self_loops=split_diag)
+    jadj, tadj = _pair(ei, ew, shape, split_diag=split_diag)
+    h = rng.normal(size=(shape[1], 6)).astype(np.float32)
+    ct = rng.normal(size=(shape[0], 6)).astype(np.float32)
     want, vjp = jax.vjp(lambda x: bucketed_spmm(jadj, x, compute_dtype=jnp.bfloat16),
                         jnp.asarray(h))
     th = torch.tensor(h, requires_grad=True)
     got = csr_spmm(tadj, th, compute_dtype=torch.bfloat16)
     assert got.dtype == torch.float32
     (got_dh,) = torch.autograd.grad(got, th, torch.as_tensor(ct))
-    abs_a = np.abs(_dense(ei, ew, (30, 30)))
+    abs_a = np.abs(_dense(ei, ew, shape))
     for g, w, bound in ((got.detach().numpy(), np.asarray(want), abs_a @ np.abs(h)),
                         (got_dh.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]),
                          abs_a.T @ np.abs(ct))):
         assert np.all(np.abs(g - w) <= 8 * BF16_ULP * bound + 1e-6)
     # the port itself: float32 sums of bf16 inputs, rounded to bf16 about once
     h16 = torch.as_tensor(h).bfloat16().double().numpy()
-    exact = _dense(ei, ew, (30, 30)) @ h16
+    exact = _dense(ei, ew, shape) @ h16
     assert np.all(np.abs(got.detach().numpy() - exact) <= 2 * BF16_ULP * (abs_a @ np.abs(h16)) + 1e-6)
+
+
+@pytest.mark.parametrize("split_diag", [False, True])
+def test_bf16_hub_rows_round_once(split_diag):
+    """``side_matmul_plain`` in bfloat16 is its float32 result on the same
+    bf16 inputs, rounded once, on every row: a hub row's partials and its
+    ``diag·h`` are added in float32 before the one cast (Kernel A's merge
+    epilogue), not added to a ``diag·h`` already rounded to bfloat16."""
+    ei, ew, rng = _skewed(9, self_loops=split_diag)
+    _, tadj = _pair(ei, ew, (30, 30), split_diag=split_diag)
+    side = tadj.fwd
+    assert side.num_virtual > 0
+    h = torch.as_tensor(rng.normal(size=(30, 8)).astype(np.float32)).bfloat16()
+    got = side_matmul_plain(side, h, tadj.diag_val)
+    want = side_matmul_plain(side, h.float(), tadj.diag_val).bfloat16()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+def test_tickets_follow_the_layout():
+    """Each side with hub rows carries its own int32 tickets [H], zeros; a
+    side without hubs carries none; ``to`` moves them and
+    ``with_edge_values`` shares them (its launches run on the same
+    stream)."""
+    ei, ew, _ = _skewed(10, n_rows=20, n_cols=45, e=160)
+    tadj = CsrAdj.from_coo(ei, ew, (20, 45), split_width=WIDTH, device="cpu")
+    for side in (tadj.fwd, tadj.bwd):
+        if side.num_virtual:
+            assert side.tickets.dtype == torch.int32
+            assert side.tickets.shape == side.owner_rows.shape
+            assert not side.tickets.any()
+        else:
+            assert side.tickets is None
+    assert tadj.fwd.tickets.data_ptr() != tadj.bwd.tickets.data_ptr()
+    moved = tadj.to("meta")
+    for side, before in ((moved.fwd, tadj.fwd), (moved.bwd, tadj.bwd)):
+        assert side.tickets.device.type == "meta"
+        assert side.tickets.shape == before.tickets.shape
+    reskinned = tadj.with_edge_values(torch.ones(ei.shape[1]))
+    assert reskinned.fwd.tickets is tadj.fwd.tickets
+    assert reskinned.bwd.tickets is tadj.bwd.tickets
 
 
 def test_empty_graph_and_zero_degree_rows():

@@ -352,11 +352,12 @@ def test_halo_plans_match_jax():
 
 
 def test_dryrun_multichip_on_cpu_ranks():
-    """``entry.dryrun_multichip`` trains one step of the halo GCN and of the
-    fused halo GAT (dropout 0.6) on 4 spawned gloo ranks: finite losses near
-    ln 7 (7 classes, weights at scale 0.1)."""
+    """``entry.dryrun_multichip`` trains one step of the halo GCN, of the
+    fused halo GAT (dropout 0.6) and of the sampled SAGE on 4 spawned gloo
+    ranks: finite losses near ln 7 (7 classes, weights at scale 0.1 and
+    0.05)."""
     from tf_geometric_tpu_torch.entry import dryrun_multichip
     losses = dryrun_multichip(4, device="cpu")
-    assert set(losses) == {"gcn", "gat"}
+    assert set(losses) == {"gcn", "gat", "sage"}
     for loss in losses.values():
         assert np.isfinite(loss) and abs(loss - np.log(7)) < 0.5

@@ -83,6 +83,18 @@ before each GIN line, one with its real and padded edges per second.
    Weights: glorot-uniform from ``default_rng(2)``, zero biases; the dropout
    masks come from the problem's ``torch.Generator``, reseeded with the
    weights. Dense products float32.
+13. ``sage_arxiv_sampled_p4_fwd_bwd``: the node-partitioned sampled SAGE of
+   ``benchmarks/scaling.py`` (``measure(4, graph, model="sage")``) on the
+   arxiv graph in its own order (sampling is uniform over the graph, so
+   no partition ordering), nodes padded to a multiple of 128 × 4 (169,472;
+   42,368 a rank), each rank a spawned process sharing one card over gloo
+   (``parallel/sampled_sage.py``): k = (25, 10), hidden 128 (tables 64
+   wide), 40 classes, Adam 1e-2, a float32 exchange; weights
+   ``init_sampled_sage_params(default_rng(0))``, the draws from one
+   ``torch.Generator`` per rank. Per rank and step: 2 draws, 2 aggregations
+   forward and 2 backward calls against the all-gathered table of 169,472
+   rows. The line counts ``num_nodes · 35`` sampled edges over the slowest
+   rank's median step, as ``scaling.py`` does.
 
 The tiled A/B (``tiled_ab``, ``--tiled-ab``): for the random arxiv graph,
 ``tiled_spmm_ab.py``'s community graph (communities of the tile size, 0.95
@@ -131,12 +143,14 @@ halo blocks and layouts leave many rows unread):
   function moves instead: given the destination pass's [E, 2H] float32
   weights, Q and dy read, w read on the side's edges, dK and dV written
   (``gat_src_gather_work``);
-- the SAGE step's two draws (the random integers read, idx and weight
+- the SAGE steps' two draws (the random integers read, idx and weight
   written, row starts and degrees, the picked column entries;
   ``ops.fixed_k.draw_pass_bytes``) and its two aggregations forward (the
   128-wide float32 source read, the output written, idx and weight) and
   backward (dy read, the float32 source gradient written, idx and weight;
-  ``ops.fixed_k.aggregate_pass_bytes``).
+  ``ops.fixed_k.aggregate_pass_bytes``); workload 13 counts the same
+  passes of every rank, each rank's draw over its own rows and column
+  shard and its aggregations against the gathered table;
 - the merged-head GAT's multi-head SpMM forward and ``dV`` and its
   ``d_att`` SDDMM (``ops.spmm_heads.spmm_pass_bytes``,
   ``sddmm_pass_bytes``);
@@ -203,7 +217,9 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "csr_diag_rows", "HALO_WORKLOADS", "SPMM_PAIRS", "init_propagation_params",
            "sgc_loss", "appnp_loss", "ssgc_loss", "community_graph", "tiled_ab_graphs",
            "tiled_ab_occupancy", "TiledAbProblem", "build_tiled_ab", "tiled_ab_steps",
-           "tiled_ab", "main"]
+           "tiled_ab", "SampledSageProblem", "build_sampled_sage_problem",
+           "sampled_sage_jobs", "sampled_sage_pass_bytes", "run_sampled_sage_workload",
+           "SAMPLED_SAGE_WORKLOAD", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -226,6 +242,9 @@ GIN_READOUTS = {"gin_sum_pool_fwd_bwd": "sum", "gin_sort_pool_fwd_bwd": "sort"}
 HALO_PARTS, HALO_GCN_HIDDEN = 4, 64
 HALO_GAT_DIMS, HALO_DROP_RATE = ((8, 8), (1, 64)), 0.6
 HALO_WORKLOADS = {"gcn_arxiv_halo_p4_fwd_bwd": "gcn", "gat_arxiv_halo_p4_fwd_bwd": "gat_fused"}
+# benchmarks/scaling.py's measure(4, graph, model="sage")
+SAMPLED_SAGE_WORKLOAD = "sage_arxiv_sampled_p4_fwd_bwd"
+SAMPLED_SAGE_FANOUTS, SAMPLED_SAGE_HIDDEN, SAMPLED_SAGE_ROW_MULTIPLE = (25, 10), 128, 128
 
 
 class ArxivProblem(NamedTuple):
@@ -971,6 +990,35 @@ def halo_pass_bytes(problem: HaloProblem, name: str) -> int:
                for kind in range(3))
 
 
+def _run_rank_workload(jobs, name: str, device, profile: bool):
+    """Spawn the ranks of ``jobs`` on the card (gloo), after building the
+    kernels once; returns every rank's results, the slowest rank's median
+    step and, with ``profile``, each rank's device time over the profiled
+    steps, the card's busy time (the ranks' sum) and its idle share."""
+    from .ops import _build
+    from .parallel import run_ranks
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the bench times on a CUDA device, got {device}")
+    _build.build_all()  # once, before the ranks load the libraries
+    if profile:
+        jobs = [[job._replace(options=dict(job.options, profile_steps=PROFILE_STEPS))
+                 for job in rank] for rank in jobs]
+    results = run_ranks(jobs, backend="gloo", device=device)
+    step_ms = max(float(np.median(rank[0]["step_ms"])) for rank in results)
+    summary = None
+    if profile:
+        busy = [sum(k[1] for k in rank[0]["kernels"]) for rank in results]
+        summary = {
+            "profile": name, "step_ms": step_ms, "rank_busy_ms": [round(b, 4) for b in busy],
+            "card_busy_ms": round(sum(busy), 4),
+            "card_idle_share": round(1.0 - sum(busy) / step_ms, 4),
+            "top_rank0": [[k[0][:90], round(k[1], 5), k[2]]
+                          for k in results[0][0]["kernels"][:PROFILE_TOP]],
+            "port_rank0": [[k[0][:90], round(k[1], 5), k[2]] for k in results[0][0]["kernels"]
+                           if any(p in k[0] for p in PORT_KERNELS)]}
+    return results, step_ms, summary
+
+
 def run_halo_workload(problem: HaloProblem, name: str, steps: int = 20, device="cuda",
                       profile: bool = False) -> dict:
     """Train ``WARMUP_STEPS + steps`` steps of halo workload ``name`` on
@@ -978,20 +1026,9 @@ def run_halo_workload(problem: HaloProblem, name: str, steps: int = 20, device="
     the last ``steps`` on each rank with CUDA events. Returns the JSON line
     (the slowest rank's median step), the step time, every rank's results
     (``parallel.runner.run_job``) and the number of steps taken; with
-    ``profile``, also ``profile``: each rank's device time over
-    ``PROFILE_STEPS`` more steps, the card's busy time (the ranks' sum) and
-    its idle share."""
-    from .ops import _build
-    from .parallel import run_ranks
-    if torch.device(device).type != "cuda":
-        raise ValueError(f"the bench times on a CUDA device, got {device}")
-    _build.build_all()  # once, before the ranks load the libraries
+    ``profile``, also ``profile`` (``_run_rank_workload``)."""
     jobs = halo_jobs(problem, name, WARMUP_STEPS + steps, WARMUP_STEPS, True)
-    if profile:
-        jobs = [[job._replace(options=dict(job.options, profile_steps=PROFILE_STEPS))
-                 for job in rank] for rank in jobs]
-    results = run_ranks(jobs, backend="gloo", device=device)
-    step_ms = max(float(np.median(rank[0]["step_ms"])) for rank in results)
+    results, step_ms, summary = _run_rank_workload(jobs, name, device, profile)
     gcn = HALO_WORKLOADS[name] == "gcn"
     part, spec = ((problem.gcn_part, problem.gcn_spec) if gcn
                   else (problem.gat_part, problem.gat_spec))
@@ -1005,15 +1042,100 @@ def run_halo_workload(problem: HaloProblem, name: str, steps: int = 20, device="
     out = {"line": line, "step_ms": step_ms, "ranks": results,
            "steps_taken": WARMUP_STEPS + steps}
     if profile:
-        busy = [sum(k[1] for k in rank[0]["kernels"]) for rank in results]
-        out["profile"] = {
-            "profile": name, "step_ms": step_ms, "rank_busy_ms": [round(b, 4) for b in busy],
-            "card_busy_ms": round(sum(busy), 4),
-            "card_idle_share": round(1.0 - sum(busy) / step_ms, 4),
-            "top_rank0": [[k[0][:90], round(k[1], 5), k[2]]
-                          for k in results[0][0]["kernels"][:PROFILE_TOP]],
-            "port_rank0": [[k[0][:90], round(k[1], 5), k[2]] for k in results[0][0]["kernels"]
-                           if any(p in k[0] for p in PORT_KERNELS)]}
+        out["profile"] = summary
+    return out
+
+
+# ---------------------------------------------------------------------------
+# workload 13: the node-partitioned sampled SAGE on spawned ranks
+# ---------------------------------------------------------------------------
+
+class SampledSageProblem(NamedTuple):
+    num_parts: int
+    num_nodes: int                     # the graph's nodes (the metric counts them)
+    x: np.ndarray                      # [n_pad, 128] float32, padding rows zero
+    y: np.ndarray                      # [n_pad] int32
+    mask: np.ndarray                   # [n_pad] float32, 1 on real nodes
+    shards: Dict[str, np.ndarray]      # build_csr_shards' arrays, [P, ...]
+    params: list                       # the initial weights (numpy)
+
+
+def build_sampled_sage_problem(num_parts: int = HALO_PARTS, num_nodes: int = ARXIV_NODES,
+                               num_edges: int = ARXIV_EDGES) -> SampledSageProblem:
+    """``benchmarks/scaling.py``'s sampled-SAGE set-up on the host: the
+    arxiv graph in its own order, nodes padded to a multiple of 128 ×
+    ``num_parts``, the CSR shards, the weights (``default_rng(0)``)."""
+    from .parallel.sampled_sage import build_csr_shards, init_sampled_sage_params
+    graph = synthetic_ogbn_arxiv_like(num_nodes=num_nodes, num_edges=num_edges)
+    n = graph.num_nodes
+    multiple = SAMPLED_SAGE_ROW_MULTIPLE * num_parts
+    n_pad = -(-n // multiple) * multiple
+    x = np.zeros((n_pad, graph.x.shape[1]), np.float32)
+    x[:n] = graph.x
+    y = np.zeros(n_pad, np.int32)
+    y[:n] = graph.y
+    mask = np.zeros(n_pad, np.float32)
+    mask[:n] = 1.0
+    shards = build_csr_shards(graph.edge_index, n_pad, num_parts)
+    params = init_sampled_sage_params(np.random.default_rng(0), x.shape[1], NUM_CLASSES,
+                                      len(SAMPLED_SAGE_FANOUTS), SAMPLED_SAGE_HIDDEN)
+    return SampledSageProblem(num_parts, n, x, y, mask, shards, params)
+
+
+def sampled_sage_jobs(problem: SampledSageProblem, steps: int, warmup: int = 0,
+                      timed: bool = False, plain: bool = False, seed: int = 0) -> list:
+    """Per rank, the job list of workload 13: the rank's rows and its part
+    of the CSR shards."""
+    from .parallel import ShardJob
+    n_local = problem.x.shape[0] // problem.num_parts
+    options = {"k": SAMPLED_SAGE_FANOUTS, "learning_rate": 1e-2, "seed": seed, "plain": plain}
+    jobs = []
+    for r in range(problem.num_parts):
+        rows = slice(r * n_local, (r + 1) * n_local)
+        jobs.append([ShardJob(SAMPLED_SAGE_WORKLOAD, "sage", problem.params, problem.x[rows],
+                              problem.y[rows], problem.mask[rows],
+                              {name: a[r] for name, a in problem.shards.items()}, options,
+                              steps, warmup, timed)])
+    return jobs
+
+
+def sampled_sage_pass_bytes(problem: SampledSageProblem) -> int:
+    """Least bytes of one step's sparse passes over all ranks: per rank and
+    layer the draw over its rows and column shard, the aggregation forward
+    and backward against the gathered table (float32, ``hidden // 2``
+    wide)."""
+    n_table = problem.x.shape[0]
+    n_local = n_table // problem.num_parts
+    width = SAMPLED_SAGE_HIDDEN // 2
+    total = 0
+    for r in range(problem.num_parts):
+        nnz = int(problem.shards["degree"][r].sum())
+        for k in SAMPLED_SAGE_FANOUTS:
+            total += (draw_pass_bytes(k, n_local, nnz, "sorted_weight" in problem.shards)
+                      + aggregate_pass_bytes(n_table, k, n_local, width, 4)
+                      + aggregate_pass_bytes(n_table, k, n_local, width, 4, backward=True))
+    return total
+
+
+def run_sampled_sage_workload(problem: SampledSageProblem, steps: int = 20, device="cuda",
+                              profile: bool = False) -> dict:
+    """Train ``WARMUP_STEPS + steps`` steps of workload 13 on
+    ``problem.num_parts`` spawned ranks sharing one card over gloo, timed as
+    ``run_halo_workload`` times them; the line counts ``num_nodes ·
+    Σk`` sampled edges over the slowest rank's median step."""
+    name = SAMPLED_SAGE_WORKLOAD
+    jobs = sampled_sage_jobs(problem, WARMUP_STEPS + steps, WARMUP_STEPS, True)
+    results, step_ms, summary = _run_rank_workload(jobs, name, device, profile)
+    line = {"metric": f"{name}_sampled_edges_per_sec_per_chip",
+            "value": round(problem.num_nodes * sum(SAMPLED_SAGE_FANOUTS) / step_ms * 1e3, 1),
+            "unit": "sampled edges/s",
+            "vs_baseline": round(sampled_sage_pass_bytes(problem) / H100_HBM_BYTES_PER_S
+                                 / (step_ms / 1e3), 4),
+            "setup": f"{problem.num_parts} ranks sharing one card over gloo"}
+    out = {"line": line, "step_ms": step_ms, "ranks": results,
+           "steps_taken": WARMUP_STEPS + steps}
+    if profile:
+        out["profile"] = summary
     return out
 
 # ---------------------------------------------------------------------------
@@ -1168,11 +1290,12 @@ def tiled_ab(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, device=
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the twelve workloads on ``device`` and print their JSON lines; with
-    ``profile``, also print each workload's per-kernel device time (for the
-    halo workloads, each rank's and the card's busy time).
-    ``num_nodes``/``num_edges`` size the arxiv graph (the halo workloads'
-    too); the Reddit graph and the GIN batch are built at their full size."""
+    """Run the thirteen workloads on ``device`` and print their JSON lines;
+    with ``profile``, also print each workload's per-kernel device time (for
+    the multi-rank workloads, each rank's and the card's busy time).
+    ``num_nodes``/``num_edges`` size the arxiv graph (the multi-rank
+    workloads' too); the Reddit graph and the GIN batch are built at their
+    full size."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
     problems = {"arxiv": build_problem(num_nodes, num_edges, device=device,
@@ -1193,8 +1316,13 @@ def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int 
             print(json.dumps(profile_workload(problem, name, dense_bf16=dense_bf16)),
                   flush=True)
     halo = build_halo_problem(num_nodes=num_nodes, num_edges=num_edges)
-    for name in HALO_WORKLOADS:
-        res = run_halo_workload(halo, name, steps=steps, device=device, profile=profile)
+    runs = [lambda name: run_halo_workload(halo, name, steps=steps, device=device,
+                                           profile=profile)] * len(HALO_WORKLOADS)
+    sampled = build_sampled_sage_problem(num_nodes=num_nodes, num_edges=num_edges)
+    runs.append(lambda name: run_sampled_sage_workload(sampled, steps=steps, device=device,
+                                                       profile=profile))
+    for name, run in zip([*HALO_WORKLOADS, SAMPLED_SAGE_WORKLOAD], runs):
+        res = run(name)
         print(json.dumps(res["line"]), flush=True)
         if profile:
             print(json.dumps(res["profile"]), flush=True)

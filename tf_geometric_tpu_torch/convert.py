@@ -12,7 +12,8 @@ import torch
 
 __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dict_from_flax",
            "sage_state_dict_from_flax", "gin_classifier_state_dict_from_flax",
-           "sharded_params_from_numpy", "propagation_state_dict_from_flax",
+           "sharded_params_from_numpy", "sampled_sage_params_from_jax",
+           "propagation_state_dict_from_flax",
            "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
@@ -131,3 +132,15 @@ def sharded_params_from_numpy(params, device="cuda"):
     if isinstance(params, (list, tuple)):
         return type(params)(sharded_params_from_numpy(p, device) for p in params)
     return torch.tensor(np.asarray(params, np.float32), device=device, requires_grad=True)
+
+
+def sampled_sage_params_from_jax(params, device="cuda"):
+    """The JAX sampled-SAGE step's parameters (``make_sampled_sage_step``'s
+    list: per layer ``{"self", "nb", "bias"}``, then ``{"w", "b"}``; numpy
+    or JAX arrays) as the port's step takes them: per layer ``(self, nb,
+    bias)``, then ``(w, b)``, float32 leaf tensors on ``device`` that
+    require grad."""
+    *layers, head = params
+    return sharded_params_from_numpy(
+        [(layer["self"], layer["nb"], layer["bias"]) for layer in layers]
+        + [(head["w"], head["b"])], device)

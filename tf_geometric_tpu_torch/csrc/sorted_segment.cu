@@ -1,9 +1,9 @@
 // Kernel B: sorted segment sum over a CSR-style segment pointer.
 //
 // Counterpart of tf_geometric_tpu/ops/pallas_segment.py,
-// pallas_sorted_segment_sum (the repository's only pl.pallas_call), and of
-// the sorted segment_sum that merges hub-row partials into their owner rows
-// in tf_geometric_tpu/ops/ell_bucketed.py, _side_matmul.
+// pallas_sorted_segment_sum (the repository's only pl.pallas_call). The
+// CSR SpMM merges its hub partials in its own launch (csr_spmm.cu); this
+// kernel keeps the sorted segment sum as a launch of its own.
 //
 // Contract: msg [M, F] has its rows sorted by segment, seg_ptr [S + 1];
 // segment s goes to output row r = seg_rows[s], or r = s when seg_rows is
@@ -13,9 +13,9 @@
 // its row untouched; without it, every listed row is written (0 when empty).
 // Accumulation is float32.
 //
-// The hub merge of the CSR SpMM passes seg_rows: a graph has a few dozen
-// hub rows among 10^5 or more, so the grid covers only the hubs, and the
-// launch reads 2H + 1 indices instead of a pointer over every row.
+// With seg_rows the grid covers only the listed rows (a graph's few hundred
+// hub rows among 10^5 or more), and the launch reads 2S + 1 indices
+// instead of a pointer over every row.
 //
 // Bound on the H100: bytes (one add per element read). The TPU kernel
 // contracted a one-hot 512 x 512 rank matrix with each message chunk on the

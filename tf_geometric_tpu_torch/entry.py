@@ -5,8 +5,8 @@ a 512-node graph through the cached CSR adjacency, with the normalization
 and the CSR build done eagerly on the host first, as in the JAX entry.
 
 ``dryrun_multichip(n_ranks)`` runs one training step of the edge-partitioned
-halo GCN and of the fused halo GAT over ``n_ranks`` spawned ranks at the JAX
-dry run's tiny sizes.
+halo GCN, of the fused halo GAT and of the node-partitioned sampled SAGE
+over ``n_ranks`` spawned ranks at the JAX dry run's tiny sizes.
 """
 from __future__ import annotations
 
@@ -53,18 +53,21 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
-    """The GCN part (``__graft_entry__.py:91-134``) and the fused-GAT part
-    (``:136-177``) of the JAX dry run over ``n_ranks`` spawned ranks (gloo,
-    sharing one card on ``device="cuda"``): one training step each of the
-    2-layer halo GCN (packed ``ell`` plan, hidden 16, 7 classes) and of the
-    two-layer fused halo GAT (``((8, 8), (1, 64))``, attention and feature
-    dropout 0.6) on a 4,096-node skewed graph; checks that both losses are
-    finite and returns them. The graph axis spans every rank (the JAX dry
-    run's data axis only replicates inputs). The sampled SAGE, MinCut and
-    2-D parts wait for their modules."""
+    """The GCN part (``__graft_entry__.py:91-134``), the fused-GAT part
+    (``:136-177``) and the sampled-SAGE part (``:179-199``) of the JAX dry
+    run over ``n_ranks`` spawned ranks (gloo, sharing one card on
+    ``device="cuda"``): one training step each of the 2-layer halo GCN
+    (packed ``ell`` plan, hidden 16, 7 classes), of the two-layer fused halo
+    GAT (``((8, 8), (1, 64))``, attention and feature dropout 0.6) and of
+    the two-layer sampled SAGE (k = (4, 3), hidden 16, weights from
+    ``default_rng(3)``; nodes padded to a multiple of ``n_ranks``) on a
+    4,096-node skewed graph; checks that the losses are finite and returns
+    them. The graph axis spans every rank (the JAX dry run's data axis only
+    replicates inputs). The MinCut and 2-D parts wait for their modules."""
     from .ops import _build
-    from .parallel import (ShardJob, build_gat_halo_spec, build_halo_spec,
+    from .parallel import (ShardJob, build_csr_shards, build_gat_halo_spec, build_halo_spec,
                            partition_edges_by_row, rank_gat_plan, rank_halo_plan, run_ranks)
+    from .parallel.sampled_sage import init_sampled_sage_params
     num_classes, hidden = 7, 16
     n, num_edges = 4096, 65536
     rng = np.random.default_rng(0)
@@ -102,15 +105,25 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
                        np.zeros(hd, np.float32), normal(fin, hd), np.zeros(hd, np.float32)))
         fin = hd
     gat_params = (layers, (normal(fin, num_classes), np.zeros(num_classes, np.float32)))
+    n_sage = -(-n // n_ranks) * n_ranks
+    sage_data = [np.zeros((n_sage,) + a.shape[1:], a.dtype) for a in (x, y, mask[:n])]
+    for padded, a in zip(sage_data, (x, y, mask[:n])):
+        padded[:n] = a
+    shards = build_csr_shards(edge_index, n_sage, n_ranks)
+    sage_params = init_sampled_sage_params(np.random.default_rng(3), x.shape[1], num_classes,
+                                           num_layers=2, hidden=hidden)
     jobs = []
     for r in range(n_ranks):
         rows = slice(r * npp, (r + 1) * npp)
         shard = (x_p[rows], y_p[rows], mask[rows])
+        sage_rows = slice(r * (n_sage // n_ranks), (r + 1) * (n_sage // n_ranks))
         jobs.append([
             ShardJob("gcn", "gcn", gcn_params, *shard, rank_halo_plan(spec, r, "cpu"), {}, 1),
             ShardJob("gat", "gat_fused", gat_params, *shard, rank_gat_plan(gat_spec, r, "cpu"),
                      {"layer_dims": dims, "edge_drop_rate": 0.6, "feat_drop_rate": 0.6,
-                      "seed": 7}, 1)])
+                      "seed": 7}, 1),
+            ShardJob("sage", "sage", sage_params, *(a[sage_rows] for a in sage_data),
+                     {name: a[r] for name, a in shards.items()}, {"k": (4, 3)}, 1)])
     if torch.device(device).type == "cuda":
         _build.build_all()  # once, before the ranks load the libraries
     results = run_ranks(jobs, backend="gloo", device=device)

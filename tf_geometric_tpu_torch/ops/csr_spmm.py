@@ -15,18 +15,20 @@ none of them itself; they are cut into virtual rows of at most
 ``split_width`` edges, stored after the ordinary rows, so that no lane
 group walks a 2,838-edge row while the rest of the grid idles. Kernel A
 (``csrc/csr_spmm.cu``) writes every ordinary row of the output and one
-float32 partial per virtual row; Kernel B (``ops/sorted_segment.py``) then
-adds the partials of each hub into its owner row, in order. The JAX layout
-instead keeps a hub's remainder edges in the owner row; the sums are the
-same.
+float32 partial per virtual row, and in the same launch merges each hub's
+partials into its owner row, in order: the group that stores a hub's last
+partial (it counts them on the side's ``tickets``) adds them up. The JAX
+layout instead keeps a hub's remainder edges in the owner row; the sums are
+the same.
 
 Bound on the H100: bytes. Per call the kernel must read h, row_ptr, col,
 val (and the diagonal) and write the output once; it does 2 flops per
 gathered element.
 
 ``side_matmul`` dispatches on the device of ``h``: a CPU tensor takes the
-plain PyTorch versions, a CUDA tensor launches the kernels, and a failed
-launch raises.
+plain PyTorch version, a CUDA tensor launches the kernel, and a failed
+launch raises. One side must not be multiplied on two streams at once: the
+launches share its tickets.
 """
 from __future__ import annotations
 
@@ -38,20 +40,20 @@ import torch
 
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
-from .sorted_segment import segment_sum_csr, sorted_segment_sum_plain
+from .sorted_segment import sorted_segment_sum_plain
 from .spmm_heads import _vec_elements
 
 __all__ = ["CsrSide", "CsrAdj", "csr_spmm", "side_matmul", "side_matmul_plain",
            "csr_spmm_plain", "launch_csr_spmm", "serial_walks", "SPLIT_WIDTH"]
 
 # The longest row one lane group of Kernel A walks; a longer row is cut into
-# virtual rows whose float32 partials Kernel B adds into it. A group keeps 8
+# virtual rows whose float32 partials the launch then adds into it. A group keeps 8
 # gathers in flight, so a walk of w edges is about 2 + w / 8 dependent trips
 # to memory. chip_smoke.py's split sweep on the H100 (PERF.md §6) puts 64
 # within 3% of the fastest width at both main-path widths (F = 40 float32,
 # F = 256 bf16), while 256, the JAX layout's widest slot group (_MAX_CAP in
 # ops/ell_bucketed.py), is 40% slower at F = 40; 64 keeps every walk short,
-# Kernel B's too (45 partials for the largest arxiv hub).
+# the hub merge's too (45 partials for the largest arxiv hub).
 SPLIT_WIDTH = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,14 +65,17 @@ class CsrSide(NamedTuple):
 
     ``owner_rows`` [H] lists the split hub rows in order and ``owner_ptr``
     [H + 1] gives hub i the virtual rows ``owner_ptr[i]:owner_ptr[i + 1]``
-    (both None when no row was split); ``eid`` maps each stored edge to its
-    index in the COO input, for ``with_edge_values``."""
+    (both None when no row was split); ``tickets`` [H], zeros between
+    launches, counts the hubs' stored partials during one; ``eid`` maps
+    each stored edge to its index in the COO input, for
+    ``with_edge_values``."""
     row_ptr: torch.Tensor            # [num_rows + num_virtual + 1] int32
     col: torch.Tensor                # [nnz] int32
     val: torch.Tensor                # [nnz] float32
     eid: torch.Tensor                # [nnz] int64
     owner_rows: Optional[torch.Tensor]  # [H] int32, or None
     owner_ptr: Optional[torch.Tensor]   # [H + 1] int32, or None
+    tickets: Optional[torch.Tensor]     # [H] int32, or None
     num_rows: int
     num_virtual: int
 
@@ -94,18 +99,19 @@ def _build_side(rows, cols, vals, eids, num_rows: int, split_width: int,
     new_row, c, v, e = new_row[order2], c[order2], v[order2], e[order2]
     counts = np.bincount(new_row, minlength=num_rows + num_virtual)
     row_ptr = np.concatenate([[0], np.cumsum(counts)])
-    owner_rows = owner_ptr = None
+    owner_rows = owner_ptr = tickets = None
     if num_virtual:
         hubs = np.nonzero(chunks)[0]
         owner_rows = torch.as_tensor(hubs.astype(np.int32), device=device)
         owner_ptr = torch.as_tensor(
             np.concatenate([[0], np.cumsum(chunks[hubs])]).astype(np.int32), device=device)
+        tickets = torch.zeros(len(hubs), dtype=torch.int32, device=device)
     return CsrSide(
         row_ptr=torch.as_tensor(row_ptr.astype(np.int32), device=device),
         col=torch.as_tensor(c.astype(np.int32), device=device),
         val=torch.as_tensor(v.astype(np.float32), device=device),
         eid=torch.as_tensor(e.astype(np.int64), device=device),
-        owner_rows=owner_rows, owner_ptr=owner_ptr, num_rows=num_rows,
+        owner_rows=owner_rows, owner_ptr=owner_ptr, tickets=tickets, num_rows=num_rows,
         num_virtual=num_virtual)
 
 
@@ -114,10 +120,17 @@ def _build_side(rows, cols, vals, eids, num_rows: int, split_width: int,
 # ---------------------------------------------------------------------------
 
 def csr_spmm_plain(row_ptr, col, val, h, diag, num_rows: int):
-    """Plain PyTorch version of Kernel A, same contract: returns ``(out,
-    partial)`` with ``out`` [num_rows, F] in ``h``'s dtype (ordinary rows,
-    plus ``diag·h``) and ``partial`` [num_virtual, F] float32 (virtual rows).
-    Sums run in float32 by ``index_add_``."""
+    """Plain PyTorch version of Kernel A without the hub merge, same
+    contract: returns ``(out, partial)`` with ``out`` [num_rows, F] in
+    ``h``'s dtype (ordinary rows, plus ``diag·h``) and ``partial``
+    [num_virtual, F] float32 (virtual rows). Sums run in float32 by
+    ``index_add_``."""
+    out, partial = _csr_spmm_plain_f32(row_ptr, col, val, h, diag, num_rows)
+    return out.to(h.dtype), partial
+
+
+def _csr_spmm_plain_f32(row_ptr, col, val, h, diag, num_rows: int):
+    """``csr_spmm_plain`` with ``out`` left in float32."""
     total_rows = row_ptr.shape[0] - 1
     ptr = row_ptr.long()
     row_of_edge = torch.repeat_interleave(
@@ -128,27 +141,33 @@ def csr_spmm_plain(row_ptr, col, val, h, diag, num_rows: int):
     out = acc[:num_rows]
     if diag is not None:
         out = out + diag[:, None] * h[:num_rows].float()
-    return out.to(h.dtype), acc[num_rows:]
+    return out, acc[num_rows:]
 
 
 def serial_walks(side: CsrSide):
     """The longest serial walks of one product direction: the most edges
     one lane group of Kernel A reads (its longest stored row) and the most
-    partials Kernel B adds into one hub row."""
+    partials its hub merge adds into one hub row."""
     edges = int(side.row_ptr.diff().max()) if side.row_ptr.shape[0] > 1 else 0
     partials = int(side.owner_ptr.diff().max()) if side.num_virtual else 0
     return edges, partials
 
 
-def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int):
+def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None):
     """Launch Kernel A. ``row_ptr`` int32 [R' + 1], ``col`` int32 and ``val``
     float32 [nnz], ``h`` [n_src, F] float32 or bfloat16, ``diag`` float32
     [num_rows] or None; all contiguous CUDA tensors on one device. Allocates
     ``out`` [num_rows, F] (h's dtype) and ``partial`` [R' - num_rows, F]
-    (float32) and returns both. Counts each launch in ``.launches``."""
+    (float32) and returns both. With ``hubs`` = ``(owner_rows, owner_ptr,
+    tickets)`` of the side (int32; tickets all 0, and no other launch using
+    them meanwhile) the launch also merges each hub's partials into its row
+    of ``out``, as ``side_matmul_plain`` does; without, a hub row holds
+    ``diag·h`` only. Counts each launch in ``.launches``."""
     tensors = [("row_ptr", row_ptr), ("col", col), ("val", val), ("h", h)]
     if diag is not None:
         tensors.append(("diag", diag))
+    if hubs is not None:
+        tensors += list(zip(("owner_rows", "owner_ptr", "tickets"), hubs))
     for name, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -172,6 +191,15 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int):
         raise ValueError(f"row_ptr covers {total_rows} rows, fewer than {num_rows}")
     if diag is not None and (diag.shape != (num_rows,) or h.shape[0] < num_rows):
         raise ValueError("diag must be [num_rows] and h must have num_rows rows")
+    if hubs is not None:
+        owner_rows, owner_ptr, tickets = hubs
+        num_hubs = owner_rows.shape[0]
+        if any(t.dtype != torch.int32 for t in hubs):
+            raise TypeError("owner_rows, owner_ptr and tickets must be int32")
+        if (num_virtual == 0 or num_hubs == 0 or owner_rows.shape != (num_hubs,)
+                or owner_ptr.shape != (num_hubs + 1,) or tickets.shape != (num_hubs,)):
+            raise ValueError("hubs must be owner_rows [H], owner_ptr [H + 1] and tickets [H] "
+                             "of a side with virtual rows")
     num_features = h.shape[1]
     out = torch.empty((num_rows, num_features), dtype=h.dtype, device=h.device)
     partial = torch.empty((num_virtual, num_features), dtype=torch.float32,
@@ -182,13 +210,16 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int):
         "csr_spmm.cu", "tfg_csr_spmm",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    hub_ptrs = (None, None, None, 0) if hubs is None else (
+        *(t.data_ptr() for t in hubs), hubs[0].shape[0])
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = fn(row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), h.data_ptr(),
                 _DTYPE_CODES[h.dtype], None if diag is None else diag.data_ptr(),
                 out.data_ptr(), partial.data_ptr() if num_virtual else None,
-                num_rows, num_virtual, num_features,
+                *hub_ptrs, num_rows, num_virtual, num_features,
                 _vec_elements(num_features, [h], [out, partial]), stream)
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: cudaError {rc}")
@@ -200,26 +231,27 @@ launch_csr_spmm.launches = 0
 
 
 def side_matmul(side: CsrSide, h, diag):
-    """``A_side · h`` (+ ``diag·h``): Kernel A, then Kernel B merging the
-    hub partials, on a CUDA ``h``; the plain versions on a CPU ``h``."""
+    """``A_side · h`` (+ ``diag·h``): one launch of Kernel A, hub merge
+    included, on a CUDA ``h``; the plain version on a CPU ``h``."""
     if h.is_cuda:
-        out, partial = launch_csr_spmm(side.row_ptr, side.col, side.val,
-                                       h.contiguous(), diag, side.num_rows)
-        if side.num_virtual:
-            segment_sum_csr(partial, side.owner_ptr, out, side.owner_rows)
-        return out
+        hubs = (side.owner_rows, side.owner_ptr, side.tickets) if side.num_virtual else None
+        return launch_csr_spmm(side.row_ptr, side.col, side.val, h.contiguous(), diag,
+                               side.num_rows, hubs)[0]
     if h.device.type != "cpu":
         raise NotImplementedError(f"no CSR SpMM for device {h.device}")
     return side_matmul_plain(side, h, diag)
 
 
 def side_matmul_plain(side: CsrSide, h, diag):
-    """``side_matmul`` through the plain PyTorch versions, on any device."""
-    out, partial = csr_spmm_plain(side.row_ptr, side.col, side.val, h, diag,
-                                  side.num_rows)
+    """``side_matmul`` in plain PyTorch, on any device, in the kernel's
+    order: every row's float32 sum (``diag·h`` after its edges), a hub row's
+    partials summed in order and added to its ``diag·h``, then one cast to
+    ``h``'s dtype (in bfloat16 a hub row rounds once)."""
+    out, partial = _csr_spmm_plain_f32(side.row_ptr, side.col, side.val, h, diag,
+                                       side.num_rows)
     if side.num_virtual:
         sorted_segment_sum_plain(partial, side.owner_ptr, out, side.owner_rows)
-    return out
+    return out.to(h.dtype)
 
 
 class _CsrSpmm(torch.autograd.Function):
@@ -337,7 +369,9 @@ class CsrAdj:
 
     def with_edge_values(self, edge_values) -> "CsrAdj":
         """Re-skin per-edge values (both directions and the diagonal) through
-        the edge-id maps; the sentinel id ``num_edges`` reads 0."""
+        the edge-id maps; the sentinel id ``num_edges`` reads 0. The sides
+        share their layout, tickets included, with this adjacency's (its
+        launches and theirs run on one stream)."""
         edge_values = torch.as_tensor(edge_values, device=self.fwd.val.device)
         if edge_values.shape != (self._num_edges,):
             raise ValueError(f"edge_values must be [{self._num_edges}], "
@@ -358,7 +392,7 @@ class CsrAdj:
             return side._replace(**{f: None if getattr(side, f) is None
                                     else getattr(side, f).to(device)
                                     for f in ("row_ptr", "col", "val", "eid", "owner_rows",
-                                              "owner_ptr")})
+                                              "owner_ptr", "tickets")})
         def opt(t):
             return None if t is None else t.to(device)
         return CsrAdj(move(self.fwd), move(self.bwd), opt(self.diag_val), opt(self.diag_eid),

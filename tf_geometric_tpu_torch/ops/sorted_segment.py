@@ -2,10 +2,11 @@
 
 Counterpart of ``tf_geometric_tpu/ops/pallas_segment.py``:
 ``pallas_sorted_segment_sum`` (the JAX package's only ``pl.pallas_call``) and
-its entry ``sorted_segment_sum_mxu``. On the CSR SpMM path it merges the
-float32 partial sums of split hub rows into their owner rows, the job of the
-sorted ``segment_sum`` in ``tf_geometric_tpu/ops/ell_bucketed.py``
-(``_side_matmul``).
+its entry ``sorted_segment_sum_mxu``. The CSR SpMM's hub merge, the job of
+the sorted ``segment_sum`` in ``tf_geometric_tpu/ops/ell_bucketed.py``
+(``_side_matmul``), runs in Kernel A's launch (``ops/csr_spmm.py``); Kernel
+B keeps the same sum as a kernel of its own, with ``rows`` for sums into
+listed rows of an existing output.
 
 The TPU kernel planned 512-edge chunks on the host, reduced each chunk with a
 one-hot 512 x 512 MXU contraction and folded the chunk partials with a
@@ -13,8 +14,8 @@ second segment sum. None of that plan carries over to Hopper: the segment
 pointer already says where each segment starts, one warp sums one segment in
 float32 (``csrc/sorted_segment.cu``), and there is neither a fold nor an
 atomic. The kernel is bound by bytes: each message element is read once for
-one add. For the hub merge the segments name their output rows (``rows``),
-so the grid covers only the few dozen hubs, not every row of the graph.
+one add. Segments that name their output rows (``rows``) need a grid of
+only as many warps as segments, however many rows the output has.
 
 ``segment_sum_csr`` dispatches on the device of its input: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel, and a failed

@@ -1,8 +1,8 @@
 """Graph-parallel runtime over ``torch.distributed`` (JAX counterpart:
 ``tf_geometric_tpu/parallel``): partitioning, halo plans and exchange, the
-sharded GCN and GAT training steps, and a launcher for spawned ranks.
-MinCut/DiffPool, the 2-D batch step, the sampled SAGE step and multi-host
-plan loading are not ported yet."""
+sharded GCN and GAT training steps, the node-partitioned sampled SAGE step,
+and a launcher for spawned ranks. MinCut/DiffPool, the 2-D batch step and
+multi-host plan loading are not ported yet."""
 from .halo import (GatHaloSpec, HaloSpec, HaloSpecEll, RankGatPlan, RankHaloPlan,
                    build_gat_halo_spec, build_halo_spec, halo_exchange, halo_gat_attention,
                    halo_spmm_ell, halo_spmm_split, rank_gat_plan, rank_halo_plan)
@@ -10,6 +10,7 @@ from .partition import (EdgePartition, apply_node_permutation, bandwidth_reducti
                         community_order, nodes_per_part, partition_edges_by_row,
                         partition_order)
 from .runner import ShardJob, run_ranks
+from .sampled_sage import build_csr_shards, make_sampled_sage_step, set_exchange_dtype
 from .sharded import (GraphMesh, build_mesh, make_graph_parallel_gat_fused_step,
                       make_graph_parallel_gat_step, make_graph_parallel_gcn_step,
                       sharded_spmm_local)
@@ -21,4 +22,5 @@ __all__ = ["EdgePartition", "nodes_per_part", "partition_edges_by_row",
            "rank_gat_plan", "halo_exchange", "halo_spmm_split", "halo_spmm_ell",
            "halo_gat_attention", "GraphMesh", "build_mesh", "sharded_spmm_local",
            "make_graph_parallel_gcn_step", "make_graph_parallel_gat_step",
-           "make_graph_parallel_gat_fused_step", "ShardJob", "run_ranks"]
+           "make_graph_parallel_gat_fused_step", "ShardJob", "run_ranks", "build_csr_shards",
+           "make_sampled_sage_step", "set_exchange_dtype"]

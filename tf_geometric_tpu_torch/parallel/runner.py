@@ -45,12 +45,18 @@ class ShardJob(NamedTuple):
     ``kind``: ``"gcn"`` (``plan`` a ``RankHaloPlan``, or ``(rows, cols,
     vals)`` numpy arrays of this rank's ``partition_edges_by_row`` shard for
     the all-gather mode), ``"gat"`` (the segment step; a COO
-    ``RankHaloPlan``) or ``"gat_fused"`` (a ``RankGatPlan``). ``params``:
+    ``RankHaloPlan``), ``"gat_fused"`` (a ``RankGatPlan``) or ``"sage"``
+    (the sampled SAGE step; ``plan`` this rank's part of
+    ``build_csr_shards``' arrays, a dict of numpy arrays). ``params``:
     the initial weights as numpy, in the step's structure. ``x``, ``y``,
     ``mask``: this rank's rows. ``options``: the step's keyword arguments
     (``learning_rate``, ``num_heads``, ``units``, ``layer_dims``,
-    ``edge_drop_rate``, ``feat_drop_rate``), plus ``seed`` for the dropout
-    generators, ``plain`` to run the kernels' plain versions on the card,
+    ``edge_drop_rate``, ``feat_drop_rate``; ``k`` for the sampled SAGE,
+    whose widths come from ``params``), plus ``seed`` for the dropout and
+    draw generators, ``exchange_dtype`` (the sampled SAGE's, by name, such
+    as ``"bfloat16"``), ``ints`` (the sampled SAGE's random integers: per
+    step, per layer [k, n_local] int32), ``plain`` to run the kernels'
+    plain versions on the card,
     ``replay``, a list of numpy weights loaded before each step (the result
     then holds every step's gradients) and ``profile_steps``, a number of
     steps traced by ``torch.profiler`` after the others (on the card). Steps
@@ -112,17 +118,27 @@ def _is_edge_shard(plan) -> bool:
     return isinstance(plan, tuple) and not hasattr(plan, "_fields")
 
 
+def _plan_on(plan, device):
+    if isinstance(plan, dict):  # a sampled-SAGE CSR shard
+        return {k: None if v is None else torch.as_tensor(v, device=device)
+                for k, v in plan.items()}
+    if _is_edge_shard(plan):
+        return tuple(torch.as_tensor(a, device=device) for a in plan)
+    return plan.to(device)
+
+
 def run_job(job: ShardJob, mesh, device) -> dict:
     """Train ``job.steps`` steps of ``job`` on this rank; see ``ShardJob``."""
     from ..convert import sharded_params_from_numpy
     from ..ops import config as kernel_config
+    from . import sampled_sage
     from .sharded import (make_graph_parallel_gat_fused_step, make_graph_parallel_gat_step,
                           make_graph_parallel_gcn_step, param_leaves)
     opts = dict(job.options)
     seed, plain, replay = opts.pop("seed", 0), opts.pop("plain", False), opts.pop("replay", None)
     profile_steps = opts.pop("profile_steps", 0)
-    plan = (tuple(torch.as_tensor(a, device=device) for a in job.plan)
-            if _is_edge_shard(job.plan) else job.plan.to(device))
+    exchange, ints = opts.pop("exchange_dtype", None), opts.pop("ints", None)
+    plan = _plan_on(job.plan, device)
     params = sharded_params_from_numpy(job.params, device)
     x, mask = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (job.x, job.mask))
     y = torch.as_tensor(job.y, dtype=torch.long, device=device)
@@ -139,12 +155,26 @@ def run_job(job: ShardJob, mesh, device) -> dict:
         step, make_opt = make_graph_parallel_gat_fused_step(mesh, plan, **opts)
         gen = torch.Generator(device=device).manual_seed(rank_seed(seed, mesh.rank))
         args = (gen, x, y, mask)
+    elif job.kind == "sage":
+        step, _, make_opt = sampled_sage.make_sampled_sage_step(
+            mesh, plan, x.shape[1], num_classes=job.params[-1][1].shape[0],
+            hidden=job.params[0][2].shape[0], **opts)
+        gen = torch.Generator(device=device).manual_seed(rank_seed(seed, mesh.rank))
+        args = (gen, x, y, mask)
     else:
         raise ValueError(f"unknown job kind {job.kind!r}")
+
+    def step_kwargs(i):
+        if ints is None:
+            return {}
+        return {"ints": [torch.as_tensor(a, dtype=torch.int32, device=device)
+                         for a in ints[i]]}
     optimizer = make_opt(params)
     timing = job.timed and torch.device(device).type == "cuda"
     before = kernel_launch_counts()
     losses, events, grads_trace = [], [], []
+    if exchange is not None:
+        sampled_sage.set_exchange_dtype(getattr(torch, exchange))
     with kernel_config.use_plain_versions() if plain else contextlib.nullcontext():
         for i in range(job.steps):
             if replay is not None:
@@ -156,12 +186,13 @@ def run_job(job: ShardJob, mesh, device) -> dict:
             if timed:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-            losses.append(step(params, optimizer, *args))
+            losses.append(step(params, optimizer, *args, **step_kwargs(i)))
             if timed:
                 end.record()
                 events.append((start, end))
             if i == 0 or replay is not None:
                 grads_trace.append(_grads_to_numpy(params))
+    sampled_sage.set_exchange_dtype(None)
     if timing:
         torch.cuda.synchronize(device)
     after = kernel_launch_counts()
