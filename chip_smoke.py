@@ -126,8 +126,9 @@ Phases, each of which raises (non-zero exit) on failure:
    d_q = 1, d_v = 8, the merged-head branch) and 10-12 (SGC, APPNP and SSGC
    at the widths of their early-stop benches) at full arxiv size, workload 4
    (the sampled GraphSAGE) at full Reddit size and workloads 6 and 7 (GIN
-   with the sum-pool and the SortPool readout) on the benchmark's batch of
-   128 graphs; check that the loss is finite and falls and that each
+   with the sum-pool and the SortPool readout) and 14-16 (DiffPool,
+   MinCutPool, hierarchical SAGPool at the pooling demos' widths) on the
+   benchmark's batch of 128 graphs; check that the loss is finite and falls and that each
    kernel ran exactly as often as the layouts imply (GAT: one forward and
    two backward launches per step; SAGE: two draws, two aggregations
    forward and two backward calls per step, each backward call launching
@@ -137,9 +138,11 @@ Phases, each of which raises (non-zero exit) on failure:
    ``ops.spmm_heads.spmm_heads_launches``); SGC, APPNP and SSGC: Kernel A
    forward and ``dh`` per
    hop, 2, 10 and 10 hops, each launch merging its side's hubs: no Kernel B
-   on any path). Then train
-   3 steps of each arxiv workload at a small size and of each GIN workload
-   on its batch through the kernels and through the plain versions on the
+   on any path; 14-16: per GCN a forward and a ``dh`` SpMM call, and the
+   ``dv`` SDDMM for DiffPool's second-level GCNs, whose edge weights come
+   from the first level's assignment, ``bench.pool_x6_calls``). Then train
+   3 steps of each arxiv workload at a small size and of each GIN and pool
+   workload on its batch through the kernels and through the plain versions on the
    card and compare the losses, the same for a TAGCN, a ChebyNet and an
    LEConv layer at 20,000 nodes, and run ``entry()`` on the card against its
    CPU run.
@@ -190,6 +193,25 @@ Phases, each of which raises (non-zero exit) on failure:
     20,000 nodes through the kernels and through the plain versions (rank
     0's losses within 1e-4).
 
+15. Hierarchical pooling (``csrc/spmm_heads.cu``, X6, on the pooling path):
+    before the main path, X6 on workload 14's second-level graph at its
+    initial weights (level 0's DiffPool on the batch: 1,024 rows, 8,192
+    pooled edges and 1,024 self-loops, normalized): the forward and ``dh``
+    SpMM at the feature GCN's width 32 and ``dv`` at 32 and at the assign
+    GCN's 4, float32, against their plain versions (1e-4), a second run (bit
+    for bit) and the library calls (``torch.sparse.mm``,
+    ``torch.sparse.sampled_addmm``; 1e-4), timed by events and device time
+    beside the bound. After the main path: workloads 14-16 under the
+    profiler (the card's busy time and idle share), then ASAP (the demo's
+    16 graphs, k = 8, fixed mode) and Set2Set (128 graphs) 3 Adam steps
+    through the kernels and through the plain versions (1e-4; the plain runs
+    launch nothing), ASAP's pooling at k = 16 on the 16-graph batch (slots
+    left invalid by graphs of fewer nodes: its reverse map's spare entry,
+    cluster_pool's dropped assignment edges) kernel against plain, and a
+    batch of graphs with SparseMatrix features (``BatchGraph.from_graphs``)
+    through ``gcn``, whose sparse ``x @ W`` is X6 too (4 launches), against
+    the plain versions and the dense features.
+
 13. X7 (``tiled_spmm``, ``csrc/tiled_spmm.cu``), before the main path: the
     kernel against its plain version at the shapes and tiles of
     ``tests/test_tiled_spmm.py`` (t = 32, 64, 128) and at t = 16, 48, 192
@@ -214,7 +236,9 @@ Phases, each of which raises (non-zero exit) on failure:
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
 ``gat_attention_ell:<kernel>`` beside the single-process entries, the draw
-and S1 on workload 13 as ``sampled_sage:<kernel>``, X7 as ``tiled_spmm``
+and S1 on workload 13 as ``sampled_sage:<kernel>``, X6 on the pooling path
+(workload 14's pooled graph, launches over workloads 14-16) as
+``pool:<kernel>``, X7 as ``tiled_spmm``
 with the A/B's launches, Kernel B with 0 launches: every hub merge runs in
 Kernel A's launch); the last is
 ``{"ok": true, "device": {...}}``.
@@ -1442,6 +1466,236 @@ def gin_kernel_phase(graph_problem):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# hierarchical pooling (workloads 14-16, ASAP, Set2Set)
+# ---------------------------------------------------------------------------
+
+def _pooled_adjacency(graph_problem):
+    """Workload 14's second-level adjacency at its initial weights, as its
+    GCNs take it: level 0's DiffPool on the batch (8 clusters a graph), its
+    G·C² pooled edges normalized with the self-loops added."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch import nn as tnn
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    pr = graph_problem
+    p = bench.init_pool_params(pr, "diff_pool")
+    n = pr.x.shape[0]
+    adj = SparseMatrix(pr.edge_index, pr.edge_weight, (n, n))
+    with torch.no_grad():
+        h = tnn.gcn(pr.x, adj, p["feature_gnn_0.kernel"], p["feature_gnn_0.bias"],
+                    activation=torch.relu)
+        s = torch.softmax(tnn.gcn(pr.x, adj, p["assign_gnn_0.kernel"],
+                                  p["assign_gnn_0.bias"]), dim=-1)
+        _, ei, ew, _ = tnn.diff_pool_coarsen(h, pr.edge_index, pr.edge_weight,
+                                             pr.node_graph_index, s, num_graphs=pr.num_graphs)
+    m = pr.num_graphs * bench.DIFF_POOL_CLUSTERS[0]
+    return tnn.gcn_norm_adj(SparseMatrix(ei, ew, (m, m)))
+
+
+def pool_kernel_phase(graph_problem):
+    """X6 on workload 14's pooled graph (1,024 rows, 8,192 pooled edges and
+    1,024 self-loops, every row 9 entries): the forward and ``dh`` SpMM at
+    the feature GCN's width 32 and ``dv`` at 32 and at the assign GCN's 4,
+    float32, against their plain versions (1e-4) and a second run (bit for
+    bit), ``dv`` also against ``torch.sparse.sampled_addmm`` (1e-4); each
+    timed by events and device time beside its bound, its plain version
+    and the library call. Returns one row per call."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    normed = _pooled_adjacency(graph_problem)
+    n, index = normed.shape[0], normed.index
+    w = normed.value.float()[:, None].contiguous()
+    fwd = sh.build_csr_view(index[0], index[1], n, n)
+    bwd = sh.build_csr_view(index[1], index[0], n, n)
+    nnz = int(fwd.row_ptr[-1])
+    degrees = (fwd.row_ptr[1:] - fwd.row_ptr[:-1]).long()
+    _check(nnz == index.shape[1] and bool((degrees == degrees[0]).all()),
+           f"pooled graph: {nnz} of {index.shape[1]} entries stored, row lengths "
+           f"{int(degrees.min())}-{int(degrees.max())}")
+    print(f"pool x6: workload 14's pooled graph, {n} rows, {nnz} entries, {int(degrees[0])} a "
+          f"row; {_view_walk_line(fwd)}", flush=True)
+    lib_fwd, lib_bwd = _x6_library(fwd, w[:, 0], n, n), _x6_library(bwd, w[:, 0], n, n)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for width in (bench.POOL_UNITS, bench.DIFF_POOL_CLUSTERS[1]):
+        h, dy = (torch.randn(n, width, generator=gen, device="cuda") for _ in range(2))
+        cases = [("sddmm_heads", "pool dv", lambda: sh.launch_sddmm_heads(
+                      fwd, dy, h, 1, torch.zeros_like(w)),
+                  lambda: sh.sddmm_heads_plain(fwd, dy, h, 1, torch.zeros_like(w)),
+                  lambda: torch.sparse.sampled_addmm(lib_fwd, dy, h.t(), beta=0.0),
+                  sh.sddmm_pass_bytes(nnz, n, n, width, 1, 4))]
+        if width == bench.POOL_UNITS:
+            cases += [("spmm_heads", "pool forward", lambda: sh.launch_spmm_heads(fwd, w, h, 1),
+                       lambda: sh.spmm_heads_plain(fwd, w, h, 1),
+                       lambda: torch.sparse.mm(lib_fwd, h),
+                       sh.spmm_pass_bytes(nnz, n, n, width, 1, 4, 4)),
+                      ("spmm_heads", "pool dh", lambda: sh.launch_spmm_heads(bwd, w, dy, 1),
+                       lambda: sh.spmm_heads_plain(bwd, w, dy, 1),
+                       lambda: torch.sparse.mm(lib_bwd, dy),
+                       sh.spmm_pass_bytes(nnz, n, n, width, 1, 4, 4))]
+        for name, case, kernel, plain, library, nbytes in cases:
+            tag = f"{name} {case} F={width}"
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = _max_err(got, want, F32_TOL, tag)
+            _check(torch.equal(got, kernel()), f"{tag}: two runs on the same inputs differ")
+            lib_out = library()
+            if name == "sddmm_heads":
+                lib_out = _sampled_by_entry(fwd, lib_out, n)
+                got = got[fwd.eid[:nnz].long(), 0]
+            err = max(err, _max_err(got, lib_out, F32_TOL, f"{tag} vs the library call"))
+            bound_ms, bound_by = _bound(nbytes, sh.pass_flops(nnz, width))
+            rows.append(dict(name=name, case=case, width=width, dtype="float32", heads=1,
+                             max_abs_err=err, ms=_cuda_ms(kernel),
+                             plain_ms=_cuda_ms(plain, iters=3, warmup=1),
+                             library_ms=_cuda_ms(library), bound_ms=bound_ms,
+                             bound_by=bound_by, device_ms=_device_ms(kernel),
+                             library_device_ms=_device_ms(library)))
+    print("pool x6 kernel check (name case F: max_abs_err, ms, plain_ms, library_ms, bound_ms; "
+          "device ms under the profiler)")
+    for r in rows:
+        print(f"  {r['name']} {r['case']} F={r['width']}: {r['max_abs_err']:.3e}, "
+              f"{r['ms']:.4f}, {r['plain_ms']:.4f}, {r['library_ms']:.4f}, "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){_device_note(r)}", flush=True)
+    return rows
+
+
+def pool_profile_phase(graph_problem, results, gpu):
+    """Workloads 14-16 under ``torch.profiler`` (``bench.profile_workload``:
+    the device's busy time and idle share per step), beside their timed
+    runs of the main path."""
+    from tf_geometric_tpu_torch import bench
+    for name in bench.POOL_WORKLOADS:
+        prof = bench.profile_workload(graph_problem, name)
+        res = results[name]
+        print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} graphs/s, "
+              f"vs_baseline {res['line']['vs_baseline']}; profiled {prof['step_ms']:.4f} "
+              f"ms/step, device busy {prof['device_busy_ms']:.4f} ms, idle share "
+              f"{prof['device_idle_share']:.4f}, {prof['kernels_per_step']} kernels a step "
+              f"on {gpu}", flush=True)
+        print(json.dumps(prof), flush=True)
+
+
+def _pool_kernel_vs_plain(problem, name, what):
+    """3 Adam steps of pool model ``name`` through the kernels and through
+    the plain versions on the card (the same dropout masks): the losses
+    within 1e-4, the kernel run launching the COO SpMM, the plain run
+    nothing."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    losses = {}
+    for label in ("kernel", "plain"):
+        _zero_launch_counts()
+        with (_plain() if label == "plain" else contextlib.nullcontext()):
+            step = bench.make_step(lambda p: bench.pool_loss(p, problem, name),
+                                   bench.init_pool_params(problem, name), bench.POOL_LR)
+            losses[label] = torch.stack([step() for _ in range(3)])
+        counts = dict(zip(_KERNELS, _launch_counts()))
+        if label == "kernel":
+            _check(counts["spmm_heads"] > 0, f"{what}: spmm_heads was not launched")
+        else:
+            _check(sum(counts.values()) == 0, f"{what} plain run launched {counts}")
+    err = _max_err(losses["kernel"], losses["plain"], F32_TOL, f"3-step losses {what}")
+    print(f"{what}: kernel {losses['kernel'].tolist()} plain {losses['plain'].tolist()} max abs "
+          f"err {err:.3e}", flush=True)
+
+
+def pool_small_phase(graph_problem):
+    """ASAP (the demo's batch of 16 graphs, k = 8, fixed mode) and Set2Set
+    (the 128-graph batch) train 3 steps kernel against plain; ASAP's
+    pooling at k = 16 on the 16-graph batch, where graphs of 10-15 nodes
+    leave slots invalid (its reverse map's spare entry, cluster_pool's
+    dropped assignment edges), kernel against plain; then a batch of
+    graphs with SparseMatrix features (``BatchGraph.from_graphs``, one-hot
+    rows) through ``gcn``, whose sparse ``x @ W`` is X6 too, against the
+    plain versions and the dense features."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch import nn as tnn
+    from tf_geometric_tpu_torch.data import BatchGraph, Graph
+    from tf_geometric_tpu_torch.datasets import synthetic_graph_classification
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    asap_problem = bench.build_graph_problem(batch=bench.ASAP_BATCH, device="cuda")
+    _pool_kernel_vs_plain(asap_problem, "asap", f"ASAP ({bench.ASAP_BATCH} graphs, "
+                                                f"k={bench.ASAP_K})")
+    _pool_kernel_vs_plain(graph_problem, "set2set", f"Set2Set ({graph_problem.num_graphs} graphs)")
+
+    pr, k = asap_problem, 2 * bench.ASAP_K
+    p = bench.init_pool_params(pr, "asap")
+    # the layer's 12 tensors in its order, which is asap's
+    params = [v for key, v in p.items() if key.startswith("ASAP_0.")]
+    n = pr.x.shape[0]
+    outs = {}
+    for label in ("kernel", "plain"):
+        _zero_launch_counts()
+        with torch.no_grad(), (_plain() if label == "plain" else contextlib.nullcontext()):
+            h = tnn.gcn(pr.x, SparseMatrix(pr.edge_index, pr.edge_weight, (n, n)),
+                        p["GCN_0.kernel"], p["GCN_0.bias"], activation=torch.relu)
+            outs[label] = tnn.asap(h, pr.edge_index, pr.edge_weight, pr.node_graph_index,
+                                   *params, k=k, num_graphs=pr.num_graphs)
+        if label == "kernel":
+            _check(_launch_counts()[_KERNELS.index("spmm_heads")] > 0,
+                   "ASAP k=16: spmm_heads was not launched")
+    invalid = int((outs["kernel"][3] == pr.num_graphs).sum())
+    _check(invalid > 0, "ASAP k=16: no invalid slot")
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
+        if a.is_floating_point():
+            _max_err(a, b, F32_TOL, f"ASAP k=16 output {i}")
+        else:
+            _check(torch.equal(a, b), f"ASAP k=16 output {i}: kernel and plain differ")
+    print(f"ASAP k={k} ({pr.num_graphs} graphs): {invalid} of {outs['kernel'][3].shape[0]} "
+          f"cluster slots invalid, {outs['kernel'][1].shape[1]} pooled edges; kernel = plain",
+          flush=True)
+
+    graphs = synthetic_graph_classification()[0][:bench.ASAP_BATCH]
+    dense = BatchGraph.from_graphs(graphs)
+    batch = BatchGraph.from_graphs([Graph(SparseMatrix.from_dense(
+        torch.as_tensor(g.x, device="cuda")), g.edge_index, g.y) for g in graphs])
+    _check(isinstance(batch.x, SparseMatrix) and torch.equal(
+        batch.x.to_dense().cpu(), torch.as_tensor(dense.x)), "sparse batch features differ")
+    kernel = torch.randn(dense.x.shape[1], bench.POOL_UNITS,
+                         generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    adj = batch.adj(device="cuda")
+    _zero_launch_counts()
+    got = tnn.gcn(batch.x, adj, kernel)
+    launches = _launch_counts()[_KERNELS.index("spmm_heads")]
+    _check(launches == 2 * 2, f"sparse-feature gcn: {launches} spmm_heads launches != 4")
+    with _plain():
+        want = tnn.gcn(batch.x, adj, kernel)
+    err = max(_max_err(got, want, F32_TOL, "sparse-feature gcn vs plain"),
+              _max_err(got, tnn.gcn(torch.as_tensor(dense.x, device="cuda"), adj, kernel),
+                       F32_TOL, "sparse-feature gcn vs dense features"))
+    print(f"sparse features: {batch.x.nnz} entries over {batch.num_nodes} nodes, gcn "
+          f"{tuple(got.shape)}, {launches} spmm_heads launches, max abs err {err:.3e}",
+          flush=True)
+
+
+def pool_kernel_entries(pool_rows, results):
+    """The ``{"kernels"}`` entries of X6 on the pooling path: the SpMM at
+    the pooled graph's forward (F = 32) and ``dv`` at F = 32, launches over
+    workloads 14-16 of the main path."""
+    from tf_geometric_tpu_torch import bench
+    launches = {k: sum(results[w]["launches"][k] for w in bench.POOL_WORKLOADS)
+                for k in ("spmm_heads", "sddmm_heads")}
+    entries = []
+    for name, case, replaces in (("spmm_heads", "pool forward", "tf_geometric_tpu/ops/spmm.py:67"),
+                                 ("sddmm_heads", "pool dv", "tf_geometric_tpu/ops/spmm.py:80")):
+        _check(launches[name] > 0, f"{name} was not launched on the pooling path")
+        mine = [r for r in pool_rows if r["name"] == name]
+        rep = next(r for r in mine if r["case"] == case and r["width"] == bench.POOL_UNITS)
+        entries.append({
+            "name": f"pool:{name}", "route": "cuda",
+            "source": "tf_geometric_tpu_torch/csrc/spmm_heads.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": "workload 14's pooled graph: 1,024 rows, 9,216 entries, F=32, float32; "
+                     "launches over workloads 14-16"})
+    return entries
+
+
 # every kernel wrapper of the main path, in the order of the counts below
 _KERNELS = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
             "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward",
@@ -1474,9 +1728,10 @@ def _zero_launch_counts():
 
 def main_path_phase(gpu, sage_problem, graph_problem):
     """Workloads 1, 1b, 3, 5 and 10-12 (SGC, APPNP, SSGC) at full arxiv
-    size, 4 (SAGE) at full Reddit size and 6 and 7 (GIN) on the benchmark's
-    batch through the kernels; returns the launch totals of the run and the
-    bench results."""
+    size, 4 (SAGE) at full Reddit size, 6 and 7 (GIN) and 14-16 (DiffPool,
+    MinCutPool, SAGPool) on the benchmark's batch through the kernels;
+    returns the launch totals of the run and the bench results, each with
+    its own launches."""
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import fixed_k as fk
     from tf_geometric_tpu_torch.ops import spmm_heads as sh
@@ -1513,6 +1768,14 @@ def main_path_phase(gpu, sage_problem, graph_problem):
             # per step: one forward and two backward attention launches (hub
             # rows are blocks of the same launches)
             expected.update(gat_forward=steps, gat_backward_dst=steps, gat_backward_src=steps)
+        elif name in bench.POOL_WORKLOADS:
+            # per step and GCN: the forward SpMM and dh, each its chunks' and
+            # its rows' launch; dv where the values need a gradient
+            # (DiffPool's second level)
+            calls = bench.pool_x6_calls(graph_problem, bench.POOL_WORKLOADS[name])
+            expected.update(spmm_heads=steps * sum(2 * sh.spmm_heads_launches(c[0])
+                                                   for c in calls),
+                            sddmm_heads=steps * sum(c[4] for c in calls))
         elif wl.problem == "graphs":
             # per step: each GIN layer's forward SpMM, dh for layers 2 and 3
             # (layer 1's input is data); the values are constants: no dv
@@ -1538,6 +1801,7 @@ def main_path_phase(gpu, sage_problem, graph_problem):
         _check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
         _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
         totals = [t + c for t, c in zip(totals, counts)]
+        res["launches"] = dict(zip(_KERNELS, counts))
         results[name] = res
         print(f"{name}: step {res['step_ms']:.4f} ms, {res['line']['value']} "
               f"{res['line']['unit']}, "
@@ -2690,6 +2954,7 @@ def main():
           f"nodes, {graph_problem.edge_index.shape[1]} padded edges "
           f"({graph_problem.real_edges} real)", flush=True)
     rows += _phase("gin kernels", gin_kernel_phase, graph_problem)
+    pool_rows = _phase("pool kernels", pool_kernel_phase, graph_problem)
     t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
@@ -2707,6 +2972,8 @@ def main():
     totals, results = _phase("main path", main_path_phase, gpu, sage_problem, graph_problem)
     del sage_problem
     torch.cuda.empty_cache()
+    _phase("pool profile", pool_profile_phase, graph_problem, results, gpu)
+    _phase("pool small", pool_small_phase, graph_problem)
     ab_launches, _ = _phase("x7 main path (tiled A/B)", x7_main_path_phase, gpu)
     _phase("small plain", small_plain_phase, graph_problem)
     _phase("small propagation", propagation_small_phase)
@@ -2789,6 +3056,7 @@ def main():
         kernels.append(entry)
     kernels += halo_kernel_entries(halo_rows, halo_totals)
     kernels += sampled_sage_kernel_entries(sampled_rows, sampled_totals)
+    kernels += pool_kernel_entries(pool_rows, results)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

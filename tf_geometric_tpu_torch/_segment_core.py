@@ -66,9 +66,13 @@ def segment_mean(data, segment_ids, num_segments: int, indices_are_sorted: bool 
 
 def _segment_extreme(data, segment_ids, num_segments: int, reduce: str):
     ids = _trash_ids(segment_ids, num_segments)
-    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
-    # include_self=False: a non-empty segment reduces over its members only,
-    # an empty one keeps its 0 (the JAX op's ±inf fill mapped to 0)
+    # the JAX op's fill (-inf for max, +inf for min), mapped to 0 below.
+    # include_self=False: a non-empty segment reduces over its members only.
+    # The fill never equals a member, so the backward splits a segment's
+    # cotangent evenly among its tied members alone, as JAX does (a fill of
+    # 0 would take a share from a segment whose max is 0)
+    fill = float("-inf") if reduce == "amax" else float("inf")
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]), fill)
     out = out.scatter_reduce(0, _expand_ids(ids, data), data, reduce,
                              include_self=False)[:num_segments]
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

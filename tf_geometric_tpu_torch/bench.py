@@ -6,7 +6,7 @@ in its ``device`` mode) and on a padded batch of small graphs (the twin of
 instead, the twin of ``benchmarks/tiled_spmm_ab.py`` (``tiled_ab``).
 
 Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"};
-before each GIN line, one with its real and padded edges per second.
+before each GIN and pool line, one with its real and padded edges per second.
 
 1. ``gcn_arxiv_fwd_bwd``: a full training step (forward, backward, Adam) of
    the 2-layer GCN, HIDDEN 256, with the full-batch precompute ``P = Â·x``
@@ -95,6 +95,24 @@ before each GIN line, one with its real and padded edges per second.
    forward and 2 backward calls against the all-gathered table of 169,472
    rows. The line counts ``num_nodes · 35`` sampled edges over the slowest
    rank's median step, as ``scaling.py`` does.
+14. ``diff_pool_graphs_fwd_bwd``, 15. ``min_cut_pool_graphs_fwd_bwd`` and
+   16. ``sag_pool_graphs_fwd_bwd``: the twins of the pooling demos' models
+   (``demo/demo_diff_pool.py``, ``demo_min_cut_pool.py``,
+   ``demo_sag_pool_h.py``) at their widths, on the GIN workloads' batch, Adam
+   at 5e-3 (``demo_utils.run_graph_classification``'s rate), mean softmax
+   cross-entropy (15: plus the cut and orthogonality losses), dropout 0.4
+   from the problem's ``torch.Generator``. 14: two DiffPool levels of 8 and
+   4 clusters (feature ``GCN(32, relu)``, assign ``GCN(C)``), a
+   ``max_pool`` readout per level, ``Dense(64)``, relu, the head; 15:
+   ``GCN(32, relu)``, MinCutPool of 8 clusters, ``mean_pool``, the head; 16:
+   two levels of ``GCN(32, relu)`` and SAGPool (score ``GCN(1)``, k = 8,
+   tanh), a ``mean_pool`` readout per level, the head. Every GCN runs
+   without a cache: the COO SpMM (X6) forward and ``dh``, and in 14's
+   second level, whose edge weights are the first level's S^T A S, the
+   ``dv`` SDDMM. Weights: glorot-uniform matrices from a ``torch.Generator``
+   seeded ``POOL_SEED``, zero vectors. The lines count graphs/s. The ASAP
+   and Set2Set models (``demo_asap.py``, ``demo_set2set.py``) are here for
+   chip_smoke.py, without a workload.
 
 The tiled A/B (``tiled_ab``, ``--tiled-ab``): for the random arxiv graph,
 ``tiled_spmm_ab.py``'s community graph (communities of the tile size, 0.95
@@ -155,7 +173,11 @@ halo blocks and layouts leave many rows unread):
   ``d_att`` SDDMM (``ops.spmm_heads.spmm_pass_bytes``,
   ``sddmm_pass_bytes``);
 - the GIN step's COO SpMM passes (the same byte counts, one head, over the
-  batch's real edges: padded edges are dropped from the views).
+  batch's real edges: padded edges are dropped from the views);
+- the pool steps' COO SpMM forward and ``dh`` of every GCN and workload
+  14's ``dv`` SDDMMs (``pool_x6_calls``: the views' stored entries, each
+  GCN's self-loops included; SAGPool's second level over the edges its
+  first level keeps at the initial weights).
 Dense products, the loss and Adam are not charged, so the ratio is the
 share of the step that the sparse passes' minimum traffic would fill. The
 GIN lines count graphs/s; ``main`` also prints each GIN step's real and
@@ -183,16 +205,20 @@ from .datasets.synthetic_citation import (synthetic_graph_classification,
 from .datasets.synthetic_reddit import (REDDIT_CLASSES, REDDIT_EDGES, REDDIT_FEATURES,
                                         REDDIT_NODES, synthetic_reddit_like)
 from .nn.conv.gat import _gat_edge_cache, gat
-from .nn.conv.gcn import (compute_cache_key, gcn_norm_adj, maybe_compile_ell,
+from .nn.conv.gcn import (compute_cache_key, gcn, gcn_norm_adj, maybe_compile_ell,
                           precompute_propagated_features)
-from .layers.base import l2_loss
+from .layers.base import glorot_uniform, l2_loss
+from .layers.conv.gcn import GCN
 from .layers.conv.propagation import GIN
+from .layers.pool.pool_layers import ASAP, DiffPool, MinCutPool, SAGPool, Set2Set
 from .nn.conv.appnp import appnp
 from .nn.conv.sgc import sgc
 from .nn.conv.ssgc import ssgc
 from .nn.conv.graph_sage import mean_graph_sage_fixed_k
-from .nn.pool.common_pool import sum_pool
+from .nn.pool._subgraph import induced_subgraph_fixed
+from .nn.pool.common_pool import max_pool, mean_pool, sum_pool
 from .nn.pool.sort_pool import sort_pool
+from .nn.pool.topk_pool import topk_pool_fixed
 from .nn.sampling.device_sampler import DeviceNeighborSampler
 from .ops import config as kernel_config
 from .ops.csr_spmm import CsrAdj, CsrSide, csr_spmm
@@ -219,7 +245,10 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "tiled_ab_occupancy", "TiledAbProblem", "build_tiled_ab", "tiled_ab_steps",
            "tiled_ab", "SampledSageProblem", "build_sampled_sage_problem",
            "sampled_sage_jobs", "sampled_sage_pass_bytes", "run_sampled_sage_workload",
-           "SAMPLED_SAGE_WORKLOAD", "main"]
+           "SAMPLED_SAGE_WORKLOAD", "DiffPoolClassifier", "MinCutPoolClassifier",
+           "SAGPoolClassifier", "ASAPClassifier", "Set2SetClassifier", "POOL_MODELS",
+           "POOL_WORKLOADS", "init_pool_params", "pool_loss", "pool_x6_calls", "pool_step_bytes",
+           "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -238,6 +267,15 @@ GAT_MERGED_UNITS, GAT_MERGED_ATT_UNITS = 64, 8
 # benchmarks/graph_classification_throughput.py's constants
 GIN_BATCH, GIN_UNITS, GIN_LAYERS, GIN_SORT_K = 128, 64, 3, 16
 GIN_READOUTS = {"gin_sum_pool_fwd_bwd": "sum", "gin_sort_pool_fwd_bwd": "sort"}
+# the pooling demos' widths (demo/demo_{diff_pool,min_cut_pool,sag_pool_h,asap,set2set}.py)
+# and demo_utils.run_graph_classification's learning rate
+POOL_UNITS, POOL_HIDDEN, POOL_DROP_RATE, POOL_LR = 32, 64, 0.4, 5e-3
+DIFF_POOL_CLUSTERS, MIN_CUT_CLUSTERS, SAG_POOL_K = (8, 4), 8, 8
+ASAP_BATCH, ASAP_K, SET2SET_ITERATIONS = 16, 8, 3
+POOL_SEED = 0  # the pool models' weights and dropout generator
+POOL_WORKLOADS = {"diff_pool_graphs_fwd_bwd": "diff_pool",
+                  "min_cut_pool_graphs_fwd_bwd": "min_cut",
+                  "sag_pool_graphs_fwd_bwd": "sag_pool"}
 # benchmarks/scaling.py's graph-parallel steps
 HALO_PARTS, HALO_GCN_HIDDEN = 4, 64
 HALO_GAT_DIMS, HALO_DROP_RATE = ((8, 8), (1, 64)), 0.6
@@ -579,8 +617,10 @@ class GraphBatchProblem(NamedTuple):
     num_graphs: int
     num_classes: int
     real_edges: int                    # edges of the batch's graphs, padding excluded
-    models: Dict[str, GinClassifier]   # per readout, the module its params are called in
+    models: Dict[str, nn.Module]       # per readout or pool model, the module its params are
+                                       # called in
     params0: Dict[str, dict]           # per readout, the initial params (flax layout)
+    generator: torch.Generator         # the pool models' dropout masks, on x's device
 
 
 def build_graph_problem(batch: int = GIN_BATCH, device="cuda", num_graphs: int = 600,
@@ -596,13 +636,16 @@ def build_graph_problem(batch: int = GIN_BATCH, device="cuda", num_graphs: int =
     def tensor(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    models = {r: GinClassifier(num_features, num_classes, r, num_graphs=batch, device=device)
+              for r in ("sum", "sort")}
+    models.update({name: cls(num_features, num_classes, batch, device=device)
+                   for name, cls in POOL_MODELS.items()})
     return GraphBatchProblem(
         tensor(padded.x, torch.float32), tensor(padded.edge_index, torch.long),
         tensor(padded.edge_weight, torch.float32), tensor(padded.node_graph_index, torch.long),
-        tensor(y, torch.long), batch, num_classes, sum(g.num_edges for g in chunk),
-        {r: GinClassifier(num_features, num_classes, r, num_graphs=batch, device=device)
-         for r in ("sum", "sort")},
-        {r: init_gin_flax_params(num_features, num_classes, r) for r in ("sum", "sort")})
+        tensor(y, torch.long), batch, num_classes, sum(g.num_edges for g in chunk), models,
+        {r: init_gin_flax_params(num_features, num_classes, r) for r in ("sum", "sort")},
+        torch.Generator(device=device))
 
 
 def init_gin_params(problem: GraphBatchProblem, readout: str) -> Dict[str, torch.Tensor]:
@@ -633,6 +676,250 @@ def gin_edge_rates(problem: GraphBatchProblem, step_ms: float) -> Dict[str, floa
     """Real and padded edges per second at a step time."""
     return {"real_edges_per_sec": problem.real_edges / step_ms * 1e3,
             "padded_edges_per_sec": problem.edge_index.shape[1] / step_ms * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# workloads 14-16 (and the ASAP and Set2Set models): hierarchical pooling
+# ---------------------------------------------------------------------------
+
+def _dropout(h, training: bool, generator, keep_mask):
+    """The demos' ``Dropout(POOL_DROP_RATE)``: keep decisions from
+    ``keep_mask`` if given, else drawn with ``generator``."""
+    if not training:
+        return h
+    if keep_mask is None:
+        if generator is None:
+            raise ValueError("dropout in training mode needs a generator or keep_mask")
+        keep_mask = torch.rand(h.shape, generator=generator, device=h.device) < (
+            1.0 - POOL_DROP_RATE)
+    return torch.where(torch.as_tensor(keep_mask, device=h.device),
+                       h / (1.0 - POOL_DROP_RATE), torch.zeros_like(h))
+
+
+class DiffPoolClassifier(nn.Module):
+    """``demo/demo_diff_pool.py``'s ``DiffPoolModel``: for each level of
+    ``DIFF_POOL_CLUSTERS`` = (8, 4) clusters, a ``DiffPool`` over a feature
+    ``GCN(32, relu)`` and an assign ``GCN(C)``, then ``max_pool``; the
+    readouts concatenated, ``Dense(64)``, relu, dropout 0.4 and a dense
+    head. Submodules carry the flax model's names. Called on a padded batch
+    ``(x, edge_index, edge_weight, node_graph_index)``."""
+
+    def __init__(self, in_features: int, num_classes: int, num_graphs: int, device="cuda"):
+        super().__init__()
+        self.num_graphs = num_graphs
+        width = in_features
+        for level, clusters in enumerate(DIFF_POOL_CLUSTERS):
+            feature = GCN(width, POOL_UNITS, activation=torch.relu, device=device)
+            assign = GCN(width, clusters, device=device)
+            self.add_module(f"feature_gnn_{level}", feature)
+            self.add_module(f"assign_gnn_{level}", assign)
+            # the GCNs pass as bound calls: submodules of this model alone
+            self.add_module(f"diff_pool_{level}", DiffPool(
+                feature.__call__, assign.__call__, units=POOL_UNITS, num_clusters=clusters,
+                num_graphs=num_graphs, device=device))
+            width = POOL_UNITS
+        self.Dense_0 = nn.Linear(POOL_UNITS * len(DIFF_POOL_CLUSTERS), POOL_HIDDEN, device=device)
+        self.Dense_1 = nn.Linear(POOL_HIDDEN, num_classes, device=device)
+
+    def forward(self, x, edge_index, edge_weight, node_graph_index, generator=None,
+                keep_mask=None):
+        readouts, inputs = [], [x, edge_index, edge_weight, node_graph_index]
+        for level in range(len(DIFF_POOL_CLUSTERS)):
+            inputs = getattr(self, f"diff_pool_{level}")(inputs)
+            readouts.append(max_pool(inputs[0], inputs[3], num_graphs=self.num_graphs))
+        h = torch.relu(self.Dense_0(torch.cat(readouts, dim=-1)))
+        return self.Dense_1(_dropout(h, self.training, generator, keep_mask))
+
+
+class MinCutPoolClassifier(nn.Module):
+    """``demo/demo_min_cut_pool.py``'s ``MinCutPoolModel``: ``GCN(32,
+    relu)``, a ``MinCutPool`` of ``MIN_CUT_CLUSTERS`` = 8 clusters over a
+    feature ``GCN(32, relu)`` and an assign ``GCN(8)``, ``mean_pool``,
+    dropout 0.4, a dense head. Returns ``(logits, cut + orth)``: the
+    demo's auxiliary loss, which the flax model sows."""
+
+    def __init__(self, in_features: int, num_classes: int, num_graphs: int, device="cuda"):
+        super().__init__()
+        self.num_graphs = num_graphs
+        self.GCN_0 = GCN(in_features, POOL_UNITS, activation=torch.relu, device=device)
+        self.feature_gnn = GCN(POOL_UNITS, POOL_UNITS, activation=torch.relu, device=device)
+        self.assign_gnn = GCN(POOL_UNITS, MIN_CUT_CLUSTERS, device=device)
+        self.MinCutPool_0 = MinCutPool(self.feature_gnn.__call__, self.assign_gnn.__call__,
+                                       units=POOL_UNITS, num_clusters=MIN_CUT_CLUSTERS,
+                                       num_graphs=num_graphs, device=device)
+        self.Dense_0 = nn.Linear(POOL_UNITS, num_classes, device=device)
+
+    def forward(self, x, edge_index, edge_weight, node_graph_index, generator=None,
+                keep_mask=None):
+        h = self.GCN_0([x, edge_index, edge_weight])
+        (h, _, _, ngi), (cut, orth) = self.MinCutPool_0(
+            [h, edge_index, edge_weight, node_graph_index], return_losses=True)
+        h = mean_pool(h, ngi, num_graphs=self.num_graphs)
+        return self.Dense_0(_dropout(h, self.training, generator, keep_mask)), cut + orth
+
+
+class SAGPoolClassifier(nn.Module):
+    """``demo/demo_sag_pool_h.py``'s ``SAGPoolHModel``: two levels of
+    ``GCN(32, relu)`` then ``SAGPool`` (score ``GCN(1)``, ``k =
+    SAG_POOL_K`` = 8, tanh), a ``mean_pool`` readout per level,
+    concatenated, dropout 0.4, a dense head."""
+
+    def __init__(self, in_features: int, num_classes: int, num_graphs: int, device="cuda"):
+        super().__init__()
+        self.num_graphs = num_graphs
+        width = in_features
+        for level in range(2):
+            self.add_module(f"GCN_{level}", GCN(width, POOL_UNITS, activation=torch.relu,
+                                                device=device))
+            score = GCN(POOL_UNITS, 1, device=device)
+            self.add_module(f"score_gnn_{level}", score)
+            self.add_module(f"sag_pool_{level}", SAGPool(score.__call__, k=SAG_POOL_K,
+                                                         score_activation=torch.tanh,
+                                                         num_graphs=num_graphs))
+            width = POOL_UNITS
+        self.Dense_0 = nn.Linear(2 * POOL_UNITS, num_classes, device=device)
+
+    def forward(self, x, edge_index, edge_weight, node_graph_index, generator=None,
+                keep_mask=None):
+        readouts, (h, ei, ew, ngi) = [], (x, edge_index, edge_weight, node_graph_index)
+        for level in range(2):
+            h = getattr(self, f"GCN_{level}")([h, ei, ew])
+            h, ei, ew, ngi = getattr(self, f"sag_pool_{level}")([h, ei, ew, ngi])
+            readouts.append(mean_pool(h, ngi, num_graphs=self.num_graphs))
+        h = torch.cat(readouts, dim=-1)
+        return self.Dense_0(_dropout(h, self.training, generator, keep_mask))
+
+
+class ASAPClassifier(nn.Module):
+    """``demo/demo_asap.py``'s ``ASAPModel``: ``GCN(32, relu)``, ``ASAP(32,
+    k = 8)`` in its fixed mode, ``mean_pool``, dropout 0.4, a dense head.
+    The demo trains it at batch ``ASAP_BATCH`` = 16: the fixed mode's pooled
+    edges are every pair of the batch's G·k clusters."""
+
+    def __init__(self, in_features: int, num_classes: int, num_graphs: int, device="cuda"):
+        super().__init__()
+        self.num_graphs = num_graphs
+        self.GCN_0 = GCN(in_features, POOL_UNITS, activation=torch.relu, device=device)
+        self.ASAP_0 = ASAP(POOL_UNITS, POOL_UNITS, k=ASAP_K, num_graphs=num_graphs, device=device)
+        self.Dense_0 = nn.Linear(POOL_UNITS, num_classes, device=device)
+
+    def forward(self, x, edge_index, edge_weight, node_graph_index, generator=None,
+                keep_mask=None):
+        h = self.GCN_0([x, edge_index, edge_weight])
+        h, _, _, ngi = self.ASAP_0([h, edge_index, edge_weight, node_graph_index])
+        h = mean_pool(h, ngi, num_graphs=self.num_graphs)
+        return self.Dense_0(_dropout(h, self.training, generator, keep_mask))
+
+
+class Set2SetClassifier(nn.Module):
+    """``demo/demo_set2set.py``'s ``Set2SetModel``: two ``GCN(32, relu)``,
+    ``Set2Set`` over ``SET2SET_ITERATIONS`` = 3 iterations, dropout 0.4, a
+    dense head."""
+
+    def __init__(self, in_features: int, num_classes: int, num_graphs: int, device="cuda"):
+        super().__init__()
+        self.GCN_0 = GCN(in_features, POOL_UNITS, activation=torch.relu, device=device)
+        self.GCN_1 = GCN(POOL_UNITS, POOL_UNITS, activation=torch.relu, device=device)
+        self.Set2Set_0 = Set2Set(POOL_UNITS, SET2SET_ITERATIONS, num_graphs=num_graphs,
+                                 device=device)
+        self.Dense_0 = nn.Linear(2 * POOL_UNITS, num_classes, device=device)
+
+    def forward(self, x, edge_index, edge_weight, node_graph_index, generator=None,
+                keep_mask=None):
+        h = self.GCN_0([x, edge_index, edge_weight])
+        h = self.GCN_1([h, edge_index, edge_weight])
+        h = self.Set2Set_0([h, node_graph_index])
+        return self.Dense_0(_dropout(h, self.training, generator, keep_mask))
+
+
+POOL_MODELS = {"diff_pool": DiffPoolClassifier, "min_cut": MinCutPoolClassifier,
+               "sag_pool": SAGPoolClassifier, "asap": ASAPClassifier, "set2set": Set2SetClassifier}
+
+
+def _pool_params0(problem: GraphBatchProblem, name: str) -> Dict[str, torch.Tensor]:
+    gen = torch.Generator().manual_seed(POOL_SEED)
+    device = problem.x.device
+    return {k: (glorot_uniform(tuple(v.shape), gen) if v.dim() == 2 else torch.zeros(v.shape))
+            .to(device).requires_grad_()
+            for k, v in problem.models[name].named_parameters()}
+
+
+def init_pool_params(problem: GraphBatchProblem, name: str) -> Dict[str, torch.Tensor]:
+    """Pool model ``name``'s initial weights as leaf tensors that require
+    grad: every matrix glorot-uniform from a ``torch.Generator`` seeded
+    ``POOL_SEED``, in the model's parameter order (the bound is symmetric
+    in the two dims, so [in, out] kernels, [out, in] ``Linear`` weights and
+    the LSTM cell's alike), every vector zeros. Also reseeds the dropout
+    generator, so every run from these weights draws the same masks."""
+    problem.generator.manual_seed(POOL_SEED)
+    return _pool_params0(problem, name)
+
+
+def pool_loss(p, problem: GraphBatchProblem, name: str, keep_mask=None):
+    """Pool model ``name`` with weights ``p`` on the batch: mean softmax
+    cross-entropy over its graphs, plus MinCutPool's cut and orthogonality
+    losses. Dropout draws from the problem's generator unless ``keep_mask``
+    is given."""
+    out = functional_call(problem.models[name], p, (
+        problem.x, problem.edge_index, problem.edge_weight, problem.node_graph_index),
+        {"generator": problem.generator, "keep_mask": keep_mask}, strict=True)
+    logits, aux = out if isinstance(out, tuple) else (out, None)
+    loss = F.cross_entropy(logits, problem.y)
+    return loss if aux is None else loss + aux
+
+
+def pool_x6_calls(problem: GraphBatchProblem, name: str) -> list:
+    """The COO SpMM calls of one training step of pool model ``name``, one
+    ``(entries, stored, rows, width, dv)`` per GCN: the edge list's length
+    with the self-loops (what the views take in), the entries the views
+    keep (rows in range), the product's rows and width, and whether the
+    backward also takes the values' gradient (``dv``, DiffPool's second
+    level, whose edge weights come from the first level's assignment).
+    Every call also runs ``dh``. SAGPool's second level keeps the edges
+    whose ends both survive the first; they are counted at the initial
+    weights."""
+    n, e = problem.x.shape[0], problem.edge_index.shape[1]
+    level0 = (e + n, problem.real_edges + n, n)
+    if name == "diff_pool":
+        c0, c1 = DIFF_POOL_CLUSTERS
+        pairs = problem.num_graphs * c0 * c0
+        level1 = (pairs + problem.num_graphs * c0,) * 2 + (problem.num_graphs * c0,)
+        return [(*level0, POOL_UNITS, False), (*level0, c0, False),
+                (*level1, POOL_UNITS, True), (*level1, c1, True)]
+    if name == "min_cut":
+        return [(*level0, POOL_UNITS, False), (*level0, POOL_UNITS, False),
+                (*level0, MIN_CUT_CLUSTERS, False)]
+    if name == "sag_pool":
+        cap = problem.num_graphs * SAG_POOL_K
+        level1 = (e + cap, _sag_pool_kept_edges(problem) + cap, cap)
+        return [(*level0, POOL_UNITS, False), (*level0, 1, False),
+                (*level1, POOL_UNITS, False), (*level1, 1, False)]
+    raise ValueError(f"no X6 calls listed for {name!r}")
+
+
+def _sag_pool_kept_edges(problem: GraphBatchProblem) -> int:
+    """The edges SAGPool's first level keeps at the initial weights, by the
+    plain versions (so counting launches nothing)."""
+    p = _pool_params0(problem, "sag_pool")
+    adj = SparseMatrix(problem.edge_index, problem.edge_weight, (problem.x.shape[0],) * 2)
+    with torch.no_grad(), kernel_config.use_plain_versions():
+        h = gcn(problem.x, adj, p["GCN_0.kernel"], p["GCN_0.bias"], activation=torch.relu)
+        score = gcn(h, adj, p["score_gnn_0.kernel"], p["score_gnn_0.bias"])
+        idx, valid = topk_pool_fixed(problem.node_graph_index, score, problem.num_graphs,
+                                     SAG_POOL_K)
+        _, kept, _, _ = induced_subgraph_fixed(h, problem.edge_index, problem.edge_weight,
+                                               problem.node_graph_index, idx, valid,
+                                               problem.num_graphs)
+    return int((kept[0] < idx.shape[0]).sum())
+
+
+def pool_step_bytes(problem: GraphBatchProblem, name: str) -> int:
+    """Least bytes of a pool step's X6 passes (``pool_x6_calls``): each
+    GCN's forward and ``dh`` over the stored entries, float32, and the
+    ``dv`` SDDMM where the values need a gradient."""
+    return sum(2 * spmm_pass_bytes(stored, rows, rows, width, 1, 4, 4)
+               + (sddmm_pass_bytes(stored, rows, rows, width, 1, 4) if dv else 0)
+               for _, stored, rows, width, dv in pool_x6_calls(problem, name))
 
 
 def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor], lr: float = 1e-2) -> Callable:
@@ -800,6 +1087,13 @@ def _gin_workload(readout: str) -> Workload:
 WORKLOADS.update({name: _gin_workload(readout) for name, readout in GIN_READOUTS.items()})
 
 
+def _pool_workload(model: str) -> Workload:
+    return Workload(lambda p, pr, dense_bf16=True: pool_loss(p, pr, model),
+                    lambda pr: init_pool_params(pr, model), POOL_LR,
+                    lambda pr: pool_step_bytes(pr, model), lambda pr: pr.num_graphs,
+                    problem="graphs", counts="graphs")
+
+
 def _propagation_workload(name: str, loss: Callable, lr: float) -> Workload:
     return Workload(_no_dense_bf16(loss), lambda pr: init_propagation_params(pr, name), lr,
                     lambda pr: _spmm_step_bytes(pr, (NUM_CLASSES,) * SPMM_PAIRS[name], elt=4),
@@ -811,6 +1105,7 @@ WORKLOADS.update({
     "appnp_arxiv_fwd_bwd": _propagation_workload("appnp_arxiv_fwd_bwd", appnp_loss, 5e-3),
     "ssgc_arxiv_fwd_bwd": _propagation_workload("ssgc_arxiv_fwd_bwd", ssgc_loss, 5e-3),
 })
+WORKLOADS.update({name: _pool_workload(model) for name, model in POOL_WORKLOADS.items()})
 
 
 def _workload_step(problem, name: str, dense_bf16: bool):
@@ -1290,12 +1585,12 @@ def tiled_ab(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, device=
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the thirteen workloads on ``device`` and print their JSON lines;
+    """Run the sixteen workloads on ``device`` and print their JSON lines;
     with ``profile``, also print each workload's per-kernel device time (for
     the multi-rank workloads, each rank's and the card's busy time).
     ``num_nodes``/``num_edges`` size the arxiv graph (the multi-rank
-    workloads' too); the Reddit graph and the GIN batch are built at their
-    full size."""
+    workloads' too); the Reddit graph and the GIN batch (the pool
+    workloads' too) are built at their full size."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
     problems = {"arxiv": build_problem(num_nodes, num_edges, device=device,

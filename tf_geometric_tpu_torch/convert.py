@@ -13,7 +13,8 @@ import torch
 __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dict_from_flax",
            "sage_state_dict_from_flax", "gin_classifier_state_dict_from_flax",
            "sharded_params_from_numpy", "sampled_sage_params_from_jax",
-           "propagation_state_dict_from_flax",
+           "propagation_state_dict_from_flax", "pool_model_state_dict_from_flax",
+           "lstm_cell_state_dict_from_flax", "lstm_cell_state_dict_from_keras",
            "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
@@ -67,30 +68,74 @@ def propagation_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tens
     return _state_dict_from_flax(variables)
 
 
+def lstm_cell_state_dict_from_flax(cell: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax ``OptimizedLSTMCell``'s params (input kernels ``ii if ig io``
+    [in, H] without bias, hidden kernels ``hi hf hg ho`` [H, H] with bias) as
+    a ``torch.nn.LSTMCell``'s (or an ``nn.LSTM`` layer's, with ``prefix``
+    ``"lstm."`` and the ``_l0`` suffix added by the caller) ``weight_ih``
+    [4H, in], ``weight_hh`` [4H, H], ``bias_hh`` [4H] and a zero
+    ``bias_ih``, keyed ``prefix + name``."""
+
+    def gates(side, leaf):
+        blocks = [np.asarray(cell[side + g][leaf], np.float32) for g in _LSTM_GATES]
+        return np.concatenate([b.T if leaf == "kernel" else b for b in blocks], axis=0)
+
+    bias_hh = gates("h", "bias")
+    return {prefix + "weight_ih": torch.tensor(gates("i", "kernel")),
+            prefix + "weight_hh": torch.tensor(gates("h", "kernel")),
+            prefix + "bias_ih": torch.zeros(bias_hh.shape[0]),
+            prefix + "bias_hh": torch.tensor(bias_hh)}
+
+
+def lstm_cell_state_dict_from_keras(kernel, recurrent_kernel, bias,
+                                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A Keras ``LSTM``'s ``W`` [in, 4H], ``U`` [H, 4H] and ``b`` [4H] (gate
+    blocks i, f, c, o: torch's i, f, g, o) as a ``torch.nn.LSTMCell``'s
+    weights, ``bias_hh`` zero, keyed ``prefix + name``."""
+    bias = np.asarray(bias, np.float32)
+    return {prefix + "weight_ih": torch.tensor(np.asarray(kernel, np.float32).T.copy()),
+            prefix + "weight_hh": torch.tensor(np.asarray(recurrent_kernel, np.float32).T.copy()),
+            prefix + "bias_ih": torch.tensor(bias),
+            prefix + "bias_hh": torch.zeros(bias.shape[0])}
+
+
 def sage_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A flax GraphSAGE layer's params as a ``state_dict`` for the port's
     layer of the same name. The kernels and biases keep their names and
-    [in, out] layout. ``LSTMGraphSage``'s cell (``OptimizedLSTMCell_0``: input
-    kernels ``ii if ig io`` [in, H] without bias, hidden kernels ``hi hf hg
-    ho`` [H, H] with bias) becomes ``lstm.weight_ih_l0`` [4H, in],
-    ``lstm.weight_hh_l0`` [4H, H], ``lstm.bias_hh_l0`` [4H] and a zero
-    ``lstm.bias_ih_l0``."""
+    [in, out] layout. ``LSTMGraphSage``'s cell (``OptimizedLSTMCell_0``)
+    becomes ``lstm.weight_ih_l0``, ``lstm.weight_hh_l0``, ``lstm.bias_hh_l0``
+    and a zero ``lstm.bias_ih_l0`` (``lstm_cell_state_dict_from_flax``)."""
     params = variables["params"]
     out = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in params.items()
            if not isinstance(v, Mapping)}
     cells = [v for v in params.values() if isinstance(v, Mapping)]
     if cells:
-        cell = cells[0]
+        out.update({k + "_l0": v
+                    for k, v in lstm_cell_state_dict_from_flax(cells[0], "lstm.").items()})
+    return out
 
-        def gates(prefix, leaf):
-            blocks = [np.asarray(cell[prefix + g][leaf], np.float32) for g in _LSTM_GATES]
-            return np.concatenate([b.T if leaf == "kernel" else b for b in blocks], axis=0)
 
-        bias_hh = gates("h", "bias")
-        out.update({"lstm.weight_ih_l0": torch.tensor(gates("i", "kernel")),
-                    "lstm.weight_hh_l0": torch.tensor(gates("h", "kernel")),
-                    "lstm.bias_ih_l0": torch.zeros(bias_hh.shape[0]),
-                    "lstm.bias_hh_l0": torch.tensor(bias_hh)})
+def pool_model_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The params of the pooling demos' models (``demo/demo_diff_pool.py``,
+    ``demo_min_cut_pool.py``, ``demo_sag_pool_h.py``, ``demo_asap.py``,
+    ``demo_set2set.py``) as a ``state_dict`` for the port's twin in
+    ``bench`` (``POOL_MODELS``), whose submodules carry the flax names: a
+    ``Dense_i`` kernel [in, out] becomes a ``torch.nn.Linear`` weight [out,
+    in]; a ``Set2Set``'s ``OptimizedLSTMCell_0`` its ``cell``
+    (``lstm_cell_state_dict_from_flax``); every other leaf (GCN kernels and
+    biases, the pools' biases, ASAP's 12 tensors) keeps its name and
+    layout."""
+    out = {}
+    for name, module in variables["params"].items():
+        if name.startswith("Dense_"):
+            out[f"{name}.weight"] = torch.tensor(np.asarray(module["kernel"], np.float32).T)
+            out[f"{name}.bias"] = torch.tensor(np.asarray(module["bias"], np.float32))
+        elif "OptimizedLSTMCell_0" in module:
+            out.update(lstm_cell_state_dict_from_flax(module["OptimizedLSTMCell_0"],
+                                                      f"{name}.cell."))
+        else:
+            out.update({f"{name}.{k}": torch.tensor(np.asarray(v, np.float32))
+                        for k, v in module.items()})
     return out
 
 

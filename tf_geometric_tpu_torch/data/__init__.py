@@ -1,6 +1,6 @@
-from .graph import BatchGraph, Graph
+from .graph import BatchGraph, Graph, HeteroBatchGraph, HeteroGraph
 from .padding import (PaddingSpec, batch_padding_spec, bucket_size, pad_batch_graph, pad_graph,
                       padded_batch_generator)
 
-__all__ = ["Graph", "BatchGraph", "PaddingSpec", "bucket_size", "pad_graph", "pad_batch_graph",
-           "batch_padding_spec", "padded_batch_generator"]
+__all__ = ["Graph", "BatchGraph", "HeteroGraph", "HeteroBatchGraph", "PaddingSpec", "bucket_size",
+           "pad_graph", "pad_batch_graph", "batch_padding_spec", "padded_batch_generator"]

@@ -20,14 +20,17 @@ from .kernel.map_reduce import (aggregate_neighbors, gcn_mapper, identity_mapper
 from .kernel.segment import (segment_count, segment_max, segment_mean, segment_min,
                              segment_normalize, segment_op_with_pad,
                              segment_softmax, segment_sum)
-from .pool import (max_pool, mean_pool, min_pool, sort_pool, sum_pool, topk_pool,
-                   topk_pool_fixed)
+from .pool import (asap, cluster_pool, diff_pool, diff_pool_coarsen, max_pool, mean_pool,
+                   min_cut_pool, min_cut_pool_coarsen, min_cut_pool_compute_losses, min_pool,
+                   sag_pool, set2set, sort_pool, sum_pool, topk_pool, topk_pool_fixed)
 from .sampling import DeviceNeighborSampler, draw_fixed_k, drop_edge
 
 __all__ = ["appnp", "mlp_encode", "sgc", "ssgc", "tagcn", "chebynet", "chebynet_norm_edge",
            "chebynet_cache_normed_edge", "le_conv", "drop_edge", "gat", "gcn", "gin", "gin_updater",
            "mean_pool", "sum_pool", "max_pool",
-           "min_pool", "sort_pool", "topk_pool", "topk_pool_fixed", "gcn_norm_adj",
+           "min_pool", "sort_pool", "topk_pool", "topk_pool_fixed", "cluster_pool", "diff_pool",
+           "diff_pool_coarsen", "min_cut_pool", "min_cut_pool_coarsen",
+           "min_cut_pool_compute_losses", "sag_pool", "asap", "set2set", "gcn_norm_adj",
            "gcn_build_cache_by_adj", "gcn_build_cache_for_graph", "gcn_norm_edge",
            "gcn_cache_normed_edge", "gcn_mapper", "compute_cache_key",
            "compile_and_dropout", "precompute_propagated_features", "maybe_compile_ell",

@@ -21,7 +21,7 @@ import torch
 
 from .. import _segment_core as _seg
 
-__all__ = ["SparseMatrix", "diags", "eye", "concat", "chunked_feature_matmul"]
+__all__ = ["SparseMatrix", "diags", "eye", "concat", "sparse_shape", "chunked_feature_matmul"]
 
 
 def chunked_feature_matmul(spmm_fn, h, num_or_size_splits):
@@ -103,6 +103,23 @@ class SparseMatrix:
         row, col = torch.nonzero(dense, as_tuple=True)
         return cls(torch.stack([row, col]), dense[row, col].float(), tuple(dense.shape))
 
+    def to_scipy(self):
+        """A ``scipy.sparse.coo_matrix`` of the in-range entries, on the host."""
+        import scipy.sparse as sp
+        index = self.index.detach().cpu().numpy()
+        value = self.value.detach().cpu().numpy()
+        ok = ((index[0] >= 0) & (index[0] < self._shape[0])
+              & (index[1] >= 0) & (index[1] < self._shape[1]))
+        return sp.coo_matrix((value[ok], (index[0][ok], index[1][ok])), shape=self._shape)
+
+    @classmethod
+    def from_scipy(cls, mat, device="cuda") -> "SparseMatrix":
+        """The entries of a scipy sparse matrix (in its COO order), float32
+        values, on ``device``."""
+        coo = mat.tocoo()
+        index = np.stack([coo.row, coo.col], axis=0).astype(np.int64)
+        return cls(index, coo.data.astype(np.float32), coo.shape, device=device)
+
     # -- linear algebra ------------------------------------------------------
     def matmul(self, h, num_or_size_splits=None):
         """SpMM ``self @ h`` for dense ``h`` [shape[1], F]; ``num_or_size_splits``
@@ -166,6 +183,9 @@ class SparseMatrix:
                 (n,))
         return SparseMatrix(torch.cat([self.index, diag_idx], dim=1),
                             torch.cat([self.value, diag_val]), self._shape)
+
+    def add_self_loop(self, fill_weight: float = 1.0) -> "SparseMatrix":
+        return self.add_diag(fill_weight)
 
     def transpose(self) -> "SparseMatrix":
         return SparseMatrix(self.index.flip(0), self.value,
@@ -237,3 +257,10 @@ def concat(matrices: Sequence[SparseMatrix], axis: int = 0) -> SparseMatrix:
         offset += m.shape[axis]
     shape = (total, other_size) if axis == 0 else (other_size, total)
     return SparseMatrix(torch.cat(parts_idx, dim=1), torch.cat(parts_val), shape)
+
+
+def sparse_shape(x):
+    """The shape of a dense tensor or array or of a SparseMatrix, as a tuple."""
+    if isinstance(x, SparseMatrix):
+        return x.shape
+    return tuple(x.shape)

@@ -1,11 +1,19 @@
 from .graph_utils import (LaplacianMaxEigenvalue, add_self_loop_edge, adj_norm_edge,
-                          convert_edge_hash_to_edge_index, convert_edge_index_to_edge_hash,
-                          convert_edge_to_directed, convert_edge_to_upper, get_laplacian,
-                          mask_self_loop_edge, merge_duplicated_edge, remove_self_loop_edge)
+                          compute_edge_mask_by_node_index, convert_dense_adj_to_edge,
+                          convert_dense_assign_to_edge, convert_edge_hash_to_edge_index,
+                          convert_edge_index_to_edge_hash, convert_edge_to_directed,
+                          convert_edge_to_upper, get_laplacian, mask_self_loop_edge,
+                          merge_duplicated_edge, reindex_sampled_edge_index,
+                          remove_self_loop_edge)
+from .tf_sparse_utils import (compute_num_or_size_splits, sparse_gather_sub,
+                              sparse_tensor_gather_sub)
 from .union_utils import convert_union_to_numpy, union_len
 
 __all__ = ["convert_union_to_numpy", "union_len", "add_self_loop_edge",
            "remove_self_loop_edge", "convert_edge_to_directed", "convert_edge_to_upper",
            "merge_duplicated_edge", "convert_edge_index_to_edge_hash",
            "convert_edge_hash_to_edge_index", "mask_self_loop_edge", "get_laplacian",
-           "adj_norm_edge", "LaplacianMaxEigenvalue"]
+           "adj_norm_edge", "LaplacianMaxEigenvalue", "convert_dense_adj_to_edge",
+           "convert_dense_assign_to_edge", "compute_edge_mask_by_node_index",
+           "reindex_sampled_edge_index", "sparse_gather_sub", "sparse_tensor_gather_sub",
+           "compute_num_or_size_splits"]

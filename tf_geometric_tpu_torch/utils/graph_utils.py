@@ -1,10 +1,10 @@
-"""Edge transforms that GCN and GAT need (JAX counterpart:
-``tf_geometric_tpu/utils/graph_utils.py``).
+"""Edge transforms (JAX counterpart: ``tf_geometric_tpu/utils/graph_utils.py``).
 
-Host-side transforms (dedup, canonicalization, self-loop removal) return
-numpy arrays, as the JAX module does; ``add_self_loop_edge`` keeps its
-input's kind: a tensor in gives tensors on the same device, anything else
-gives numpy arrays.
+Host-side transforms (dedup, canonicalization, self-loop removal, the dense
+adjacency's edges, sampled-edge reindexing) return numpy arrays, as the JAX
+module does; ``add_self_loop_edge`` keeps its input's kind: a tensor in
+gives tensors on the same device, anything else gives numpy arrays. The
+dense assignment's edges and the subgraph edge mask are tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +26,10 @@ __all__ = [
     "get_laplacian",
     "adj_norm_edge",
     "LaplacianMaxEigenvalue",
+    "convert_dense_adj_to_edge",
+    "convert_dense_assign_to_edge",
+    "compute_edge_mask_by_node_index",
+    "reindex_sampled_edge_index",
 ]
 
 
@@ -256,3 +260,66 @@ class LaplacianMaxEigenvalue:
                             shape=(self.num_nodes, self.num_nodes))
         vals = eigsh(lap, k=1, which="LM", return_eigenvectors=False)
         return float(vals[0])
+
+
+def convert_dense_adj_to_edge(dense_adj, threshold: float = 0.0):
+    """The entries of a dense adjacency whose magnitude exceeds
+    ``threshold`` as ``(edge_index [2, E] int32, edge_weight [E] float32)``,
+    numpy, row-major order. Host-side."""
+    dense_adj = convert_union_to_numpy(dense_adj)
+    row, col = np.nonzero(np.abs(dense_adj) > threshold)
+    return (np.stack([row, col], axis=0).astype(np.int32),
+            dense_adj[row, col].astype(np.float32))
+
+
+def convert_dense_assign_to_edge(dense_assign, node_graph_index=None, num_nodes=None,
+                                 num_clusters=None):
+    """A dense soft assignment [N, C] as N·C node → cluster edges (every
+    pair), the cluster ids offset by ``node_graph_index · C`` when given.
+    Tensors on ``dense_assign``'s device; the weights keep its gradient."""
+    dense_assign = torch.as_tensor(dense_assign)
+    n, c = dense_assign.shape
+    device = dense_assign.device
+    node_idx = torch.arange(n, device=device).repeat_interleave(c)
+    cluster_idx = torch.arange(c, device=device).repeat(n)
+    if node_graph_index is not None:
+        offsets = torch.as_tensor(node_graph_index, device=device).long() * c
+        cluster_idx = cluster_idx + offsets.repeat_interleave(c)
+    return torch.stack([node_idx, cluster_idx]), dense_assign.reshape(-1)
+
+
+def compute_edge_mask_by_node_index(edge_index, node_index, num_nodes=None):
+    """Boolean [E] mask of the edges whose two ends both lie in
+    ``node_index``, on ``edge_index``'s device (the CPU for numpy input).
+    As in JAX, ends are clipped to ``[0, num_nodes)`` for the lookup and an
+    out-of-range end masks its edge; a node id out of range selects nothing
+    (it writes a spare entry)."""
+    if not isinstance(edge_index, torch.Tensor):
+        edge_index = torch.as_tensor(convert_union_to_numpy(edge_index, np.int64))
+    edge_index = edge_index.long()
+    device = edge_index.device
+    node_index = torch.as_tensor(convert_union_to_numpy(node_index, np.int64)
+                                 if not isinstance(node_index, torch.Tensor) else node_index,
+                                 device=device).long()
+    if num_nodes is None:
+        num_nodes = max(int(edge_index.max()) if edge_index.numel() else 0,
+                        int(node_index.max()) if node_index.numel() else 0) + 1
+    node_mask = torch.zeros(num_nodes + 1, dtype=torch.bool, device=device)
+    in_nodes = (node_index >= 0) & (node_index < num_nodes)
+    node_mask[torch.where(in_nodes, node_index, num_nodes)] = True
+    node_mask = node_mask[:num_nodes]
+    in_range = (edge_index >= 0) & (edge_index < num_nodes)
+    ends_ok = node_mask[edge_index.clamp(0, num_nodes - 1)] & in_range
+    return ends_ok[0] & ends_ok[1]
+
+
+def reindex_sampled_edge_index(sampled_edge_index, sampled_node_index):
+    """Relabel edge ends into the sampled nodes' local ids (an end outside
+    the sample reads -1), int32 numpy. Host-side."""
+    sampled_edge_index = convert_union_to_numpy(sampled_edge_index, np.int64)
+    sampled_node_index = convert_union_to_numpy(sampled_node_index, np.int64)
+    max_id = int(max(sampled_edge_index.max(initial=0),
+                     sampled_node_index.max(initial=0))) + 1
+    lookup = np.full(max_id, -1, np.int64)
+    lookup[sampled_node_index] = np.arange(len(sampled_node_index))
+    return lookup[sampled_edge_index].astype(np.int32)
