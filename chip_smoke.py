@@ -212,6 +212,25 @@ Phases, each of which raises (non-zero exit) on failure:
     through ``gcn``, whose sparse ``x @ W`` is X6 too (4 launches), against
     the plain versions and the dense features.
 
+16. The edge-partitioned MinCut/DiffPool step (``bench`` workload 17,
+    ``mincut_arxiv_p4_fwd_bwd``): Kernel A on rank 1's rectangular block
+    ([42,336, 169,344], the normalized adjacency without self-loops, rows
+    local, columns global) forward and ``dh`` at F = 96 (hidden + C) and
+    F = 32 (C), float32, against its plain version and ``torch.sparse.mm``
+    on the same CSR (1e-4) and a second run (bit for bit), timed by events
+    and device time beside its byte bound; then workload 17 at full size,
+    3 warm-up, 20 timed and 5 profiled steps (the card's busy time and idle
+    share): the loss finite and falling on every rank, exactly 4 Kernel A
+    launches per rank and step and no other kernel; 3 steps of both
+    variants (``min_cut``, ``diff``) at 20,000 nodes and of the 2-D batch
+    step (data 2 × graph 2, a 20,000-node batch) through the kernels and
+    the plain versions (rank 0's losses within 1e-4); ``parallel.multihost``:
+    4 processes through ``initialize``'s environment rendezvous on card 0
+    over gloo, halo GCN on the packed plan at 20,000 nodes, two-level (data
+    2 × graph 2) and flat (graph 4), each process's Kernel A launches as its
+    plan implies and its losses those of ``run_ranks``; the dry run (its
+    MinCut and 2-D parts too).
+
 13. X7 (``tiled_spmm``, ``csrc/tiled_spmm.cu``), before the main path: the
     kernel against its plain version at the shapes and tiles of
     ``tests/test_tiled_spmm.py`` (t = 32, 64, 128) and at t = 16, 48, 192
@@ -236,7 +255,8 @@ Phases, each of which raises (non-zero exit) on failure:
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
 ``gat_attention_ell:<kernel>`` beside the single-process entries, the draw
-and S1 on workload 13 as ``sampled_sage:<kernel>``, X6 on the pooling path
+and S1 on workload 13 as ``sampled_sage:<kernel>``, Kernel A on workload
+17 as ``mincut:csr_spmm``, X6 on the pooling path
 (workload 14's pooled graph, launches over workloads 14-16) as
 ``pool:<kernel>``, X7 as ``tiled_spmm``
 with the A/B's launches, Kernel B with 0 launches: every hub merge runs in
@@ -2487,7 +2507,9 @@ def halo_small_plain_phase():
 
 
 def dryrun_phase():
-    """The port's twin of the JAX dry run on 4 ranks sharing the card."""
+    """The port's twin of the JAX dry run on 4 ranks sharing the card: the
+    halo GCN, the fused halo GAT, the sampled SAGE, the MinCut step and the
+    2-D batch step (data 2 × graph 2), each loss finite."""
     from tf_geometric_tpu_torch.entry import dryrun_multichip
     losses = dryrun_multichip(4)
     print(f"dryrun_multichip(4) ({HALO_LABEL}): losses {losses}", flush=True)
@@ -2640,6 +2662,247 @@ def sampled_sage_kernel_entries(rows, totals):
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": f"rank 1, k=25, table 169,472 x 64, float32; {HALO_LABEL}"})
     return entries
+
+
+MINCUT_LABEL = "mincut arxiv rank 1"
+
+
+def mincut_kernel_phase(problem):
+    """Kernel A on workload 17's path: rank 1's rectangular block of the
+    normalized adjacency without self-loops ([npp, P·npp], rows local,
+    columns global), its forward side and its transposed side (``dh``), at
+    F = hidden + C and F = C, float32: against its plain version and
+    ``torch.sparse.mm`` on the same CSR (1e-4), and against a second run,
+    bit for bit; timed by CUDA events and by device time beside its byte
+    bound, its plain version and the library call. Returns one row per
+    side and width."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops.csr_spmm import side_matmul, side_matmul_plain
+    rank = 1
+    adj = problem.adjs[rank].csr.to("cuda")
+    widths = (bench.MINCUT_HIDDEN + bench.MINCUT_CLUSTERS, bench.MINCUT_CLUSTERS)
+    for side_name in ("fwd", "bwd"):
+        side = getattr(adj, side_name)
+        deg = side.row_ptr.diff()[:side.num_rows]
+        print(f"{MINCUT_LABEL} {side_name}: {side.num_rows} rows reading "
+              f"{adj.shape[1] if side_name == 'fwd' else adj.shape[0]}, "
+              f"{int(side.col.shape[0])} entries, "
+              f"{0 if side.owner_rows is None else side.owner_rows.shape[0]} hub rows, "
+              f"{side.num_virtual} virtual rows, {int((deg == 0).sum())} rows without entries, "
+              f"{_walk_line(side)}", flush=True)
+    libs = {s: _block_library(adj, s) for s in ("fwd", "bwd")}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for width in widths:
+        for side_name, n_src in (("fwd", adj.shape[1]), ("bwd", adj.shape[0])):
+            side = getattr(adj, side_name)
+            case = "forward" if side_name == "fwd" else "dh"
+            tag = f"{MINCUT_LABEL} {case} F={width} float32"
+            h = torch.randn(n_src, width, generator=gen, device="cuda")
+            got = side_matmul(side, h, None)
+            want = side_matmul_plain(side, h, None)
+            again = side_matmul(side, h, None)
+            torch.cuda.synchronize()
+            _check(torch.equal(got, again), f"{tag}: two runs on the same inputs differ")
+            err = max(_max_err(got, want, F32_TOL, f"{tag} vs plain"),
+                      _max_err(got, torch.sparse.mm(libs[side_name], h), F32_TOL,
+                               f"{tag} vs torch.sparse.mm"))
+            bound_ms, bound_by = _bound(bench.csr_pass_bytes(adj, side, width, 4),
+                                        2 * int(side.col.shape[0]) * width)
+            rows.append(dict(
+                name="csr_spmm", case=f"mincut {case}", rank=rank, width=width, dtype="float32",
+                max_abs_err=err, ms=_cuda_ms(lambda: side_matmul(side, h, None)),
+                plain_ms=_cuda_ms(lambda: side_matmul_plain(side, h, None), iters=3, warmup=1),
+                library_ms=_cuda_ms(lambda: torch.sparse.mm(libs[side_name], h)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=_device_ms(lambda: side_matmul(side, h, None)),
+                library_device_ms=_device_ms(lambda: torch.sparse.mm(libs[side_name], h))))
+    del adj, libs
+    torch.cuda.empty_cache()
+    print("mincut kernel check (name case rank F dtype: max_abs_err, ms, plain_ms, library_ms, "
+          "bound_ms; device ms under the profiler)")
+    for r in rows:
+        print(f"  {r['name']} {r['case']} rank {r['rank']} F={r['width']} {r['dtype']}: "
+              f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {r['plain_ms']:.4f}, "
+              f"{r['library_ms']:.4f}, {r['bound_ms']:.4f} ({r['bound_by']})"
+              f"{_device_note(r)}", flush=True)
+    return rows
+
+
+def _mincut_expected(steps):
+    """Each kernel's launches on one rank over ``steps`` steps of workload
+    17: Kernel A for the encoder and assignment aggregation and for
+    ``Ã·S``, each with its ``dh``; nothing else."""
+    expected = dict.fromkeys(_KERNELS, 0)
+    expected.update(csr_spmm=4 * steps)
+    return expected
+
+
+def mincut_main_path_phase(problem, gpu):
+    """Workload 17 at full size on 4 ranks sharing the card (gloo, CUDA
+    tensors), 3 warm-up and 20 timed steps, then the profiled steps: the
+    loss finite and falling on every rank, exactly 4 Kernel A launches per
+    rank and step and no other kernel. Returns the launch totals over the
+    ranks and the result."""
+    from tf_geometric_tpu_torch import bench
+    res = bench.run_mincut_workload(problem, steps=TIMED_ITERS, profile=True)
+    steps = res["steps_taken"]
+    expected = _mincut_expected(steps)
+    totals = dict.fromkeys(_KERNELS, 0)
+    for rank, (job,) in enumerate(res["ranks"]):
+        got = {k: job["launches"][k] for k in _KERNELS}
+        _check(got == expected, f"workload 17 rank {rank}: launches {got} != expected {expected}")
+        losses = job["losses"]
+        _check(all(math.isfinite(v) for v in losses), f"workload 17: non-finite loss {losses}")
+        _check(losses[-1] < losses[0], f"workload 17: loss did not fall: {losses}")
+        totals = {k: totals[k] + got[k] for k in _KERNELS}
+    per_rank = [float(sorted(job["step_ms"])[len(job["step_ms"]) // 2])
+                for (job,) in res["ranks"]]
+    line, prof = res["line"], res["profile"]
+    first, last = res["ranks"][0][0]["terms"][0], res["ranks"][0][0]["terms"][-1]
+    print(f"{bench.MINCUT_WORKLOAD} ({HALO_LABEL}): {res['step_ms']:.4f} ms/step (slowest "
+          f"rank's median; ranks {', '.join(f'{v:.4f}' for v in per_rank)}), {line['value']} "
+          f"edges/s ({problem.num_edges} nonzeros), vs_baseline {line['vs_baseline']}, "
+          f"(loss, ce, cut, orth) {[round(v, 5) for v in first]} -> "
+          f"{[round(v, 5) for v in last]}, launches per rank per step "
+          f"{ {k: v // steps for k, v in expected.items() if v} }; profiled: card busy "
+          f"{prof['card_busy_ms']} ms of {prof['step_ms']:.4f} (ranks {prof['rank_busy_ms']}), "
+          f"idle share {prof['card_idle_share']} on {gpu}", flush=True)
+    print(json.dumps(line), flush=True)
+    print(json.dumps(prof), flush=True)
+    return totals, res
+
+
+def _batch_2d_jobs(num_nodes, steps, plain, data=2, graph=2, seed=5):
+    """Per rank, a 2-D batch job on a batch of random graphs of 40 to 120
+    nodes (4 edges a node, 32 features, 10 classes) with ``num_nodes``
+    nodes in all, packed by ``pack_batch_2d`` over data × graph ranks;
+    hidden 64, weights ``default_rng(seed)`` normals at scale 0.1."""
+    import numpy as np
+    from tf_geometric_tpu_torch.parallel import ShardJob, pack_batch_2d
+    rng = np.random.default_rng(seed)
+    graphs, total = [], 0
+    while total < num_nodes:
+        n = int(rng.integers(40, 120))
+        graphs.append((rng.normal(size=(n, 32)).astype(np.float32),
+                       rng.integers(0, n, size=(2, 4 * n)).astype(np.int32),
+                       int(rng.integers(0, 10))))
+        total += n
+    per_shard = -(-len(graphs) // data)
+    shard_nodes = max(sum(g[0].shape[0] for g in graphs[d * per_shard:(d + 1) * per_shard])
+                      for d in range(data))
+    shard_edges = max(sum(g[1].shape[1] for g in graphs[d * per_shard:(d + 1) * per_shard])
+                      for d in range(data))
+    npc = -(-shard_nodes // graph)
+    x, rows, cols, vals, ngi, y, gmask = pack_batch_2d(graphs, data, graph, per_shard, npc,
+                                                       shard_edges)
+    params = (rng.normal(scale=0.1, size=(32, 64)).astype(np.float32), np.zeros(64, np.float32),
+              rng.normal(scale=0.1, size=(64, 10)).astype(np.float32), np.zeros(10, np.float32))
+    jobs = []
+    for r in range(data * graph):
+        d = r // graph
+        cell, edges = slice(r * npc, (r + 1) * npc), slice(r * shard_edges, (r + 1) * shard_edges)
+        jobs.append([ShardJob(f"batch_2d plain={plain}", "batch_2d", params, x[cell],
+                              y[d * per_shard:(d + 1) * per_shard],
+                              gmask[d * per_shard:(d + 1) * per_shard],
+                              (rows[edges], cols[edges], vals[edges]),
+                              {"data": data, "ngi": ngi[cell], "plain": plain}, steps)])
+    return jobs, len(graphs)
+
+
+def mincut_small_plain_phase():
+    """3 steps of both MinCut variants (workload 17's set-up at 20,000
+    nodes) and of the 2-D step (data 2 × graph 2, a 20,000-node batch) on
+    4 ranks through the kernels and through the plain versions on the card:
+    rank 0's losses must agree; each kernel run launches Kernel A 4 (MinCut)
+    or 2 (2-D) times a step on every rank, each plain run nothing."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.parallel import run_ranks
+    small = bench.build_mincut_problem(num_nodes=20_000, num_edges=140_000)
+    jobs = [[] for _ in range(small.num_parts)]
+    names = []
+    for variant in ("min_cut", "diff"):
+        for plain in (False, True):
+            names.append(f"{variant} plain={plain}")
+            for r, (job,) in enumerate(bench.mincut_jobs(small, 3, plain=plain,
+                                                         variant=variant)):
+                jobs[r].append(job._replace(name=names[-1]))
+    for plain in (False, True):
+        two_d, num_graphs = _batch_2d_jobs(20_000, 3, plain)
+        for r, (job,) in enumerate(two_d):
+            jobs[r].append(job)
+    results = run_ranks(jobs, backend="gloo", device="cuda")
+    per_step = {"min_cut": 4, "diff": 4, "batch_2d": 2}
+    for rank in results:
+        for job in rank:
+            kind, plain = job["name"].split(" plain=")
+            want = 0 if plain == "True" else 3 * per_step[kind]
+            _check(job["launches"]["csr_spmm"] == want
+                   and sum(job["launches"].values()) == want,
+                   f"{job['name']}: launches {job['launches']}, expected {want} csr_spmm")
+    by = {job["name"]: job["losses"] for job in results[0]}
+    for kind in ("min_cut", "diff", "batch_2d"):
+        kern, plain = by[f"{kind} plain=False"], by[f"{kind} plain=True"]
+        err = _max_err(torch.tensor(kern), torch.tensor(plain), F32_TOL,
+                       f"3-step losses {kind} (20,000 nodes, {HALO_LABEL})")
+        size = f"{num_graphs} graphs" if kind == "batch_2d" else f"{small.num_edges} nonzeros"
+        print(f"small {kind} ({size}): kernel {kern} plain {plain} max abs err {err:.3e}",
+              flush=True)
+
+
+def multihost_phase(gpu):
+    """``parallel.multihost`` on the card: 4 processes started through
+    ``initialize``'s environment rendezvous (``launch_local``), sharing
+    card 0 over gloo, train 3 halo-GCN steps on the packed plan of the arxiv
+    graph at 20,000 nodes, on the two-level mesh (data 2 × graph 2) and on
+    the flat one (graph 4): each process launches Kernel A exactly as its
+    plan implies (2 layers × forward and ``dh`` on its local and remote
+    block a step, no other kernel), and its losses are those of
+    ``run_ranks`` on the same plan (1e-4)."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.parallel import launch_local, run_ranks
+    name = "gcn_arxiv_halo_p4_fwd_bwd"
+    steps = 3
+    expected = dict.fromkeys(_KERNELS, 0)
+    expected.update(csr_spmm=steps * 2 * 4)
+    for two_level, parts in ((True, 2), (False, 4)):
+        halo = bench.build_halo_problem(num_parts=parts, num_nodes=20_000, num_edges=140_000)
+        hosts = launch_local(dict(halo_spec=halo.gcn_spec, x=halo.x, y=halo.y, mask=halo.mask,
+                                  params=halo.params[name], steps=steps), 4, two_level, 2,
+                             device="cuda")
+        ranks = run_ranks(bench.halo_jobs(halo, name, steps), backend="gloo", device="cuda")
+        layout = "two-level (data 2 x graph 2)" if two_level else "flat (graph 4)"
+        for r, host in enumerate(hosts):
+            got = {k: host["launches"][k] for k in _KERNELS}
+            _check(got == expected, f"multihost {layout} process {r}: launches {got} != "
+                                    f"expected {expected}")
+            _max_err(torch.tensor(host["losses"]), torch.tensor(ranks[0][0]["losses"]), F32_TOL,
+                     f"multihost {layout} process {r} vs run_ranks")
+        print(f"multihost {layout} ({parts}-part packed plan, {halo.gcn_part.nodes_per_part} "
+              f"nodes a part, 4 processes sharing card 0 over gloo): losses "
+              f"{hosts[0]['losses']} (run_ranks {ranks[0][0]['losses']}), (data, graph) of each "
+              f"process {[(h['data_rank'], h['graph_rank']) for h in hosts]}, Kernel A "
+              f"launches per process {expected['csr_spmm']} on {gpu}", flush=True)
+
+
+def mincut_kernel_entry(rows, totals):
+    """The ``{"kernels"}`` entry of Kernel A on workload 17's path, at rank
+    1's forward side at F = hidden + C (float32); launches over the ranks of
+    its main path."""
+    _check(totals["csr_spmm"] > 0, "csr_spmm was not launched on the MinCut path")
+    rep = next(r for r in rows if r["case"] == "mincut forward" and r["width"] == max(
+        q["width"] for q in rows))
+    return {"name": "mincut:csr_spmm", "route": "cuda",
+            "source": "tf_geometric_tpu_torch/csrc/csr_spmm.cu",
+            "replaces": "tf_geometric_tpu/ops/ell_bucketed.py:214", "launches": totals["csr_spmm"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": f"rank 1 rectangular block forward, F={rep['width']}, float32; "
+                     f"{HALO_LABEL}"}
 
 
 def halo_kernel_entries(halo_rows, halo_totals):
@@ -2987,6 +3250,18 @@ def main():
     sampled_totals, sampled_res = _phase("sampled sage main path",
                                          sampled_sage_main_path_phase, sampled, gpu)
     _phase("sampled sage small plain", sampled_sage_small_plain_phase)
+    del sampled
+    t0 = time.perf_counter()
+    mincut = bench.build_mincut_problem()
+    print(f"mincut problem built in {time.perf_counter() - t0:.1f} s: partition_order "
+          f"{mincut.partition_s:.1f} s, normalization, partition and rank CSR "
+          f"{mincut.plan_s:.1f} s; {mincut.num_parts} ranks of "
+          f"{mincut.part.nodes_per_part} nodes, {mincut.num_edges} nonzeros", flush=True)
+    mincut_rows = _phase("mincut kernels", mincut_kernel_phase, mincut)
+    mincut_totals, mincut_res = _phase("mincut main path", mincut_main_path_phase, mincut, gpu)
+    del mincut
+    _phase("mincut small plain", mincut_small_plain_phase)
+    _phase("multihost", multihost_phase, gpu)
     _phase("dryrun", dryrun_phase)
 
     # one entry per kernel, at its heaviest main-path call: the SpMM kernels
@@ -3056,11 +3331,13 @@ def main():
         kernels.append(entry)
     kernels += halo_kernel_entries(halo_rows, halo_totals)
     kernels += sampled_sage_kernel_entries(sampled_rows, sampled_totals)
+    kernels.append(mincut_kernel_entry(mincut_rows, mincut_totals))
     kernels += pool_kernel_entries(pool_rows, results)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)
-    for name, res in [*halo_results.items(), (bench.SAMPLED_SAGE_WORKLOAD, sampled_res)]:
+    for name, res in [*halo_results.items(), (bench.SAMPLED_SAGE_WORKLOAD, sampled_res),
+                      (bench.MINCUT_WORKLOAD, mincut_res)]:
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({HALO_LABEL}; {gpu})", flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all", flush=True)

@@ -353,11 +353,14 @@ def test_halo_plans_match_jax():
 
 def test_dryrun_multichip_on_cpu_ranks():
     """``entry.dryrun_multichip`` trains one step of the halo GCN, of the
-    fused halo GAT (dropout 0.6) and of the sampled SAGE on 4 spawned gloo
-    ranks: finite losses near ln 7 (7 classes, weights at scale 0.1 and
-    0.05)."""
+    fused halo GAT (dropout 0.6), of the sampled SAGE and of the 2-D batch
+    step on 4 spawned gloo ranks: finite losses near ln 7 (7 classes,
+    weights at scale 0.1 and 0.05); and of the MinCut step: a finite loss
+    (its pooled graph is not normalized: clusters of ~700 nodes put it far
+    from ln 7) and a cut loss in [-1, 0]."""
     from tf_geometric_tpu_torch.entry import dryrun_multichip
     losses = dryrun_multichip(4, device="cpu")
-    assert set(losses) == {"gcn", "gat", "sage"}
-    for loss in losses.values():
-        assert np.isfinite(loss) and abs(loss - np.log(7)) < 0.5
+    assert set(losses) == {"gcn", "gat", "sage", "mincut", "mincut_cut", "batch_2d"}
+    for name in ("gcn", "gat", "sage", "batch_2d"):
+        assert np.isfinite(losses[name]) and abs(losses[name] - np.log(7)) < 0.5, name
+    assert np.isfinite(losses["mincut"]) and -1.0 <= losses["mincut_cut"] <= 0.0

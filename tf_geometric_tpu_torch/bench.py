@@ -114,6 +114,22 @@ before each GIN and pool line, one with its real and padded edges per second.
    and Set2Set models (``demo_asap.py``, ``demo_set2set.py``) are here for
    chip_smoke.py, without a workload.
 
+17. ``mincut_arxiv_p4_fwd_bwd``: the edge-partitioned MinCutPool step of
+   ``benchmarks/scaling.py`` (``measure(4, graph, model="mincut")``,
+   ``parallel/sharded.make_graph_parallel_mincut_step``) on the arxiv graph
+   in ``partition_order``'s permutation, its symmetric-normalized adjacency
+   without self-loops (``adj_norm_edge(..., add_self_loop=False)``)
+   partitioned into 4 row blocks of 42,336 nodes, each rank a spawned
+   process sharing one card over gloo: hidden 64, C = 32 clusters, 40
+   classes, Adam 1e-2, the cut and orthogonality losses; weights
+   ``default_rng(0)`` normals at scale 0.1 in ``scaling.py``'s order (w0,
+   wa, wc, wo), zero biases; float32. Per rank and step 4 Kernel A launches
+   on the rank's rectangular [42,336, 169,344] block: the encoder and
+   assignment aggregation at F = 96 and ``Ã·S`` at F = 32, each with its
+   ``dh``. The line counts the normalized adjacency's nonzeros over the
+   slowest rank's median step, as ``scaling.py`` counts the partition's
+   real edges.
+
 The tiled A/B (``tiled_ab``, ``--tiled-ab``): for the random arxiv graph,
 ``tiled_spmm_ab.py``'s community graph (communities of the tile size, 0.95
 of the edges inside) and the random graph at 32,768 nodes and 225,669 edges
@@ -174,6 +190,9 @@ halo blocks and layouts leave many rows unread):
   ``sddmm_pass_bytes``);
 - the GIN step's COO SpMM passes (the same byte counts, one head, over the
   batch's real edges: padded edges are dropped from the views);
+- workload 17's four Kernel A passes per rank (forward and ``dh`` at
+  F = hidden + C and at F = C, float32, on the rank's rectangular block:
+  ``mincut_pass_bytes``);
 - the pool steps' COO SpMM forward and ``dh`` of every GCN and workload
   14's ``dv`` SDDMMs (``pool_x6_calls``: the views' stored entries, each
   GCN's self-loops included; SAGPool's second level over the edges its
@@ -248,7 +267,8 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "SAMPLED_SAGE_WORKLOAD", "DiffPoolClassifier", "MinCutPoolClassifier",
            "SAGPoolClassifier", "ASAPClassifier", "Set2SetClassifier", "POOL_MODELS",
            "POOL_WORKLOADS", "init_pool_params", "pool_loss", "pool_x6_calls", "pool_step_bytes",
-           "main"]
+           "MincutProblem", "build_mincut_problem", "mincut_jobs", "mincut_pass_bytes",
+           "run_mincut_workload", "MINCUT_WORKLOAD", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -283,6 +303,9 @@ HALO_WORKLOADS = {"gcn_arxiv_halo_p4_fwd_bwd": "gcn", "gat_arxiv_halo_p4_fwd_bwd
 # benchmarks/scaling.py's measure(4, graph, model="sage")
 SAMPLED_SAGE_WORKLOAD = "sage_arxiv_sampled_p4_fwd_bwd"
 SAMPLED_SAGE_FANOUTS, SAMPLED_SAGE_HIDDEN, SAMPLED_SAGE_ROW_MULTIPLE = (25, 10), 128, 128
+# benchmarks/scaling.py's measure(4, graph, model="mincut")
+MINCUT_WORKLOAD = "mincut_arxiv_p4_fwd_bwd"
+MINCUT_HIDDEN, MINCUT_CLUSTERS = 64, 32
 
 
 class ArxivProblem(NamedTuple):
@@ -1434,6 +1457,108 @@ def run_sampled_sage_workload(problem: SampledSageProblem, steps: int = 20, devi
     return out
 
 # ---------------------------------------------------------------------------
+# workload 17: the edge-partitioned MinCutPool step on spawned ranks
+# ---------------------------------------------------------------------------
+
+class MincutProblem(NamedTuple):
+    num_parts: int
+    x: np.ndarray                      # [P·npp, 128] float32, padding rows zero
+    y: np.ndarray                      # [P·npp] int32
+    mask: np.ndarray                   # [P·npp] float32, 1 on real nodes
+    part: "EdgePartition"              # the normalized adjacency's partition
+    adjs: list                         # per rank its RankAdjacency, on the host
+    params: tuple                      # the initial weights (numpy)
+    num_edges: int                     # the normalized adjacency's nonzeros
+    partition_s: float                 # host seconds of partition_order
+    plan_s: float                      # host seconds of the normalization, partition, CSR
+
+
+def build_mincut_problem(num_parts: int = HALO_PARTS, num_nodes: int = ARXIV_NODES,
+                         num_edges: int = ARXIV_EDGES) -> MincutProblem:
+    """``benchmarks/scaling.py``'s MinCut set-up on the host: the arxiv graph
+    permuted by ``partition_order``, ``adj_norm_edge(...,
+    add_self_loop=False)`` partitioned by rows, each rank's rectangular
+    ``RankAdjacency`` and the weights (``default_rng(0)``)."""
+    import time
+    from .parallel import (apply_node_permutation, partition_edges_by_row, partition_order,
+                           rank_adjacency)
+    from .utils.graph_utils import adj_norm_edge
+    graph = synthetic_ogbn_arxiv_like(num_nodes=num_nodes, num_edges=num_edges)
+    n = graph.num_nodes
+    t0 = time.perf_counter()
+    perm = partition_order(graph.edge_index, n, num_parts)
+    partition_s = time.perf_counter() - t0
+    graph, _ = apply_node_permutation(graph, perm)
+    t0 = time.perf_counter()
+    index, value = adj_norm_edge(graph.edge_index, n, graph.edge_weight, add_self_loop=False)
+    part = partition_edges_by_row(index.numpy(), value.numpy(), n, num_parts)
+    npp, n_pad = part.nodes_per_part, part.num_nodes_padded
+    adjs = [rank_adjacency(part.local_row[r], part.global_col[r], part.value[r], npp, n_pad,
+                           device="cpu") for r in range(num_parts)]
+    plan_s = time.perf_counter() - t0
+    x = np.zeros((n_pad, graph.x.shape[1]), np.float32)
+    x[:n] = graph.x
+    y = np.zeros(n_pad, np.int32)
+    y[:n] = graph.y
+    mask = np.zeros(n_pad, np.float32)
+    mask[:n] = 1.0
+    rng = np.random.default_rng(0)
+
+    def normal(*shape):
+        return rng.normal(scale=0.1, size=shape).astype(np.float32)
+
+    f, h, c = x.shape[1], MINCUT_HIDDEN, MINCUT_CLUSTERS
+    params = ((normal(f, h), np.zeros(h, np.float32)), (normal(f, c), np.zeros(c, np.float32)),
+              (normal(h, h), np.zeros(h, np.float32)),
+              (normal(2 * h, NUM_CLASSES), np.zeros(NUM_CLASSES, np.float32)))
+    edges = int((part.local_row < npp).sum())
+    return MincutProblem(num_parts, x, y, mask, part, adjs, params, edges, partition_s, plan_s)
+
+
+def mincut_jobs(problem: MincutProblem, steps: int, warmup: int = 0, timed: bool = False,
+                plain: bool = False, variant: str = "min_cut") -> list:
+    """Per rank, the job list of workload 17 (or its ``variant="diff"``
+    twin): the rank's rows and its prebuilt ``RankAdjacency``; the mask
+    flags the real rows for both the loss and the assignment."""
+    from .parallel import ShardJob
+    npp = problem.part.nodes_per_part
+    options = {"learning_rate": 1e-2, "variant": variant, "plain": plain}
+    return [[ShardJob(MINCUT_WORKLOAD, "mincut", problem.params, problem.x[r * npp:(r + 1) * npp],
+                      problem.y[r * npp:(r + 1) * npp], problem.mask[r * npp:(r + 1) * npp],
+                      problem.adjs[r], options, steps, warmup, timed)]
+            for r in range(problem.num_parts)]
+
+
+def mincut_pass_bytes(problem: MincutProblem) -> int:
+    """Least bytes of one step's four Kernel A passes over all ranks: per
+    rank the forward and ``dh`` at F = hidden + C and at F = C, float32."""
+    widths = (MINCUT_HIDDEN + MINCUT_CLUSTERS, MINCUT_CLUSTERS)
+    return sum(csr_pass_bytes(adj.csr, side, width, 4) for adj in problem.adjs
+               for side in (adj.csr.fwd, adj.csr.bwd) for width in widths)
+
+
+def run_mincut_workload(problem: MincutProblem, steps: int = 20, device="cuda",
+                        profile: bool = False) -> dict:
+    """Train ``WARMUP_STEPS + steps`` steps of workload 17 on
+    ``problem.num_parts`` spawned ranks sharing one card over gloo, timed as
+    ``run_halo_workload`` times them; the line counts the normalized
+    adjacency's nonzeros over the slowest rank's median step."""
+    name = MINCUT_WORKLOAD
+    jobs = mincut_jobs(problem, WARMUP_STEPS + steps, WARMUP_STEPS, True)
+    results, step_ms, summary = _run_rank_workload(jobs, name, device, profile)
+    line = {"metric": f"{name}_edges_per_sec_per_chip",
+            "value": round(problem.num_edges / step_ms * 1e3, 1), "unit": "edges/s",
+            "vs_baseline": round(mincut_pass_bytes(problem) / H100_HBM_BYTES_PER_S
+                                 / (step_ms / 1e3), 4),
+            "setup": f"{problem.num_parts} ranks sharing one card over gloo"}
+    out = {"line": line, "step_ms": step_ms, "ranks": results,
+           "steps_taken": WARMUP_STEPS + steps}
+    if profile:
+        out["profile"] = summary
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the tiled A/B: X7 against the CSR path (benchmarks/tiled_spmm_ab.py)
 # ---------------------------------------------------------------------------
 
@@ -1585,7 +1710,7 @@ def tiled_ab(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, device=
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the sixteen workloads on ``device`` and print their JSON lines;
+    """Run the seventeen workloads on ``device`` and print their JSON lines;
     with ``profile``, also print each workload's per-kernel device time (for
     the multi-rank workloads, each rank's and the card's busy time).
     ``num_nodes``/``num_edges`` size the arxiv graph (the multi-rank
@@ -1616,7 +1741,10 @@ def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int 
     sampled = build_sampled_sage_problem(num_nodes=num_nodes, num_edges=num_edges)
     runs.append(lambda name: run_sampled_sage_workload(sampled, steps=steps, device=device,
                                                        profile=profile))
-    for name, run in zip([*HALO_WORKLOADS, SAMPLED_SAGE_WORKLOAD], runs):
+    mincut = build_mincut_problem(num_nodes=num_nodes, num_edges=num_edges)
+    runs.append(lambda name: run_mincut_workload(mincut, steps=steps, device=device,
+                                                 profile=profile))
+    for name, run in zip([*HALO_WORKLOADS, SAMPLED_SAGE_WORKLOAD, MINCUT_WORKLOAD], runs):
         res = run(name)
         print(json.dumps(res["line"]), flush=True)
         if profile:

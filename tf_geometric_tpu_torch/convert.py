@@ -171,9 +171,12 @@ def sharded_params_from_numpy(params, device="cuda"):
     grad, in the same nesting, for the port's step of the same name:
     ``make_graph_parallel_gcn_step``'s ``[(w, b), ...]``,
     ``make_graph_parallel_gat_step``'s ``((wq, bq, wk, bk, wv, bias),
-    (w_out, b_out))`` and ``make_graph_parallel_gat_fused_step``'s
-    ``([(wq, bq, wk, bk, wv, bias), ...], (w_out, b_out))``. Kernels keep
-    their [in, out] layout (``h @ w``)."""
+    (w_out, b_out))``, ``make_graph_parallel_gat_fused_step``'s
+    ``([(wq, bq, wk, bk, wv, bias), ...], (w_out, b_out))``,
+    ``make_graph_parallel_mincut_step``'s ``((w0, b0), (wa, ba), (wc, bc),
+    (wo, bo))`` (encoder [F, H], assignment [F, C], coarse GCN [H, H], head
+    [2H, classes]) and ``make_batch_2d_step``'s flat ``(w0, b0, wd, bd)``.
+    Kernels keep their [in, out] layout (``h @ w``)."""
     if isinstance(params, (list, tuple)):
         return type(params)(sharded_params_from_numpy(p, device) for p in params)
     return torch.tensor(np.asarray(params, np.float32), device=device, requires_grad=True)

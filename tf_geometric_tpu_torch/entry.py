@@ -5,8 +5,9 @@ a 512-node graph through the cached CSR adjacency, with the normalization
 and the CSR build done eagerly on the host first, as in the JAX entry.
 
 ``dryrun_multichip(n_ranks)`` runs one training step of the edge-partitioned
-halo GCN, of the fused halo GAT and of the node-partitioned sampled SAGE
-over ``n_ranks`` spawned ranks at the JAX dry run's tiny sizes.
+halo GCN, of the fused halo GAT, of the node-partitioned sampled SAGE, of
+the edge-partitioned MinCutPool and of the 2-D batch step over ``n_ranks``
+spawned ranks at the JAX dry run's tiny sizes.
 """
 from __future__ import annotations
 
@@ -54,20 +55,27 @@ def entry(device="cuda"):
 
 def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
     """The GCN part (``__graft_entry__.py:91-134``), the fused-GAT part
-    (``:136-177``) and the sampled-SAGE part (``:179-199``) of the JAX dry
-    run over ``n_ranks`` spawned ranks (gloo, sharing one card on
-    ``device="cuda"``): one training step each of the 2-layer halo GCN
-    (packed ``ell`` plan, hidden 16, 7 classes), of the two-layer fused halo
-    GAT (``((8, 8), (1, 64))``, attention and feature dropout 0.6) and of
-    the two-layer sampled SAGE (k = (4, 3), hidden 16, weights from
-    ``default_rng(3)``; nodes padded to a multiple of ``n_ranks``) on a
-    4,096-node skewed graph; checks that the losses are finite and returns
-    them. The graph axis spans every rank (the JAX dry run's data axis only
-    replicates inputs). The MinCut and 2-D parts wait for their modules."""
+    (``:136-177``), the sampled-SAGE part (``:179-199``), the MinCut part
+    (``:201-237``) and the 2-D part (``:239-279``) of the JAX dry run over
+    ``n_ranks`` spawned ranks (gloo, sharing one card on ``device="cuda"``):
+    one training step each of the 2-layer halo GCN (packed ``ell`` plan,
+    hidden 16, 7 classes), of the two-layer fused halo GAT (``((8, 8), (1,
+    64))``, attention and feature dropout 0.6), of the two-layer sampled
+    SAGE (k = (4, 3), hidden 16, weights from ``default_rng(3)``; nodes
+    padded to a multiple of ``n_ranks``) and of the MinCutPool step (C = 6,
+    hidden 16, over ``adj_norm_edge(..., add_self_loop=False)``) on a
+    4,096-node skewed graph, then of the 2-D batch step (hidden 16) on
+    ``default_rng(5)``'s batch of small graphs, 4 per data shard; checks
+    that the losses (and MinCut's cut loss) are finite and returns them. The
+    graph axis spans every rank (the JAX dry run's data axis only replicates
+    inputs) except in the 2-D part, whose data axis folds the ranks as JAX
+    folds its devices: data 2 × graph n/2 for an even n > 2."""
     from .ops import _build
     from .parallel import (ShardJob, build_csr_shards, build_gat_halo_spec, build_halo_spec,
                            partition_edges_by_row, rank_gat_plan, rank_halo_plan, run_ranks)
     from .parallel.sampled_sage import init_sampled_sage_params
+    from .parallel.sharded import pack_batch_2d
+    from .utils.graph_utils import adj_norm_edge
     num_classes, hidden = 7, 16
     n, num_edges = 4096, 65536
     rng = np.random.default_rng(0)
@@ -112,22 +120,61 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
     shards = build_csr_shards(edge_index, n_sage, n_ranks)
     sage_params = init_sampled_sage_params(np.random.default_rng(3), x.shape[1], num_classes,
                                            num_layers=2, hidden=hidden)
+    C = 6
+    mc_index, mc_value = adj_norm_edge(edge_index, n, None, add_self_loop=False)
+    mc_part = partition_edges_by_row(mc_index.numpy(), mc_value.numpy(), n, n_ranks,
+                                     pad_multiple=64)
+    mc_npp = mc_part.nodes_per_part
+    mc_data = [np.zeros((n_ranks * mc_npp,) + a.shape[1:], a.dtype) for a in (x, y, mask[:n])]
+    for padded, a in zip(mc_data, (x, y, mask[:n])):
+        padded[:n] = a
+    mc_params = ((normal(x.shape[1], hidden), np.zeros(hidden, np.float32)),
+                 (normal(x.shape[1], C), np.zeros(C, np.float32)),
+                 (normal(hidden, hidden), np.zeros(hidden, np.float32)),
+                 (normal(2 * hidden, num_classes), np.zeros(num_classes, np.float32)))
+    # the 2-D part: the data axis splits a batch of small graphs
+    D = 2 if n_ranks % 2 == 0 and n_ranks > 2 else 1
+    graph_parts, G = n_ranks // D, 4
+    brng = np.random.default_rng(5)
+    batch = []
+    for _ in range(D * G):
+        nodes, edges = int(brng.integers(6, 14)), int(brng.integers(10, 30))
+        batch.append((brng.normal(size=(nodes, 8)).astype(np.float32),
+                      brng.integers(0, nodes, size=(2, edges)).astype(np.int32),
+                      int(brng.integers(0, num_classes))))
+    shard_nodes = max(sum(g[0].shape[0] for g in batch[d * G:(d + 1) * G]) for d in range(D))
+    shard_edges = max(sum(g[1].shape[1] for g in batch[d * G:(d + 1) * G]) for d in range(D))
+    cell_nodes = -(-shard_nodes // graph_parts)
+    bx, brows, bcols, bvals, bngi, by, bmask = pack_batch_2d(batch, D, graph_parts, G,
+                                                             cell_nodes, shard_edges)
+    dp_params = (normal(8, hidden), np.zeros(hidden, np.float32), normal(hidden, num_classes),
+                 np.zeros(num_classes, np.float32))
     jobs = []
     for r in range(n_ranks):
         rows = slice(r * npp, (r + 1) * npp)
         shard = (x_p[rows], y_p[rows], mask[rows])
         sage_rows = slice(r * (n_sage // n_ranks), (r + 1) * (n_sage // n_ranks))
+        mc_rows = slice(r * mc_npp, (r + 1) * mc_npp)
+        cell, edges, d = (slice(r * cell_nodes, (r + 1) * cell_nodes),
+                          slice(r * shard_edges, (r + 1) * shard_edges), r // graph_parts)
         jobs.append([
             ShardJob("gcn", "gcn", gcn_params, *shard, rank_halo_plan(spec, r, "cpu"), {}, 1),
             ShardJob("gat", "gat_fused", gat_params, *shard, rank_gat_plan(gat_spec, r, "cpu"),
                      {"layer_dims": dims, "edge_drop_rate": 0.6, "feat_drop_rate": 0.6,
                       "seed": 7}, 1),
             ShardJob("sage", "sage", sage_params, *(a[sage_rows] for a in sage_data),
-                     {name: a[r] for name, a in shards.items()}, {"k": (4, 3)}, 1)])
+                     {name: a[r] for name, a in shards.items()}, {"k": (4, 3)}, 1),
+            ShardJob("mincut", "mincut", mc_params, *(a[mc_rows] for a in mc_data),
+                     (mc_part.local_row[r], mc_part.global_col[r], mc_part.value[r]), {}, 1),
+            ShardJob("batch_2d", "batch_2d", dp_params, bx[cell], by[d * G:(d + 1) * G],
+                     bmask[d * G:(d + 1) * G], (brows[edges], bcols[edges], bvals[edges]),
+                     {"data": D, "ngi": bngi[cell]}, 1)])
     if torch.device(device).type == "cuda":
         _build.build_all()  # once, before the ranks load the libraries
     results = run_ranks(jobs, backend="gloo", device=device)
     losses = {job["name"]: job["losses"][0] for job in results[0]}
+    losses["mincut_cut"] = next(job["terms"][0][2] for job in results[0]
+                                if job["name"] == "mincut")
     for name, loss in losses.items():
         if not np.isfinite(loss):
             raise RuntimeError(f"non-finite {name} loss from the multi-rank step: {loss}")

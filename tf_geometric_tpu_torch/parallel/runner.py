@@ -45,22 +45,34 @@ class ShardJob(NamedTuple):
     ``kind``: ``"gcn"`` (``plan`` a ``RankHaloPlan``, or ``(rows, cols,
     vals)`` numpy arrays of this rank's ``partition_edges_by_row`` shard for
     the all-gather mode), ``"gat"`` (the segment step; a COO
-    ``RankHaloPlan``), ``"gat_fused"`` (a ``RankGatPlan``) or ``"sage"``
+    ``RankHaloPlan``), ``"gat_fused"`` (a ``RankGatPlan``), ``"sage"``
     (the sampled SAGE step; ``plan`` this rank's part of
-    ``build_csr_shards``' arrays, a dict of numpy arrays). ``params``:
+    ``build_csr_shards``' arrays, a dict of numpy arrays), ``"mincut"``
+    or ``"batch_2d"`` (``plan`` the rank's ``RankAdjacency``, or its flat
+    ``(rows, cols, vals)`` shard, built into one once: MinCut's
+    ``partition_edges_by_row`` shard, the 2-D cell's ``pack_batch_2d``
+    edges; for the 2-D step ``x`` is the cell's rows and ``y``/``mask`` its
+    data shard's labels and label mask). ``params``:
     the initial weights as numpy, in the step's structure. ``x``, ``y``,
     ``mask``: this rank's rows. ``options``: the step's keyword arguments
     (``learning_rate``, ``num_heads``, ``units``, ``layer_dims``,
     ``edge_drop_rate``, ``feat_drop_rate``; ``k`` for the sampled SAGE,
-    whose widths come from ``params``), plus ``seed`` for the dropout and
-    draw generators, ``exchange_dtype`` (the sampled SAGE's, by name, such
+    whose widths come from ``params``; ``variant``, ``cut_coef``,
+    ``orth_coef`` for MinCut, whose C comes from ``params``), ``valid``
+    (MinCut: this rank's rows flagged real, numpy; default ``mask``),
+    ``ngi`` (2-D: the cell's rows' graph ids, numpy), ``data`` (2-D: the
+    data axis size D; rank ``d·P + p`` holds cell (d, p)), plus ``seed``
+    for the dropout and draw generators, ``exchange_dtype`` (the sampled SAGE's, by name, such
     as ``"bfloat16"``), ``ints`` (the sampled SAGE's random integers: per
     step, per layer [k, n_local] int32), ``plain`` to run the kernels'
     plain versions on the card,
     ``replay``, a list of numpy weights loaded before each step (the result
     then holds every step's gradients) and ``profile_steps``, a number of
     steps traced by ``torch.profiler`` after the others (on the card). Steps
-    ``warmup`` and later are timed with CUDA events when ``timed``."""
+    ``warmup`` and later are timed with CUDA events when ``timed``. Every
+    rank builds each mesh its jobs name (the graph axis over every rank,
+    and data × graph for each ``data`` of a 2-D job) once, before the
+    jobs, in the same order."""
     name: str
     kind: str
     params: Any
@@ -127,21 +139,37 @@ def _plan_on(plan, device):
     return plan.to(device)
 
 
+def _mesh_ranks(mesh) -> dict:
+    """The global ranks of this rank's graph and data groups."""
+    def ranks(group, size):
+        if size == 1 and group is None:
+            return [dist.get_rank()]
+        return dist.get_process_group_ranks(dist.group.WORLD if group is None else group)
+    return {"graph": ranks(mesh.group, mesh.size), "data": ranks(mesh.data_group,
+                                                                  mesh.data_size)}
+
+
 def run_job(job: ShardJob, mesh, device) -> dict:
     """Train ``job.steps`` steps of ``job`` on this rank; see ``ShardJob``."""
     from ..convert import sharded_params_from_numpy
     from ..ops import config as kernel_config
     from . import sampled_sage
-    from .sharded import (make_graph_parallel_gat_fused_step, make_graph_parallel_gat_step,
-                          make_graph_parallel_gcn_step, param_leaves)
+    from .sharded import (make_batch_2d_step, make_graph_parallel_gat_fused_step,
+                          make_graph_parallel_gat_step, make_graph_parallel_gcn_step,
+                          make_graph_parallel_mincut_step, param_leaves, RankAdjacency,
+                          rank_adjacency)
     opts = dict(job.options)
     seed, plain, replay = opts.pop("seed", 0), opts.pop("plain", False), opts.pop("replay", None)
     profile_steps = opts.pop("profile_steps", 0)
     exchange, ints = opts.pop("exchange_dtype", None), opts.pop("ints", None)
+    valid, ngi = opts.pop("valid", None), opts.pop("ngi", None)
+    opts.pop("data", None)
     plan = _plan_on(job.plan, device)
     params = sharded_params_from_numpy(job.params, device)
     x, mask = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (job.x, job.mask))
     y = torch.as_tensor(job.y, dtype=torch.long, device=device)
+    if job.kind in ("mincut", "batch_2d") and not isinstance(plan, RankAdjacency):
+        plan = rank_adjacency(*job.plan, x.shape[0], mesh.size * x.shape[0], device)
     if job.kind == "gcn" and _is_edge_shard(plan):
         step, make_opt = make_graph_parallel_gcn_step(mesh, **opts)
         args = (x, *plan, y, mask)
@@ -161,6 +189,15 @@ def run_job(job: ShardJob, mesh, device) -> dict:
             hidden=job.params[0][2].shape[0], **opts)
         gen = torch.Generator(device=device).manual_seed(rank_seed(seed, mesh.rank))
         args = (gen, x, y, mask)
+    elif job.kind == "mincut":
+        step, make_opt = make_graph_parallel_mincut_step(
+            mesh, plan, num_clusters=job.params[1][0].shape[1], **opts)
+        args = (x, y, mask, torch.as_tensor(job.mask if valid is None else valid,
+                                             dtype=torch.float32, device=device))
+    elif job.kind == "batch_2d":
+        step, make_opt = make_batch_2d_step(mesh, plan, graphs_per_data_shard=len(job.y),
+                                            **opts)
+        args = (x, torch.as_tensor(ngi, dtype=torch.int32, device=device), y, mask)
     else:
         raise ValueError(f"unknown job kind {job.kind!r}")
 
@@ -172,7 +209,7 @@ def run_job(job: ShardJob, mesh, device) -> dict:
     optimizer = make_opt(params)
     timing = job.timed and torch.device(device).type == "cuda"
     before = kernel_launch_counts()
-    losses, events, grads_trace = [], [], []
+    losses, terms, events, grads_trace = [], [], [], []
     if exchange is not None:
         sampled_sage.set_exchange_dtype(getattr(torch, exchange))
     with kernel_config.use_plain_versions() if plain else contextlib.nullcontext():
@@ -186,7 +223,11 @@ def run_job(job: ShardJob, mesh, device) -> dict:
             if timed:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-            losses.append(step(params, optimizer, *args, **step_kwargs(i)))
+            out = step(params, optimizer, *args, **step_kwargs(i))
+            if isinstance(out, tuple):  # MinCut: (loss, ce, cut, orth)
+                terms.append(torch.stack(out))
+                out = out[0]
+            losses.append(out)
             if timed:
                 end.record()
                 events.append((start, end))
@@ -206,6 +247,8 @@ def run_job(job: ShardJob, mesh, device) -> dict:
             torch.cuda.synchronize(device)
         kernels = device_time_by_kernel(prof, profile_steps)
     return {"name": job.name, "losses": torch.stack(losses).cpu().tolist(),
+            "mesh": _mesh_ranks(mesh),
+            "terms": torch.stack(terms).cpu().tolist() if terms else None,
             "grads": grads_trace[0], "grads_trace": grads_trace,
             "params": params_to_numpy(params),
             "step_ms": [s.elapsed_time(e) for s, e in events] if timing else None,
@@ -222,9 +265,13 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str, device: st
         else:
             torch.set_num_threads(1)
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-        mesh = build_mesh({"graph": world})
         jobs = torch.load(os.path.join(work_dir, f"jobs{rank}.pt"), weights_only=False)
-        results = [run_job(job, mesh, device) for job in jobs]
+        def data_axis(job):
+            return job.options.get("data", 1) if job.kind == "batch_2d" else 1
+        meshes = {1: build_mesh({"graph": world})}
+        for data in sorted({data_axis(job) for job in jobs} - {1}):
+            meshes[data] = build_mesh({"data": data, "graph": world // data})
+        results = [run_job(job, meshes[data_axis(job)], device) for job in jobs]
         torch.save(results, os.path.join(work_dir, f"result{rank}.pt"))
     except BaseException:
         with open(os.path.join(work_dir, f"error{rank}.txt"), "w") as f:
