@@ -9,7 +9,9 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. Device: refuse to run without CUDA; print the card's name and power limit.
 2. Build: compile every kernel source under ``tf_geometric_tpu_torch/csrc``
-   with nvcc (all at once) and print the build time.
+   with nvcc (all at once) and the native host library
+   (``tf_geometric_tpu_torch/native/graph_ops.cpp``, g++) and print the
+   build times; fail if either does not build.
 3. Kernels: on the ogbn-arxiv-shaped graph's normalized ``CsrAdj`` (both
    product directions), at F in {40, 128, 256}, in float32 and bfloat16,
    hold Kernel A (``csr_spmm``) and Kernel B (``sorted_segment_sum``)
@@ -252,11 +254,38 @@ Phases, each of which raises (non-zero exit) on failure:
     ``VERDICT`` lines, with exact launch counts (1 a forward step, 2 a
     forward-and-backward step); no training path launches X7.
 
+17. Host-sampled SAGE (``bench`` workload 18, ``sage_reddit_dense_fwd_bwd``,
+    S1 on draws made on the host by ``RandomNeighborSampler`` with the
+    native draw), at Reddit size: the slots of two runs from the initial
+    weights bit for bit equal, the host draw's and the copy's ms; 3 Adam
+    steps through the kernels and through the plain versions on the same
+    host draws (losses within 1e-4; the kernel run exactly 2 S1 forward and
+    2 backward calls a step, no draw kernel); in the main path the
+    workload's ms/step, sampled edges/s, host draw and copy ms, with exact
+    launches. Then flat against dense on the arxiv-shaped graph (k = 25,
+    F = 128): one draw state through ``sample(k, padding=True)`` and
+    ``mean_graph_sage``, and through ``sample_dense(k)`` and
+    ``mean_graph_sage_fixed_k`` (S1): outputs and gradients within float32
+    1e-4 of each sum's magnitudes.
+18. Graph auto-encoder link prediction (``demo/demo_gae.py``'s widths, X6):
+    on the synthetic arxiv graph's train split (``edge_train_test_split``,
+    15% held out, the test negatives drawn without replacement), X6 at the
+    encoder's calls (forward and ``dh`` at F = 32 and 16, float32) against
+    its plain version, ``torch.sparse.mm`` and a second run, timed by
+    events and device time beside its bound; 3 Adam steps through the
+    kernels and through the plain versions on the same negatives and keep
+    masks (losses within 1e-4); 10 training steps drawing their negatives
+    on the host each step (loss, step ms, negative sampling ms, exactly 4
+    X6 calls a step), 3 profiled steps (the card's busy time), the test
+    AUC (``binary_auc``, printed, not gated); ``gae:spmm_heads`` in the
+    kernels line.
+
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
 ``gat_attention_ell:<kernel>`` beside the single-process entries, the draw
 and S1 on workload 13 as ``sampled_sage:<kernel>``, Kernel A on workload
-17 as ``mincut:csr_spmm``, X6 on the pooling path
+17 as ``mincut:csr_spmm``, X6 on the GAE path as ``gae:spmm_heads``, X6
+on the pooling path
 (workload 14's pooled graph, launches over workloads 14-16) as
 ``pool:<kernel>``, X7 as ``tiled_spmm``
 with the A/B's launches, Kernel B with 0 launches: every hub merge runs in
@@ -1487,6 +1516,294 @@ def gin_kernel_phase(graph_problem):
 
 
 # ---------------------------------------------------------------------------
+# the host samplers (workload 18, flat against dense) and the graph
+# auto-encoder (demo/demo_gae.py)
+# ---------------------------------------------------------------------------
+
+FLAT_DENSE_K, FLAT_DENSE_UNITS, FLAT_DENSE_SEED = 25, 128, 1
+GAE_TRAIN_STEPS, GAE_PROFILE_STEPS = 10, 3
+
+
+def host_sage_phase(problem, gpu):
+    """Workload 18's host draws and S1 on them, at Reddit size: two runs
+    from the initial weights draw the same slots, bit for bit (SHA-256
+    digits printed), with the host draw's and the copy's ms; then 3 Adam
+    steps through the kernels and through the plain versions on the same
+    host draws: the losses within 1e-4, the kernel run launching exactly 2
+    S1 forward and 2 backward calls a step and no draw kernel, the plain run
+    nothing."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    wl = bench.WORKLOADS[bench.HOST_SAGE_WORKLOAD]
+    digests = []
+    for _ in range(2):
+        wl.init(problem)
+        digests.append([_digest(t) for pair in bench.host_sage_draws(problem) for t in pair])
+    torch.cuda.synchronize()
+    _check(digests[0] == digests[1], f"host draws differ run to run: {digests}")
+    rates = bench.host_sage_rates(problem, 2)
+    print(f"host sage: slots bit for bit run to run ({' '.join(digests[0])}); host draw "
+          f"{rates['host_draw_ms']:.2f} ms, copy {rates['copy_ms']:.4f} ms for "
+          f"{rates['copy_bytes']} bytes a step on {gpu}", flush=True)
+    layers, steps = len(problem.fanouts), 3
+    per_call = fk.fixed_k_backward_launches(problem.x.shape[0])
+    losses = {}
+    for label in ("kernel", "plain"):
+        _zero_launch_counts()
+        step = bench.make_step(lambda p: wl.loss(p, problem), wl.init(problem), wl.lr)
+        with (kernel_config.use_plain_versions() if label == "plain"
+              else contextlib.nullcontext()):
+            losses[label] = torch.stack([step() for _ in range(steps)])
+        expected = dict.fromkeys(_KERNELS, 0)
+        if label == "kernel":
+            expected.update(fixed_k_forward=steps * layers,
+                            fixed_k_backward=steps * layers * per_call)
+        counts = dict(zip(_KERNELS, _launch_counts()))
+        _check(counts == expected, f"host sage {label}: launches {counts} != {expected}")
+    err = _max_err(losses["kernel"], losses["plain"], F32_TOL, "host sage 3-step losses")
+    print(f"host sage kernel vs plain: {losses['kernel'].tolist()} / {losses['plain'].tolist()}, "
+          f"max abs err {err:.3e}", flush=True)
+
+
+def flat_dense_phase(graph, gpu):
+    """One host draw state feeds ``sample(k, padding=True)`` into
+    ``mean_graph_sage`` (the flat edge list through the segment core) and
+    ``sample_dense(k)`` into ``mean_graph_sage_fixed_k`` (S1), on the
+    arxiv-shaped graph at k = 25, F = 128 (at Reddit size the flat gather
+    would take 14 GB): outputs and the gradients of x and both kernels
+    agree within float32 1e-4 of each sum's magnitudes (``_sum_err``), S1
+    launched once forward and once backward."""
+    import torch
+    from tf_geometric_tpu_torch.nn.conv.graph_sage import mean_graph_sage, mean_graph_sage_fixed_k
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    from tf_geometric_tpu_torch.utils.graph_utils import RandomNeighborSampler
+    sampler = RandomNeighborSampler(graph.edge_index, rng=FLAT_DENSE_SEED)
+    state = sampler.rng.bit_generator.state
+    t0 = time.perf_counter()
+    flat = sampler.sample(k=FLAT_DENSE_K, padding=True)
+    flat_s = time.perf_counter() - t0
+    sampler.rng.bit_generator.state = state
+    t0 = time.perf_counter()
+    dense = sampler.sample_dense(FLAT_DENSE_K)
+    dense_s = time.perf_counter() - t0
+    n, f = graph.x.shape
+    gen = torch.Generator(device="cuda").manual_seed(FLAT_DENSE_SEED)
+    x = torch.as_tensor(graph.x, device="cuda")
+    ws, wn = (0.05 * torch.randn(f, FLAT_DENSE_UNITS, generator=gen, device="cuda")
+              for _ in range(2))
+    c = torch.randn(n, 2 * FLAT_DENSE_UNITS, generator=gen, device="cuda")
+    outs, grads = [], []
+    for fn, (a, b) in ((mean_graph_sage, flat), (mean_graph_sage_fixed_k, dense)):
+        _zero_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (x, ws, wn)]
+        # no activation: at a ReLU's kink the two sides' rounding-level
+        # difference in an output flips its gradient, whatever the sums
+        out = fn(leaves[0], torch.as_tensor(a, device="cuda"), torch.as_tensor(b, device="cuda"),
+                 leaves[1], leaves[2])
+        (out * c).sum().backward()
+        outs.append(out.detach())
+        grads.append([leaf.grad for leaf in leaves])
+        counts = dict(zip(_KERNELS, _launch_counts()))
+        dense_run = fn is mean_graph_sage_fixed_k
+        want = dict.fromkeys(_KERNELS, 0)
+        if dense_run:
+            want.update(fixed_k_forward=1, fixed_k_backward=fk.fixed_k_backward_launches(n))
+        _check(counts == want, f"flat/dense {'dense' if dense_run else 'flat'}: launches "
+                               f"{counts} != {want}")
+    # each result is a float32 sum over many terms (a hub row of x gathers
+    # thousands of slots' gradients), in another order on each side: held
+    # within 1e-4 of the same sum over the terms' magnitudes (_sum_err)
+    idx, w = (torch.as_tensor(a, device="cuda") for a in dense)
+    k, units = idx.shape[0], FLAT_DENSE_UNITS
+    agg_abs = fk.fixed_k_forward_plain(x.abs(), idx, w.abs()) / k
+    d_self, d_neigh = c[:, :units], c[:, units:]
+    d_acc = d_neigh @ wn.t() / k
+    scales = (torch.cat([x.abs() @ ws.abs(), agg_abs @ wn.abs()], dim=1),
+              fk.fixed_k_backward_plain(d_acc.abs().contiguous(), idx, w.abs(), n)
+              + d_self.abs() @ ws.abs().t(),
+              x.abs().t() @ d_self.abs(), agg_abs.t() @ d_neigh.abs())
+    pairs = [(outs[1], outs[0], "output")] + list(zip(
+        grads[1], grads[0], ("gradient of x", "gradient of the self kernel",
+                             "gradient of the neighbor kernel")))
+    errs = [_sum_err(got, want, scale, F32_TOL, f"dense vs flat {what}")
+            for (got, want, what), scale in zip(pairs, scales)]
+    print(f"flat vs dense (arxiv, k={FLAT_DENSE_K}, F={f}): host draws {flat_s * 1e3:.1f} ms "
+          f"(flat) / {dense_s * 1e3:.1f} ms (dense); max abs err output {errs[0]:.3e}, "
+          f"gradients {', '.join(f'{e:.3e}' for e in errs[1:])} on {gpu}", flush=True)
+
+
+def _gae_normed(problem):
+    """The GAE encoder's normalized adjacency, as each GCN call builds it."""
+    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    n = problem.x.shape[0]
+    return gcn_norm_adj(SparseMatrix(problem.edge_index, problem.edge_weight, (n, n)))
+
+
+def gae_kernel_phase(problem):
+    """X6 at the GAE encoder's calls on the arxiv train split (normalized,
+    self-loops added): the forward and ``dh`` SpMM at F = 32 and 16,
+    float32, against their plain versions and ``torch.sparse.mm`` (1e-4)
+    and a second run (bit for bit), timed by events and device time beside
+    the byte bound. Returns one row per call."""
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    normed = _gae_normed(problem)
+    n, index = normed.shape[0], normed.index
+    w = normed.value.float()[:, None].contiguous()
+    fwd = sh.build_csr_view(index[0], index[1], n, n)
+    bwd = sh.build_csr_view(index[1], index[0], n, n)
+    nnz = int(fwd.row_ptr[-1])
+    print(f"gae x6: the train split's normalized adjacency, {n} rows, {nnz} entries; "
+          f"{_view_walk_line(fwd)}", flush=True)
+    lib_fwd, lib_bwd = _x6_library(fwd, w[:, 0], n, n), _x6_library(bwd, w[:, 0], n, n)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for width in bench.GAE_UNITS:
+        h, dy = (torch.randn(n, width, generator=gen, device="cuda") for _ in range(2))
+        for case, view, lib, arg in (("gae forward", fwd, lib_fwd, h),
+                                     ("gae dh", bwd, lib_bwd, dy)):
+            tag = f"spmm_heads {case} F={width}"
+            kernel = (lambda v=view, a=arg: sh.launch_spmm_heads(v, w, a, 1))
+            plain = (lambda v=view, a=arg: sh.spmm_heads_plain(v, w, a, 1))
+            library = (lambda m=lib, a=arg: torch.sparse.mm(m, a))
+            got = kernel()
+            err = _max_err(got, plain(), F32_TOL, tag)
+            _check(torch.equal(got, kernel()), f"{tag}: two runs on the same inputs differ")
+            err = max(err, _max_err(got, library(), F32_TOL, f"{tag} vs the library call"))
+            bound_ms, bound_by = _bound(sh.spmm_pass_bytes(nnz, n, n, width, 1, 4, 4),
+                                        sh.pass_flops(nnz, width))
+            rows.append(dict(name="spmm_heads", case=case, width=width, dtype="float32",
+                             heads=1, max_abs_err=err, ms=_cuda_ms(kernel),
+                             plain_ms=_cuda_ms(plain, iters=3, warmup=1),
+                             library_ms=_cuda_ms(library), bound_ms=bound_ms,
+                             bound_by=bound_by, device_ms=_device_ms(kernel),
+                             library_device_ms=_device_ms(library)))
+    print("gae x6 kernel check (case F: max_abs_err, ms, plain_ms, library_ms, bound_ms; "
+          "device ms under the profiler)")
+    for r in rows:
+        print(f"  {r['case']} F={r['width']}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, "
+              f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['bound_ms']:.4f} "
+              f"({r['bound_by']}){_device_note(r)}", flush=True)
+    return rows
+
+
+def _gae_step(model, opt, problem, neg, keep_mask=None):
+    """One Adam step of the GAE on the negatives ``neg``; the loss."""
+    from tf_geometric_tpu_torch import bench
+    opt.zero_grad(set_to_none=True)
+    loss = bench.gae_loss(model, problem, neg, keep_mask=keep_mask)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def gae_phase(problem, gpu):
+    """The graph auto-encoder of ``demo_gae.py`` on the synthetic arxiv
+    graph: 3 Adam steps through the kernels and through the plain versions
+    on the same negatives and explicit dropout keep masks (losses within
+    1e-4); then ``GAE_TRAIN_STEPS`` steps, each drawing its negatives on the
+    host (``negative_sampling(T, N, train, rng=step)``), with the loss, the
+    step's ms (CUDA events) and the host's negative sampling ms printed and
+    exactly 2 GCNs × (forward + ``dh``) X6 calls a step launched; the card's
+    busy time over ``GAE_PROFILE_STEPS`` profiled steps; the test AUC
+    (``binary_auc``), printed and not gated. Returns the X6 launches."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    from tf_geometric_tpu_torch.utils.profiling import device_time_by_kernel
+    n, t = problem.x.shape[0], problem.train_index.shape[1]
+    print(f"gae: {t} train pairs, {problem.test_index.shape[1]} test pairs, "
+          f"{problem.edge_index.shape[1]} directed train edges", flush=True)
+    negs = [bench.gae_negatives(problem, s) for s in range(3)]
+    gen = torch.Generator(device="cuda").manual_seed(bench.GAE_SEED)
+    masks = [torch.rand(n, bench.GAE_UNITS[0], generator=gen, device="cuda")
+             >= bench.GAE_DROP_RATE for _ in range(3)]
+    losses = {}
+    for label in ("kernel", "plain"):
+        model = bench.init_gae_model(problem)
+        opt = torch.optim.Adam(model.parameters(), lr=bench.GAE_LR)
+        with (kernel_config.use_plain_versions() if label == "plain"
+              else contextlib.nullcontext()):
+            losses[label] = torch.stack([_gae_step(model, opt, problem, neg, mask)
+                                         for neg, mask in zip(negs, masks)])
+    err = _max_err(losses["kernel"], losses["plain"], F32_TOL, "gae 3-step losses")
+    print(f"gae kernel vs plain: {losses['kernel'].tolist()} / {losses['plain'].tolist()}, "
+          f"max abs err {err:.3e}", flush=True)
+
+    model = bench.init_gae_model(problem)
+    opt = torch.optim.Adam(model.parameters(), lr=bench.GAE_LR)
+    _zero_launch_counts()
+    step_ms, neg_ms, losses = [], [], []
+    for s in range(GAE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        neg = bench.gae_negatives(problem, s)
+        neg_ms.append((time.perf_counter() - t0) * 1e3)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(_gae_step(model, opt, problem, neg))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    counts = dict(zip(_KERNELS, _launch_counts()))
+    entries = _gae_normed(problem).index.shape[1]
+    want = dict.fromkeys(_KERNELS, 0)
+    want.update(spmm_heads=GAE_TRAIN_STEPS * 2 * 2 * sh.spmm_heads_launches(entries))
+    _check(counts == want, f"gae: launches {counts} != expected {want}")
+    losses = torch.stack(losses).tolist()
+    _check(all(math.isfinite(v) for v in losses), f"gae: non-finite loss {losses}")
+    _check(losses[-1] < losses[0], f"gae: loss did not fall: {losses}")
+
+    from torch.profiler import ProfilerActivity, profile
+    prof_negs = [bench.gae_negatives(problem, GAE_TRAIN_STEPS + s)
+                 for s in range(GAE_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for neg in prof_negs:
+            _gae_step(model, opt, problem, neg)
+        end.record()
+        end.synchronize()
+    kernels = device_time_by_kernel(prof, GAE_PROFILE_STEPS)
+    busy_ms = sum(k[1] for k in kernels)
+    span_ms = start.elapsed_time(end) / GAE_PROFILE_STEPS
+    auc = bench.gae_test_auc(model, problem)
+    neg_med = float(np.median(neg_ms))
+    print(f"gae: losses {[round(v, 5) for v in losses]}; step {np.median(step_ms):.4f} ms "
+          f"(events, median of {GAE_TRAIN_STEPS}; {[round(v, 3) for v in step_ms]}), host "
+          f"negative sampling {neg_med:.2f} ms a step (median; "
+          f"{[round(v, 1) for v in neg_ms]}); profiled: device busy {busy_ms:.4f} ms of a "
+          f"{span_ms:.4f} ms step span ({sum(k[2] for k in kernels):.0f} kernels a step), "
+          f"{busy_ms / (span_ms + neg_med):.4f} of a step with its negatives; "
+          f"test AUC {auc:.4f} (not gated); launches {counts} on {gpu}", flush=True)
+    print(json.dumps({"gae_top": [[k[0][:90], round(k[1], 5), k[2]] for k in kernels[:8]]}),
+          flush=True)
+    return counts["spmm_heads"]
+
+
+def gae_kernel_entry(gae_rows, launches):
+    """The ``{"kernels"}`` entry of X6 on the GAE path, at its heaviest
+    call (the first GCN's forward, F = 32); its launches are the GAE
+    training run's."""
+    _check(launches > 0, "spmm_heads was not launched on the GAE path")
+    rep = next(r for r in gae_rows if r["case"] == "gae forward" and r["width"] == 32)
+    return {"name": "gae:spmm_heads", "route": "cuda",
+            "source": "tf_geometric_tpu_torch/csrc/spmm_heads.cu",
+            "replaces": "tf_geometric_tpu/ops/spmm.py:67", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in gae_rows), "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": "the GAE's arxiv train split, normalized: forward F=32, float32; launches "
+                     f"over {GAE_TRAIN_STEPS} training steps"}
+
+
+# ---------------------------------------------------------------------------
 # hierarchical pooling (workloads 14-16, ASAP, Set2Set)
 # ---------------------------------------------------------------------------
 
@@ -1746,10 +2063,11 @@ def _zero_launch_counts():
     fk.launch_fixed_k_backward.calls = 0
 
 
-def main_path_phase(gpu, sage_problem, graph_problem):
+def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
     """Workloads 1, 1b, 3, 5 and 10-12 (SGC, APPNP, SSGC) at full arxiv
-    size, 4 (SAGE) at full Reddit size, 6 and 7 (GIN) and 14-16 (DiffPool,
-    MinCutPool, SAGPool) on the benchmark's batch through the kernels;
+    size, 4 (SAGE) and 18 (SAGE on host draws) at full Reddit size, 6 and 7
+    (GIN) and 14-16 (DiffPool, MinCutPool, SAGPool) on the benchmark's
+    batch through the kernels;
     returns the launch totals of the run and the bench results, each with
     its own launches."""
     from tf_geometric_tpu_torch import bench
@@ -1765,7 +2083,8 @@ def main_path_phase(gpu, sage_problem, graph_problem):
            f"precompute launches {_launch_counts()} != {expected}")
     totals = _launch_counts()
     results = {}
-    problems = {"arxiv": problem, "reddit": sage_problem, "graphs": graph_problem}
+    problems = {"arxiv": problem, "reddit": sage_problem, "graphs": graph_problem,
+                "reddit_host": host_sage_problem}
     for name, wl in bench.WORKLOADS.items():
         _zero_launch_counts()
         res = bench.run_workload(problems[wl.problem], name)
@@ -1802,6 +2121,16 @@ def main_path_phase(gpu, sage_problem, graph_problem):
             layers = bench.GIN_LAYERS
             per_call = sh.spmm_heads_launches(graph_problem.edge_index.shape[1])
             expected.update(spmm_heads=steps * (2 * layers - 1) * per_call)
+        elif wl.problem == "reddit_host":
+            # per step and layer: the draw is the host's; one aggregation
+            # forward, one backward call
+            layers = len(host_sage_problem.fanouts)
+            per_call = fk.fixed_k_backward_launches(host_sage_problem.x.shape[0])
+            expected.update(fixed_k_forward=steps * layers,
+                            fixed_k_backward=steps * layers * per_call)
+            calls = fk.launch_fixed_k_backward.calls
+            _check(calls == steps * layers,
+                   f"{name}: {calls} backward calls != expected {steps * layers}")
         else:
             # per step and layer: one draw, one aggregation forward, one
             # backward call (its sort's launches and the gather)
@@ -1817,6 +2146,11 @@ def main_path_phase(gpu, sage_problem, graph_problem):
         if wl.problem == "graphs":
             print(json.dumps({"workload": name,
                               **bench.gin_edge_rates(graph_problem, res["step_ms"])}), flush=True)
+        elif wl.problem == "reddit_host":
+            rates = bench.host_sage_rates(host_sage_problem,
+                                          res["steps_taken"] - bench.WARMUP_STEPS)
+            res["host"] = rates
+            print(json.dumps({"workload": name, **rates}), flush=True)
         losses = res["losses"]
         _check(all(math.isfinite(v) for v in losses), f"{name}: non-finite loss {losses}")
         _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
@@ -2116,8 +2450,8 @@ def x7_main_path_phase(gpu):
     counts = dict(zip(_KERNELS, _launch_counts()))
     timed = [name for name, r in res.items() if r["ms"] is not None]
     _check("community" in timed, f"the community graph was not timed: {timed}")
-    timing = bench.TILED_AB_TIMING
-    steps = timing["warmup"] + timing["repeats"] * timing["iters"]  # per path and graph
+    from tf_geometric_tpu_torch.utils.profiling import STEP_TIME_WARMUP
+    steps = STEP_TIME_WARMUP + sum(bench.TILED_AB_TIMING.values())  # per path and graph
     want = 3 * steps * len(timed)
     _check(counts["tiled_spmm"] == want,
            f"A/B: tiled_spmm launches {counts['tiled_spmm']} != expected {want}")
@@ -3165,8 +3499,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     gpu = _gpu_line()
     print(f"gpu: {gpu}", flush=True)
+    import os
+    import numpy as np
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}", flush=True)
+          f"python {sys.version.split()[0]}, numpy {np.__version__}, "
+          f"{os.cpu_count()} host CPUs", flush=True)
 
     from tf_geometric_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -3179,7 +3516,11 @@ def main():
         print(f"  {src}: {len(spills)} of {len(usage)} instances spill; "
               + " | ".join(usage[:8]), flush=True)
 
-    from tf_geometric_tpu_torch import bench
+    from tf_geometric_tpu_torch import bench, native
+    t0 = time.perf_counter()
+    _check(native.available(), "the native host library (native/graph_ops.cpp) did not build")
+    print(f"native host library: built and loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
     from tf_geometric_tpu_torch.ops.csr_spmm import CsrAdj
     from tf_geometric_tpu_torch.datasets import synthetic_ogbn_arxiv_like
@@ -3212,6 +3553,12 @@ def main():
     print(f"reddit problem built in {time.perf_counter() - t0:.1f} s", flush=True)
     rows += _phase("sage kernels", sage_kernel_phase, sage_problem, _skew_graphs(graph))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host_sage = bench.build_host_sage_problem(device="cuda")
+    print(f"reddit host-sampler problem built in {time.perf_counter() - t0:.1f} s", flush=True)
+    _phase("host sage", host_sage_phase, host_sage, gpu)
+    _phase("flat vs dense", flat_dense_phase, graph, gpu)
+    torch.cuda.empty_cache()
     graph_problem = bench.build_graph_problem(device="cuda")
     print(f"gin batch: {graph_problem.num_graphs} graphs, {graph_problem.x.shape[0]} padded "
           f"nodes, {graph_problem.edge_index.shape[1]} padded edges "
@@ -3219,9 +3566,17 @@ def main():
     rows += _phase("gin kernels", gin_kernel_phase, graph_problem)
     pool_rows = _phase("pool kernels", pool_kernel_phase, graph_problem)
     t0 = time.perf_counter()
+    gae = bench.build_gae_problem(device="cuda")
+    print(f"gae problem built in {time.perf_counter() - t0:.1f} s (split and test negatives on "
+          f"the host)", flush=True)
+    gae_rows = _phase("gae kernels", gae_kernel_phase, gae)
+    gae_launches = _phase("gae", gae_phase, gae, gpu)
+    del gae
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
-          f"{halo.partition_s:.1f} s on the host (its refinement is a Python loop), partitions "
+          f"{halo.partition_s:.1f} s on the host (native library: {native.available()}), partitions "
           f"and plans {halo.plan_s:.1f} s; {halo.num_parts} ranks of "
           f"{halo.gcn_part.nodes_per_part} nodes; GCN cap {halo.gcn_spec.capacity}, "
           f"halo_fraction {halo.gcn_spec.halo_fraction:.4f}; GAT cap {halo.gat_spec.capacity}, "
@@ -3232,8 +3587,9 @@ def main():
             for r in range(halo.num_parts) for kind in ("local", "remote")], X2_WIDTHS)
     halo_rows = _phase("x2", x2_kernel_phase, halo) + _phase("x5", x5_kernel_phase, halo)
 
-    totals, results = _phase("main path", main_path_phase, gpu, sage_problem, graph_problem)
-    del sage_problem
+    totals, results = _phase("main path", main_path_phase, gpu, sage_problem, graph_problem,
+                             host_sage)
+    del sage_problem, host_sage
     torch.cuda.empty_cache()
     _phase("pool profile", pool_profile_phase, graph_problem, results, gpu)
     _phase("pool small", pool_small_phase, graph_problem)
@@ -3333,6 +3689,7 @@ def main():
     kernels += sampled_sage_kernel_entries(sampled_rows, sampled_totals)
     kernels.append(mincut_kernel_entry(mincut_rows, mincut_totals))
     kernels += pool_kernel_entries(pool_rows, results)
+    kernels.append(gae_kernel_entry(gae_rows, gae_launches))
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

@@ -53,6 +53,50 @@ def test_no_source_file_of_the_port_imports_jax():
     assert not offenders, offenders
 
 
+# the host-side modules (native ops, graph and data utilities), each imported alone
+HOST_MODULES = ("tf_geometric_tpu_torch.native", "tf_geometric_tpu_torch.utils.graph_utils",
+                "tf_geometric_tpu_torch.utils.metrics", "tf_geometric_tpu_torch.utils.data_utils",
+                "tf_geometric_tpu_torch.utils.torch_utils",
+                "tf_geometric_tpu_torch.utils.profiling", "tf_geometric_tpu_torch.data.dataset")
+HOST_FORBIDDEN = FORBIDDEN + ("sklearn", "networkx")
+
+
+@pytest.mark.parametrize("module", HOST_MODULES)
+def test_host_modules_load_no_jax_sklearn_or_networkx(module):
+    """Importing each host-side module (and building the native library)
+    loads no JAX, no JAX package, no sklearn and no networkx (the card's
+    machine has neither of the last two; networkx is imported only inside
+    ``convert_edge_to_nx_graph``)."""
+    code = textwrap.dedent(f"""
+        import sys
+        import {module}
+        import tf_geometric_tpu_torch.native as native
+        native.available()
+        bad = sorted(m for m in sys.modules if m.split(".")[0].startswith("jax")
+                     or m.split(".")[0] in {HOST_FORBIDDEN!r})
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_file_of_the_port_imports_sklearn():
+    offenders = []
+    for path in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.name}:{node.lineno} {n}" for n in names
+                          if n.split(".")[0] == "sklearn"]
+    assert not offenders, offenders
+
+
 def test_entry_points_raise_without_cuda():
     """Called with no device, bench.main() and entry() ask for the card and
     raise here instead of running on the CPU."""
@@ -175,6 +219,16 @@ def test_sampler_and_sage_bench_ask_for_the_card_by_default():
         DeviceNeighborSampler([[0, 1], [1, 0]])
     with pytest.raises((AssertionError, RuntimeError)):
         bench.build_sage_problem(50, 200, 4)
+
+
+def test_host_sampled_sage_and_gae_ask_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tf_geometric_tpu_torch import bench
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench.build_host_sage_problem(50, 200, 4)
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench.build_gae_problem(200, 800)
 
 
 def test_fixed_k_kernel_wrappers_refuse_cpu_tensors():

@@ -4,9 +4,10 @@ bit, and the sharded training steps over 4 spawned gloo ranks against the
 JAX steps on a 4-device sub-mesh of the 8 virtual CPU devices, from the
 same weights on the same partition (2,000 nodes, 16 features, hidden 16).
 
-The JAX partitioner runs C++ sweeps when its native library is built and
-numpy otherwise; the port copies the numpy branch, so the JAX side is
-pinned to it (``native.available`` returns False).
+Both partitioners run C++ sweeps when their native library is built and
+numpy otherwise; here both sides are pinned to the numpy branch
+(``native.available`` returns False), and ``tests/test_torch_native.py``
+holds the native branches against each other.
 
 Steps, float32: losses of 3 free-running steps (rtol 1e-5, atol 1e-6); the
 gradients of step 1, all-reduced, before Adam (rtol 1e-4, atol 1e-6). JAX's
@@ -33,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 import tf_geometric_tpu.native as jnative
+import tf_geometric_tpu_torch.native as tnative
 from tf_geometric_tpu.nn.conv.gcn import gcn_norm_adj as jgcn_norm_adj
 from tf_geometric_tpu.parallel import halo as jhalo
 from tf_geometric_tpu.parallel import partition as jpart
@@ -67,6 +69,7 @@ def _community_graph(seed=0, n=N, communities=40, edges=12000):
 @pytest.fixture
 def jax_numpy_partitioner(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -6,7 +6,8 @@ in its ``device`` mode) and on a padded batch of small graphs (the twin of
 instead, the twin of ``benchmarks/tiled_spmm_ab.py`` (``tiled_ab``).
 
 Prints one JSON line per workload: {"metric", "value", "unit", "vs_baseline"};
-before each GIN and pool line, one with its real and padded edges per second.
+before each GIN and pool line, one with its real and padded edges per second;
+before workload 18's, one with its host draw and copy ms per step.
 
 1. ``gcn_arxiv_fwd_bwd``: a full training step (forward, backward, Adam) of
    the 2-layer GCN, HIDDEN 256, with the full-batch precompute ``P = Â·x``
@@ -130,6 +131,23 @@ before each GIN and pool line, one with its real and padded edges per second.
    slowest rank's median step, as ``scaling.py`` counts the partition's
    real edges.
 
+18. ``sage_reddit_dense_fwd_bwd``: ``benchmarks/sage_sampling_throughput.py``
+   with ``SAGE_BENCH_MODE=dense``: workload 4's graph, weights and layers,
+   but the draw made on the host by ``RandomNeighborSampler(edge_index,
+   rng=0)``, built once: each step calls ``sample_dense`` per layer (the
+   native fixed-k draw when the host library builds), copies the four
+   [k, N] arrays (65.2 MB at Reddit size) to the card, then runs the two
+   ``mean_graph_sage_fixed_k`` layers (S1 forward and backward), the loss
+   and Adam. The step is timed end to end, host draw and copy included, as
+   the JAX script times it; the line before it gives the host draw's ms
+   (host clock) and the copy's ms (CUDA events) per step. The sampler is
+   reseeded with the weights, so every run from them sees the same draws.
+
+The graph auto-encoder of ``demo/demo_gae.py`` (``GaeEncoder``,
+``build_gae_problem``, ``gae_loss``) is here for chip_smoke.py, without a
+workload: its split of the arxiv graph, per-step negatives drawn on the
+host, the two GCNs on the COO SpMM (X6) and the test AUC.
+
 The tiled A/B (``tiled_ab``, ``--tiled-ab``): for the random arxiv graph,
 ``tiled_spmm_ab.py``'s community graph (communities of the tile size, 0.95
 of the edges inside) and the random graph at 32,768 nodes and 225,669 edges
@@ -154,7 +172,7 @@ time is the device's, not the host's enqueue. There is no CPU path: a
 measurement on the CPU would not be a device number. edges/s counts the
 nonzeros of Â (GCN) or the self-looped edges (GAT), 1,335,586 each at full
 size, per step; the SAGE line counts sampled edges, N·(25 + 10) =
-8,153,775 per step.
+8,153,775 per step (workloads 4 and 18).
 
 vs_baseline = (least time of the step's sparse passes) / (measured step
 time), the least time being the passes' least bytes over the H100's
@@ -184,7 +202,8 @@ halo blocks and layouts leave many rows unread):
   backward (dy read, the float32 source gradient written, idx and weight;
   ``ops.fixed_k.aggregate_pass_bytes``); workload 13 counts the same
   passes of every rank, each rank's draw over its own rows and column
-  shard and its aggregations against the gathered table;
+  shard and its aggregations against the gathered table; workload 18 its
+  aggregations only (its draw is the host's; the copy is not charged);
 - the merged-head GAT's multi-head SpMM forward and ``dV`` and its
   ``d_att`` SDDMM (``ops.spmm_heads.spmm_pass_bytes``,
   ``sddmm_pass_bytes``);
@@ -207,6 +226,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -218,6 +238,7 @@ from torch.func import functional_call
 
 from .convert import (GAT_BENCH_PARAM_NAMES, SAGE_BENCH_PARAM_NAMES, bench_params_from_numpy,
                       gin_classifier_state_dict_from_flax)
+from .data.graph import Graph
 from .data.padding import padded_batch_generator
 from .datasets.synthetic_citation import (synthetic_graph_classification,
                                           synthetic_ogbn_arxiv_like)
@@ -246,6 +267,9 @@ from .ops.gat_attention import CsrGatLayout
 from .ops.spmm_heads import sddmm_pass_bytes, spmm_pass_bytes
 from .sparse.matrix import SparseMatrix
 from .ops.tiled_spmm import TiledSpmm, build_tiled_spmm, count_occupied_tiles, tiled_spmm
+from .utils.graph_utils import (RandomNeighborSampler, edge_train_test_split,
+                                negative_sampling)
+from .utils.metrics import binary_auc
 from .utils.profiling import (H100_HBM_BYTES_PER_S, device_time_by_kernel,
                               estimate_spmm_roofline, measure_step_time)
 
@@ -268,7 +292,11 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "SAGPoolClassifier", "ASAPClassifier", "Set2SetClassifier", "POOL_MODELS",
            "POOL_WORKLOADS", "init_pool_params", "pool_loss", "pool_x6_calls", "pool_step_bytes",
            "MincutProblem", "build_mincut_problem", "mincut_jobs", "mincut_pass_bytes",
-           "run_mincut_workload", "MINCUT_WORKLOAD", "main"]
+           "run_mincut_workload", "MINCUT_WORKLOAD", "HostSageProblem",
+           "build_host_sage_problem", "init_host_sage_params", "host_sage_draws",
+           "host_sage_loss", "host_sage_rates", "host_sage_step_bytes", "HOST_SAGE_WORKLOAD",
+           "GaeEncoder", "GaeProblem", "build_gae_problem", "init_gae_model", "gae_negatives",
+           "gae_loss", "gae_test_auc", "predict_edge", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
 GAT_HEADS, GAT_UNITS = 8, 256
@@ -282,6 +310,8 @@ PORT_KERNELS = ("csr_spmm_kernel", "sorted_segment_sum_kernel", "gat_forward_ker
                 "spmm_heads_kernel", "spmm_heads_chunk_kernel", "sddmm_heads_kernel")
 SAGE_FANOUTS, SAGE_HIDDEN = (25, 10), 256
 SAGE_DRAW_SEED = 0  # the draws' torch.Generator seed at the initial weights
+# workload 18: sage_sampling_throughput.py's dense mode, RandomNeighborSampler(.., rng=0)
+HOST_SAGE_WORKLOAD, HOST_SAGE_SEED = "sage_reddit_dense_fwd_bwd", 0
 # workload 5's units and query/key units (bench_node_cls_early_stop_gat.py:44)
 GAT_MERGED_UNITS, GAT_MERGED_ATT_UNITS = 64, 8
 # benchmarks/graph_classification_throughput.py's constants
@@ -296,6 +326,9 @@ POOL_SEED = 0  # the pool models' weights and dropout generator
 POOL_WORKLOADS = {"diff_pool_graphs_fwd_bwd": "diff_pool",
                   "min_cut_pool_graphs_fwd_bwd": "min_cut",
                   "sag_pool_graphs_fwd_bwd": "sag_pool"}
+# demo/demo_gae.py's encoder widths, dropout, Adam rate and split; the seed of
+# the split, the test negatives and the weights
+GAE_UNITS, GAE_DROP_RATE, GAE_LR, GAE_TEST_SIZE, GAE_SEED = (32, 16), 0.3, 1e-2, 0.15, 0
 # benchmarks/scaling.py's graph-parallel steps
 HALO_PARTS, HALO_GCN_HIDDEN = 4, 64
 HALO_GAT_DIMS, HALO_DROP_RATE = ((8, 8), (1, 64)), 0.6
@@ -362,20 +395,27 @@ class SageProblem(NamedTuple):
     fanouts: Tuple[int, ...]           # k of each layer's draw
 
 
-def build_sage_problem(num_nodes: int = REDDIT_NODES, num_edges: int = REDDIT_EDGES,
-                       num_features: int = REDDIT_FEATURES, num_classes: int = REDDIT_CLASSES,
-                       device="cuda", fanouts: Tuple[int, ...] = SAGE_FANOUTS) -> SageProblem:
-    """The Reddit-shaped graph, its device sampler and the initial weights,
+def _sage_graph_and_weights(num_nodes: int, num_edges: int, num_features: int,
+                            num_classes: int):
+    """The Reddit-shaped graph and the SAGE benchmark's initial weights,
     drawn from one ``default_rng(0)`` in the JAX benchmark's order."""
     rng = np.random.default_rng(0)
     graph = synthetic_reddit_like(num_nodes, num_edges, num_features, num_classes, rng=rng)
-    sampler = DeviceNeighborSampler(graph.edge_index, num_nodes=num_nodes, device=device)
     half = SAGE_HIDDEN // 2
     params0 = {"s0": rng.normal(scale=0.05, size=(num_features, half)),
                "n0": rng.normal(scale=0.05, size=(num_features, half)),
                "s1": rng.normal(scale=0.05, size=(SAGE_HIDDEN, half)),
                "n1": rng.normal(scale=0.05, size=(SAGE_HIDDEN, half)),
                "wd": rng.normal(scale=0.05, size=(SAGE_HIDDEN, num_classes))}
+    return graph, params0
+
+
+def build_sage_problem(num_nodes: int = REDDIT_NODES, num_edges: int = REDDIT_EDGES,
+                       num_features: int = REDDIT_FEATURES, num_classes: int = REDDIT_CLASSES,
+                       device="cuda", fanouts: Tuple[int, ...] = SAGE_FANOUTS) -> SageProblem:
+    """The Reddit-shaped graph, its device sampler and the initial weights."""
+    graph, params0 = _sage_graph_and_weights(num_nodes, num_edges, num_features, num_classes)
+    sampler = DeviceNeighborSampler(graph.edge_index, num_nodes=num_nodes, device=device)
     return SageProblem(sampler, torch.as_tensor(graph.x, device=device),
                        torch.as_tensor(graph.y, device=device).long(), params0,
                        torch.Generator(device=device), tuple(fanouts))
@@ -389,15 +429,98 @@ def init_sage_params(problem: SageProblem) -> Dict[str, torch.Tensor]:
                                    names=SAGE_BENCH_PARAM_NAMES)
 
 
-def sage_loss(p, problem: SageProblem):
-    """Workload 4: a fresh draw per layer, two ``mean_graph_sage_fixed_k``
-    layers with ReLU, ``h Wd``, mean cross-entropy (all in float32)."""
-    csr = problem.sampler.csr()
-    e0, w0 = problem.sampler.sample(problem.generator, problem.fanouts[0], csr)
-    e1, w1 = problem.sampler.sample(problem.generator, problem.fanouts[1], csr)
+def _sage_draws_loss(p, problem, draws):
+    """Two ``mean_graph_sage_fixed_k`` layers with ReLU over the two layers'
+    draws, ``h Wd``, mean cross-entropy (all in float32)."""
+    (e0, w0), (e1, w1) = draws
     h = mean_graph_sage_fixed_k(problem.x, e0, w0, p["s0"], p["n0"], activation=torch.relu)
     h = mean_graph_sage_fixed_k(h, e1, w1, p["s1"], p["n1"], activation=torch.relu)
     return F.cross_entropy(h @ p["wd"], problem.y)
+
+
+def sage_loss(p, problem: SageProblem):
+    """Workload 4: a fresh device draw per layer, then ``_sage_draws_loss``."""
+    csr = problem.sampler.csr()
+    return _sage_draws_loss(p, problem, [problem.sampler.sample(problem.generator, k, csr)
+                                         for k in problem.fanouts])
+
+
+class HostSageProblem(NamedTuple):
+    sampler: RandomNeighborSampler     # the graph's CSR on the host
+    x: torch.Tensor                    # [N, 602] float32
+    y: torch.Tensor                    # [N] int64
+    params0: Dict[str, np.ndarray]     # the benchmark's initial weights (workload 4's)
+    fanouts: Tuple[int, ...]           # k of each layer's draw
+    timing: dict                       # per step: "draw_ms" (host), "copy" (event pairs)
+
+
+def build_host_sage_problem(num_nodes: int = REDDIT_NODES, num_edges: int = REDDIT_EDGES,
+                            num_features: int = REDDIT_FEATURES,
+                            num_classes: int = REDDIT_CLASSES, device="cuda",
+                            fanouts: Tuple[int, ...] = SAGE_FANOUTS) -> HostSageProblem:
+    """Workload 18's problem: workload 4's graph and weights, with
+    ``RandomNeighborSampler(edge_index, rng=HOST_SAGE_SEED)`` on the host
+    in place of the device sampler (``sage_sampling_throughput.py``'s
+    ``dense`` mode)."""
+    graph, params0 = _sage_graph_and_weights(num_nodes, num_edges, num_features, num_classes)
+    sampler = RandomNeighborSampler(graph.edge_index, rng=HOST_SAGE_SEED)
+    return HostSageProblem(sampler, torch.as_tensor(graph.x, device=device),
+                           torch.as_tensor(graph.y, device=device).long(), params0,
+                           tuple(fanouts), {"draw_ms": [], "copy": []})
+
+
+def init_host_sage_params(problem: HostSageProblem) -> Dict[str, torch.Tensor]:
+    """The SAGE benchmark's initial weights; also reseeds the sampler, so
+    every run from these weights sees the same sequence of draws."""
+    problem.sampler.rng = np.random.default_rng(HOST_SAGE_SEED)
+    return bench_params_from_numpy(problem.params0, device=problem.x.device,
+                                   names=SAGE_BENCH_PARAM_NAMES)
+
+
+def host_sage_draws(problem: HostSageProblem):
+    """One ``sample_dense`` per layer on the host, then the four [k, N]
+    arrays copied to ``x``'s device; the host draw's ms and (on the card)
+    a CUDA event pair around the copies are appended to ``problem.timing``."""
+    t0 = time.perf_counter()
+    drawn = [problem.sampler.sample_dense(k) for k in problem.fanouts]
+    problem.timing["draw_ms"].append((time.perf_counter() - t0) * 1e3)
+    device = problem.x.device
+    events = None
+    if device.type == "cuda":
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record()
+    out = [(torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device))
+           for idx, w in drawn]
+    if events is not None:
+        events[1].record()
+        problem.timing["copy"].append(events)
+    return out
+
+
+def host_sage_loss(p, problem: HostSageProblem):
+    """Workload 18: the host draws, then workload 4's layers and loss."""
+    return _sage_draws_loss(p, problem, host_sage_draws(problem))
+
+
+def host_sage_rates(problem: HostSageProblem, steps: int) -> dict:
+    """The host draw's and the copy's ms per step over the last ``steps``
+    steps, and the bytes copied per step."""
+    copies = problem.timing["copy"][-steps:]
+    n = problem.x.shape[0]
+    return {"host_draw_ms": float(np.mean(problem.timing["draw_ms"][-steps:])),
+            "copy_ms": (float(np.mean([a.elapsed_time(b) for a, b in copies]))
+                        if copies else None),
+            "copy_bytes": 8 * n * sum(problem.fanouts)}
+
+
+def host_sage_step_bytes(problem: HostSageProblem) -> int:
+    """Least bytes of workload 18's device passes: both layers' 128-wide
+    float32 aggregations forward and backward (the draw is the host's)."""
+    n = problem.x.shape[0]
+    width = SAGE_HIDDEN // 2
+    return sum(aggregate_pass_bytes(n, k, n, width, 4)
+               + aggregate_pass_bytes(n, k, n, width, 4, backward=True)
+               for k in problem.fanouts)
 
 
 def sage_step_bytes(problem: SageProblem) -> int:
@@ -705,18 +828,17 @@ def gin_edge_rates(problem: GraphBatchProblem, step_ms: float) -> Dict[str, floa
 # workloads 14-16 (and the ASAP and Set2Set models): hierarchical pooling
 # ---------------------------------------------------------------------------
 
-def _dropout(h, training: bool, generator, keep_mask):
-    """The demos' ``Dropout(POOL_DROP_RATE)``: keep decisions from
-    ``keep_mask`` if given, else drawn with ``generator``."""
+def _dropout(h, training: bool, generator, keep_mask, rate: float = POOL_DROP_RATE):
+    """The demos' ``Dropout(rate)``: keep decisions from ``keep_mask`` if
+    given, else drawn with ``generator``."""
     if not training:
         return h
     if keep_mask is None:
         if generator is None:
             raise ValueError("dropout in training mode needs a generator or keep_mask")
-        keep_mask = torch.rand(h.shape, generator=generator, device=h.device) < (
-            1.0 - POOL_DROP_RATE)
-    return torch.where(torch.as_tensor(keep_mask, device=h.device),
-                       h / (1.0 - POOL_DROP_RATE), torch.zeros_like(h))
+        keep_mask = torch.rand(h.shape, generator=generator, device=h.device) < (1.0 - rate)
+    return torch.where(torch.as_tensor(keep_mask, device=h.device), h / (1.0 - rate),
+                       torch.zeros_like(h))
 
 
 class DiffPoolClassifier(nn.Module):
@@ -945,6 +1067,106 @@ def pool_step_bytes(problem: GraphBatchProblem, name: str) -> int:
                for _, stored, rows, width, dv in pool_x6_calls(problem, name))
 
 
+# ---------------------------------------------------------------------------
+# graph auto-encoder link prediction (demo/demo_gae.py), chip_smoke.py's GAE phase
+# ---------------------------------------------------------------------------
+
+class GaeEncoder(nn.Module):
+    """``demo_gae.py``'s encoder: ``GCN(32, relu)``, dropout ``GAE_DROP_RATE``,
+    ``GCN(16)``, both GCNs without a cache, as the demo calls them (each
+    normalizes the graph per call and multiplies by the COO SpMM)."""
+
+    def __init__(self, in_features: int, generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        super().__init__()
+        self.gcn0 = GCN(in_features, GAE_UNITS[0], activation=torch.relu, generator=generator,
+                        device=device)
+        self.gcn1 = GCN(GAE_UNITS[0], GAE_UNITS[1], generator=generator, device=device)
+
+    def forward(self, x, edge_index, edge_weight, generator=None, keep_mask=None):
+        h = self.gcn0([x, edge_index, edge_weight])
+        h = _dropout(h, self.training, generator, keep_mask, GAE_DROP_RATE)
+        return self.gcn1([h, edge_index, edge_weight])
+
+
+def predict_edge(embedded, edge_index):
+    """The inner-product decoder: ``<z_row, z_col>`` per pair."""
+    edge_index = torch.as_tensor(edge_index, device=embedded.device).long()
+    return (embedded[edge_index[0]] * embedded[edge_index[1]]).sum(-1)
+
+
+class GaeProblem(NamedTuple):
+    x: torch.Tensor                    # [N, F] float32
+    edge_index: torch.Tensor           # [2, E] the train split, both directions
+    edge_weight: torch.Tensor          # [E] ones
+    train_index: np.ndarray            # [2, T] int32, one edge per train pair (host)
+    pos_train: torch.Tensor            # the same on the device
+    test_index: np.ndarray             # [2, S] int32, the held-out pairs
+    test_neg: np.ndarray               # [2, S] int32, pairs absent from the graph
+    generator: torch.Generator         # dropout draws
+
+
+def build_gae_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
+                      device="cuda") -> GaeProblem:
+    """``demo_gae.py``'s set-up on the synthetic arxiv graph:
+    ``edge_train_test_split(test_size=0.15, random_state=0)``, the test
+    negatives ``negative_sampling(S, N, edge_index=graph, replace=False,
+    rng=0)``, and the train split made directed for the encoder."""
+    graph = synthetic_ogbn_arxiv_like(num_nodes, num_edges)
+    n = graph.num_nodes
+    train_index, test_index, _, _ = edge_train_test_split(graph.edge_index, GAE_TEST_SIZE,
+                                                          random_state=GAE_SEED)
+    test_neg = negative_sampling(test_index.shape[1], n, edge_index=graph.edge_index,
+                                 replace=False, rng=GAE_SEED)
+    train_graph = Graph(x=graph.x, edge_index=train_index).to_directed()
+    return GaeProblem(torch.as_tensor(graph.x, device=device),
+                      torch.as_tensor(train_graph.edge_index, device=device),
+                      torch.as_tensor(train_graph.edge_weight, device=device), train_index,
+                      torch.as_tensor(train_index, device=device), test_index, test_neg,
+                      torch.Generator(device=device))
+
+
+def init_gae_model(problem: GaeProblem) -> GaeEncoder:
+    """The encoder's weights (glorot-uniform from a generator seeded
+    ``GAE_SEED``, zero biases); also reseeds the dropout generator."""
+    problem.generator.manual_seed(GAE_SEED)
+    return GaeEncoder(problem.x.shape[1], torch.Generator().manual_seed(GAE_SEED),
+                      device=problem.x.device)
+
+
+def gae_negatives(problem: GaeProblem, step: int) -> np.ndarray:
+    """The demo's negatives of step ``step``: as many pairs as the train
+    split, absent from it, ``rng=step``."""
+    return negative_sampling(problem.train_index.shape[1], problem.x.shape[0],
+                             edge_index=problem.train_index, rng=step)
+
+
+def gae_loss(model: GaeEncoder, problem: GaeProblem, neg_index, keep_mask=None):
+    """Sigmoid cross-entropy of the train pairs as 1 and ``neg_index`` as 0,
+    the two means added (the demo's loss)."""
+    z = model(problem.x, problem.edge_index, problem.edge_weight, generator=problem.generator,
+              keep_mask=keep_mask)
+    pos, neg = predict_edge(z, problem.pos_train), predict_edge(z, neg_index)
+    return (F.binary_cross_entropy_with_logits(pos, torch.ones_like(pos))
+            + F.binary_cross_entropy_with_logits(neg, torch.zeros_like(neg)))
+
+
+def gae_test_auc(model: GaeEncoder, problem: GaeProblem) -> float:
+    """``binary_auc`` of the held-out pairs against the test negatives, the
+    encoder in eval mode (no dropout)."""
+    model.eval()
+    try:
+        with torch.no_grad():
+            z = model(problem.x, problem.edge_index, problem.edge_weight)
+            scores = torch.cat([torch.sigmoid(predict_edge(z, problem.test_index)),
+                                torch.sigmoid(predict_edge(z, problem.test_neg))])
+    finally:
+        model.train()
+    labels = np.concatenate([np.ones(problem.test_index.shape[1]),
+                             np.zeros(problem.test_neg.shape[1])])
+    return binary_auc(scores.cpu().numpy(), labels)
+
+
 def make_step(loss_fn: Callable, params: Dict[str, torch.Tensor], lr: float = 1e-2) -> Callable:
     """One Adam(lr) step per call (optax.adam's defaults: b1 0.9, b2 0.999,
     eps 1e-8 outside the sqrt); returns the pre-update loss."""
@@ -1129,6 +1351,9 @@ WORKLOADS.update({
     "ssgc_arxiv_fwd_bwd": _propagation_workload("ssgc_arxiv_fwd_bwd", ssgc_loss, 5e-3),
 })
 WORKLOADS.update({name: _pool_workload(model) for name, model in POOL_WORKLOADS.items()})
+WORKLOADS[HOST_SAGE_WORKLOAD] = Workload(
+    _no_dense_bf16(host_sage_loss), init_host_sage_params, 1e-2, host_sage_step_bytes,
+    lambda pr: pr.x.shape[0] * sum(pr.fanouts), problem="reddit_host", counts="sampled_edges")
 
 
 def _workload_step(problem, name: str, dense_bf16: bool):
@@ -1569,8 +1794,8 @@ TILED_AB_BUDGET_BYTES = 6e9
 # the random graph at a size whose tiles fit the budget, at arxiv's mean degree
 TILED_AB_SMALL = (32_768, 225_669)
 TILED_AB_PATHS = ("csr_fwd", "tiled_fwd", "csr_fwd_bwd", "tiled_fwd_bwd")
-# measure_step_time's chain per path: warm-up steps, then repeats of iters steps
-TILED_AB_TIMING = dict(warmup=2, iters=10, repeats=5)
+# measure_step_time's runs per path (benchmarks/tiled_spmm_ab.py:141): lo, then hi steps
+TILED_AB_TIMING = dict(lo=4, hi=16)
 
 
 def community_graph(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES) -> np.ndarray:
@@ -1710,17 +1935,19 @@ def tiled_ab(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, device=
 def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int = 20,
          device="cuda", spmm_bf16: bool = True, dense_bf16: bool = True,
          profile: bool = False) -> list:
-    """Run the seventeen workloads on ``device`` and print their JSON lines;
+    """Run the eighteen workloads on ``device`` and print their JSON lines;
     with ``profile``, also print each workload's per-kernel device time (for
     the multi-rank workloads, each rank's and the card's busy time).
     ``num_nodes``/``num_edges`` size the arxiv graph (the multi-rank
     workloads' too); the Reddit graph and the GIN batch (the pool
-    workloads' too) are built at their full size."""
+    workloads' too) are built at their full size, workload 18's host
+    problem after the others of its kind."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"the bench times on a CUDA device, got {device}")
     problems = {"arxiv": build_problem(num_nodes, num_edges, device=device,
                                        spmm_bf16=spmm_bf16)}
-    builders = {"reddit": build_sage_problem, "graphs": build_graph_problem}
+    builders = {"reddit": build_sage_problem, "graphs": build_graph_problem,
+                "reddit_host": build_host_sage_problem}
     results = []
     for name, wl in WORKLOADS.items():
         if wl.problem not in problems:
@@ -1730,6 +1957,8 @@ def main(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES, steps: int 
         if wl.problem == "graphs":
             print(json.dumps({"workload": name, **gin_edge_rates(problem, res["step_ms"])}),
                   flush=True)
+        elif wl.problem == "reddit_host":
+            print(json.dumps({"workload": name, **host_sage_rates(problem, steps)}), flush=True)
         print(json.dumps(res["line"]), flush=True)
         results.append(res)
         if profile:

@@ -9,10 +9,10 @@ every SpMM is local and only source rows cross ranks (the halo exchange,
 refinement); ``community_order`` and ``bandwidth_reduction_order`` are the
 cheaper orderings. Outputs are padded to identical per-rank sizes.
 
-The JAX module runs its label propagation and refinement sweeps in C++ when
-``tf_geometric_tpu.native`` is built and in numpy otherwise; the two give
-different permutations. This copy is the numpy branch, so it equals the JAX
-function with its native library unavailable.
+Label propagation and the refinement sweeps run in C++ when the port's
+native library is built (``native.lpa_labels``, ``native.partition_refine``)
+and in numpy otherwise, as the JAX module does; the two branches give
+different permutations, and each equals the JAX module's same branch.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from .. import native
 from ..utils.union_utils import convert_union_to_numpy
 
 __all__ = ["nodes_per_part", "EdgePartition", "partition_edges_by_row",
@@ -98,9 +99,17 @@ def community_order(edge_index, num_nodes: int, num_iters: int = 8,
 
 def _community_labels(edge_index, num_nodes: int, num_iters: int = 8,
                       seed: int = 0) -> np.ndarray:
-    """Majority-vote label propagation, ties broken by a seeded jitter."""
+    """Majority-vote label propagation: natively (ties to the smallest
+    label) when the library is built, else in numpy with ties broken by a
+    seeded jitter."""
     edge_index = convert_union_to_numpy(edge_index, np.int64)
     row, col = edge_index[0], edge_index[1]
+    if native.available():
+        order = native.sort_by_row(row, num_nodes)
+        labels = native.lpa_labels(native.build_row_ptr(row, num_nodes),
+                                   col[order].astype(np.int32), num_nodes, num_iters)
+        if labels is not None:
+            return labels
     labels = np.arange(num_nodes, dtype=np.int64)
     rng = np.random.default_rng(seed)
     for _ in range(num_iters):
@@ -128,8 +137,10 @@ def partition_order(edge_index, num_nodes: int, num_parts: int,
     first-fit-decreasing packing into ``num_parts`` bins of exactly the
     blocks ``partition_edges_by_row`` uses, refinement sweeps that move a
     node to the part holding most of its neighbours while that part has
-    slack, then a repair back to the exact block sizes. The sweeps walk the
-    movers in a Python loop: O(E · refine_iters) host time."""
+    slack, then a repair back to the exact block sizes. The sweeps and the
+    repair run in C++ over the symmetric CSR when the native library is
+    built; the numpy branch walks the movers in a Python loop
+    (O(E · refine_iters) host time)."""
     edge_index = convert_union_to_numpy(edge_index, np.int64)
     P, N = int(num_parts), int(num_nodes)
     if P <= 1 or N == 0:
@@ -163,6 +174,16 @@ def partition_order(edge_index, num_nodes: int, num_parts: int,
     keep = row != col
     row, col = row[keep], col[keep]
     slack = max(8, npp // 64)
+
+    if native.available():
+        row32 = row.astype(np.int32)
+        order_e = native.sort_by_row(row32, N)
+        part32 = np.ascontiguousarray(part, np.int32)
+        moved = native.partition_refine(native.build_row_ptr(row32, N),
+                                        col[order_e].astype(np.int32), part32, caps, slack,
+                                        refine_iters)
+        if moved is not None:
+            return _part_order(part32)
 
     def neighbor_part_counts(assign):
         cnt = np.zeros((N, P), np.int32)
@@ -215,9 +236,16 @@ def partition_order(edge_index, num_nodes: int, num_parts: int,
             part[members[i]] = t
             excess -= 1
 
-    order = np.lexsort((np.arange(N), part))  # old ids, part-major
-    perm = np.empty(N, np.int64)
-    perm[order] = np.arange(N)
+    return _part_order(part)
+
+
+def _part_order(part: np.ndarray) -> np.ndarray:
+    """``perm[old] = new`` laying the parts out in order, old ids ascending
+    within a part."""
+    n = len(part)
+    order = np.lexsort((np.arange(n), part))
+    perm = np.empty(n, np.int64)
+    perm[order] = np.arange(n)
     return perm
 
 

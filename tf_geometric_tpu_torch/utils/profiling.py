@@ -1,37 +1,58 @@
-"""Timing on the card and reading device time out of a ``torch.profiler``
-trace (JAX counterpart: ``tf_geometric_tpu/utils/profiling.py``)."""
+"""Tracing, timing on the card and reading device time out of a
+``torch.profiler`` trace (JAX counterpart: ``tf_geometric_tpu/utils/profiling.py``)."""
 from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
 
 import torch
 
-__all__ = ["device_time_by_kernel", "measure_step_time", "estimate_spmm_roofline",
-           "H100_HBM_BYTES_PER_S"]
+__all__ = ["trace", "device_time_by_kernel", "measure_step_time", "estimate_spmm_roofline",
+           "H100_HBM_BYTES_PER_S", "STEP_TIME_WARMUP"]
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+STEP_TIME_WARMUP = 2            # measure_step_time's untimed steps before its two runs
 
 
-def measure_step_time(step_fn, args, warmup: int = 2, iters: int = 10, repeats: int = 5) -> float:
-    """Seconds per step of chained steps on the card: ``step_fn(*args)``
-    returns the next ``args``, so the steps form one dependency chain (as
-    the JAX function asks). ``warmup`` steps, then ``repeats`` runs of
-    ``iters`` steps, each timed with CUDA events; returns the median run's
-    time per step. Raises without a CUDA device: a host clock here would
-    not be a device time."""
+@contextlib.contextmanager
+def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "tfg_tpu_torch_trace")):
+    """Trace the block with ``torch.profiler`` (the CPU, and the card when
+    there is one) and write it into ``log_dir`` as a trace TensorBoard's
+    profiler plugin reads (``tensorboard_trace_handler``)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
+
+
+def measure_step_time(step_fn, args, lo: int = 5, hi: int = 25) -> float:
+    """Seconds per step of chained steps on the card, by a slope fit:
+    ``step_fn(*args)`` returns the next ``args``, so the steps form one
+    dependency chain. After ``STEP_TIME_WARMUP`` steps, runs of ``lo`` and then ``hi``
+    steps are timed with CUDA events; returns ``(t_hi - t_lo) / (hi - lo)``,
+    which cancels what a run pays once (the first launch's latency, the
+    final synchronization). Raises without a CUDA device: a host clock here
+    would not be a device time."""
     if not torch.cuda.is_available():
         raise RuntimeError("measure_step_time times on a CUDA device; none is available")
-    for _ in range(warmup):
-        args = step_fn(*args)
-    times = []
-    for _ in range(repeats):
+
+    def run(iters, a):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            args = step_fn(*args)
+            a = step_fn(*a)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3 / iters)
-    return sorted(times)[len(times) // 2]
+        return start.elapsed_time(end) / 1e3, a
+
+    _, args = run(STEP_TIME_WARMUP, args)
+    t_lo, args = run(lo, args)
+    t_hi, args = run(hi, args)
+    return (t_hi - t_lo) / (hi - lo)
 
 
 def estimate_spmm_roofline(num_edges: int, num_nodes: int, num_features: int,
