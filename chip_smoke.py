@@ -279,12 +279,32 @@ Phases, each of which raises (non-zero exit) on failure:
     X6 calls a step), 3 profiled steps (the card's busy time), the test
     AUC (``binary_auc``, printed, not gated); ``gae:spmm_heads`` in the
     kernels line.
+19. Planetoid-shaped node classification through the demo twins
+    (``tf_geometric_tpu_torch/demos``: ``demo_gcn``, ``demo_gat``) on the
+    hard-mode Pubmed set (``HardCitationDataset("pubmed", seed=0,
+    model=...)``: 19,717 nodes, 500 features, 3 classes, built on the host,
+    no file looked for): for each demo, 3 Adam steps through the kernels
+    and through the plain versions from the same weights and keep masks
+    (losses within 1e-4), exactly 4 Kernel A launches a GCN step and one
+    forward, destination and source pass a GAT layer a step; Kernel A at
+    F = 16 and F = 3, forward and ``dh``, and the attention kernels at
+    (H, d) = (8, 8) with a 0.4 keep mask and (1, 3) without, against their
+    plain versions (float32 1e-4, attention gradients 1e-3) and a second run
+    (bit for bit), timed by events and device time beside the byte bound and
+    ``torch.sparse.mm`` (the source pass: ``torch.bmm``); then
+    ``train_node_classifier``'s 200 steps with the early stop (patience
+    100): ms/step over the loop with its evaluations (events), edges/s, the
+    stop step and test@best (printed, not gated) with exact launches; 10
+    profiled training steps (the card's busy time and idle share);
+    ``planetoid:<kernel>`` entries in the kernels line.
 
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
 ``gat_attention_ell:<kernel>`` beside the single-process entries, the draw
 and S1 on workload 13 as ``sampled_sage:<kernel>``, Kernel A on workload
-17 as ``mincut:csr_spmm``, X6 on the GAE path as ``gae:spmm_heads``, X6
+17 as ``mincut:csr_spmm``, X6 on the GAE path as ``gae:spmm_heads``,
+Kernel A and the attention kernels on the demo path as
+``planetoid:<kernel>``, X6
 on the pooling path
 (workload 14's pooled graph, launches over workloads 14-16) as
 ``pool:<kernel>``, X7 as ``tiled_spmm``
@@ -1801,6 +1821,302 @@ def gae_kernel_entry(gae_rows, launches):
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": "the GAE's arxiv train split, normalized: forward F=32, float32; launches "
                      f"over {GAE_TRAIN_STEPS} training steps"}
+
+
+# ---------------------------------------------------------------------------
+# Planetoid node classification through the demo twins (phase 19)
+# ---------------------------------------------------------------------------
+
+PLANETOID_NAME, PLANETOID_SEED = "pubmed", 0
+PLANETOID_STEPS, PLANETOID_PATIENCE, PLANETOID_PROFILE_STEPS = 200, 100, 10
+PLANETOID_CHECK_STEPS = 3
+# the keep rate of the demo GAT's attention dropout (rate 0.6)
+PLANETOID_GAT_KEEP = 0.4
+# kernel launches of one training step and of one evaluation, by model
+PLANETOID_STEP_LAUNCHES = {"gcn": dict(csr_spmm=4),
+                           "gat": dict(gat_forward=2, gat_backward_dst=2, gat_backward_src=2)}
+PLANETOID_EVAL_LAUNCHES = {"gcn": dict(csr_spmm=2), "gat": dict(gat_forward=2)}
+
+
+def _planetoid_problem(name):
+    """The hard-mode Pubmed-shaped set for demo ``name`` ("gcn" or "gat"),
+    built on the host (no file is looked for), moved to the card: the graph,
+    the splits, the class count, the demo module, and a function that
+    builds the model from its seed and returns it with its
+    ``forward(training, generator, keep_masks)``."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch.datasets.synthetic_citation import HardCitationDataset
+    from tf_geometric_tpu_torch.demos import demo_gat, demo_gcn
+    graph, splits = HardCitationDataset(PLANETOID_NAME, seed=PLANETOID_SEED,
+                                        model=name).load_data()
+    graph.convert_data_to_tensor(device="cuda")
+    splits = tuple(torch.as_tensor(np.asarray(s, np.int64), device="cuda") for s in splits)
+    num_classes = int(graph.y.max()) + 1
+    demo = demo_gcn if name == "gcn" else demo_gat
+    if name == "gcn":
+        def build():
+            model, adj, cache = demo_gcn.build_model(graph, num_classes)
+            return model, (lambda training, gen, masks=(None, None):
+                           model(graph.x, adj, cache, gen, masks))
+    else:
+        def build():
+            model, cache = demo_gat.build_model(graph, num_classes)
+            return model, (lambda training, gen, masks=(None, None, None):
+                           model(graph.x, graph.edge_index, cache, gen, masks))
+    return graph, splits, num_classes, demo, build
+
+
+def _planetoid_masks(name, graph, model, gen):
+    """Dropout keep masks for one step of demo ``name``: x's and the hidden
+    layer's (bool), and for the GAT the first layer's attention mask
+    ([E, 8] float, scaled, in the cached layout's edge order)."""
+    import torch
+    n, rate = graph.x.shape[0], model.drop_rate
+    x_mask = torch.rand(graph.x.shape, generator=gen, device="cuda") >= rate
+    if name == "gcn":
+        return x_mask, torch.rand(n, 16, generator=gen, device="cuda") >= rate
+    layout = graph.cache[f"gat_edges_{n}"][2]
+    att = ((torch.rand(layout.num_edges, 8, generator=gen, device="cuda") >= rate).float()
+           / (1.0 - rate))
+    return x_mask, att, torch.rand(n, 64, generator=gen, device="cuda") >= rate
+
+
+def _planetoid_kernel_rows(name, graph, gpu):
+    """Each kernel of demo ``name`` at the shapes the demo gives it, against
+    its plain version and a second run: Kernel A on the normalized Pubmed
+    adjacency at F = 16 and F = C, forward and ``dh`` (1e-4, bit for bit),
+    timed by events and device time beside its byte bound and
+    ``torch.sparse.mm``; the three attention kernels on the self-looped
+    layout at (H, d) = (8, 8) with a 0.4 keep mask and (1, C) without,
+    float32 (``_gat_case``'s tolerances), timed."""
+    import torch
+    from tf_geometric_tpu_torch.nn.conv.gcn import compute_cache_key
+    from tf_geometric_tpu_torch.ops.csr_spmm import side_matmul, side_matmul_plain
+    n, c = graph.x.shape[0], int(graph.y.max()) + 1
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    if name == "gcn":
+        key = compute_cache_key("both", True, True, True, False)
+        adj = graph.cache[key + ":ell"]
+        index, value, _ = graph.cache[key]
+        diag = adj.diag_val
+        library = {s: _library_csr(adj, index, value, s) for s in ("fwd", "bwd")}
+        for side_name in ("fwd", "bwd"):
+            side = getattr(adj, side_name)
+            print(f"planetoid gcn {side_name} side: rows={side.num_rows} "
+                  f"virtual_rows={side.num_virtual} nnz={int(side.col.shape[0])} "
+                  f"{_walk_line(side)}", flush=True)
+        for width in (16, c):
+            for side_name in ("fwd", "bwd"):
+                side, lib = getattr(adj, side_name), library[side_name]
+                h = torch.randn(n, width, generator=gen, device="cuda")
+                tag = f"planetoid {side_name} F={width}"
+                got = side_matmul(side, h, diag)
+                err = _max_err(got, side_matmul_plain(side, h, diag), F32_TOL, f"csr_spmm {tag}")
+                _check(torch.equal(got, side_matmul(side, h, diag)),
+                       f"csr_spmm {tag}: two runs on the same inputs differ")
+                err = max(err, _max_err(got, torch.sparse.mm(lib, h), F32_TOL,
+                                        f"csr_spmm {tag} vs torch.sparse.mm"))
+                nnz = int(side.col.shape[0])
+                nbytes = (2 * n * width * 4 + 4 * side.row_ptr.shape[0] + 8 * nnz + 4 * n)
+                bound_ms, bound_by = _bound(nbytes, 2 * (nnz + n) * width)
+                rows.append(dict(
+                    name="csr_spmm", side=side_name, width=width, dtype="float32",
+                    max_abs_err=err, ms=_cuda_ms(lambda: side_matmul(side, h, diag)),
+                    plain_ms=_cuda_ms(lambda: side_matmul_plain(side, h, diag)),
+                    library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, h)),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    device_ms=_device_ms(lambda: side_matmul(side, h, diag)),
+                    library_device_ms=_device_ms(lambda: torch.sparse.mm(lib, h))))
+        print(f"planetoid gcn kernel check, Kernel A (side F: max_abs_err, ms, plain_ms, "
+              f"library_ms, bound_ms; device ms under the profiler) on {gpu}")
+        for r in rows:
+            print(f"  {r['side']} F={r['width']}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, "
+                  f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}){_device_note(r)}", flush=True)
+        return rows
+    layout = graph.cache[f"gat_edges_{n}"][2]
+    print(f"planetoid gat layout: {layout}", flush=True)
+    for heads, width in ((8, 8), (1, c)):
+        keep = None
+        if heads == 8:
+            keep = ((torch.rand(layout.num_edges, heads, generator=gen, device="cuda")
+                     < PLANETOID_GAT_KEEP).float() / PLANETOID_GAT_KEEP)
+        Q, K, V, dy = (torch.randn(n, heads * width, generator=gen, device="cuda")
+                       for _ in range(4))
+        tag = f"planetoid H={heads} d={width}"
+        errs, calls, outs = _gat_case(layout, Q, K, V, dy, heads, keep, tag)
+        rows += _gat_rows(layout, heads, width, torch.float32, keep, errs, calls, outs, True,
+                          case=tag)
+    print(f"planetoid gat kernel check (name H d keep: max_abs_err, ms (device), plain_ms, "
+          f"...) on {gpu}")
+    for r in rows:
+        print(f"  {r['name']} H={r['heads']} d={r['width']} keep={r['keep']}: "
+              f"{r['max_abs_err']:.3e}, {_gat_row_text(r)}; bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def planetoid_phase(gpu):
+    """Phase 19: Planetoid-shaped node classification through the demo twins
+    (``tf_geometric_tpu_torch/demos``) on the hard-mode Pubmed set (19,717
+    nodes, 500 features, 3 classes), for the GCN and the GAT demo:
+    ``PLANETOID_CHECK_STEPS`` Adam steps through the kernels and through
+    their plain versions from the same weights and keep masks (losses
+    within 1e-4) with exact launches a step; each kernel at the demo's
+    shapes (``_planetoid_kernel_rows``); then ``train_node_classifier``'s
+    full loop, ``PLANETOID_STEPS`` steps with the early stop (patience
+    ``PLANETOID_PATIENCE``), with its ms a step (CUDA events over the loop,
+    its evaluations included), edges/s, the stop step and test@best
+    (printed, not gated) and exact launches; the card's busy time over
+    ``PLANETOID_PROFILE_STEPS`` profiled training steps. Returns the kernel
+    rows and the loop's launches by kernel, by model."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch.demos.demo_utils import (dropout_seed, train_node_classifier,
+                                                         train_step)
+    from tf_geometric_tpu_torch.nn.conv.gcn import compute_cache_key
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    from tf_geometric_tpu_torch.utils.profiling import device_time_by_kernel
+    out = {}
+    for name in ("gcn", "gat"):
+        t0 = time.perf_counter()
+        graph, splits, c, demo, build = _planetoid_problem(name)
+        train_index = splits[0]
+        y = graph.y.long()
+        lr, l2 = demo.LEARNING_RATE, demo.L2_COEF
+        print(f"planetoid {name}: HardCitationDataset({PLANETOID_NAME!r}, "
+              f"seed={PLANETOID_SEED}, model={name!r}) built in "
+              f"{time.perf_counter() - t0:.1f} s: {graph.x.shape[0]} nodes, "
+              f"{graph.x.shape[1]} features, {c} classes, {graph.edge_index.shape[1]} edges; "
+              f"splits {[int(s.shape[0]) for s in splits]}", flush=True)
+
+        # kernels against plain versions, same weights and keep masks
+        losses, per_step = {}, []
+        masks = None
+        for label in ("kernel", "plain"):
+            model, forward = build()
+            opt = torch.optim.Adam(model.parameters(), lr=lr)
+            if masks is None:
+                model.eval()
+                with torch.no_grad():
+                    forward(False, None)  # builds the cached layout the masks index
+                gen = torch.Generator(device="cuda").manual_seed(dropout_seed(PLANETOID_SEED))
+                masks = [_planetoid_masks(name, graph, model, gen)
+                         for _ in range(PLANETOID_CHECK_STEPS)]
+            steps = []
+            with (kernel_config.use_plain_versions() if label == "plain"
+                  else contextlib.nullcontext()):
+                for m in masks:
+                    _zero_launch_counts()
+                    steps.append(train_step(model, opt, forward, y, train_index, l2, None, m))
+                    torch.cuda.synchronize()
+                    if label == "kernel":
+                        per_step.append(dict(zip(_KERNELS, _launch_counts())))
+            losses[label] = torch.stack(steps)
+        err = _max_err(losses["kernel"], losses["plain"], F32_TOL,
+                       f"planetoid {name} {PLANETOID_CHECK_STEPS}-step losses")
+        want = dict.fromkeys(_KERNELS, 0)
+        want.update(PLANETOID_STEP_LAUNCHES[name])
+        _check(all(p == want for p in per_step),
+               f"planetoid {name}: launches a step {per_step} != {want}")
+        print(f"planetoid {name} kernel vs plain: {losses['kernel'].tolist()} / "
+              f"{losses['plain'].tolist()}, max abs err {err:.3e}; launches a step "
+              f"{PLANETOID_STEP_LAUNCHES[name]}", flush=True)
+
+        rows = _planetoid_kernel_rows(name, graph, gpu)
+
+        # the demo's full loop
+        model, forward = build()
+        stats = {}
+        _zero_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        test_acc = train_node_classifier(forward, model, y, splits, num_steps=PLANETOID_STEPS,
+                                         learning_rate=lr, l2_coef=l2,
+                                         patience=PLANETOID_PATIENCE, seed=PLANETOID_SEED,
+                                         stats=stats)
+        end.record()
+        end.synchronize()
+        counts = dict(zip(_KERNELS, _launch_counts()))
+        steps = stats["steps"]
+        want = dict.fromkeys(_KERNELS, 0)
+        for k, v in PLANETOID_STEP_LAUNCHES[name].items():
+            want[k] += v * steps
+        for k, v in PLANETOID_EVAL_LAUNCHES[name].items():
+            want[k] += v * steps  # eval_every 1: one evaluation a step
+        _check(counts == want, f"planetoid {name} loop: launches {counts} != {want}")
+        losses = torch.stack(stats["losses"]).tolist()
+        _check(all(math.isfinite(v) for v in losses), f"planetoid {name}: non-finite loss")
+        _check(losses[-1] < losses[0], f"planetoid {name}: loss did not fall: {losses[::20]}")
+        loop_ms = start.elapsed_time(end)
+        edges = (graph.cache[f"gat_edges_{graph.x.shape[0]}"][2].num_edges if name == "gat"
+                 else graph.cache[compute_cache_key("both", True, True, True, False)
+                                  + ":ell"].num_edges)
+
+        # the card's busy time over training steps alone
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        gen = torch.Generator(device="cuda").manual_seed(PLANETOID_SEED + 1)
+        from torch.profiler import ProfilerActivity, profile
+        train_step(model, opt, forward, y, train_index, l2, gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pstart, pend = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            pstart.record()
+            for _ in range(PLANETOID_PROFILE_STEPS):
+                train_step(model, opt, forward, y, train_index, l2, gen)
+            pend.record()
+            pend.synchronize()
+        kernels = device_time_by_kernel(prof, PLANETOID_PROFILE_STEPS)
+        busy_ms = sum(k[1] for k in kernels)
+        span_ms = pstart.elapsed_time(pend) / PLANETOID_PROFILE_STEPS
+        train_ms = _cuda_ms(lambda: train_step(model, opt, forward, y, train_index, l2, gen),
+                            iters=20, warmup=2)
+        print(f"planetoid {name}: {steps} steps (stop step {stats['stop_step']}), "
+              f"{loop_ms / steps:.4f} ms/step over the loop with its evaluations (events), "
+              f"{edges * steps / (loop_ms / 1e3):.1f} edges/s ({edges} edges a step); "
+              f"a training step alone {train_ms:.4f} ms (events, 20 steps); profiled: device "
+              f"busy {busy_ms:.4f} ms of a {span_ms:.4f} ms step span, idle share "
+              f"{1 - busy_ms / span_ms:.4f} ({sum(k[2] for k in kernels):.0f} kernels a "
+              f"step); best valid {stats['best_valid']:.4f}, test@best {test_acc:.4f} "
+              f"(not gated); launches {counts} on {gpu}", flush=True)
+        print(json.dumps({f"planetoid_{name}_top": [[k[0][:90], round(k[1], 5), k[2]]
+                                                     for k in kernels[:8]]}), flush=True)
+        out[name] = dict(rows=rows, launches=counts)
+        del graph, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def planetoid_kernel_entries(res):
+    """The ``{"kernels"}`` entries of the demo path: Kernel A at the GCN's
+    F = 16 forward, the attention kernels at the GAT's first layer (H = 8,
+    d = 8, keep mask 0.4); launches over each demo's full loop."""
+    entries = []
+    for name, model in (("csr_spmm", "gcn"), ("gat_forward", "gat"),
+                        ("gat_backward_dst", "gat"), ("gat_backward_src", "gat")):
+        rows = [r for r in res[model]["rows"] if r["name"] == name]
+        launches = res[model]["launches"][name]
+        _check(launches > 0, f"{name} was not launched on the planetoid {model} path")
+        if name == "csr_spmm":
+            rep = next(r for r in rows if r["side"] == "fwd" and r["width"] == 16)
+            source = ("tf_geometric_tpu_torch/csrc/csr_spmm.cu",
+                      "tf_geometric_tpu/ops/ell_bucketed.py:214")
+            shape = "GCN demo on hard Pubmed: forward F=16, float32"
+        else:
+            rep = next(r for r in rows if r["heads"] == 8)
+            source = ("tf_geometric_tpu_torch/csrc/gat_attention.cu",
+                      "tf_geometric_tpu/ops/ell_attention_bucketed.py:933")
+            shape = "GAT demo on hard Pubmed: H=8, d=8, keep mask 0.4, float32"
+        entries.append({
+            "name": f"planetoid:{name}", "route": "cuda", "source": source[0],
+            "replaces": source[1], "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": shape + f"; launches over the demo's {PLANETOID_STEPS}-step loop"})
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -3573,6 +3889,7 @@ def main():
     gae_launches = _phase("gae", gae_phase, gae, gpu)
     del gae
     torch.cuda.empty_cache()
+    planetoid = _phase("planetoid demos", planetoid_phase, gpu)
     t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
@@ -3690,6 +4007,7 @@ def main():
     kernels.append(mincut_kernel_entry(mincut_rows, mincut_totals))
     kernels += pool_kernel_entries(pool_rows, results)
     kernels.append(gae_kernel_entry(gae_rows, gae_launches))
+    kernels += planetoid_kernel_entries(planetoid)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

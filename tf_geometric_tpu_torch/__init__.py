@@ -6,8 +6,8 @@ kernels live in ``csrc/`` and are built with nvcc at first use
 (``ops/_build.py``).
 """
 from . import data, datasets, layers, nn, ops, sparse, utils
-from .data import Graph
+from .data import BatchGraph, Graph, HeteroBatchGraph, HeteroGraph
 from .sparse import SparseMatrix
 
 __all__ = ["data", "datasets", "layers", "nn", "ops", "sparse", "utils",
-           "Graph", "SparseMatrix"]
+           "Graph", "BatchGraph", "HeteroGraph", "HeteroBatchGraph", "SparseMatrix"]

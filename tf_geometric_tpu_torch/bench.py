@@ -247,7 +247,7 @@ from .datasets.synthetic_reddit import (REDDIT_CLASSES, REDDIT_EDGES, REDDIT_FEA
 from .nn.conv.gat import _gat_edge_cache, gat
 from .nn.conv.gcn import (compute_cache_key, gcn, gcn_norm_adj, maybe_compile_ell,
                           precompute_propagated_features)
-from .layers.base import glorot_uniform, l2_loss
+from .layers.base import dropout, glorot_uniform, l2_loss
 from .layers.conv.gcn import GCN
 from .layers.conv.propagation import GIN
 from .layers.pool.pool_layers import ASAP, DiffPool, MinCutPool, SAGPool, Set2Set
@@ -828,19 +828,6 @@ def gin_edge_rates(problem: GraphBatchProblem, step_ms: float) -> Dict[str, floa
 # workloads 14-16 (and the ASAP and Set2Set models): hierarchical pooling
 # ---------------------------------------------------------------------------
 
-def _dropout(h, training: bool, generator, keep_mask, rate: float = POOL_DROP_RATE):
-    """The demos' ``Dropout(rate)``: keep decisions from ``keep_mask`` if
-    given, else drawn with ``generator``."""
-    if not training:
-        return h
-    if keep_mask is None:
-        if generator is None:
-            raise ValueError("dropout in training mode needs a generator or keep_mask")
-        keep_mask = torch.rand(h.shape, generator=generator, device=h.device) < (1.0 - rate)
-    return torch.where(torch.as_tensor(keep_mask, device=h.device), h / (1.0 - rate),
-                       torch.zeros_like(h))
-
-
 class DiffPoolClassifier(nn.Module):
     """``demo/demo_diff_pool.py``'s ``DiffPoolModel``: for each level of
     ``DIFF_POOL_CLUSTERS`` = (8, 4) clusters, a ``DiffPool`` over a feature
@@ -873,7 +860,7 @@ class DiffPoolClassifier(nn.Module):
             inputs = getattr(self, f"diff_pool_{level}")(inputs)
             readouts.append(max_pool(inputs[0], inputs[3], num_graphs=self.num_graphs))
         h = torch.relu(self.Dense_0(torch.cat(readouts, dim=-1)))
-        return self.Dense_1(_dropout(h, self.training, generator, keep_mask))
+        return self.Dense_1(dropout(h, POOL_DROP_RATE, self.training, generator, keep_mask))
 
 
 class MinCutPoolClassifier(nn.Module):
@@ -900,7 +887,8 @@ class MinCutPoolClassifier(nn.Module):
         (h, _, _, ngi), (cut, orth) = self.MinCutPool_0(
             [h, edge_index, edge_weight, node_graph_index], return_losses=True)
         h = mean_pool(h, ngi, num_graphs=self.num_graphs)
-        return self.Dense_0(_dropout(h, self.training, generator, keep_mask)), cut + orth
+        h = dropout(h, POOL_DROP_RATE, self.training, generator, keep_mask)
+        return self.Dense_0(h), cut + orth
 
 
 class SAGPoolClassifier(nn.Module):
@@ -932,7 +920,7 @@ class SAGPoolClassifier(nn.Module):
             h, ei, ew, ngi = getattr(self, f"sag_pool_{level}")([h, ei, ew, ngi])
             readouts.append(mean_pool(h, ngi, num_graphs=self.num_graphs))
         h = torch.cat(readouts, dim=-1)
-        return self.Dense_0(_dropout(h, self.training, generator, keep_mask))
+        return self.Dense_0(dropout(h, POOL_DROP_RATE, self.training, generator, keep_mask))
 
 
 class ASAPClassifier(nn.Module):
@@ -953,7 +941,7 @@ class ASAPClassifier(nn.Module):
         h = self.GCN_0([x, edge_index, edge_weight])
         h, _, _, ngi = self.ASAP_0([h, edge_index, edge_weight, node_graph_index])
         h = mean_pool(h, ngi, num_graphs=self.num_graphs)
-        return self.Dense_0(_dropout(h, self.training, generator, keep_mask))
+        return self.Dense_0(dropout(h, POOL_DROP_RATE, self.training, generator, keep_mask))
 
 
 class Set2SetClassifier(nn.Module):
@@ -974,7 +962,7 @@ class Set2SetClassifier(nn.Module):
         h = self.GCN_0([x, edge_index, edge_weight])
         h = self.GCN_1([h, edge_index, edge_weight])
         h = self.Set2Set_0([h, node_graph_index])
-        return self.Dense_0(_dropout(h, self.training, generator, keep_mask))
+        return self.Dense_0(dropout(h, POOL_DROP_RATE, self.training, generator, keep_mask))
 
 
 POOL_MODELS = {"diff_pool": DiffPoolClassifier, "min_cut": MinCutPoolClassifier,
@@ -1085,7 +1073,7 @@ class GaeEncoder(nn.Module):
 
     def forward(self, x, edge_index, edge_weight, generator=None, keep_mask=None):
         h = self.gcn0([x, edge_index, edge_weight])
-        h = _dropout(h, self.training, generator, keep_mask, GAE_DROP_RATE)
+        h = dropout(h, GAE_DROP_RATE, self.training, generator, keep_mask)
         return self.gcn1([h, edge_index, edge_weight])
 
 

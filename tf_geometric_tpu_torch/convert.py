@@ -39,15 +39,28 @@ def bench_params_from_numpy(params: Mapping, device="cuda",
             for k in names}
 
 
+def _flatten_params(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten_params(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = torch.tensor(np.asarray(v, np.float32))
+    return out
+
+
 def _state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    return {k: torch.tensor(np.asarray(v, np.float32))
-            for k, v in variables["params"].items()}
+    """The params tree flattened to dotted names (``GCN_0/kernel`` becomes
+    ``GCN_0.kernel``), each leaf a float32 tensor."""
+    return _flatten_params(variables["params"])
 
 
 def gcn_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A flax ``GCN`` layer's ``{"params": {"kernel", "bias"}}`` as a
     ``state_dict`` for the port's ``layers.GCN``; both keep the kernel
-    layout [in, units]."""
+    layout [in, units]. A model's tree of such layers (the demo's
+    ``GCN_0``, ``GCN_1``) gives dotted names, for a module whose
+    submodules carry the flax names (``demos.demo_gcn.GCNModel``)."""
     return _state_dict_from_flax(variables)
 
 
@@ -55,7 +68,8 @@ def gat_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """A flax ``GAT`` layer's params (``query_kernel``, ``query_bias``,
     ``key_kernel``, ``key_bias``, ``kernel`` and ``bias``) as a
     ``state_dict`` for the port's ``layers.GAT``, whose parameters carry the
-    same names and shapes."""
+    same names and shapes; a model's tree of such layers gives dotted names
+    (``demos.demo_gat.GATModel``)."""
     return _state_dict_from_flax(variables)
 
 

@@ -82,17 +82,22 @@ class Graph:
         target.cache = dict(self.cache)
         return target
 
-    def convert_data_to_tensor(self, device="cuda") -> "Graph":
-        """Move every field onto ``device`` as a tensor, in place (a
-        SparseMatrix ``x`` is rebuilt there)."""
+    def convert_data_to_tensor(self, inplace: bool = True, device="cuda") -> "Graph":
+        """Every field as a tensor on ``device``, in place or on a copy (a
+        SparseMatrix ``x`` is rebuilt there). A field that is already a
+        tensor is moved with ``.to``, so one that requires grad stays in its
+        autograd graph."""
+        target = self if inplace else self._copy_for_conversion()
         for f in self._FIELDS:
             v = getattr(self, f)
             if isinstance(v, SparseMatrix):
                 v = SparseMatrix(v.index.to(device), v.value.to(device), v.shape)
+            elif isinstance(v, torch.Tensor):
+                v = v.to(device)
             elif v is not None:
                 v = torch.as_tensor(convert_union_to_numpy(v), device=device)
-            setattr(self, f, v)
-        return self
+            setattr(target, f, v)
+        return target
 
     def convert_data_to_numpy(self, inplace: bool = True) -> "Graph":
         """Every field but a SparseMatrix ``x`` as numpy, in place or on a copy."""

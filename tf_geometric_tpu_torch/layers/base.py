@@ -14,7 +14,7 @@ import torch
 
 from ..sparse.matrix import SparseMatrix
 
-__all__ = ["unpack_inputs", "unpack_edge_inputs", "glorot_uniform", "l2_loss"]
+__all__ = ["unpack_inputs", "unpack_edge_inputs", "glorot_uniform", "l2_loss", "dropout"]
 
 
 def unpack_inputs(inputs) -> Tuple[Any, SparseMatrix]:
@@ -70,3 +70,17 @@ def l2_loss(params, weight: float, key_filter: str = "kernel"):
         if any(key_filter in part for part in name.split(".")):
             total = total + 0.5 * torch.sum(leaf ** 2)
     return total * weight
+
+
+def dropout(h, rate: float, training: bool, generator=None, keep_mask=None):
+    """flax's ``Dropout(rate)``: in training mode ``h / (1 - rate)`` where
+    kept, else 0; the keep decisions from ``keep_mask`` (bool, h's shape)
+    if given, else drawn with ``generator``, one of which is required."""
+    if not training or rate <= 0.0:
+        return h
+    if keep_mask is None:
+        if generator is None:
+            raise ValueError("dropout in training mode needs a generator or keep_mask")
+        keep_mask = torch.rand(h.shape, generator=generator, device=h.device) < (1.0 - rate)
+    keep_mask = torch.as_tensor(keep_mask, dtype=torch.bool, device=h.device)
+    return torch.where(keep_mask, h / (1.0 - rate), torch.zeros_like(h))

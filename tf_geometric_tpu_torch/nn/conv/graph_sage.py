@@ -173,14 +173,14 @@ def max_pool_graph_sage(x, edge_index, edge_weight, self_kernel, neighbor_mlp_ke
 
 
 def lstm_graph_sage(x, edge_index, lstm: Callable, self_kernel, neighbor_kernel, bias=None,
-                    activation=None, concat=True, normalize=False,
+                    activation=None, concat=True, normalize=False, training=False,
                     max_neighbors: Optional[int] = None):
     """LSTM aggregator: each node's neighbours (in edge order) packed into a
     dense [N, K, F] tensor (missing slots and slots past K read a zero row),
     ``lstm`` run over the neighbour axis (``[N, K, F] -> [N, K, H]``, the
     full sequence), then the mean over it. ``max_neighbors`` (K) defaults to
-    the largest in-degree. The JAX function also passes ``training`` to
-    ``lstm``; a torch module reads its own ``training`` flag instead."""
+    the largest in-degree. ``training`` holds the JAX function's positional
+    slot and is unused: a torch module reads its own ``training`` flag."""
     num_nodes = x.shape[0]
     edge_index = torch.as_tensor(edge_index, device=x.device).long()
     row, col = edge_index[0], edge_index[1]

@@ -14,11 +14,13 @@ __all__ = ["sort_pool"]
 
 
 def sort_pool(x, edge_index, edge_weight, node_graph_index, k: Optional[int] = None,
-              ratio: Optional[float] = None, sort_index: int = -1,
+              ratio: Optional[float] = None, sort_index: int = -1, training=None,
               num_graphs: Optional[int] = None):
     """Returns ``(pooled_x, pooled_edge_index, pooled_edge_weight,
     pooled_node_graph_index)``; with ``k``, ``pooled_x`` is
-    [num_graphs·k, F], graph g's top-k nodes in rows g·k .. g·k + k - 1."""
+    [num_graphs·k, F], graph g's top-k nodes in rows g·k .. g·k + k - 1.
+    ``training`` holds the JAX function's positional slot and is unused, as
+    there."""
     score = x[:, sort_index]
     if k is not None:
         num_graphs = _resolve_num_graphs(node_graph_index, num_graphs)

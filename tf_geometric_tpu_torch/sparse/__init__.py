@@ -1,3 +1,7 @@
 from .matrix import SparseMatrix, chunked_feature_matmul, concat, diags, eye, sparse_shape
 
-__all__ = ["SparseMatrix", "diags", "eye", "concat", "sparse_shape", "chunked_feature_matmul"]
+# JAX's alias of ``sparse_shape`` (``tfs.shape``)
+shape = sparse_shape
+
+__all__ = ["SparseMatrix", "diags", "eye", "concat", "sparse_shape", "shape",
+           "chunked_feature_matmul"]

@@ -191,6 +191,10 @@ class SparseMatrix:
         return SparseMatrix(self.index.flip(0), self.value,
                             (self._shape[1], self._shape[0]))
 
+    @property
+    def T(self) -> "SparseMatrix":
+        return self.transpose()
+
     def dropout(self, rate: float, generator=None, training: bool = True,
                 keep_mask=None) -> "SparseMatrix":
         """Zero entries with probability ``rate`` and scale survivors by
@@ -219,6 +223,18 @@ class SparseMatrix:
         flat = torch.where(valid, self.row * n_cols + self.col,
                            torch.full_like(self.row, n_rows * n_cols))
         return _seg.segment_sum(self.value, flat, n_rows * n_cols).reshape(n_rows, n_cols)
+
+    # scalar arithmetic on the values
+    def __mul__(self, scalar):
+        return self.with_value(self.value * scalar)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, scalar):
+        return self.with_value(self.value / scalar)
+
+    def __neg__(self):
+        return self.with_value(-self.value)
 
 
 def diags(diagonal, device="cuda") -> SparseMatrix:
