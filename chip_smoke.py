@@ -297,6 +297,22 @@ Phases, each of which raises (non-zero exit) on failure:
     stop step and test@best (printed, not gated) with exact launches; 10
     profiled training steps (the card's busy time and idle share);
     ``planetoid:<kernel>`` entries in the kernels line.
+20. The accuracy head-to-head's models (``head_to_head_phase``): the five
+    early-stop bench twins on hard Cora (and the GAT twin's pubmed
+    architecture on hard Pubmed), 3 Adam steps through the kernels and
+    through their plain versions from the same weights and draws (losses
+    within 1e-4) with the launches a step and an evaluation counted on the
+    CPU (``H2H_STEP_LAUNCHES``, ``H2H_EVAL_LAUNCHES``); each twin's full
+    ``run(seed=0)`` (test@best beside JAX's committed mean, ms/step with
+    its evaluations, exact launches); the hard arxiv cell, GCN (hidden 64)
+    and SGC for seeds 0-4 under the 100-step protocol, each mean gated
+    against ``results_{gcn,sgc}_arxiv_hard.txt`` by
+    ``head_to_head_port.gate`` (a failure fails the run), the card's idle
+    share over 5 profiled steps; Kernel A at the cell's F = 64 and 40
+    (forward and ``dh``) and 128, and the multi-head SpMM and SDDMM at the
+    GAT twin's shapes, against plain and the library; then each graph demo
+    twin: kernel against plain on one batch (``H2H_GRAPH_STEP_LAUNCHES``)
+    and one 300-step run. ``h2h:<kernel>`` entries in the kernels line.
 
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
@@ -304,7 +320,8 @@ Each phase prints its seconds. The second-to-last line of output is
 and S1 on workload 13 as ``sampled_sage:<kernel>``, Kernel A on workload
 17 as ``mincut:csr_spmm``, X6 on the GAE path as ``gae:spmm_heads``,
 Kernel A and the attention kernels on the demo path as
-``planetoid:<kernel>``, X6
+``planetoid:<kernel>``, Kernel A and X3's kernels on the head-to-head path
+as ``h2h:<kernel>``, X6
 on the pooling path
 (workload 14's pooled graph, launches over workloads 14-16) as
 ``pool:<kernel>``, X7 as ``tiled_spmm``
@@ -1403,26 +1420,31 @@ def _x3_library(layout, w, heads):
     return fwd, bwd, pattern, pos, eid
 
 
-def multihead_kernel_phase(layout):
+def multihead_kernel_phase(layout, shapes=X3_SHAPES, label="x3", bf16=True, keep=None):
     """The multi-head SpMM (forward on the destination side, ``dV`` on the
-    source side) and SDDMM (``d_att``) against their plain versions on the
-    self-looped arxiv layout, and in float32 against the library calls;
-    returns one row per kernel and case."""
+    source side) and SDDMM (``d_att``) against their plain versions on
+    ``layout`` (the self-looped arxiv layout by default) at each (H, d_v) of
+    ``shapes``, float32 and (``bf16``) bfloat16, and in float32 against the
+    library calls; ``keep``: the weights' keep rate (zeros elsewhere, the
+    kept scaled), as an attention dropout leaves them. Returns one row per
+    kernel and case."""
     import torch
     from tf_geometric_tpu_torch.ops import spmm_heads as sh
     n, E = layout.num_nodes, layout.num_edges
     nnz = int(layout.dst.nbr.shape[0])
-    print(f"x3 destination side: {_view_walk_line(layout.dst)}; source side: "
+    print(f"{label} destination side: {_view_walk_line(layout.dst)}; source side: "
           f"{_view_walk_line(layout.src)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for heads, d in X3_SHAPES:
+    for heads, d in shapes:
         width = heads * d
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16) if bf16 else (torch.float32,):
             f32 = dtype == torch.float32
             tol, elt = (F32_TOL, 4) if f32 else (BF16_TOL, 2)
             tag = f"H={heads} d_v={d} {str(dtype)[6:]}"
             att = torch.rand(E, heads, generator=gen, device="cuda")
+            if keep is not None:
+                att = att * (torch.rand(E, heads, generator=gen, device="cuda") < keep) / keep
             w = att.to(dtype).float()  # the weights in v's dtype, as the op casts them
             v = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
             dy = torch.randn(n, width, generator=gen, device="cuda").to(dtype)
@@ -1437,15 +1459,17 @@ def multihead_kernel_phase(layout):
                 return got[lib[4]], res.values()[:, lib[3]].t()
 
             cases = (
-                ("spmm_heads", "x3 forward", lambda: sh.launch_spmm_heads(layout.dst, w, v, heads),
+                ("spmm_heads", f"{label} forward",
+                 lambda: sh.launch_spmm_heads(layout.dst, w, v, heads),
                  lambda: sh.spmm_heads_plain(layout.dst, w, v, heads),
                  (lambda: torch.bmm(lib[0], v3)) if f32 else None, heads_last,
                  sh.spmm_pass_bytes(nnz, n, n, width, heads, elt, elt)),
-                ("spmm_heads", "x3 dV", lambda: sh.launch_spmm_heads(layout.src, w, dy, heads),
+                ("spmm_heads", f"{label} dV",
+                 lambda: sh.launch_spmm_heads(layout.src, w, dy, heads),
                  lambda: sh.spmm_heads_plain(layout.src, w, dy, heads),
                  (lambda: torch.bmm(lib[1], dy3)) if f32 else None, heads_last,
                  sh.spmm_pass_bytes(nnz, n, n, width, heads, elt, elt)),
-                ("sddmm_heads", "x3 d_att",
+                ("sddmm_heads", f"{label} d_att",
                  lambda: sh.launch_sddmm_heads(layout.dst, dy, v, heads, torch.zeros_like(w)),
                  lambda: sh.sddmm_heads_plain(layout.dst, dy, v, heads, torch.zeros_like(w)),
                  (lambda: torch.sparse.sampled_addmm(lib[2], dy3, v3.transpose(1, 2), beta=0.0))
@@ -1470,13 +1494,13 @@ def multihead_kernel_phase(layout):
                 if name == "sddmm_heads" and f32:
                     rows[-1].update(device_ms=_device_ms(kernel),
                                     library_device_ms=_device_ms(library))
-                if case == "x3 forward":
+                if case == f"{label} forward":
                     rows[-1]["view_order_ms"] = _view_order_ms(layout.dst, w, v, heads, v.dtype,
                                                                got, f"{case} {tag}")
                 del got, want
             del att, w, v, dy, v3, dy3, lib
             torch.cuda.empty_cache()
-    print("x3 kernel check (name case H d_v dtype: max_abs_err, ms, plain_ms, library_ms, "
+    print(f"{label} kernel check (name case H d_v dtype: max_abs_err, ms, plain_ms, library_ms, "
           "bound_ms; library: torch.bmm / sampled_addmm, float32 only; d_att float32: device "
           "ms under the profiler)")
     for r in rows:
@@ -1882,6 +1906,55 @@ def _planetoid_masks(name, graph, model, gen):
     return x_mask, att, torch.rand(n, 64, generator=gen, device="cuda") >= rate
 
 
+def _normed_csr_rows(label, graph, cases, gen, gpu):
+    """Kernel A on ``graph``'s cached normalized adjacency at each (side,
+    F) of ``cases``, float32, against its plain version (1e-4), a second
+    run (bit for bit) and ``torch.sparse.mm``; timed by events and device
+    time beside its byte bound and the library call. Returns the rows."""
+    import torch
+    from tf_geometric_tpu_torch.nn.conv.gcn import compute_cache_key
+    from tf_geometric_tpu_torch.ops.csr_spmm import side_matmul, side_matmul_plain
+    key = compute_cache_key("both", True, True, True, False)
+    adj = graph.cache[key + ":ell"]
+    index, value, _ = graph.cache[key]
+    n, diag = adj.shape[0], adj.diag_val
+    library = {s: _library_csr(adj, index, value, s) for s in ("fwd", "bwd")}
+    for side_name in ("fwd", "bwd"):
+        side = getattr(adj, side_name)
+        print(f"{label} {side_name} side: rows={side.num_rows} "
+              f"virtual_rows={side.num_virtual} nnz={int(side.col.shape[0])} "
+              f"{_walk_line(side)}", flush=True)
+    rows = []
+    for side_name, width in cases:
+        side, lib = getattr(adj, side_name), library[side_name]
+        h = torch.randn(n, width, generator=gen, device="cuda")
+        tag = f"{label} {side_name} F={width}"
+        got = side_matmul(side, h, diag)
+        err = _max_err(got, side_matmul_plain(side, h, diag), F32_TOL, f"csr_spmm {tag}")
+        _check(torch.equal(got, side_matmul(side, h, diag)),
+               f"csr_spmm {tag}: two runs on the same inputs differ")
+        err = max(err, _max_err(got, torch.sparse.mm(lib, h), F32_TOL,
+                                f"csr_spmm {tag} vs torch.sparse.mm"))
+        nnz = int(side.col.shape[0])
+        nbytes = (2 * n * width * 4 + 4 * side.row_ptr.shape[0] + 8 * nnz + 4 * n)
+        bound_ms, bound_by = _bound(nbytes, 2 * (nnz + n) * width)
+        rows.append(dict(
+            name="csr_spmm", side=side_name, width=width, dtype="float32",
+            max_abs_err=err, ms=_cuda_ms(lambda: side_matmul(side, h, diag)),
+            plain_ms=_cuda_ms(lambda: side_matmul_plain(side, h, diag)),
+            library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, h)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            device_ms=_device_ms(lambda: side_matmul(side, h, diag)),
+            library_device_ms=_device_ms(lambda: torch.sparse.mm(lib, h))))
+    print(f"{label} kernel check, Kernel A (side F: max_abs_err, ms, plain_ms, "
+          f"library_ms, bound_ms; device ms under the profiler) on {gpu}")
+    for r in rows:
+        print(f"  {r['side']} F={r['width']}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, "
+              f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['bound_ms']:.4f} "
+              f"({r['bound_by']}){_device_note(r)}", flush=True)
+    return rows
+
+
 def _planetoid_kernel_rows(name, graph, gpu):
     """Each kernel of demo ``name`` at the shapes the demo gives it, against
     its plain version and a second run: Kernel A on the normalized Pubmed
@@ -1891,51 +1964,12 @@ def _planetoid_kernel_rows(name, graph, gpu):
     layout at (H, d) = (8, 8) with a 0.4 keep mask and (1, C) without,
     float32 (``_gat_case``'s tolerances), timed."""
     import torch
-    from tf_geometric_tpu_torch.nn.conv.gcn import compute_cache_key
-    from tf_geometric_tpu_torch.ops.csr_spmm import side_matmul, side_matmul_plain
     n, c = graph.x.shape[0], int(graph.y.max()) + 1
     gen = torch.Generator(device="cuda").manual_seed(19)
     rows = []
     if name == "gcn":
-        key = compute_cache_key("both", True, True, True, False)
-        adj = graph.cache[key + ":ell"]
-        index, value, _ = graph.cache[key]
-        diag = adj.diag_val
-        library = {s: _library_csr(adj, index, value, s) for s in ("fwd", "bwd")}
-        for side_name in ("fwd", "bwd"):
-            side = getattr(adj, side_name)
-            print(f"planetoid gcn {side_name} side: rows={side.num_rows} "
-                  f"virtual_rows={side.num_virtual} nnz={int(side.col.shape[0])} "
-                  f"{_walk_line(side)}", flush=True)
-        for width in (16, c):
-            for side_name in ("fwd", "bwd"):
-                side, lib = getattr(adj, side_name), library[side_name]
-                h = torch.randn(n, width, generator=gen, device="cuda")
-                tag = f"planetoid {side_name} F={width}"
-                got = side_matmul(side, h, diag)
-                err = _max_err(got, side_matmul_plain(side, h, diag), F32_TOL, f"csr_spmm {tag}")
-                _check(torch.equal(got, side_matmul(side, h, diag)),
-                       f"csr_spmm {tag}: two runs on the same inputs differ")
-                err = max(err, _max_err(got, torch.sparse.mm(lib, h), F32_TOL,
-                                        f"csr_spmm {tag} vs torch.sparse.mm"))
-                nnz = int(side.col.shape[0])
-                nbytes = (2 * n * width * 4 + 4 * side.row_ptr.shape[0] + 8 * nnz + 4 * n)
-                bound_ms, bound_by = _bound(nbytes, 2 * (nnz + n) * width)
-                rows.append(dict(
-                    name="csr_spmm", side=side_name, width=width, dtype="float32",
-                    max_abs_err=err, ms=_cuda_ms(lambda: side_matmul(side, h, diag)),
-                    plain_ms=_cuda_ms(lambda: side_matmul_plain(side, h, diag)),
-                    library_ms=_cuda_ms(lambda: torch.sparse.mm(lib, h)),
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    device_ms=_device_ms(lambda: side_matmul(side, h, diag)),
-                    library_device_ms=_device_ms(lambda: torch.sparse.mm(lib, h))))
-        print(f"planetoid gcn kernel check, Kernel A (side F: max_abs_err, ms, plain_ms, "
-              f"library_ms, bound_ms; device ms under the profiler) on {gpu}")
-        for r in rows:
-            print(f"  {r['side']} F={r['width']}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, "
-                  f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['bound_ms']:.4f} "
-                  f"({r['bound_by']}){_device_note(r)}", flush=True)
-        return rows
+        return _normed_csr_rows("planetoid gcn", graph, [(s, w) for w in (16, c)
+                                                         for s in ("fwd", "bwd")], gen, gpu)
     layout = graph.cache[f"gat_edges_{n}"][2]
     print(f"planetoid gat layout: {layout}", flush=True)
     for heads, width in ((8, 8), (1, c)):
@@ -2116,6 +2150,331 @@ def planetoid_kernel_entries(res):
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": shape + f"; launches over the demo's {PLANETOID_STEPS}-step loop"})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# the accuracy head-to-head: the early-stop bench twins and the graph demo
+# twins against the JAX package's committed results (phase 20)
+# ---------------------------------------------------------------------------
+
+H2H_CHECK_STEPS = 3
+H2H_MODELS = ("gcn", "sgc", "appnp", "ssgc", "gat")
+H2H_ARXIV_SEEDS, H2H_PROFILE_STEPS = 5, 5
+# kernel launches of one training step and of one evaluation of each bench
+# twin (counted on the CPU by tests/test_torch_bench_twins.py)
+H2H_STEP_LAUNCHES = {"gcn": dict(csr_spmm=4), "sgc": dict(csr_spmm=4),
+                     "appnp": dict(csr_spmm=20), "ssgc": dict(csr_spmm=20),
+                     "gat": dict(spmm_heads=8, sddmm_heads=2)}
+H2H_EVAL_LAUNCHES = {"gcn": dict(csr_spmm=2), "sgc": dict(csr_spmm=2),
+                     "appnp": dict(csr_spmm=10), "ssgc": dict(csr_spmm=10),
+                     "gat": dict(spmm_heads=4)}
+# kernel launches of one training step of each graph demo twin on the
+# check batch (the shared split's first padded batch; counted on the CPU by
+# tests/test_torch_graph_demos.py)
+H2H_GRAPH_STEP_LAUNCHES = {"mean_pool": dict(spmm_heads=8), "gin": dict(spmm_heads=10),
+                           "sag_pool": dict(spmm_heads=16), "sort_pool": dict(spmm_heads=8),
+                           "diff_pool": dict(spmm_heads=16, sddmm_heads=2),
+                           "min_cut_pool": dict(spmm_heads=12)}
+
+
+def _h2h_kernel_vs_plain(label, build, step, want_launches):
+    """``H2H_CHECK_STEPS`` steps ``step(model, optimizer, generator) ->
+    loss`` through the kernels and then through their plain versions
+    (``use_plain_versions``), each side from ``build() -> (model,
+    optimizer)`` (the same weights) and a generator seeded alike (the same
+    dropout draws): the losses within 1e-4, and ``want_launches`` kernel
+    launches in each kernel step. Returns the largest loss difference."""
+    import torch
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    losses, per_step = {}, []
+    for side in ("kernel", "plain"):
+        model, opt = build()
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        steps = []
+        with (kernel_config.use_plain_versions() if side == "plain"
+              else contextlib.nullcontext()):
+            for _ in range(H2H_CHECK_STEPS):
+                _zero_launch_counts()
+                steps.append(step(model, opt, gen))
+                torch.cuda.synchronize()
+                if side == "kernel":
+                    per_step.append(dict(zip(_KERNELS, _launch_counts())))
+        losses[side] = torch.stack(steps)
+    err = _max_err(losses["kernel"], losses["plain"], F32_TOL,
+                   f"{label} {H2H_CHECK_STEPS}-step losses")
+    want = dict.fromkeys(_KERNELS, 0)
+    want.update(want_launches)
+    _check(all(p == want for p in per_step), f"{label}: launches a step {per_step} != {want}")
+    print(f"{label} kernel vs plain: {losses['kernel'].tolist()} / "
+          f"{losses['plain'].tolist()}, max abs err {err:.3e}; launches a step "
+          f"{want_launches}", flush=True)
+    return err
+
+
+def _h2h_node_check(model, shape, data):
+    """The bench twin ``model`` on ``data`` (its ``shape`` protocol):
+    kernel against plain, ``_h2h_kernel_vs_plain``."""
+    import torch
+    from tf_geometric_tpu_torch.benchmarks.node_classification import head_to_head_port as h2h
+    from tf_geometric_tpu_torch.demos.demo_utils import train_step
+    twin = h2h.twin(model)
+    graph, splits = data
+    y, l2 = graph.y.long(), twin.protocol(shape)["l2"]
+    built = {}
+
+    def build():
+        net, forward = twin.build(graph, 0, shape, "cuda")
+        built["forward"] = forward
+        return net, torch.optim.Adam(net.parameters(), lr=twin.LEARNING_RATE)
+
+    def step(net, opt, gen):
+        return train_step(net, opt, lambda training, g: built["forward"](training, g), y,
+                          splits[0], l2, gen)
+
+    return _h2h_kernel_vs_plain(f"h2h {model}_{shape}", build, step, H2H_STEP_LAUNCHES[model])
+
+
+def _h2h_evaluations(steps, eval_every, log_every=20):
+    """Evaluations ``train_node_classifier`` runs in ``steps`` steps with an
+    early stop: every ``eval_every``-th step and the last, and each logged
+    step besides."""
+    return sum(1 for s in range(steps) if (s + 1) % eval_every == 0 or s % log_every == 0
+               or s == steps - 1)
+
+
+def _h2h_full_run(model, shape, data, seed, gpu, profile=False):
+    """One full ``run(seed)`` of bench twin ``model`` on ``data``: test@best,
+    ms a step over the loop with its evaluations (CUDA events), the stop
+    step, exact launches; with ``profile``, the card's busy time and idle
+    share over ``H2H_PROFILE_STEPS`` profiled training steps after it."""
+    import torch
+    from tf_geometric_tpu_torch.benchmarks.node_classification import head_to_head_port as h2h
+    from tf_geometric_tpu_torch.demos.demo_utils import train_step
+    from tf_geometric_tpu_torch.utils.profiling import device_time_by_kernel
+    twin, stats = h2h.twin(model), {}
+    proto = twin.protocol(shape)
+    _zero_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    acc = twin.run(seed, device="cuda", dataset=shape, data=data, stats=stats)
+    end.record()
+    end.synchronize()
+    counts = dict(zip(_KERNELS, _launch_counts()))
+    steps = stats["steps"]
+    evals = _h2h_evaluations(steps, proto["eval_every"])
+    want = dict.fromkeys(_KERNELS, 0)
+    for k, v in H2H_STEP_LAUNCHES[model].items():
+        want[k] += v * steps
+    for k, v in H2H_EVAL_LAUNCHES[model].items():
+        want[k] += v * evals
+    _check(counts == want, f"h2h {model}_{shape} seed {seed}: launches {counts} != {want}")
+    losses = torch.stack(stats["losses"]).tolist()
+    _check(all(math.isfinite(v) for v in losses), f"h2h {model}_{shape}: non-finite loss")
+    out = dict(acc=float(acc), steps=steps, stop_step=stats["stop_step"],
+               ms_per_step=start.elapsed_time(end) / steps, launches=counts, evals=evals)
+    if profile:
+        graph, splits = data
+        net, forward = twin.build(graph, seed, shape, "cuda")
+        opt = torch.optim.Adam(net.parameters(), lr=twin.LEARNING_RATE)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        y, l2 = graph.y.long(), proto["l2"]
+
+        def one():
+            train_step(net, opt, lambda training, g: forward(training, g), y, splits[0], l2, gen)
+
+        one()
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pstart, pend = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            pstart.record()
+            for _ in range(H2H_PROFILE_STEPS):
+                one()
+            pend.record()
+            pend.synchronize()
+        kernels = device_time_by_kernel(prof, H2H_PROFILE_STEPS)
+        busy = sum(k[1] for k in kernels)
+        span = pstart.elapsed_time(pend) / H2H_PROFILE_STEPS
+        out.update(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
+                   top=[[k[0][:90], round(k[1], 5), k[2]] for k in kernels[:6]])
+    return out
+
+
+def _h2h_graph_check(name, split):
+    """Graph demo twin ``name`` on the check batch: kernel against plain
+    (``_h2h_kernel_vs_plain``), the model drawing its own dropout."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tf_geometric_tpu_torch.benchmarks.graph_classification import \
+        head_to_head_graph_port as gh2h
+    from tf_geometric_tpu_torch.demos.demo_utils import padded_batch_generator
+    train = split[0]
+    batch, real = next(padded_batch_generator(train, gh2h.BATCH, seed=0))
+    args = tuple(torch.as_tensor(np.asarray(a), device="cuda")
+                 for a in (batch.x, batch.edge_index, batch.edge_weight, batch.node_graph_index))
+    y = torch.as_tensor(np.asarray(batch.y).flatten()[:real], device="cuda").long()
+    make, lr, aux = gh2h.make_model(name, train[0].x.shape[1], 0, "cuda")
+
+    def build():
+        net = make(2, gh2h.BATCH)
+        return net, torch.optim.Adam(net.parameters(), lr=lr)
+
+    def step(net, opt, gen):
+        net.train()
+        opt.zero_grad(set_to_none=True)
+        out = net(*args)
+        logits = out[0] if aux else out
+        loss = F.cross_entropy(logits[:real], y)
+        if aux:
+            loss = loss + aux(out[1])
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return _h2h_kernel_vs_plain(f"h2h graph {name}", build, step, H2H_GRAPH_STEP_LAUNCHES[name])
+
+
+def head_to_head_phase(gpu):
+    """Phase 20: the accuracy head-to-head's models on the card. (1) Each
+    bench twin on its hard-cora graph, and the GAT twin's pubmed
+    architecture on hard pubmed: ``H2H_CHECK_STEPS`` Adam steps through the
+    kernels and through their plain versions, the same weights and draws
+    (losses within 1e-4), exact launches a step. (2) Each twin's full
+    ``run(seed=0)`` on hard cora: test@best beside JAX's committed mean,
+    ms a step, stop step, exact launches. (3) The arxiv hard cell: the GCN
+    (hidden 64) and SGC twins, seeds 0-4 under the 100-step protocol,
+    test@best, ms a step, the card's idle share over ``H2H_PROFILE_STEPS``
+    profiled steps, each mean gated against JAX's committed results by
+    ``head_to_head_port.gate``. (4) Kernel A at the arxiv cell's widths and
+    the multi-head SpMM / SDDMM at the GAT twin's, against plain versions
+    and the library. (5) Each graph demo twin: kernel against plain on one
+    batch, then one 300-step run. Returns the kernel rows and launches."""
+    import torch
+    from tf_geometric_tpu_torch.benchmarks.graph_classification import \
+        head_to_head_graph_port as gh2h
+    from tf_geometric_tpu_torch.benchmarks.node_classification import head_to_head_port as h2h
+    out = {"rows": [], "launches": dict.fromkeys(_KERNELS, 0), "runs": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] += v
+
+    cache = {}
+    for model in H2H_MODELS:
+        _h2h_node_check(model, "cora", h2h.cell_data(model, "cora", "cuda", cache))
+    pubmed = h2h.cell_data("gat", "pubmed", "cuda")
+    _h2h_node_check("gat", "pubmed", pubmed)
+    layouts = {}
+    for shape, data in (("cora", h2h.cell_data("gat", "cora", "cuda", cache)),
+                        ("pubmed", pubmed)):
+        graph = data[0]
+        layouts[shape] = graph.cache[f"gat_edges_{graph.x.shape[0]}"][2]
+    print(f"h2h: {len(cache)} hard cora graph(s) and hard pubmed (gat) built", flush=True)
+
+    print(f"h2h full runs on hard cora, seed 0 (test@best against JAX's committed mean; "
+          f"ms/step with the evaluations, CUDA events) on {gpu}", flush=True)
+    for model in H2H_MODELS:
+        r = _h2h_full_run(model, "cora", h2h.cell_data(model, "cora", "cuda", cache), 0, gpu)
+        add(r["launches"])
+        jax = h2h.jax_results(f"{model}_cora")
+        out["runs"][f"{model}_cora"] = r
+        print(f"  {model}_cora: test@best {r['acc']:.4f} (JAX mean {sum(jax) / len(jax):.4f} "
+              f"over {len(jax)} seeds), {r['steps']} steps (stop step {r['stop_step']}), "
+              f"{r['ms_per_step']:.4f} ms/step, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }", flush=True)
+    del cache, pubmed
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    arxiv = h2h.cell_data("gcn", "arxiv", "cuda")
+    graph = arxiv[0]
+    print(f"h2h arxiv: HardCitationDataset('arxiv', seed=0) built and moved in "
+          f"{time.perf_counter() - t0:.1f} s: {graph.x.shape[0]} nodes, {graph.x.shape[1]} "
+          f"features, {int(graph.y.max()) + 1} classes, {graph.edge_index.shape[1]} edge-index "
+          f"entries; splits {[int(s.shape[0]) for s in arxiv[1]]}", flush=True)
+    for model in ("gcn", "sgc"):
+        runs = [_h2h_full_run(model, "arxiv", arxiv, seed, gpu, profile=seed == 0)
+                for seed in range(H2H_ARXIV_SEEDS)]
+        for r in runs:
+            add(r["launches"])
+        accs = [r["acc"] for r in runs]
+        jax = h2h.jax_results(f"{model}_arxiv")
+        g = h2h.gate(jax, accs)
+        out["runs"][f"{model}_arxiv"] = dict(accs=accs, gate=g, profile=runs[0])
+        p = runs[0]
+        print(f"h2h {model}_arxiv: test@best {[round(a, 4) for a in accs]}, mean "
+              f"{g['port_mean']:.4f} against JAX's {g['jax_mean']:.4f} (n={len(jax)}), bounds "
+              f"[{g['lower']:.4f}, {g['upper']:.4f}]; ms/step "
+              f"{[round(r['ms_per_step'], 4) for r in runs]} (evaluations every 2 steps "
+              f"included); steps {[r['steps'] for r in runs]}; profiled training step: device "
+              f"busy {p['busy_ms']:.4f} ms of {p['span_ms']:.4f} ms, idle share "
+              f"{p['idle_share']:.4f}; top {p['top'][:3]} on {gpu}", flush=True)
+        _check(g["ok"], f"h2h {model}_arxiv fails the gate: {g['failed']}")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out["rows"] += _normed_csr_rows("h2h arxiv", graph, [("fwd", 64), ("bwd", 64),
+                                                          ("fwd", 40), ("bwd", 40),
+                                                          ("fwd", 128)], gen, gpu)
+    del arxiv, graph
+    torch.cuda.empty_cache()
+    out["rows"] += multihead_kernel_phase(layouts["cora"], ((8, 8), (1, 7)), "h2h gat cora",
+                                          bf16=False, keep=0.3)
+    out["rows"] += multihead_kernel_phase(layouts["pubmed"], ((1, 64), (8, 3)),
+                                          "h2h gat pubmed", bf16=False)
+    del layouts
+
+    split = gh2h.shared_split()
+    print(f"h2h graph demo twins: {len(split[0])} training and {len(split[1])} test graphs; "
+          f"{gh2h.STEPS} steps at batch {gh2h.BATCH} on {gpu}", flush=True)
+    for name in gh2h.MODELS:
+        _h2h_graph_check(name, split)
+        stats = {}
+        _zero_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        acc = gh2h.run(name, 0, split, "cuda", stats)
+        end.record()
+        end.synchronize()
+        counts = dict(zip(_KERNELS, _launch_counts()))
+        add(counts)
+        losses = torch.stack(stats["losses"]).tolist()
+        _check(all(math.isfinite(v) for v in losses), f"h2h graph {name}: non-finite loss")
+        jax = gh2h.jax_results(name)
+        out["runs"][name] = dict(acc=acc, ms_per_step=start.elapsed_time(end) / gh2h.STEPS)
+        print(f"  {name}: test accuracy {acc:.4f} (JAX mean {sum(jax) / len(jax):.4f} over "
+              f"{len(jax)} seeds), {start.elapsed_time(end) / gh2h.STEPS:.4f} ms/step over the "
+              f"loop with its test pass, launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+    return out
+
+
+def head_to_head_kernel_entries(res):
+    """The ``{"kernels"}`` entries of the head-to-head path: Kernel A at the
+    arxiv GCN's first layer (F = 64, forward), the multi-head SpMM and SDDMM
+    at the cora GAT twin's first layer (H = 8, d_v = 8, keep 0.3); launches
+    over phase 20's full runs."""
+    entries = []
+    picks = (("csr_spmm", dict(side="fwd", width=64), "tf_geometric_tpu_torch/csrc/csr_spmm.cu",
+              "tf_geometric_tpu/ops/ell_bucketed.py:214",
+              "GCN twin on the hard arxiv cell: forward F=64, float32"),
+             ("spmm_heads", dict(case="h2h gat cora forward", heads=8),
+              "tf_geometric_tpu_torch/csrc/spmm_heads.cu", "tf_geometric_tpu/ops/ell.py:325",
+              "GAT twin on hard cora, layer 1: H=8, d_v=8, keep 0.3, float32"),
+             ("sddmm_heads", dict(case="h2h gat cora d_att", heads=8),
+              "tf_geometric_tpu_torch/csrc/spmm_heads.cu", "tf_geometric_tpu/ops/ell.py:325",
+              "GAT twin on hard cora, layer 1: d_att, H=8, d_v=8, float32"))
+    for name, key, source, replaces, shape in picks:
+        rows = [r for r in res["rows"] if r["name"] == name]
+        rep = next(r for r in rows if all(r.get(k) == v for k, v in key.items()))
+        launches = res["launches"][name]
+        _check(launches > 0, f"{name} was not launched on the head-to-head path")
+        entries.append({
+            "name": f"h2h:{name}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": shape + "; launches over phase 20's full runs"})
     return entries
 
 
@@ -3890,6 +4249,7 @@ def main():
     del gae
     torch.cuda.empty_cache()
     planetoid = _phase("planetoid demos", planetoid_phase, gpu)
+    h2h = _phase("head-to-head twins", head_to_head_phase, gpu)
     t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
@@ -4008,6 +4368,7 @@ def main():
     kernels += pool_kernel_entries(pool_rows, results)
     kernels.append(gae_kernel_entry(gae_rows, gae_launches))
     kernels += planetoid_kernel_entries(planetoid)
+    kernels += head_to_head_kernel_entries(h2h)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

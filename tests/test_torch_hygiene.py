@@ -356,3 +356,50 @@ def test_tiled_spmm_wrapper_refusals_count_no_launch(case, match):
     with pytest.raises(ValueError, match=match):
         tsp.launch_tiled_spmm(*_refused_pass(case))
     assert tsp.launch_tiled_spmm.launches == before
+
+
+# the accuracy head-to-head's modules (bench twins, harnesses, graph demo twins)
+H2H_MODULES = tuple(
+    [f"tf_geometric_tpu_torch.benchmarks.node_classification.bench_node_cls_early_stop_{m}"
+     for m in ("gcn", "gat", "sgc", "ssgc", "appnp")]
+    + ["tf_geometric_tpu_torch.benchmarks.node_classification.head_to_head_port",
+       "tf_geometric_tpu_torch.benchmarks.graph_classification.head_to_head_graph_port"]
+    + [f"tf_geometric_tpu_torch.demos.demo_{d}"
+       for d in ("mean_pool", "gin", "sag_pool_h", "sort_pool", "diff_pool", "min_cut_pool")])
+
+
+@pytest.mark.parametrize("module", H2H_MODULES)
+def test_head_to_head_modules_load_no_jax_sklearn_or_networkx(module):
+    """Each module of the head-to-head imports alone without JAX, the JAX
+    package, sklearn or networkx: it reads the JAX side's committed results
+    as data, never as code."""
+    code = textwrap.dedent(f"""
+        import sys
+        import {module}
+        bad = sorted(m for m in sys.modules if m.split(".")[0].startswith("jax")
+                     or m.split(".")[0] in {HOST_FORBIDDEN!r})
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_head_to_head_entry_points_raise_without_cuda(tmp_path):
+    """A twin's ``run`` and a demo twin's model, called without a device,
+    ask for the card and raise here instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tf_geometric_tpu_torch.benchmarks.node_classification import (
+        bench_node_cls_early_stop_sgc, head_to_head_port)
+    from tf_geometric_tpu_torch.demos.demo_gin import GINModel
+    data = head_to_head_port.cell_data("sgc", "cora", "cpu")
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench_node_cls_early_stop_sgc.run(0, dataset="cora", data=data)
+    with pytest.raises((AssertionError, RuntimeError)):
+        GINModel(4, 2, 32)
+    with pytest.raises((AssertionError, RuntimeError)):
+        head_to_head_port.main(1, ["sgc_cora"], out_path=tmp_path / "out.json")
+    assert not (tmp_path / "out.json").exists()

@@ -867,8 +867,8 @@ class MinCutPoolClassifier(nn.Module):
     """``demo/demo_min_cut_pool.py``'s ``MinCutPoolModel``: ``GCN(32,
     relu)``, a ``MinCutPool`` of ``MIN_CUT_CLUSTERS`` = 8 clusters over a
     feature ``GCN(32, relu)`` and an assign ``GCN(8)``, ``mean_pool``,
-    dropout 0.4, a dense head. Returns ``(logits, cut + orth)``: the
-    demo's auxiliary loss, which the flax model sows."""
+    dropout 0.4, a dense head. Returns ``(logits, (cut, orth))``: the
+    pool's auxiliary losses, which the flax model sows."""
 
     def __init__(self, in_features: int, num_classes: int, num_graphs: int, device="cuda"):
         super().__init__()
@@ -884,11 +884,11 @@ class MinCutPoolClassifier(nn.Module):
     def forward(self, x, edge_index, edge_weight, node_graph_index, generator=None,
                 keep_mask=None):
         h = self.GCN_0([x, edge_index, edge_weight])
-        (h, _, _, ngi), (cut, orth) = self.MinCutPool_0(
+        (h, _, _, ngi), losses = self.MinCutPool_0(
             [h, edge_index, edge_weight, node_graph_index], return_losses=True)
         h = mean_pool(h, ngi, num_graphs=self.num_graphs)
         h = dropout(h, POOL_DROP_RATE, self.training, generator, keep_mask)
-        return self.Dense_0(h), cut + orth
+        return self.Dense_0(h), losses
 
 
 class SAGPoolClassifier(nn.Module):
@@ -998,7 +998,7 @@ def pool_loss(p, problem: GraphBatchProblem, name: str, keep_mask=None):
         {"generator": problem.generator, "keep_mask": keep_mask}, strict=True)
     logits, aux = out if isinstance(out, tuple) else (out, None)
     loss = F.cross_entropy(logits, problem.y)
-    return loss if aux is None else loss + aux
+    return loss if aux is None else loss + (aux[0] + aux[1])
 
 
 def pool_x6_calls(problem: GraphBatchProblem, name: str) -> list:

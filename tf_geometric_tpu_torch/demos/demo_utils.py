@@ -20,14 +20,15 @@ import torch.nn.functional as F
 
 from ..data.graph import BatchGraph, Graph
 from ..data.padding import batch_padding_spec, padded_batch_generator
-from ..layers.base import dropout, l2_loss
+from ..layers.base import dropout, glorot_uniform, l2_loss
 from ..utils.graph_utils import _split_ids
 
 __all__ = ["demo_steps", "load_planetoid", "load_cora", "masked_softmax_loss",
            "dropout_seed", "train_step", "train_node_classifier",
            "load_graph_classification_data",
            "train_test_split", "batch_padding_spec", "padded_batch_generator",
-           "run_graph_classification"]
+           "run_graph_classification", "init_like_flax", "dropout_generator",
+           "GraphClassifier"]
 
 
 def demo_steps(n: int) -> int:
@@ -206,6 +207,61 @@ def train_test_split(items, test_size: float = 0.1, random_state: int = 0):
     test_size=..., random_state=...)`` gives them (``_split_ids``)."""
     train_ids, test_ids = _split_ids(len(items), test_size, None, random_state, True, None)
     return [items[i] for i in train_ids], [items[i] for i in test_ids]
+
+
+def init_like_flax(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Redraw ``module``'s parameters as the flax demo models draw theirs,
+    from a ``torch.Generator`` seeded ``seed``, in parameter order: a
+    ``torch.nn.Linear`` weight as flax ``Dense``'s LeCun normal (truncated at
+    two standard deviations, standard deviation √(1/fan_in) / 0.8796), every
+    other matrix glorot-uniform (the GCN kernels), every vector zeros (the
+    biases, GIN's ε). Returns ``module``."""
+    gen = torch.Generator().manual_seed(seed)
+    linear_weights = {id(m.weight) for m in module.modules() if isinstance(m, torch.nn.Linear)}
+    with torch.no_grad():
+        for p in module.parameters():
+            if id(p) in linear_weights:
+                std = (1.0 / p.shape[1]) ** 0.5 / 0.87962566103423978
+                w = torch.empty(p.shape).normal_(generator=gen)
+                while bool((w.abs() > 2.0).any()):
+                    redraw = w.abs() > 2.0
+                    w[redraw] = torch.empty(int(redraw.sum())).normal_(generator=gen)
+                p.copy_(w * std)
+            elif p.dim() == 2:
+                p.copy_(glorot_uniform(tuple(p.shape), gen))
+            else:
+                p.zero_()
+    return module
+
+
+def dropout_generator(seed: int, device="cuda") -> torch.Generator:
+    """A graph-classification model's own dropout generator on ``device``,
+    seeded ``dropout_seed(seed)``."""
+    return torch.Generator(device=device).manual_seed(dropout_seed(seed))
+
+
+class GraphClassifier(torch.nn.Module):
+    """Base of the graph-classification demo models: weights drawn by
+    ``init_like_flax(self, seed)`` once the subclass built its layers
+    (``_init``), and a dropout generator of its own seeded
+    ``dropout_seed(seed)`` on ``device`` (``run_graph_classification``
+    hands the model no generator). ``self.drop(h, i, keep_masks)``: dropout
+    0.4 in training mode, keep mask ``keep_masks[i]`` in place of a draw
+    when given."""
+
+    DROP_RATE = 0.4
+
+    def __init__(self, num_graphs: int, seed: int = 0, device="cuda"):
+        super().__init__()
+        self.num_graphs, self.seed = num_graphs, seed
+        self.generator = dropout_generator(seed, device)
+
+    def _init(self):
+        init_like_flax(self, self.seed)
+
+    def drop(self, h, i: int, keep_masks=None):
+        return dropout(h, self.DROP_RATE, self.training, self.generator,
+                       None if keep_masks is None else keep_masks[i])
 
 
 def run_graph_classification(make_model: Callable, batch_size: int = 32, num_steps: int = 300,

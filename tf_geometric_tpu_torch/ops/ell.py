@@ -26,9 +26,14 @@ import torch
 
 from . import config as _config
 from .csr_spmm import CsrAdj, CsrSide, csr_spmm, side_matmul, side_matmul_plain
-from .spmm_heads import CsrView, sddmm_heads
+from .spmm_heads import CsrView, sddmm_heads, spmm_multihead
 
-__all__ = ["ell_spmm", "with_edge_values", "side_value_grad"]
+__all__ = ["ell_spmm", "ell_spmm_multihead", "with_edge_values", "side_value_grad"]
+
+# the JAX function's name for the attention-weighted multi-head SpMM over a
+# GAT layout (``ell_spmm_multihead(ell, edge_att, v, d_head)``): the port
+# runs it on a ``CsrGatLayout`` (``csrc/spmm_heads.cu``)
+ell_spmm_multihead = spmm_multihead
 
 
 def with_edge_values(adj: CsrAdj, edge_values) -> CsrAdj:

@@ -30,7 +30,29 @@ import torch
 from . import config as _config
 from .spmm_heads import CsrView, build_csr_view, sddmm_heads, spmm_heads
 
-__all__ = ["spmm", "sddmm"]
+__all__ = ["spmm", "sddmm", "spmm_xla", "sddmm_xla"]
+
+
+def _gather_rows(h, ids):
+    """Clipped gather: an out-of-range (padded) id reads row 0 or the last."""
+    return h[ids.long().clamp(0, h.shape[0] - 1)]
+
+
+def spmm_xla(index, value, h, num_rows: int):
+    """The plain COO SpMM, the JAX package's XLA reference: gather, scale,
+    and a sum by row in PyTorch (an edge whose row is out of range drops
+    out); autograd differentiates it as it stands."""
+    row = index[0].long()
+    msg = _gather_rows(h, index[1]) * value[:, None]
+    keep = (row >= 0) & (row < num_rows)
+    out = torch.zeros((num_rows, h.shape[1]), dtype=msg.dtype, device=h.device)
+    return out.index_add(0, row[keep], msg[keep])
+
+
+def sddmm_xla(index, a, b):
+    """The plain per-edge inner product ``out[e] = <a[clip(row[e])],
+    b[clip(col[e])]>``, the JAX package's XLA reference."""
+    return (_gather_rows(a, index[0]) * _gather_rows(b, index[1])).sum(-1)
 
 
 class _Spmm(torch.autograd.Function):
