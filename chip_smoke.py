@@ -313,6 +313,23 @@ Phases, each of which raises (non-zero exit) on failure:
     GAT twin's shapes, against plain and the library; then each graph demo
     twin: kernel against plain on one batch (``H2H_GRAPH_STEP_LAUNCHES``)
     and one 300-step run. ``h2h:<kernel>`` entries in the kernels line.
+21. The sixteen demo twins added beside phase 19's (``demo_twins_phase``):
+    the propagation family, the DropEdge deep GCN, sparse features, the GAE
+    and DGI, device sampling (on hard Pubmed, ``DEMO_ENV``), the two host
+    GraphSAGE twins (their synthetic graphs), the hetero R-GCN (its
+    academic graph), ASAP, Set2Set and top-k (the demos' default graph
+    set). Each: 3 Adam steps through the kernels and through their plain
+    versions from the same weights and draws (losses within 1e-4) with
+    exact launches a step and an evaluation (``DEMO_STEP_LAUNCHES``,
+    ``DEMO_EVAL_LAUNCHES``, counted on the CPU); its ``main`` at the demo's
+    own step count (the metric, ms/step over the loop with its evaluations,
+    exact launches; a training step alone by events); the card's idle share
+    and top ops over 5 profiled steps of the DropEdge GCN and DGI. Then the
+    kernels at the twins' shapes against plain, a second run and
+    ``torch.sparse.mm``: X6 at DropEdge's F = 128 (forward and ``dh``, the
+    view build timed apart), at ChebyNet's F = 500 and ``eye @ w0``;
+    Kernel A at TAGCN's F = 500; the draw and S1 at k = 10 and 5, F = 32.
+    ``demo:<kernel>`` entries in the kernels line.
 
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
@@ -321,7 +338,8 @@ and S1 on workload 13 as ``sampled_sage:<kernel>``, Kernel A on workload
 17 as ``mincut:csr_spmm``, X6 on the GAE path as ``gae:spmm_heads``,
 Kernel A and the attention kernels on the demo path as
 ``planetoid:<kernel>``, Kernel A and X3's kernels on the head-to-head path
-as ``h2h:<kernel>``, X6
+as ``h2h:<kernel>``, Kernel A, X6, the draw and S1 on the phase-21 twins
+as ``demo:<kernel>``, X6
 on the pooling path
 (workload 14's pooled graph, launches over workloads 14-16) as
 ``pool:<kernel>``, X7 as ``tiled_spmm``
@@ -1686,53 +1704,18 @@ def _gae_normed(problem):
     return gcn_norm_adj(SparseMatrix(problem.edge_index, problem.edge_weight, (n, n)))
 
 
-def gae_kernel_phase(problem):
+def gae_kernel_phase(problem, gpu):
     """X6 at the GAE encoder's calls on the arxiv train split (normalized,
     self-loops added): the forward and ``dh`` SpMM at F = 32 and 16,
-    float32, against their plain versions and ``torch.sparse.mm`` (1e-4)
-    and a second run (bit for bit), timed by events and device time beside
-    the byte bound. Returns one row per call."""
+    float32 (``_x6_case_rows``: against plain, ``torch.sparse.mm`` and a
+    second run, timed beside the byte bound). Returns one row per call."""
     import torch
     from tf_geometric_tpu_torch import bench
-    from tf_geometric_tpu_torch.ops import spmm_heads as sh
     normed = _gae_normed(problem)
-    n, index = normed.shape[0], normed.index
-    w = normed.value.float()[:, None].contiguous()
-    fwd = sh.build_csr_view(index[0], index[1], n, n)
-    bwd = sh.build_csr_view(index[1], index[0], n, n)
-    nnz = int(fwd.row_ptr[-1])
-    print(f"gae x6: the train split's normalized adjacency, {n} rows, {nnz} entries; "
-          f"{_view_walk_line(fwd)}", flush=True)
-    lib_fwd, lib_bwd = _x6_library(fwd, w[:, 0], n, n), _x6_library(bwd, w[:, 0], n, n)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    rows = []
-    for width in bench.GAE_UNITS:
-        h, dy = (torch.randn(n, width, generator=gen, device="cuda") for _ in range(2))
-        for case, view, lib, arg in (("gae forward", fwd, lib_fwd, h),
-                                     ("gae dh", bwd, lib_bwd, dy)):
-            tag = f"spmm_heads {case} F={width}"
-            kernel = (lambda v=view, a=arg: sh.launch_spmm_heads(v, w, a, 1))
-            plain = (lambda v=view, a=arg: sh.spmm_heads_plain(v, w, a, 1))
-            library = (lambda m=lib, a=arg: torch.sparse.mm(m, a))
-            got = kernel()
-            err = _max_err(got, plain(), F32_TOL, tag)
-            _check(torch.equal(got, kernel()), f"{tag}: two runs on the same inputs differ")
-            err = max(err, _max_err(got, library(), F32_TOL, f"{tag} vs the library call"))
-            bound_ms, bound_by = _bound(sh.spmm_pass_bytes(nnz, n, n, width, 1, 4, 4),
-                                        sh.pass_flops(nnz, width))
-            rows.append(dict(name="spmm_heads", case=case, width=width, dtype="float32",
-                             heads=1, max_abs_err=err, ms=_cuda_ms(kernel),
-                             plain_ms=_cuda_ms(plain, iters=3, warmup=1),
-                             library_ms=_cuda_ms(library), bound_ms=bound_ms,
-                             bound_by=bound_by, device_ms=_device_ms(kernel),
-                             library_device_ms=_device_ms(library)))
-    print("gae x6 kernel check (case F: max_abs_err, ms, plain_ms, library_ms, bound_ms; "
-          "device ms under the profiler)")
-    for r in rows:
-        print(f"  {r['case']} F={r['width']}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, "
-              f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['bound_ms']:.4f} "
-              f"({r['bound_by']}){_device_note(r)}", flush=True)
-    return rows
+    return _x6_case_rows("gae", normed.index, normed.value, normed.shape[0],
+                         [(case, d, width, None) for width in bench.GAE_UNITS
+                          for case, d in (("forward", "fwd"), ("dh", "bwd"))], gen, gpu)
 
 
 def _gae_step(model, opt, problem, neg, keep_mask=None):
@@ -1906,15 +1889,16 @@ def _planetoid_masks(name, graph, model, gen):
     return x_mask, att, torch.rand(n, 64, generator=gen, device="cuda") >= rate
 
 
-def _normed_csr_rows(label, graph, cases, gen, gpu):
+def _normed_csr_rows(label, graph, cases, gen, gpu, renorm=True):
     """Kernel A on ``graph``'s cached normalized adjacency at each (side,
     F) of ``cases``, float32, against its plain version (1e-4), a second
     run (bit for bit) and ``torch.sparse.mm``; timed by events and device
-    time beside its byte bound and the library call. Returns the rows."""
+    time beside its byte bound and the library call. ``renorm`` picks the
+    cache entry (TAGCN's is ``renorm=False``). Returns the rows."""
     import torch
     from tf_geometric_tpu_torch.nn.conv.gcn import compute_cache_key
     from tf_geometric_tpu_torch.ops.csr_spmm import side_matmul, side_matmul_plain
-    key = compute_cache_key("both", True, True, True, False)
+    key = compute_cache_key("both", True, True, renorm, False)
     adj = graph.cache[key + ":ell"]
     index, value, _ = graph.cache[key]
     n, diag = adj.shape[0], adj.diag_val
@@ -2251,7 +2235,6 @@ def _h2h_full_run(model, shape, data, seed, gpu, profile=False):
     import torch
     from tf_geometric_tpu_torch.benchmarks.node_classification import head_to_head_port as h2h
     from tf_geometric_tpu_torch.demos.demo_utils import train_step
-    from tf_geometric_tpu_torch.utils.profiling import device_time_by_kernel
     twin, stats = h2h.twin(model), {}
     proto = twin.protocol(shape)
     _zero_launch_counts()
@@ -2283,22 +2266,32 @@ def _h2h_full_run(model, shape, data, seed, gpu, profile=False):
         def one():
             train_step(net, opt, lambda training, g: forward(training, g), y, splits[0], l2, gen)
 
-        one()
-        torch.cuda.synchronize()
-        from torch.profiler import ProfilerActivity, profile as tprofile
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pstart, pend = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            pstart.record()
-            for _ in range(H2H_PROFILE_STEPS):
-                one()
-            pend.record()
-            pend.synchronize()
-        kernels = device_time_by_kernel(prof, H2H_PROFILE_STEPS)
-        busy = sum(k[1] for k in kernels)
-        span = pstart.elapsed_time(pend) / H2H_PROFILE_STEPS
-        out.update(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
-                   top=[[k[0][:90], round(k[1], 5), k[2]] for k in kernels[:6]])
+        out.update(_profile_steps(one, H2H_PROFILE_STEPS))
     return out
+
+
+def _profile_steps(one, steps):
+    """``one()`` once, then ``steps`` calls under ``torch.profiler``: the
+    card's busy ms a call (device time summed), the span a call (CUDA
+    events), the idle share, the kernels a call and the top six kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tf_geometric_tpu_torch.utils.profiling import device_time_by_kernel
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(steps):
+            one()
+        end.record()
+        end.synchronize()
+    kernels = device_time_by_kernel(prof, steps)
+    busy = sum(k[1] for k in kernels)
+    span = start.elapsed_time(end) / steps
+    return dict(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
+                kernels_a_step=sum(k[2] for k in kernels),
+                top=[[k[0][:90], round(k[1], 5), k[2]] for k in kernels[:6]])
 
 
 def _h2h_graph_check(name, split):
@@ -2475,6 +2468,504 @@ def head_to_head_kernel_entries(res):
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": shape + "; launches over phase 20's full runs"})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# the demo twins (phase 21)
+# ---------------------------------------------------------------------------
+
+# the twins, in the order of the phase; the first nine and the device-sampling
+# twin read ``load_cora`` (hard Pubmed in the phase, DEMO_ENV); the GraphSAGE
+# twins train on their five synthetic graphs, the hetero twin on its academic
+# graph, the last three on the demos' default graph set
+DEMO_TWINS = ("sgc", "appnp", "ssgc", "tagcn", "chebynet", "drop_edge_gcn",
+              "sparse_node_features", "gae", "dgi", "device_sampling", "graph_sage",
+              "graph_sage_func", "hetero_rgcn", "asap", "set2set", "topk_pool")
+DEMO_GRAPH_TWINS = ("asap", "set2set", "topk_pool")
+DEMO_ENV = {"TFG_HARD_PROTOCOL": "1", "TFG_HARD_SEED": "0", "BENCH_DATASET": "pubmed"}
+DEMO_PROFILE_STEPS, DEMO_TIMED_STEPS = 5, 10
+DEMO_PROFILED = ("drop_edge_gcn", "dgi")
+# kernel launches of one training step and of one evaluation forward of each
+# twin (counted on the CPU by tests/test_torch_demo_twins_launches.py); the
+# S1 backward's launches are its 2 calls' (6 each at hard Pubmed's 19,717
+# sources: ops.fixed_k.fixed_k_backward_launches)
+DEMO_STEP_LAUNCHES = {
+    "sgc": dict(csr_spmm=4), "appnp": dict(csr_spmm=20), "ssgc": dict(csr_spmm=20),
+    "tagcn": dict(csr_spmm=9), "chebynet": dict(spmm_heads=4),
+    "drop_edge_gcn": dict(spmm_heads=32), "sparse_node_features": dict(csr_spmm=4, spmm_heads=4),
+    "gae": dict(spmm_heads=8), "dgi": dict(spmm_heads=8),
+    "device_sampling": dict(fixed_k_draw=2, fixed_k_forward=2, fixed_k_backward=12),
+    "graph_sage": {}, "graph_sage_func": {}, "hetero_rgcn": {},
+    "asap": dict(spmm_heads=8), "set2set": dict(spmm_heads=8), "topk_pool": dict(spmm_heads=6)}
+DEMO_EVAL_LAUNCHES = {
+    "sgc": dict(csr_spmm=2), "appnp": dict(csr_spmm=10), "ssgc": dict(csr_spmm=10),
+    "tagcn": dict(csr_spmm=6), "chebynet": dict(spmm_heads=4),
+    "drop_edge_gcn": dict(spmm_heads=16), "sparse_node_features": dict(csr_spmm=2, spmm_heads=2),
+    "gae": dict(spmm_heads=4), "dgi": dict(spmm_heads=2),
+    "device_sampling": dict(fixed_k_draw=2, fixed_k_forward=2),
+    "graph_sage": {}, "graph_sage_func": {}, "hetero_rgcn": {},
+    "asap": dict(spmm_heads=4), "set2set": dict(spmm_heads=4), "topk_pool": dict(spmm_heads=4)}
+
+
+@contextlib.contextmanager
+def demo_env():
+    """``DEMO_ENV`` set for the block (``load_cora`` reads hard Pubmed)."""
+    import os
+    saved = {k: os.environ.get(k) for k in DEMO_ENV}
+    os.environ.update(DEMO_ENV)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _demo_module(name):
+    import importlib
+    return importlib.import_module(f"tf_geometric_tpu_torch.demos.demo_{name}")
+
+
+def demo_twin_data(name, device="cuda", cache=None):
+    """Twin ``name``'s data as its ``main`` loads it, on ``device``,
+    memoized in ``cache`` by loader: ``load_cora``'s ``(graph, splits)``,
+    the GAE's problem, the GraphSAGE twins' graph lists, the hetero twin's
+    ``(hetero_graph, problem)``, or a graph twin's check batch ``(args, y,
+    in_features, num_classes, batch)`` (the first padded batch of the
+    default set's 90/10 split)."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch.demos import demo_utils
+    cache = {} if cache is None else cache
+    key = {"gae": "gae", "graph_sage": "sage", "graph_sage_func": "sage",
+           "hetero_rgcn": "hetero"}.get(name, "graphs" if name in DEMO_GRAPH_TWINS else "cora")
+    if key == "graphs":
+        key = f"graphs {name}"
+    if key in cache:
+        return cache[key]
+    module = _demo_module(name)
+    if key == "cora":
+        data = demo_utils.load_cora(device=device)
+    elif key == "gae":
+        data = module.load_problem(device)
+    elif key == "sage":
+        data = module.load_graphs()
+    elif key == "hetero":
+        hg, target, splits = module.load_data()
+        data = hg, module.HeteroProblem(hg, target, splits, device)
+    else:
+        graphs, num_classes = demo_utils.load_graph_classification_data("NCI1")
+        train, _ = demo_utils.train_test_split(graphs, test_size=0.1, random_state=0)
+        batch_size = getattr(module, "BATCH_SIZE", 32)
+        batch, real = next(demo_utils.padded_batch_generator(train, batch_size, seed=0))
+        args = tuple(torch.as_tensor(np.asarray(a), device=device) for a in (
+            batch.x, batch.edge_index, batch.edge_weight, batch.node_graph_index))
+        y = torch.as_tensor(np.asarray(batch.y).flatten()[:real], device=device).long()
+        data = args, y, graphs[0].x.shape[1], num_classes, batch_size
+    cache[key] = data
+    return data
+
+
+def demo_twin_runner(name, data, device="cuda"):
+    """Twin ``name``'s model on ``data`` (``demo_twin_data``), built from
+    seed 0 as its ``main`` builds it: ``(step(generator) -> loss,
+    evaluate())``, one Adam step of the demo's training (the generator
+    drawing its dropout, permutation or neighbours) and one evaluation
+    forward."""
+    import torch
+    import torch.nn.functional as F
+    from tf_geometric_tpu_torch.demos import demo_utils
+    m = _demo_module(name)
+    if name in ("sgc", "appnp", "ssgc", "tagcn", "chebynet", "drop_edge_gcn",
+                "sparse_node_features"):
+        graph, splits = data
+        model, forward = m.build_model(graph, int(graph.y.max()) + 1, device=device)
+        opt = torch.optim.Adam(model.parameters(), lr=getattr(m, "LEARNING_RATE", 1e-2))
+        y, l2 = graph.y.long(), getattr(m, "L2_COEF", 5e-4)
+
+        def evaluate():
+            model.eval()
+            with torch.no_grad():
+                return forward(False, None)
+        return (lambda gen: demo_utils.train_step(model, opt, forward, y, splits[0], l2, gen),
+                evaluate)
+    if name == "gae":
+        model, opt = m.build_model(data)
+        steps = iter(range(1 << 30))
+
+        def evaluate():
+            model.eval()
+            with torch.no_grad():
+                return model(data.x, data.edge_index, data.edge_weight)
+        return lambda gen: m.train_step(model, opt, data, next(steps)), evaluate
+    if name == "dgi":
+        graph, _ = data
+        model, opt = m.build_model(graph.num_features, 0, device)
+        return (lambda gen: m.train_step(model, opt, graph, gen),
+                lambda: m.embed(model, graph))
+    if name == "device_sampling":
+        graph, splits = data
+        sampler, p, opt = m.build(graph, 0, device)
+        mask = torch.zeros(graph.num_nodes, device=device)
+        mask[splits[0]] = 1.0
+        return (lambda gen: m.train_step(p, opt, sampler, graph, mask, gen),
+                lambda: m.predict(p, sampler, graph.x))
+    if name in ("graph_sage", "graph_sage_func"):
+        import numpy as np
+        train, _, test = data
+        m.attach_samplers(train + test)
+        c = np.asarray(train[0].y).shape[1]
+        f = np.asarray(train[0].x).shape[1]
+        tensors = [tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                         for a in (g.x, g.y)) for g in train + test]
+        if name == "graph_sage":
+            net = m.SageNet(f, c, device=device)
+            params, run = net, net
+        else:
+            params = m.SageParams(f, c, device=device)
+            run = (lambda x, edges: m.forward(params, x, edges))
+        opt = torch.optim.Adam(params.parameters(), lr=m.LEARNING_RATE)
+        order = iter(range(1 << 30))
+
+        def step(gen):
+            i = next(order) % len(train)
+            params.train()
+            opt.zero_grad(set_to_none=True)
+            x, y = tensors[i]
+            loss = F.binary_cross_entropy_with_logits(run(x, m.sample_edges(train[i], device)), y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        def evaluate():
+            params.eval()
+            with torch.no_grad():
+                return run(tensors[len(train)][0], m.sample_edges(test[0], device))
+        return step, evaluate
+    if name == "hetero_rgcn":
+        hg, problem = data
+        p = m.HeteroParams(hg, problem.num_classes, device=device)
+        opt = torch.optim.Adam(p.parameters(), lr=m.LEARNING_RATE)
+
+        def evaluate():
+            with torch.no_grad():
+                return m.forward(p, problem)
+        return lambda gen: m.train_step(p, opt, problem), evaluate
+    args, y, in_features, num_classes, batch_size = data
+    model_cls = {"asap": "ASAPModel", "set2set": "Set2SetModel", "topk_pool": "TopKPoolModel"}
+    net = getattr(m, model_cls[name])(in_features, num_classes, batch_size, device=device)
+    opt = torch.optim.Adam(net.parameters(), lr=5e-3)
+
+    def step(gen):
+        net.train()
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(net(*args)[:y.shape[0]], y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def evaluate():
+        net.eval()
+        with torch.no_grad():
+            return net(*args)
+    return step, evaluate
+
+
+@contextlib.contextmanager
+def _demo_loaders(name, data):
+    """The twin's loader answering with ``data`` (already loaded and on the
+    card) for the block, so its ``main`` times no data generation: the
+    ``load_cora`` twins' and the GAE's; the other twins load their small
+    synthetic sets themselves."""
+    from tf_geometric_tpu_torch.demos import demo_utils
+    module = _demo_module(name)
+    swaps = []
+    if name == "gae":
+        swaps.append((module, "load_problem", lambda device="cuda": data))
+    elif name not in DEMO_GRAPH_TWINS and name not in ("graph_sage", "graph_sage_func",
+                                                        "hetero_rgcn"):
+        swaps += [(demo_utils, "load_cora", lambda device="cuda": data)]
+        if hasattr(module, "load_cora"):
+            swaps.append((module, "load_cora", lambda device="cuda": data))
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in swaps]
+    for obj, attr, value in swaps:
+        setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+
+
+def _demo_check(name, data):
+    """``_h2h_kernel_vs_plain`` on twin ``name`` (each side built from seed
+    0, a generator seeded alike: the same weights, keep masks, DropEdge
+    masks, permutations and draw integers; the host draws and the models'
+    own dropout generators restart alike), then exact launches in one
+    evaluation after a step. Returns the largest loss difference."""
+    import torch
+    err = _h2h_kernel_vs_plain(f"demo {name}", lambda: (demo_twin_runner(name, data), None),
+                               lambda runner, _, gen: runner[0](gen), DEMO_STEP_LAUNCHES[name])
+    step, evaluate = demo_twin_runner(name, data)
+    step(torch.Generator(device="cuda").manual_seed(21))
+    _zero_launch_counts()
+    evaluate()
+    torch.cuda.synchronize()
+    want = dict.fromkeys(_KERNELS, 0)
+    want.update(DEMO_EVAL_LAUNCHES[name])
+    got = dict(zip(_KERNELS, _launch_counts()))
+    _check(got == want, f"demo {name}: launches an evaluation {got} != {want}")
+    return err
+
+
+def _demo_profile(name, data):
+    """The card's busy time and idle share over ``DEMO_PROFILE_STEPS``
+    profiled training steps of twin ``name``, and its top device ops
+    (``_profile_steps``)."""
+    import torch
+    step, _ = demo_twin_runner(name, data)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    return _profile_steps(lambda: step(gen), DEMO_PROFILE_STEPS)
+
+
+def _demo_run(name, data, gpu):
+    """Twin ``name``'s ``main`` at the demo's own step count on the card,
+    its loader answering with ``data`` (``_demo_loaders``): the metric, ms a
+    step over the loop (CUDA events, its evaluations included), exact
+    launches (``DEMO_STEP_LAUNCHES`` a step, ``DEMO_EVAL_LAUNCHES`` an
+    evaluation forward); then ``DEMO_TIMED_STEPS`` training steps alone
+    (events) and, for ``DEMO_PROFILED``, the profile."""
+    import torch
+    module, stats = _demo_module(name), {}
+    with _demo_loaders(name, data):
+        _zero_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metric = module.main(device="cuda", stats=stats)
+        end.record()
+        end.synchronize()
+    counts = dict(zip(_KERNELS, _launch_counts()))
+    steps, evals = stats["steps"], stats["evals"]
+    want = dict.fromkeys(_KERNELS, 0)
+    for launches, times in ((DEMO_STEP_LAUNCHES[name], steps), (DEMO_EVAL_LAUNCHES[name], evals)):
+        for k, v in launches.items():
+            want[k] += v * times
+    _check(counts == want, f"demo {name} run: launches {counts} != {want}")
+    losses = torch.stack(stats["losses"]).tolist()
+    _check(all(math.isfinite(v) for v in losses), f"demo {name}: non-finite loss")
+    _check(math.isfinite(metric), f"demo {name}: metric {metric}")
+    step, _ = demo_twin_runner(name, data)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = dict(metric=float(metric), steps=steps, evals=evals, launches=counts,
+               loop_ms_per_step=start.elapsed_time(end) / steps,
+               step_ms=_cuda_ms(lambda: step(gen), iters=DEMO_TIMED_STEPS, warmup=2),
+               first_loss=losses[0], last_loss=losses[-1])
+    if "latency_ms" in stats:
+        out["latency_ms"] = stats["latency_ms"]
+    if name in DEMO_PROFILED:
+        out["profile"] = _demo_profile(name, data)
+    return out
+
+
+def _x6_case_rows(label, index, value, n, cases, gen, gpu):
+    """The COO SpMM (X6) on the matrix ``(index, value)`` [n, n] at each
+    ``(case, direction, width, operand)`` (direction "fwd": the forward
+    product, "bwd": ``dh``, the transposed view; operand None: a random one),
+    float32, against its plain version and ``torch.sparse.mm`` (1e-4) and a
+    second run (bit for bit), timed by events and device time beside the
+    byte bound and the library call. Returns the rows."""
+    import torch
+    from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    w = value.float()[:, None].contiguous()
+    views = {"fwd": sh.build_csr_view(index[0], index[1], n, n),
+             "bwd": sh.build_csr_view(index[1], index[0], n, n)}
+    nnz = int(views["fwd"].row_ptr[-1])
+    libs = {d: _x6_library(v, w[:, 0], n, n) for d, v in views.items()}
+    build_ms = _cuda_ms(lambda: sh.build_csr_view(index[0], index[1], n, n), iters=5, warmup=1)
+    print(f"{label}: {n} rows, {index.shape[1]} edges, {nnz} stored entries; one view's build "
+          f"(the stable sort, every call) {build_ms:.4f} ms (events) on {gpu}; "
+          f"{_view_walk_line(views['fwd'])}", flush=True)
+    rows = []
+    for case, direction, width, operand in cases:
+        arg = (torch.randn(n, width, generator=gen, device="cuda") if operand is None
+               else operand.float().contiguous())
+        view, lib = views[direction], libs[direction]
+        tag = f"spmm_heads {label} {case} F={width}"
+        kernel = (lambda v=view, a=arg: sh.launch_spmm_heads(v, w, a, 1))
+        plain = (lambda v=view, a=arg: sh.spmm_heads_plain(v, w, a, 1))
+        library = (lambda m=lib, a=arg: torch.sparse.mm(m, a))
+        got = kernel()
+        err = _max_err(got, plain(), F32_TOL, tag)
+        _check(torch.equal(got, kernel()), f"{tag}: two runs on the same inputs differ")
+        err = max(err, _max_err(got, library(), F32_TOL, f"{tag} vs the library call"))
+        bound_ms, bound_by = _bound(sh.spmm_pass_bytes(nnz, n, n, width, 1, 4, 4),
+                                    sh.pass_flops(nnz, width))
+        rows.append(dict(name="spmm_heads", case=f"{label} {case}", width=width,
+                         dtype="float32", heads=1, max_abs_err=err, ms=_cuda_ms(kernel),
+                         plain_ms=_cuda_ms(plain, iters=3, warmup=1),
+                         library_ms=_cuda_ms(library), bound_ms=bound_ms, bound_by=bound_by,
+                         device_ms=_device_ms(kernel), library_device_ms=_device_ms(library),
+                         view_build_ms=build_ms))
+    for r in rows:
+        print(f"  {r['case']} F={r['width']}: {r['max_abs_err']:.3e}, {r['ms']:.4f}, "
+              f"{r['plain_ms']:.4f}, {r['library_ms']:.4f}, {r['bound_ms']:.4f} "
+              f"({r['bound_by']}){_device_note(r)}", flush=True)
+    return rows
+
+
+def demo_kernel_rows(cache, gpu):
+    """Each kernel at the shapes the twins give it on hard Pubmed: X6 at the
+    DropEdge GCN's F = 128 (forward and ``dh``) on a dropped graph (rate
+    0.5, the dropped edges at the sink row, normalized as the layers do)
+    with its view build timed on its own line; X6 at ChebyNet's F = 500 on
+    the scaled Laplacian (forward: the input is data); ``eye @ w0`` at
+    F = 32 (forward and ``dh``); Kernel A at TAGCN's F = 500 on the
+    ``renorm=False`` cache (forward) and at F = 16 (both sides); the draw
+    (X8) and S1 at the sampling twin's k = 10 and 5, F = 32."""
+    import torch
+    from tf_geometric_tpu_torch.nn.conv.chebynet import chebynet_cache_normed_edge
+    from tf_geometric_tpu_torch.nn.conv.chebynet import compute_cache_key as cheby_key
+    from tf_geometric_tpu_torch.nn.conv.gcn import (compute_cache_key, gcn_norm_adj,
+                                                    maybe_compile_ell)
+    from tf_geometric_tpu_torch.nn.sampling.device_sampler import (DeviceNeighborSampler,
+                                                                   _random_ints)
+    from tf_geometric_tpu_torch.nn.sampling.drop_edge import drop_edge
+    from tf_geometric_tpu_torch.ops import fixed_k as fk
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    graph, _ = cache["cora"]
+    n = graph.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    print(f"demo kernel rows (case F: max_abs_err, ms, plain_ms, library_ms, bound_ms; device "
+          f"ms under the profiler) on {gpu}", flush=True)
+    ei, ew = drop_edge([graph.edge_index, graph.edge_weight], rate=0.5, training=True,
+                       generator=gen, num_nodes=n)
+    normed = gcn_norm_adj(SparseMatrix(ei, ew, (n, n)))
+    rows = _x6_case_rows("drop_edge", normed.index, normed.value, n,
+                         [("forward", "fwd", 128, None), ("dh", "bwd", 128, None)], gen, gpu)
+    chebynet_cache_normed_edge(graph, device="cuda")
+    # TAGCN's cache and CSR (built by the TAGCN twin's first call, or here)
+    maybe_compile_ell(gcn_norm_adj(graph.adj(device="cuda"), renorm=False, cache=graph.cache),
+                      graph.cache, compute_cache_key("both", True, True, False, False))
+    lap_index, lap_weight = graph.cache[cheby_key("sym", False)]
+    rows += _x6_case_rows("chebynet", lap_index, lap_weight, n,
+                          [("forward", "fwd", graph.num_features, graph.x)], gen, gpu)
+    eye = torch.arange(n, device="cuda")
+    rows += _x6_case_rows("eye", torch.stack([eye, eye]), torch.ones(n, device="cuda"), n,
+                          [("forward", "fwd", 32, None), ("dh", "bwd", 32, None)], gen, gpu)
+    rows += _normed_csr_rows("demo tagcn", graph, [("fwd", graph.num_features), ("fwd", 16),
+                                                   ("bwd", 16)], gen, gpu, renorm=False)
+    sampler = DeviceNeighborSampler(graph.edge_index, graph.edge_weight, num_nodes=n)
+    csr = sampler.csr()
+    nnz = int(sampler.sorted_col.shape[0])
+    draw_rows = []
+    for k in (10, 5):
+        r = _random_ints(gen, k, n, "cuda")
+        args = (r, csr["row_start"], csr["degree"], csr["sorted_col"], csr["sorted_weight"])
+        idx, w = fk.launch_draw_fixed_k(*args)
+        idx_p, w_p = fk.draw_fixed_k_plain(*args)
+        _check(torch.equal(idx, idx_p) and torch.equal(w, w_p),
+               f"fixed_k draw k={k} on pubmed differs from plain")
+        nbytes = fk.draw_pass_bytes(k, n, nnz, csr["sorted_weight"] is not None)
+        draw_rows.append(dict(name="fixed_k_draw", k=k, weighted=False, max_abs_err=0.0,
+                              ms=_cuda_ms(lambda: fk.launch_draw_fixed_k(*args)),
+                              device_ms=_device_ms(lambda: fk.launch_draw_fixed_k(*args)),
+                              plain_ms=_cuda_ms(lambda: fk.draw_fixed_k_plain(*args), iters=3,
+                                                warmup=1),
+                              library_ms=None, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                              bound_by="bytes", graph="pubmed"))
+        draw_rows += _s1_rows(fk, n, k, 32, torch.float32, idx, w, gen, f"pubmed k={k} F=32",
+                              "pubmed")
+    _print_s1_rows(draw_rows)
+    return rows + draw_rows
+
+
+def demo_twins_phase(gpu):
+    """Phase 21: the sixteen demo twins of ``tf_geometric_tpu_torch/demos``
+    added beside phase 19's, on hard Pubmed (``DEMO_ENV``: the
+    ``load_cora`` twins), the GraphSAGE twins' synthetic graphs, the
+    hetero twin's academic graph and the demos' default graph set. For each
+    twin: ``_demo_check`` (kernel against plain, exact launches), then
+    ``_demo_run`` (its ``main`` at the demo's own step count: metric, ms a
+    step, exact launches; the profile for ``DEMO_PROFILED``). Then
+    ``demo_kernel_rows``. Returns the rows, the launches over the full runs
+    by kernel and the runs."""
+    import torch
+    out = {"rows": [], "launches": dict.fromkeys(_KERNELS, 0), "runs": {}}
+    cache = {}
+    with demo_env():
+        t0 = time.perf_counter()
+        graph, splits = demo_twin_data("sgc", "cuda", cache)
+        print(f"demo twins: hard pubmed built in {time.perf_counter() - t0:.1f} s: "
+              f"{graph.num_nodes} nodes, {graph.num_features} features, "
+              f"{int(graph.y.max()) + 1} classes, {graph.edge_index.shape[1]} edges; splits "
+              f"{[int(s.shape[0]) for s in splits]}", flush=True)
+        for name in DEMO_TWINS:
+            t0 = time.perf_counter()
+            data = demo_twin_data(name, "cuda", cache)
+            err = _demo_check(name, data)
+            run = _demo_run(name, data, gpu)
+            run["check_err"] = err
+            for k, v in run["launches"].items():
+                out["launches"][k] += v
+            out["runs"][name] = run
+            extra = (f"; forward latency {run['latency_ms']:.4f} ms (events)"
+                     if "latency_ms" in run else "")
+            prof = run.get("profile")
+            if prof:
+                extra += (f"; profiled step: device busy {prof['busy_ms']:.4f} ms of "
+                          f"{prof['span_ms']:.4f} ms, idle share {prof['idle_share']:.4f}, "
+                          f"{prof['kernels_a_step']:.0f} kernels a step")
+            print(f"demo {name}: metric {run['metric']:.4f}, {run['steps']} steps, "
+                  f"{run['loop_ms_per_step']:.4f} ms/step over main's loop ({run['evals']} "
+                  f"evaluation forwards included), a training step alone "
+                  f"{run['step_ms']:.4f} ms (events, {DEMO_TIMED_STEPS} steps), loss "
+                  f"{run['first_loss']:.4f} -> {run['last_loss']:.4f}, launches "
+                  f"{ {k: v for k, v in run['launches'].items() if v} }{extra} "
+                  f"({time.perf_counter() - t0:.1f} s) on {gpu}", flush=True)
+            if prof:
+                print(json.dumps({f"demo_{name}_top": prof["top"]}), flush=True)
+        out["rows"] = demo_kernel_rows(cache, gpu)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def demo_kernel_entries(res):
+    """The ``{"kernels"}`` entries of the phase-21 path: Kernel A at
+    TAGCN's F = 500 (forward), X6 at the DropEdge GCN's F = 128 forward, the
+    draw and S1 at the sampling twin's k = 10, F = 32; launches over the
+    twins' full runs."""
+    widest = max(r["width"] for r in res["rows"] if r["name"] == "csr_spmm")
+    picks = (("csr_spmm", dict(side="fwd", width=widest), "tf_geometric_tpu_torch/csrc/csr_spmm.cu",
+              "tf_geometric_tpu/ops/ell_bucketed.py:214",
+              f"TAGCN twin on hard Pubmed, first layer's hops: forward F={widest}, float32"),
+             ("spmm_heads", dict(case="drop_edge forward", width=128),
+              "tf_geometric_tpu_torch/csrc/spmm_heads.cu", "tf_geometric_tpu/ops/spmm.py:67",
+              "DropEdge GCN twin on a dropped hard Pubmed: forward F=128, float32"),
+             ("fixed_k_draw", dict(k=10), "tf_geometric_tpu_torch/csrc/fixed_k.cu",
+              "tf_geometric_tpu/nn/sampling/device_sampler.py:33",
+              "device-sampling twin on hard Pubmed: k=10, no weight table"),
+             ("fixed_k_forward", dict(k=10), "tf_geometric_tpu_torch/csrc/fixed_k.cu",
+              "tf_geometric_tpu/nn/conv/graph_sage.py:67",
+              "device-sampling twin on hard Pubmed: k=10, F=32, float32"),
+             ("fixed_k_backward", dict(k=10), "tf_geometric_tpu_torch/csrc/fixed_k.cu",
+              "tf_geometric_tpu/nn/conv/graph_sage.py:67",
+              "device-sampling twin on hard Pubmed: k=10, F=32, float32"))
+    entries = []
+    for name, key, source, replaces, shape in picks:
+        rows = [r for r in res["rows"] if r["name"] == name]
+        rep = next(r for r in rows if all(r.get(k) == v for k, v in key.items()))
+        launches = res["launches"][name]
+        _check(launches > 0, f"{name} was not launched on the demo twins' path")
+        entries.append({
+            "name": f"demo:{name}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": shape + "; launches over phase 21's full runs"})
     return entries
 
 
@@ -4244,12 +4735,13 @@ def main():
     gae = bench.build_gae_problem(device="cuda")
     print(f"gae problem built in {time.perf_counter() - t0:.1f} s (split and test negatives on "
           f"the host)", flush=True)
-    gae_rows = _phase("gae kernels", gae_kernel_phase, gae)
+    gae_rows = _phase("gae kernels", gae_kernel_phase, gae, gpu)
     gae_launches = _phase("gae", gae_phase, gae, gpu)
     del gae
     torch.cuda.empty_cache()
     planetoid = _phase("planetoid demos", planetoid_phase, gpu)
     h2h = _phase("head-to-head twins", head_to_head_phase, gpu)
+    demo = _phase("demo twins", demo_twins_phase, gpu)
     t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
@@ -4369,6 +4861,7 @@ def main():
     kernels.append(gae_kernel_entry(gae_rows, gae_launches))
     kernels += planetoid_kernel_entries(planetoid)
     kernels += head_to_head_kernel_entries(h2h)
+    kernels += demo_kernel_entries(demo)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

@@ -84,6 +84,28 @@ def test_read_results_matches_the_jax_harness(tmp_path):
         assert h2h.read_results(path) == [float(v) for v in f.read().split()]
 
 
+def test_jax_results_continue_from_the_extra_seeds_only_past_the_committed_list():
+    """appnp_pubmed: JAX's 10 committed seeds, then its seeds 10-39 from
+    ``jax_extra_seeds`` (a header, then one accuracy a line) where 40 are
+    asked for; the committed list alone otherwise."""
+    committed = h2h.jax_results("appnp_pubmed")
+    assert len(committed) == 10
+    assert h2h.jax_results("appnp_pubmed", 10) == committed
+    assert h2h.jax_results("appnp_pubmed", 5) == committed
+    extra = h2h.read_results(h2h.JAX_EXTRA_DIR / "results_appnp_pubmed_hard.txt")
+    assert len(extra) == 30
+    assert h2h.jax_results("appnp_pubmed", 40) == committed + extra
+    assert h2h.jax_results("appnp_pubmed", 12) == committed + extra[:2]
+    # a cell without extra seeds keeps its committed list
+    assert h2h.jax_results("gcn_cora", 40) == h2h.jax_results("gcn_cora")
+
+
+def test_read_results_skips_a_header(tmp_path):
+    path = tmp_path / "r.txt"
+    path.write_text("# made by\n#   a command\n0.5\n\n0.25\n")
+    assert h2h.read_results(path) == [0.5, 0.25]
+
+
 @pytest.mark.parametrize("cell", h2h.CELLS)
 def test_jax_results_files_are_the_committed_repo_lists(cell):
     src = JAX_NODE / ("head_to_head_arxiv.json" if cell.endswith("arxiv")
@@ -101,6 +123,7 @@ def _committed(path):
 
 def _check_entry(entry, jax, flat):
     assert entry["jax"] == jax
+    assert entry.get("jax_seeds", len(jax)) == len(jax)
     assert len(entry["port"]) >= len(jax)
     g = h2h.gate(entry["jax"], entry["port"], flat=flat)
     assert entry["port_mean"] == pytest.approx(float(np.mean(entry["port"])))
@@ -118,7 +141,9 @@ def _check_entry(entry, jax, flat):
 def test_committed_node_cell_passes_the_gate_on_the_card(cell):
     out = _committed(h2h.OUT_PATH)
     assert set(out) == set(h2h.CELLS)
-    _check_entry(out[cell], h2h.jax_results(cell), h2h.FLAT_TOL)
+    # JAX's list as long as the port's where JAX's later seeds are committed
+    # beside the harness (jax_extra_seeds/), as the harness reads it
+    _check_entry(out[cell], h2h.jax_results(cell, len(out[cell]["port"])), h2h.FLAT_TOL)
 
 
 @pytest.mark.parametrize("model", gh2h.MODELS)

@@ -295,7 +295,8 @@ __all__ = ["ArxivProblem", "SageProblem", "GraphBatchProblem", "build_problem",
            "run_mincut_workload", "MINCUT_WORKLOAD", "HostSageProblem",
            "build_host_sage_problem", "init_host_sage_params", "host_sage_draws",
            "host_sage_loss", "host_sage_rates", "host_sage_step_bytes", "HOST_SAGE_WORKLOAD",
-           "GaeEncoder", "GaeProblem", "build_gae_problem", "init_gae_model", "gae_negatives",
+           "GaeEncoder", "GaeProblem", "build_gae_problem", "gae_problem", "init_gae_model",
+           "gae_negatives",
            "gae_loss", "gae_test_auc", "predict_edge", "main"]
 
 NUM_CLASSES, HIDDEN = 40, 256
@@ -1101,13 +1102,21 @@ def build_gae_problem(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES
     negatives ``negative_sampling(S, N, edge_index=graph, replace=False,
     rng=0)``, and the train split made directed for the encoder."""
     graph = synthetic_ogbn_arxiv_like(num_nodes, num_edges)
-    n = graph.num_nodes
-    train_index, test_index, _, _ = edge_train_test_split(graph.edge_index, GAE_TEST_SIZE,
+    return gae_problem(graph.x, graph.edge_index, device)
+
+
+def gae_problem(x, edge_index, device="cuda") -> GaeProblem:
+    """``demo_gae.py``'s set-up on a graph given by its host arrays (``x``
+    [N, F], ``edge_index`` [2, E], numpy): the split, the test negatives
+    and the directed train graph of ``build_gae_problem``."""
+    x, edge_index = np.asarray(x, np.float32), np.asarray(edge_index)
+    n = x.shape[0]
+    train_index, test_index, _, _ = edge_train_test_split(edge_index, GAE_TEST_SIZE,
                                                           random_state=GAE_SEED)
-    test_neg = negative_sampling(test_index.shape[1], n, edge_index=graph.edge_index,
+    test_neg = negative_sampling(test_index.shape[1], n, edge_index=edge_index,
                                  replace=False, rng=GAE_SEED)
-    train_graph = Graph(x=graph.x, edge_index=train_index).to_directed()
-    return GaeProblem(torch.as_tensor(graph.x, device=device),
+    train_graph = Graph(x=x, edge_index=train_index).to_directed()
+    return GaeProblem(torch.as_tensor(x, device=device),
                       torch.as_tensor(train_graph.edge_index, device=device),
                       torch.as_tensor(train_graph.edge_weight, device=device), train_index,
                       torch.as_tensor(train_index, device=device), test_index, test_neg,

@@ -11,7 +11,11 @@ shape otherwise, as the JAX harness keys it), for seeds 0..n-1 in this one
 process. The JAX side is not rerun: its per-seed results are read, as data,
 from ``benchmarks/node_classification/results_<cell>_hard.txt`` (the repo's
 committed runs of the JAX scripts on the same sets). n defaults to that
-file's seed count.
+file's seed count. Where the port ran more seeds than that file holds, JAX's
+list continues from ``jax_extra_seeds/results_<cell>_hard.txt`` beside this
+file (the unchanged JAX script's later seeds, run under the JAX harness's
+environment; the command is in the file's header), so both sides count the
+same seeds; each entry records ``jax_seeds``.
 
 Output: ``head_to_head_port.json`` beside this file, per cell ``jax``,
 ``port``, both means and stds, ``delta``, the gate's bounds and verdict,
@@ -20,6 +24,8 @@ them). A rerun resumes from the seeds already in the file.
 
     python -m tf_geometric_tpu_torch.benchmarks.node_classification.head_to_head_port \
         [num_seeds] [cell ...] [--device cuda|cpu] [--out PATH]
+    python -m tf_geometric_tpu_torch.benchmarks.node_classification.head_to_head_port \
+        --regate [cell ...]        # re-gate the file's entries, running nothing
 
 ``gate(jax, port)`` holds the port's mean to
 ``jax_mean - max(0.02, 2·SEM) <= port_mean <= jax_mean + max(0.02, 3·SEM)``
@@ -39,29 +45,43 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["MODELS", "SHAPES", "CELLS", "JAX_RESULTS_DIR", "OUT_PATH", "FLAT_TOL",
-           "COLLAPSE", "read_results", "jax_results", "gate", "card_label", "cell_data", "twin",
-           "load_json", "result_entry", "run_harness", "parse_command_line", "main"]
+__all__ = ["MODELS", "SHAPES", "CELLS", "JAX_RESULTS_DIR", "JAX_EXTRA_DIR", "OUT_PATH",
+           "FLAT_TOL", "COLLAPSE", "read_results", "jax_results", "gate", "card_label",
+           "cell_data", "twin", "load_json", "result_entry", "run_harness", "regate",
+           "parse_command_line", "main"]
 
 MODELS = ("gcn", "gat", "appnp", "sgc", "ssgc")
 SHAPES = ("cora", "citeseer", "pubmed")
 CELLS = tuple(f"{m}_{s}" for s in SHAPES for m in MODELS) + ("gcn_arxiv", "sgc_arxiv")
 JAX_RESULTS_DIR = Path(__file__).resolve().parents[3] / "benchmarks" / "node_classification"
 OUT_PATH = Path(__file__).resolve().parent / "head_to_head_port.json"
+JAX_EXTRA_DIR = Path(__file__).resolve().parent / "jax_extra_seeds"
 FLAT_TOL = 0.02
 COLLAPSE = 0.35
 
 
 def read_results(path) -> list:
     """The accuracies of a results file, one float a line (blank lines
-    skipped), as the JAX harness reads them."""
+    skipped), as the JAX harness reads them; lines starting with ``#`` (a
+    header) are skipped."""
     with open(path, encoding="utf-8") as f:
-        return [float(v) for v in f.read().split()]
+        return [float(v) for line in f if not line.lstrip().startswith("#")
+                for v in line.split()]
 
 
-def jax_results(cell: str) -> list:
-    """JAX's committed per-seed test@best of ``cell``."""
-    return read_results(JAX_RESULTS_DIR / f"results_{cell}_hard.txt")
+def jax_results(cell: str, num_seeds: Optional[int] = None) -> list:
+    """JAX's committed per-seed test@best of ``cell``; where ``num_seeds``
+    is more than that file holds, continued from JAX's later seeds in
+    ``JAX_EXTRA_DIR`` (where there is such a file), up to ``num_seeds``."""
+    accs = read_results(JAX_RESULTS_DIR / f"results_{cell}_hard.txt")
+    extra = JAX_EXTRA_DIR / f"results_{cell}_hard.txt"
+    if num_seeds is not None and num_seeds > len(accs) and extra.exists():
+        accs = (accs + read_results(extra))[:num_seeds]
+    return accs
+
+
+def _port_seeds(out: dict, cell: str) -> int:
+    return len(out.get(cell, {}).get("port", []))
 
 
 def gate(jax: Sequence[float], port: Sequence[float], flat: float = FLAT_TOL) -> dict:
@@ -140,7 +160,7 @@ def result_entry(jax, port, device, card, seconds, flat: float = FLAT_TOL) -> di
     return {"jax": list(jax), "port": list(port),
             "jax_mean": g["jax_mean"], "jax_std": float(np.std(jax)),
             "port_mean": g["port_mean"], "port_std": float(np.std(port)),
-            "delta": g["port_mean"] - g["jax_mean"], "sem": g["sem"],
+            "delta": g["port_mean"] - g["jax_mean"], "sem": g["sem"], "jax_seeds": len(jax),
             "tolerance": {"lower": g["lower"], "upper": g["upper"], "flat": flat,
                           "collapse": COLLAPSE},
             "gate_ok": g["ok"], "device": str(device).split(":")[0], "card": card,
@@ -195,13 +215,36 @@ def main(num_seeds: Optional[int] = None, cells: Optional[Sequence[str]] = None,
     if unknown:
         raise ValueError(f"unknown cells {unknown}; cells are {CELLS}")
     data_cache: dict = {}
+    prev = load_json(Path(out_path))
+
+    def jax_of(cell):
+        return jax_results(cell, max(num_seeds or 0, _port_seeds(prev, cell)))
 
     def run_seed(cell, seed):
         model, shape = cell.rsplit("_", 1)
         return twin(model).run(seed, device=device, dataset=shape,
                                data=cell_data(model, shape, device, data_cache))
 
-    return run_harness(cells, jax_results, run_seed, num_seeds, device, out_path)
+    return run_harness(cells, jax_of, run_seed, num_seeds, device, out_path)
+
+
+def regate(cells: Optional[Sequence[str]] = None, out_path: Path = OUT_PATH) -> Dict[str, dict]:
+    """Each named cell's entry of ``out_path`` (default: all) recomputed
+    from its port seeds against JAX's list of as many seeds
+    (``jax_results``), its device, card and seconds kept; runs nothing and
+    writes the file back."""
+    out = load_json(Path(out_path))
+    for cell in cells or list(out):
+        e = out[cell]
+        out[cell] = result_entry(jax_results(cell, _port_seeds(out, cell)), e["port"],
+                                 e["device"], e["card"], e["seconds_per_seed"],
+                                 e["tolerance"]["flat"])
+        g = out[cell]
+        print(f"{cell}: jax {g['jax_mean']:.4f} (n={g['jax_seeds']}) port {g['port_mean']:.4f} "
+              f"(n={len(g['port'])}) {'ok' if g['gate_ok'] else 'FAILS'}", flush=True)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def parse_command_line(argv, out_path: Path = OUT_PATH):
@@ -221,6 +264,12 @@ def parse_command_line(argv, out_path: Path = OUT_PATH):
 
 
 if __name__ == "__main__":
+    if "--regate" in sys.argv[1:]:
+        args = [a for a in sys.argv[1:] if a != "--regate"]
+        _, only, opts = parse_command_line(args)
+        res = regate(only, opts["out_path"])
+        sys.exit(0 if all(e["gate_ok"] for c, e in res.items()
+                          if only is None or c in only) else 1)
     n, only, opts = parse_command_line(sys.argv[1:])
     res = main(n, only, **opts)
     sys.exit(0 if all(e["gate_ok"] for c, e in res.items() if only is None or c in only) else 1)

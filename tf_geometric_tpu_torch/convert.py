@@ -15,6 +15,10 @@ __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dic
            "sharded_params_from_numpy", "sampled_sage_params_from_jax",
            "propagation_state_dict_from_flax", "pool_model_state_dict_from_flax",
            "lstm_cell_state_dict_from_flax", "lstm_cell_state_dict_from_keras",
+           "tagcn_model_state_dict_from_flax", "chebynet_state_dict_from_flax",
+           "dgi_state_dict_from_flax", "gae_encoder_state_dict_from_flax",
+           "topk_pool_model_state_dict_from_flax",
+           "numpy_params_state_dict",
            "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
@@ -132,13 +136,14 @@ def sage_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 def pool_model_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The params of the pooling demos' models (``demo/demo_diff_pool.py``,
     ``demo_min_cut_pool.py``, ``demo_sag_pool_h.py``, ``demo_asap.py``,
-    ``demo_set2set.py``) as a ``state_dict`` for the port's twin in
-    ``bench`` (``POOL_MODELS``), whose submodules carry the flax names: a
+    ``demo_set2set.py``; also ``demo_graph_sage.py``'s ``SageNet``) as a
+    ``state_dict`` for the port's twin in ``bench`` (``POOL_MODELS``) or
+    ``demos``, whose submodules carry the flax names: a
     ``Dense_i`` kernel [in, out] becomes a ``torch.nn.Linear`` weight [out,
     in]; a ``Set2Set``'s ``OptimizedLSTMCell_0`` its ``cell``
     (``lstm_cell_state_dict_from_flax``); every other leaf (GCN kernels and
-    biases, the pools' biases, ASAP's 12 tensors) keeps its name and
-    layout."""
+    biases, the pools' biases, ASAP's 12 tensors, the SAGE layers' kernels
+    and biases) keeps its name and layout."""
     out = {}
     for name, module in variables["params"].items():
         if name.startswith("Dense_"):
@@ -206,3 +211,52 @@ def sampled_sage_params_from_jax(params, device="cuda"):
     return sharded_params_from_numpy(
         [(layer["self"], layer["nb"], layer["bias"]) for layer in layers]
         + [(head["w"], head["b"])], device)
+
+
+def tagcn_model_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``demo/demo_tagcn.py``'s ``TAGCNModel`` params (``TAGCN_0`` and
+    ``TAGCN_1``, each ``kernel`` [(k + 1)·in, units] and ``bias``) as a
+    ``state_dict`` for ``demos.demo_tagcn.TAGCNModel``, whose layers carry
+    the same names and layouts."""
+    return _state_dict_from_flax(variables)
+
+
+def chebynet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``ChebyNet`` layer's params (``kernel_i`` [in, units] per
+    order, ``bias``) as a ``state_dict`` for the port's ``ChebyNet``."""
+    return _state_dict_from_flax(variables)
+
+
+def dgi_state_dict_from_flax(enc_params: Mapping, disc_params: Mapping
+                             ) -> Dict[str, torch.Tensor]:
+    """``demo/demo_dgi.py``'s encoder params (``GCN_0`` kernel and bias,
+    ``prelu_alpha`` [1]) and discriminator params (``bilinear`` [64, 64])
+    as a ``state_dict`` for ``demos.demo_dgi.DGIModel`` (``enc.*``,
+    ``disc.*``: the demo's own keys of its params dict)."""
+    return _flatten_params({"enc": enc_params, "disc": disc_params})
+
+
+def gae_encoder_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``demo/demo_gae.py``'s ``GAEEncoder`` params (``GCN_0``, ``GCN_1``)
+    as a ``state_dict`` for ``bench.GaeEncoder`` and the demo twin's
+    ``GAEEncoder`` (``gcn0``, ``gcn1``; kernels keep [in, units])."""
+    flat = _state_dict_from_flax(variables)
+    return {k.replace("GCN_0.", "gcn0.").replace("GCN_1.", "gcn1."): v for k, v in flat.items()}
+
+
+def topk_pool_model_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``demo/demo_topk_pool.py``'s ``TopKPoolModel`` params (``GCN_0``,
+    the score ``GCN_1``, ``Dense_0``) as a ``state_dict`` for
+    ``demos.demo_topk_pool.TopKPoolModel``: the ``Dense_0`` kernel [in, out]
+    becomes a ``torch.nn.Linear`` weight [out, in]
+    (``pool_model_state_dict_from_flax``'s rule)."""
+    return pool_model_state_dict_from_flax(variables)
+
+
+def numpy_params_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flat dict of arrays (the numpy-initialized demos' params: the
+    sparse-feature GCN's ``w0 b0 w1 b1``, the sampling demos' kernels, the
+    hetero demo's per-type and per-relation kernels) as float32 tensors
+    keyed ``prefix + name`` (``"params."`` for the hetero twin's
+    ``ParameterDict``)."""
+    return {prefix + k: torch.tensor(np.asarray(v, np.float32)) for k, v in params.items()}

@@ -1,7 +1,15 @@
 """Twins of the JAX package's demo scripts (``demo/``), runnable as
 ``python -m tf_geometric_tpu_torch.demos.<name>``: ``demo_utils`` (the
 loaders, the masked loss, the training loops, the graph-classification
-models' base), ``demo_gcn`` and ``demo_gat`` (node classification), and
-``demo_mean_pool``, ``demo_gin``, ``demo_sag_pool_h``, ``demo_sort_pool``,
-``demo_diff_pool``, ``demo_min_cut_pool`` (graph classification). Each
-``main`` runs on the card unless it is given ``device="cpu"``."""
+models' base); node classification: ``demo_gcn``, ``demo_gat``, the
+propagation family ``demo_sgc``, ``demo_appnp``, ``demo_ssgc``,
+``demo_tagcn``, ``demo_chebynet``, the GCN variants
+``demo_drop_edge_gcn`` and ``demo_sparse_node_features``; unsupervised
+and link prediction: ``demo_gae``, ``demo_dgi``; sampling:
+``demo_device_sampling`` (draws on the device), ``demo_graph_sage`` and
+``demo_graph_sage_func`` (host draws); heterogeneous graphs:
+``demo_hetero_rgcn``; graph classification: ``demo_mean_pool``,
+``demo_gin``, ``demo_sag_pool_h``, ``demo_sort_pool``, ``demo_diff_pool``,
+``demo_min_cut_pool``, ``demo_asap``, ``demo_set2set``,
+``demo_topk_pool``. Each ``main`` runs on the card unless it is given
+``device="cpu"`` (``--cpu`` on the command line)."""

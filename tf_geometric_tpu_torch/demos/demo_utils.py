@@ -28,7 +28,7 @@ __all__ = ["demo_steps", "load_planetoid", "load_cora", "masked_softmax_loss",
            "load_graph_classification_data",
            "train_test_split", "batch_padding_spec", "padded_batch_generator",
            "run_graph_classification", "init_like_flax", "dropout_generator",
-           "GraphClassifier"]
+           "GraphClassifier", "run_node_demo"]
 
 
 def demo_steps(n: int) -> int:
@@ -117,16 +117,20 @@ def train_node_classifier(forward: Callable, module: torch.nn.Module, y, splits,
     (``dropout_seed``). Adam's epsilon is ``TFG_ADAM_EPS`` (default 1e-8,
     optax's). ``stats``, when given, receives ``steps`` (steps run),
     ``stop_step`` (None without an early stop), ``best_valid``,
-    ``test_at_best`` and ``losses`` (each step's loss, a tensor)."""
+    ``test_at_best``, ``losses`` (each step's loss, a tensor) and ``evals``
+    (the evaluations run, the final one included)."""
     num_steps = demo_steps(num_steps)
     train_index, valid_index, test_index = splits
     y = y.long()
     optimizer = torch.optim.Adam(module.parameters(), lr=learning_rate,
                                  eps=float(os.environ.get("TFG_ADAM_EPS", "1e-8")))
     generator = torch.Generator(device=y.device).manual_seed(dropout_seed(seed))
+    evals = 0
 
     @torch.no_grad()
     def accuracy():
+        nonlocal evals
+        evals += 1
         module.eval()
         logits = forward(False, None)
         preds = logits.argmax(dim=-1)
@@ -162,13 +166,15 @@ def train_node_classifier(forward: Callable, module: torch.nn.Module, y, splits,
                 if valid_acc > best_valid and valid_loss < min_val_loss:
                     best_test = test_acc
                     best_valid, min_val_loss = valid_acc, valid_loss
-    if stats is not None:
-        stats.update(steps=step + 1, stop_step=stop_step, best_valid=best_valid,
-                     test_at_best=best_test, losses=losses)
     if patience is not None:
         print(f"best valid={best_valid:.4f} test@best={best_test:.4f}")
-        return best_test
-    return accuracy()[2]
+        test_acc = best_test
+    else:
+        test_acc = accuracy()[2]
+    if stats is not None:
+        stats.update(steps=step + 1, stop_step=stop_step, best_valid=best_valid,
+                     test_at_best=best_test, losses=losses, evals=evals)
+    return test_acc
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +285,7 @@ def run_graph_classification(make_model: Callable, batch_size: int = 32, num_ste
     (``train_test_split``). Batches of ``batch_size`` graphs are padded to
     one spec (``data.padding``), so every step has the same shapes.
     ``stats``, when given, receives ``losses`` (each step's loss, a
-    tensor)."""
+    tensor), ``steps`` and ``evals`` (the padded test batches evaluated)."""
     num_steps = demo_steps(num_steps)
     graphs, num_classes = load_graph_classification_data(dataset, seed=seed)
     if split is not None:
@@ -326,15 +332,28 @@ def run_graph_classification(make_model: Callable, batch_size: int = 32, num_ste
             print(f"step {step}: loss={loss.item():.4f}")
 
     model.eval()
-    correct = total = 0
+    correct = total = evals = 0
     with torch.no_grad():
         for batch, real in padded_batch_generator(test_graphs, batch_size, shuffle=False,
                                                   infinite=False):
             preds = logits_of(model(*to_args(batch))).argmax(dim=-1)[:real].cpu().numpy()
             correct += int((preds == np.asarray(batch.y).flatten()[:real]).sum())
             total += real
+            evals += 1
     acc = correct / max(total, 1)
     if stats is not None:
-        stats.update(losses=losses)
+        stats.update(steps=num_steps, losses=losses, evals=evals)
     print(f"test accuracy: {acc:.4f}")
     return acc
+
+
+def run_node_demo(build: Callable, num_steps: int = 200, learning_rate: float = 1e-2,
+                  l2_coef: float = 5e-4, device="cuda", stats: Optional[dict] = None):
+    """A node-classification demo's ``main``: ``load_cora`` on ``device``,
+    ``build(graph, num_classes, device=device) -> (model, forward)``, then
+    ``train_node_classifier`` for ``num_steps`` steps without an early stop;
+    returns the final test accuracy."""
+    graph, splits = load_cora(device=device)
+    model, forward = build(graph, int(graph.y.max()) + 1, device=device)
+    return train_node_classifier(forward, model, graph.y, splits, num_steps=num_steps,
+                                 learning_rate=learning_rate, l2_coef=l2_coef, stats=stats)
