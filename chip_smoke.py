@@ -330,6 +330,24 @@ Phases, each of which raises (non-zero exit) on failure:
     view build timed apart), at ChebyNet's F = 500 and ``eye @ w0``;
     Kernel A at TAGCN's F = 500; the draw and S1 at k = 10 and 5, F = 32.
     ``demo:<kernel>`` entries in the kernels line.
+22. The last eight demo twins (``demo_twins_phase_2``, ``DEMO2_TWINS``):
+    checkpoint and weight save/load (hard Pubmed), the tutorial's GCN
+    (``FakePlanetoidDataset``'s Cora) and ModelNet (its synthetic meshes):
+    3 steps kernel against plain with exact launches
+    (``DEMO2_STEP_LAUNCHES``, ``DEMO2_EVAL_LAUNCHES``), ``main`` at its own
+    step count (metric, ms/step, exact launches, a step alone; 5 profiled
+    steps of the checkpoint twin); the checkpoint's resumed weights bit for
+    bit an uninterrupted run's, its file's bytes and save / restore ms; the
+    save/load file loaded on the CPU into the plain model (logits within
+    1e-4). The sampling walkthrough (host only). The two API tours with
+    exact launches (``DEMO2_TOUR_LAUNCHES``), then X4's three passes at
+    (H, d) = (2, 2) and Kernel A at F = 4 on the tour graph against plain.
+    The graph- and data-parallel twins as 4 ranks sharing the card over
+    gloo: step-1 gradients against a one-process oracle (1e-4), the slowest
+    rank's median ms/step, the accuracy, the GCN's X6 evaluation against
+    plain. Then Kernel A at the tutorial's F = 16 / 7 on Cora and X6 at the
+    mesh batch's F = 64 / 32. ``demo2:<kernel>`` entries in the kernels
+    line.
 
 Each phase prints its seconds. The second-to-last line of output is
 ``{"kernels": [...]}`` (X2 and X5 as ``ell_spmm:<kernel>`` and
@@ -339,7 +357,8 @@ and S1 on workload 13 as ``sampled_sage:<kernel>``, Kernel A on workload
 Kernel A and the attention kernels on the demo path as
 ``planetoid:<kernel>``, Kernel A and X3's kernels on the head-to-head path
 as ``h2h:<kernel>``, Kernel A, X6, the draw and S1 on the phase-21 twins
-as ``demo:<kernel>``, X6
+as ``demo:<kernel>``, Kernel A, X4's forward and X6 on the phase-22
+twins as ``demo2:<kernel>``, X6
 on the pooling path
 (workload 14's pooled graph, launches over workloads 14-16) as
 ``pool:<kernel>``, X7 as ``tiled_spmm``
@@ -2526,7 +2545,8 @@ def demo_env():
 
 def _demo_module(name):
     import importlib
-    return importlib.import_module(f"tf_geometric_tpu_torch.demos.demo_{name}")
+    stem = name if name == "tutorial_intro" else f"demo_{name}"
+    return importlib.import_module(f"tf_geometric_tpu_torch.demos.{stem}")
 
 
 def demo_twin_data(name, device="cuda", cache=None):
@@ -2536,8 +2556,6 @@ def demo_twin_data(name, device="cuda", cache=None):
     ``(hetero_graph, problem)``, or a graph twin's check batch ``(args, y,
     in_features, num_classes, batch)`` (the first padded batch of the
     default set's 90/10 split)."""
-    import numpy as np
-    import torch
     from tf_geometric_tpu_torch.demos import demo_utils
     cache = {} if cache is None else cache
     key = {"gae": "gae", "graph_sage": "sage", "graph_sage_func": "sage",
@@ -2558,29 +2576,38 @@ def demo_twin_data(name, device="cuda", cache=None):
         data = hg, module.HeteroProblem(hg, target, splits, device)
     else:
         graphs, num_classes = demo_utils.load_graph_classification_data("NCI1")
-        train, _ = demo_utils.train_test_split(graphs, test_size=0.1, random_state=0)
-        batch_size = getattr(module, "BATCH_SIZE", 32)
-        batch, real = next(demo_utils.padded_batch_generator(train, batch_size, seed=0))
-        args = tuple(torch.as_tensor(np.asarray(a), device=device) for a in (
-            batch.x, batch.edge_index, batch.edge_weight, batch.node_graph_index))
-        y = torch.as_tensor(np.asarray(batch.y).flatten()[:real], device=device).long()
-        data = args, y, graphs[0].x.shape[1], num_classes, batch_size
+        data = _check_batch(graphs, num_classes, getattr(module, "BATCH_SIZE", 32), device)
     cache[key] = data
     return data
 
 
+def _check_batch(graphs, num_classes, batch_size, device):
+    """A graph twin's check batch: ``(args, y, in_features, num_classes,
+    batch_size)`` of the first padded batch of ``graphs``' 90/10 split."""
+    import numpy as np
+    import torch
+    from tf_geometric_tpu_torch.demos import demo_utils
+    train, _ = demo_utils.train_test_split(graphs, test_size=0.1, random_state=0)
+    batch, real = next(demo_utils.padded_batch_generator(train, batch_size, seed=0))
+    args = tuple(torch.as_tensor(np.asarray(a), device=device) for a in (
+        batch.x, batch.edge_index, batch.edge_weight, batch.node_graph_index))
+    y = torch.as_tensor(np.asarray(batch.y).flatten()[:real], device=device).long()
+    return args, y, graphs[0].x.shape[1], num_classes, batch_size
+
+
 def demo_twin_runner(name, data, device="cuda"):
-    """Twin ``name``'s model on ``data`` (``demo_twin_data``), built from
-    seed 0 as its ``main`` builds it: ``(step(generator) -> loss,
-    evaluate())``, one Adam step of the demo's training (the generator
-    drawing its dropout, permutation or neighbours) and one evaluation
-    forward."""
+    """Twin ``name``'s model on ``data`` (``demo_twin_data``, or
+    ``demo2_data`` for phase 22's), built from seed 0 as its ``main`` builds
+    it: ``(step(generator) -> loss, evaluate())``, one Adam step of the
+    demo's training (the generator drawing its dropout, permutation or
+    neighbours) and one evaluation forward. The save/load twin's model is
+    the checkpoint twin's, trained alike."""
     import torch
     import torch.nn.functional as F
     from tf_geometric_tpu_torch.demos import demo_utils
     m = _demo_module(name)
     if name in ("sgc", "appnp", "ssgc", "tagcn", "chebynet", "drop_edge_gcn",
-                "sparse_node_features"):
+                "sparse_node_features", "checkpoint", "save_and_load_model"):
         graph, splits = data
         model, forward = m.build_model(graph, int(graph.y.max()) + 1, device=device)
         opt = torch.optim.Adam(model.parameters(), lr=getattr(m, "LEARNING_RATE", 1e-2))
@@ -2592,6 +2619,26 @@ def demo_twin_runner(name, data, device="cuda"):
                 return forward(False, None)
         return (lambda gen: demo_utils.train_step(model, opt, forward, y, splits[0], l2, gen),
                 evaluate)
+    if name == "tutorial_intro":
+        import numpy as np
+        cora, splits = data
+        rng = np.random.default_rng(0)
+        rng.normal(size=(20, 4))  # the tour's GCN kernel is drawn first
+        model = m.TutorialGCN(cora.num_features, int(cora.y.max()) + 1, rng, device)
+        opt = torch.optim.Adam(model.parameters(), lr=m.LEARNING_RATE)
+        adj, y, train = cora.adj(device=device), cora.y.long(), splits[0]
+
+        def step(gen):
+            opt.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(model(cora.x, adj, cora.cache)[train], y[train])
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        def evaluate():
+            with torch.no_grad():
+                return model(cora.x, adj, cora.cache)
+        return step, evaluate
     if name == "gae":
         model, opt = m.build_model(data)
         steps = iter(range(1 << 30))
@@ -2655,7 +2702,8 @@ def demo_twin_runner(name, data, device="cuda"):
                 return m.forward(p, problem)
         return lambda gen: m.train_step(p, opt, problem), evaluate
     args, y, in_features, num_classes, batch_size = data
-    model_cls = {"asap": "ASAPModel", "set2set": "Set2SetModel", "topk_pool": "TopKPoolModel"}
+    model_cls = {"asap": "ASAPModel", "set2set": "Set2SetModel", "topk_pool": "TopKPoolModel",
+                 "model_net_dataset": "MeanPoolNetwork"}
     net = getattr(m, model_cls[name])(in_features, num_classes, batch_size, device=device)
     opt = torch.optim.Adam(net.parameters(), lr=5e-3)
 
@@ -2700,24 +2748,27 @@ def _demo_loaders(name, data):
             setattr(obj, attr, value)
 
 
-def _demo_check(name, data):
+def _demo_check(name, data, step_launches=DEMO_STEP_LAUNCHES, eval_launches=DEMO_EVAL_LAUNCHES,
+                label="demo"):
     """``_h2h_kernel_vs_plain`` on twin ``name`` (each side built from seed
     0, a generator seeded alike: the same weights, keep masks, DropEdge
     masks, permutations and draw integers; the host draws and the models'
     own dropout generators restart alike), then exact launches in one
-    evaluation after a step. Returns the largest loss difference."""
+    evaluation after a step (``step_launches[name]`` and
+    ``eval_launches[name]``: phase 21's tables by default). Returns the
+    largest loss difference."""
     import torch
-    err = _h2h_kernel_vs_plain(f"demo {name}", lambda: (demo_twin_runner(name, data), None),
-                               lambda runner, _, gen: runner[0](gen), DEMO_STEP_LAUNCHES[name])
+    err = _h2h_kernel_vs_plain(f"{label} {name}", lambda: (demo_twin_runner(name, data), None),
+                               lambda runner, _, gen: runner[0](gen), step_launches[name])
     step, evaluate = demo_twin_runner(name, data)
     step(torch.Generator(device="cuda").manual_seed(21))
     _zero_launch_counts()
     evaluate()
     torch.cuda.synchronize()
     want = dict.fromkeys(_KERNELS, 0)
-    want.update(DEMO_EVAL_LAUNCHES[name])
+    want.update(eval_launches[name])
     got = dict(zip(_KERNELS, _launch_counts()))
-    _check(got == want, f"demo {name}: launches an evaluation {got} != {want}")
+    _check(got == want, f"{label} {name}: launches an evaluation {got} != {want}")
     return err
 
 
@@ -2966,6 +3017,443 @@ def demo_kernel_entries(res):
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shape": shape + "; launches over phase 21's full runs"})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# the last demo twins (phase 22)
+# ---------------------------------------------------------------------------
+
+# the eight twins of phase 22, in its order: the two serialization twins on
+# hard Pubmed (DEMO_ENV), the host sampling walkthrough, the two API tours
+# (the tutorial's GCN on FakePlanetoidDataset's Cora), the ModelNet twin on
+# its synthetic meshes, the two parallel twins as DEMO2_RANKS ranks sharing
+# the card over gloo (the GCN on hard Pubmed, the mean pool on the demos'
+# default graph set)
+DEMO2_TWINS = ("checkpoint", "save_and_load_model", "sample_neighbors", "elegant_api",
+               "tutorial_intro", "model_net_dataset", "distributed_gcn",
+               "distributed_mean_pool")
+DEMO2_TRAINED = ("checkpoint", "save_and_load_model", "tutorial_intro", "model_net_dataset")
+DEMO2_RANKS = 4
+DEMO2_PROFILED = ("checkpoint",)
+# kernel launches of a training step and of an evaluation forward of the
+# twins phase 22 trains in one process (tests/test_torch_demo_twins_launches.py
+# counts them on the CPU), of the parallel GCN's evaluation, and of the two
+# tours' API calls (the GCN's Kernel A forward, the GAT's fused forward on a
+# layout built for the call: no backward)
+DEMO2_STEP_LAUNCHES = {"checkpoint": dict(csr_spmm=4), "save_and_load_model": dict(csr_spmm=4),
+                       "tutorial_intro": dict(csr_spmm=4), "model_net_dataset": dict(spmm_heads=8)}
+DEMO2_EVAL_LAUNCHES = {"checkpoint": dict(csr_spmm=2), "save_and_load_model": dict(csr_spmm=2),
+                       "tutorial_intro": dict(csr_spmm=2), "model_net_dataset": dict(spmm_heads=4),
+                       "distributed_gcn": dict(spmm_heads=4), "distributed_mean_pool": {}}
+DEMO2_TOUR_LAUNCHES = {"elegant_api": dict(csr_spmm=2, gat_forward=1),
+                       "tutorial_intro": dict(csr_spmm=1, gat_forward=1)}
+
+
+def demo2_data(name, device="cuda", cache=None):
+    """Twin ``name``'s data on ``device``, memoized in ``cache`` by loader:
+    ``load_cora``'s ``(graph, splits)`` (hard Pubmed under ``DEMO_ENV``) for
+    the serialization twins and the parallel GCN, the tutorial's Cora
+    (``tutorial_intro.load_cora``), or the ModelNet twin's check batch
+    ``(args, y, in_features, num_classes, batch_size)`` (the first padded
+    batch of the meshes' 90/10 split, as ``demo_twin_data`` makes a graph
+    twin's). Other twins load nothing here."""
+    from tf_geometric_tpu_torch.demos import demo_utils
+    cache = {} if cache is None else cache
+    key = {"checkpoint": "cora", "save_and_load_model": "cora", "distributed_gcn": "cora",
+           "tutorial_intro": "tutorial", "model_net_dataset": "meshes"}.get(name)
+    if key is None:
+        return None
+    if key not in cache:
+        if key == "cora":
+            cache[key] = demo_utils.load_cora(device=device)
+        elif key == "tutorial":
+            cache[key] = _demo_module(name).load_cora(device)
+        else:
+            module = _demo_module(name)
+            graphs, num_classes, _ = module.load_model_net_graphs()
+            cache[key] = _check_batch(graphs, num_classes, module.BATCH_SIZE, device)
+    return cache[key]
+
+
+@contextlib.contextmanager
+def _demo2_loader(name, data):
+    """The twin's ``load_cora`` answering with ``data`` for the block (its
+    ``main`` then times no data generation); the other twins load their
+    own."""
+    module = _demo_module(name)
+    if data is None or not hasattr(module, "load_cora"):
+        yield
+        return
+    saved = module.load_cora
+    module.load_cora = lambda device="cuda": data
+    try:
+        yield
+    finally:
+        module.load_cora = saved
+
+
+def _demo2_main(name, data, **kwargs):
+    """Twin ``name``'s ``main`` on the card at its own step count: ``(metric,
+    stats, ms over the call (CUDA events), launches by kernel)``; the counts
+    are set to 0 just before and read just after."""
+    import torch
+    stats = {}
+    with _demo2_loader(name, data):
+        _zero_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metric = _demo_module(name).main(device="cuda", stats=stats, **kwargs)
+        end.record()
+        end.synchronize()
+    return metric, stats, start.elapsed_time(end), dict(zip(_KERNELS, _launch_counts()))
+
+
+def _demo2_want(name, steps, evals):
+    """The launches of a main: its steps', its evaluations' and its tour's."""
+    want = dict.fromkeys(_KERNELS, 0)
+    for launches, times in ((DEMO2_STEP_LAUNCHES.get(name, {}), steps),
+                            (DEMO2_EVAL_LAUNCHES.get(name, {}), evals),
+                            (DEMO2_TOUR_LAUNCHES.get(name, {}), 1)):
+        for k, v in launches.items():
+            want[k] += v * times
+    return want
+
+
+def _demo2_trained_run(name, data, gpu):
+    """A trained twin's ``main`` (``_demo2_main``): its metric, ms a step over
+    the call, exact launches, finite losses; then ``DEMO_TIMED_STEPS``
+    steps alone (events) and, for ``DEMO2_PROFILED``, ``DEMO_PROFILE_STEPS``
+    profiled steps (the idle share). The checkpoint twin keeps its file: the
+    resumed run's final weights against ``2·half`` uninterrupted steps from
+    the same weights, the file's bytes, the save and restore ms. The
+    save/load twin's file is loaded on the CPU (``map_location="cpu"``) into
+    a model run through the plain versions: its logits within 1e-4 of the
+    card's."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory(prefix="tfg_demo2_") as root:
+        kwargs = {"directory": root} if name in ("checkpoint", "save_and_load_model") else {}
+        metric, stats, ms, counts = _demo2_main(name, data, **kwargs)
+        steps, evals = stats["steps"], stats["evals"]
+        want = _demo2_want(name, steps, evals)
+        _check(counts == want, f"demo2 {name} run: launches {counts} != {want}")
+        out = dict(metric=float(metric), steps=steps, evals=evals, launches=counts,
+                   loop_ms_per_step=ms / max(steps, 1), call_ms=ms)
+        if steps:
+            losses = torch.stack(stats["losses"]).tolist()
+            _check(all(math.isfinite(v) for v in losses), f"demo2 {name}: non-finite loss")
+            out.update(first_loss=losses[0], last_loss=losses[-1])
+        if name == "checkpoint":
+            out.update(_checkpoint_resume(data, stats))
+        if name == "save_and_load_model":
+            out.update(_save_load_on_cpu(data, stats))
+    if name != "save_and_load_model":
+        _check(math.isfinite(metric), f"demo2 {name}: metric {metric}")
+    step, _ = demo_twin_runner(name, data)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out["step_ms"] = _cuda_ms(lambda: step(gen), iters=DEMO_TIMED_STEPS, warmup=2)
+    if name in DEMO2_PROFILED:
+        step, _ = demo_twin_runner(name, data)
+        out["profile"] = _profile_steps(lambda: step(gen), DEMO_PROFILE_STEPS)
+    return out
+
+
+def _checkpoint_resume(data, stats):
+    """The resumed run's final weights against an uninterrupted run of
+    ``2·half`` steps from the same weights (seed 0), and the file."""
+    import torch
+    from tf_geometric_tpu_torch.demos import demo_checkpoint, demo_utils
+    graph, splits = data
+    model, forward = demo_checkpoint.build_model(graph, int(graph.y.max()) + 1, 0, "cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=demo_checkpoint.LEARNING_RATE)
+    for _ in range(2 * stats["half"]):
+        demo_utils.train_step(model, opt, forward, graph.y.long(), splits[0],
+                              demo_checkpoint.L2_COEF)
+    diff, same = 0.0, True
+    for k, v in model.state_dict().items():
+        other = stats["state_dict"][k]
+        same = same and torch.equal(v, other)
+        diff = max(diff, float((v - other).abs().max()))
+    print(f"demo2 checkpoint: resumed run against {2 * stats['half']} uninterrupted steps: "
+          f"bit for bit {same}, max abs diff {diff:.3e}; file {stats['file_bytes']} bytes, "
+          f"save {stats['save_ms']:.3f} ms, restore {stats['restore_ms']:.3f} ms "
+          f"(host clock)", flush=True)
+    _check(same, f"demo2 checkpoint: the resumed weights differ from the uninterrupted run's "
+                 f"by {diff:.3e}")
+    return dict(resume_bit_for_bit=same, resume_max_abs_diff=diff,
+                file_bytes=stats["file_bytes"], save_ms=stats["save_ms"],
+                restore_ms=stats["restore_ms"])
+
+
+def _save_load_on_cpu(data, stats):
+    """The save/load twin's file loaded on the CPU into the twin's model on
+    a CPU copy of the graph, run through the plain versions: its logits
+    against the card's (1e-4)."""
+    import torch
+    from tf_geometric_tpu_torch.data.graph import Graph
+    from tf_geometric_tpu_torch.demos import demo_checkpoint
+    graph, _ = data
+    host = Graph(x=graph.x.cpu(), edge_index=graph.edge_index.cpu(), y=graph.y.cpu(),
+                 edge_weight=graph.edge_weight.cpu())
+    model, forward = demo_checkpoint.build_model(host, int(host.y.max()) + 1, 7, "cpu")
+    model.load_state_dict(torch.load(stats["path"], map_location="cpu", weights_only=True))
+    model.eval()
+    with torch.no_grad():
+        err = _max_err(forward(False), stats["logits"].cpu(), F32_TOL,
+                       "demo2 save/load: CPU logits against the card's")
+    print(f"demo2 save_and_load_model: file {stats['file_bytes']} bytes; loaded on the CPU "
+          f"(plain versions), logits against the card's max abs err {err:.3e}", flush=True)
+    return dict(file_bytes=stats["file_bytes"], cpu_max_abs_err=err)
+
+
+def _tour_kernel_rows(graph, gpu):
+    """Kernel A on the tour graph's cached normalization at F = 4 (forward
+    and ``dh``), and X4's three passes on its self-looped layout at (H, d) =
+    (2, 2), float32, without a keep mask: the outputs and dQ, dK, dV against
+    the plain versions within 1e-4, timed (``_gat_case``, ``_gat_rows``)."""
+    import torch
+    from tf_geometric_tpu_torch.ops import gat_attention as ga
+    from tf_geometric_tpu_torch.ops.gat_attention import CsrGatLayout
+    from tf_geometric_tpu_torch.utils.graph_utils import add_self_loop_edge
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = _normed_csr_rows("demo2 tour", graph, [("fwd", 4), ("bwd", 4)], gen, gpu)
+    n, heads, width = graph.num_nodes, 2, 2
+    edges, _ = add_self_loop_edge(torch.as_tensor(graph.edge_index, device="cuda"), n)
+    layout = CsrGatLayout.build(edges.long(), n, device="cuda")
+    Q, K, V, dy = (torch.randn(n, heads * width, generator=gen, device="cuda")
+                   for _ in range(4))
+    tag = "tour H=2 d=2"
+    errs, calls, outs = _gat_case(layout, Q, K, V, dy, heads, None, tag)
+    out_p, _ = ga.gat_forward_plain(layout.dst, Q, K, V, heads, None)
+    dQ_p, _, w_p = ga.gat_backward_dst_plain(layout.dst, Q, K, V, outs["out"], outs["lse"], dy,
+                                             heads, None)
+    dK_p, dV_p = ga.gat_backward_src_plain(layout.src, Q, dy, outs["w"], heads)
+    for what, got, want in (("out", outs["out"], out_p), ("dQ", outs["dQ"], dQ_p),
+                            ("dK", outs["dK"], dK_p), ("dV", outs["dV"], dV_p)):
+        _max_err(got, want, F32_TOL, f"gat {what} {tag} (1e-4)")
+    gat_rows = _gat_rows(layout, heads, width, torch.float32, None, errs, calls, outs, True,
+                         case="tour")
+    print(f"demo2 tour X4 (name: max_abs_err, ms (device), plain_ms, ...) on {gpu}: "
+          f"{layout.num_edges} self-looped edges", flush=True)
+    for r in gat_rows:
+        print(f"  {r['name']} H=2 d=2: {r['max_abs_err']:.3e}, {_gat_row_text(r)}; bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows + gat_rows
+
+
+def _mesh_kernel_rows(data, gpu):
+    """X6 at the ModelNet batches' F = 64 and 32, forward and ``dh``, on the
+    check batch's normalized adjacency (the GCN layers' normalization of
+    the padded batch)."""
+    import torch
+    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    (x, ei, ew, _), _, _, _, _ = data
+    n = x.shape[0]
+    normed = gcn_norm_adj(SparseMatrix(ei, ew, (n, n)))
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    return _x6_case_rows("model_net", normed.index, normed.value, n,
+                         [(c, d, f, None) for f in (64, 32)
+                          for c, d in (("forward", "fwd"), ("dh", "bwd"))], gen, gpu)
+
+
+def _parallel_oracle(name, stats):
+    """The step-1 gradient of the global masked mean in one process on the
+    card, through the plain versions: ``[leaves]`` in the step's order."""
+    import torch
+    import torch.nn.functional as F
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    m = _demo_module(name)
+    if name == "distributed_gcn":
+        graph, splits = stats["data"]
+        n = graph.num_nodes
+        normed = m.normalized(graph)
+        leaves = [torch.tensor(a, device="cuda", requires_grad=True)
+                  for pair in stats["params"] for a in pair]
+        w0, b0, w1, b1 = leaves
+        from tf_geometric_tpu_torch.sparse import SparseMatrix
+        adj = SparseMatrix(normed.index.cuda(), normed.value.cuda(), (n, n))
+        with kernel_config.use_plain_versions():
+            logits = adj.matmul(torch.relu(adj.matmul(graph.x @ w0) + b0) @ w1) + b1
+            F.cross_entropy(logits[splits[0]], graph.y[splits[0]].long()).backward()
+        return [p.grad for p in leaves]
+    leaves = [torch.tensor(a, device="cuda", requires_grad=True) for a in stats["params"]]
+    total, count = 0.0, 0.0
+    for xd, rd, cd, vd, ngid, yd, md in stats["blocks"][0]:
+        args = [torch.as_tensor(a, device="cuda") for a in (xd, rd, cd, vd, ngid)]
+        ce = F.cross_entropy(m.local_forward(leaves, *args),
+                             torch.as_tensor(yd, device="cuda").long(), reduction="none")
+        total = total + (ce * torch.as_tensor(md, device="cuda")).sum()
+        count += float(md.sum())
+    (total / count).backward()
+    return [p.grad for p in leaves]
+
+
+def _parallel_run(name, data, gpu):
+    """A parallel twin's ``main`` as ``DEMO2_RANKS`` ranks sharing the card
+    over gloo: the rank-0 step-1 gradient (what Adam was given, the same on
+    every rank) against ``_parallel_oracle`` (1e-4), the slowest rank's
+    median ms a step (events, after a warm-up step), the test accuracy, the
+    parent's exact launches (the evaluation) and none in the ranks; for the
+    GCN its evaluation through X6 against its plain versions (1e-4)."""
+    import statistics
+    import torch
+    from tf_geometric_tpu_torch.ops import config as kernel_config
+    metric, stats, ms, counts = _demo2_main(name, data, world_size=DEMO2_RANKS)
+    stats["data"] = data
+    want = _demo2_want(name, 0, stats["evals"] if name == "distributed_gcn" else 0)
+    _check(counts == want, f"demo2 {name} run: launches {counts} != {want}")
+    results = stats["results"]
+    for r, res in enumerate(results):
+        _check(not any(res["launches"].values()),
+               f"demo2 {name}: rank {r} launched kernels {res['launches']}")
+    grads = results[0]["grads"]
+    flat = [g for pair in grads for g in pair] if name == "distributed_gcn" else list(grads)
+    err = 0.0
+    for got, want_g in zip(flat, _parallel_oracle(name, stats)):
+        err = max(err, _max_err(torch.as_tensor(got), want_g.cpu(), F32_TOL,
+                                f"demo2 {name}: step-1 gradient against the oracle"))
+    medians = [statistics.median(res["step_ms"]) for res in results]
+    out = dict(metric=float(metric), steps=stats["steps"], ranks=DEMO2_RANKS,
+               grad_err=err, slowest_median_ms=max(medians), rank_median_ms=medians,
+               call_ms=ms, launches=counts, first_loss=stats["losses"][0],
+               last_loss=stats["losses"][-1])
+    if name == "distributed_gcn":
+        m = _demo_module(name)
+        graph, _ = data
+        normed = m.normalized(graph)
+        trained = results[0]["params"]
+        got = m.evaluate(normed, graph.x, trained, "cuda")
+        with kernel_config.use_plain_versions():
+            plain = m.evaluate(normed, graph.x, trained, "cuda")
+        out["eval_err"] = _max_err(got, plain, F32_TOL, "demo2 distributed_gcn: X6 evaluation")
+    _check(math.isfinite(metric), f"demo2 {name}: metric {metric}")
+    return out
+
+
+def demo_twins_phase_2(gpu):
+    """Phase 22: the last eight demo twins (``DEMO2_TWINS``). The trained
+    ones: ``_demo_check`` with phase 22's tables (3 steps kernel against
+    plain, exact launches),
+    then ``_demo2_trained_run`` (``main`` at its own step count). The host
+    walkthrough runs. The tours: ``main`` with exact launches, then the
+    tour graph's kernel check (``_tour_kernel_rows``). The parallel twins:
+    ``_parallel_run``. Then Kernel A at the tutorial's F = 16 and 7 on its
+    Cora and X6 at the mesh batches' F = 64 and 32. Returns the rows, the
+    launches over the phase's full runs by kernel and the runs."""
+    import torch
+    out = {"rows": [], "launches": dict.fromkeys(_KERNELS, 0), "runs": {}}
+    cache = {}
+    with demo_env():
+        t0 = time.perf_counter()
+        graph, splits = demo2_data("checkpoint", "cuda", cache)
+        print(f"demo2: hard pubmed built in {time.perf_counter() - t0:.1f} s: "
+              f"{graph.num_nodes} nodes, {graph.num_features} features, "
+              f"{graph.edge_index.shape[1]} edges", flush=True)
+        for name in DEMO2_TWINS:
+            t0 = time.perf_counter()
+            data = demo2_data(name, "cuda", cache)
+            if name in DEMO2_TRAINED:
+                err = _demo_check(name, data, DEMO2_STEP_LAUNCHES, DEMO2_EVAL_LAUNCHES, "demo2")
+                run = _demo2_trained_run(name, data, gpu)
+                run["check_err"] = err
+            elif name in DEMO2_TOUR_LAUNCHES:
+                metric, stats, ms, counts = _demo2_main(name, None)
+                want = _demo2_want(name, 0, 0)
+                _check(counts == want, f"demo2 {name} run: launches {counts} != {want}")
+                _check(metric is True, f"demo2 {name}: main returned {metric}")
+                run = dict(metric=1.0, steps=0, call_ms=ms, launches=counts)
+                out["rows"] += _tour_kernel_rows(stats["graph"], gpu)
+            elif name == "sample_neighbors":
+                stats = {}
+                _zero_launch_counts()
+                _check(_demo_module(name).main(stats=stats) is True,
+                       "demo2 sample_neighbors: main failed")
+                counts = dict(zip(_KERNELS, _launch_counts()))
+                _check(not any(counts.values()), f"demo2 sample_neighbors launched {counts}")
+                run = dict(metric=1.0, steps=0, launches=counts,
+                           draws=[int(ei.shape[1]) for ei, _ in stats["draws"]])
+            else:
+                run = _parallel_run(name, data, gpu)
+            for k, v in run["launches"].items():
+                out["launches"][k] += v
+            out["runs"][name] = run
+            print(f"demo2 {name}: {_demo2_line(run)} ({time.perf_counter() - t0:.1f} s) on "
+                  f"{gpu}", flush=True)
+            prof = run.get("profile")
+            if prof:
+                print(json.dumps({f"demo2_{name}_top": prof["top"]}), flush=True)
+        cora, _ = demo2_data("tutorial_intro", "cuda", cache)
+        gen = torch.Generator(device="cuda").manual_seed(27)
+        out["rows"] += _normed_csr_rows("demo2 tutorial cora", cora,
+                                        [(s, w) for w in (16, int(cora.y.max()) + 1)
+                                         for s in ("fwd", "bwd")], gen, gpu)
+        out["rows"] += _mesh_kernel_rows(demo2_data("model_net_dataset", "cuda", cache), gpu)
+    print(json.dumps({"demo2_rows": out["rows"]}, default=str), flush=True)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _demo2_line(run):
+    """A phase-22 twin's summary line."""
+    parts = [f"metric {run['metric']:.4f}"]
+    if run.get("steps"):
+        parts.append(f"{run['steps']} steps")
+    if "loop_ms_per_step" in run and run.get("steps"):
+        parts.append(f"{run['loop_ms_per_step']:.4f} ms/step over main ({run['evals']} "
+                     f"evaluations included), a training step alone {run['step_ms']:.4f} ms "
+                     f"(events, {DEMO_TIMED_STEPS} steps), loss {run['first_loss']:.4f} -> "
+                     f"{run['last_loss']:.4f}, 3-step kernel vs plain {run['check_err']:.3e}")
+    if "slowest_median_ms" in run:
+        parts.append(f"{run['ranks']} ranks over gloo on one card: slowest rank's median "
+                     f"{run['slowest_median_ms']:.4f} ms/step (events; ranks "
+                     f"{[round(m, 4) for m in run['rank_median_ms']]}), step-1 gradient vs "
+                     f"the one-process oracle {run['grad_err']:.3e}, loss "
+                     f"{run['first_loss']:.4f} -> {run['last_loss']:.4f}")
+    if "eval_err" in run:
+        parts.append(f"X6 evaluation vs plain {run['eval_err']:.3e}")
+    if "call_ms" in run:
+        parts.append(f"main {run['call_ms']:.1f} ms")
+    prof = run.get("profile")
+    if prof:
+        parts.append(f"profiled step: device busy {prof['busy_ms']:.4f} ms of "
+                     f"{prof['span_ms']:.4f} ms, idle share {prof['idle_share']:.4f}, "
+                     f"{prof['kernels_a_step']:.0f} kernels a step")
+    parts.append(f"launches { {k: v for k, v in run['launches'].items() if v} }")
+    return "; ".join(parts)
+
+
+def demo2_kernel_entries(res):
+    """The ``{"kernels"}`` entries of the phase-22 path: Kernel A at the
+    tutorial's F = 16 (forward, Cora), X4's forward at (2, 2) on the tour
+    graph, X6 at the mesh batches' F = 64 (forward); launches over the
+    phase's full runs. X4's backward passes are held against plain on the
+    tour graph but no phase-22 run launches them (the tours train nothing):
+    no entry."""
+    picks = (("csr_spmm", dict(side="fwd", width=16), "tf_geometric_tpu_torch/csrc/csr_spmm.cu",
+              "tf_geometric_tpu/ops/ell_bucketed.py:214",
+              "tutorial GCN on FakePlanetoidDataset's Cora: forward F=16, float32"),
+             ("gat_forward", dict(case="tour"), "tf_geometric_tpu_torch/csrc/gat_attention.cu",
+              "tf_geometric_tpu/ops/ell_attention_bucketed.py:933",
+              "the tours' GAT(units=4, num_heads=2) on the 5-node tour graph: H=2, d=2, "
+              "float32, no dropout"),
+             ("spmm_heads", dict(case="model_net forward", width=64),
+              "tf_geometric_tpu_torch/csrc/spmm_heads.cu", "tf_geometric_tpu/ops/spmm.py:67",
+              "ModelNet twin's padded batch of 16 meshes: forward F=64, float32"))
+    entries = []
+    for name, key, source, replaces, shape in picks:
+        rows = [r for r in res["rows"] if r["name"] == name]
+        rep = next(r for r in rows if all(r.get(k) == v for k, v in key.items()))
+        launches = res["launches"][name]
+        _check(launches > 0, f"{name} was not launched on the phase-22 path")
+        entries.append({
+            "name": f"demo2:{name}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": shape + "; launches over phase 22's full runs"})
     return entries
 
 
@@ -4742,6 +5230,7 @@ def main():
     planetoid = _phase("planetoid demos", planetoid_phase, gpu)
     h2h = _phase("head-to-head twins", head_to_head_phase, gpu)
     demo = _phase("demo twins", demo_twins_phase, gpu)
+    demo2 = _phase("demo twins 2", demo_twins_phase_2, gpu)
     t0 = time.perf_counter()
     halo = bench.build_halo_problem()
     print(f"halo problem built in {time.perf_counter() - t0:.1f} s: partition_order "
@@ -4862,6 +5351,7 @@ def main():
     kernels += planetoid_kernel_entries(planetoid)
     kernels += head_to_head_kernel_entries(h2h)
     kernels += demo_kernel_entries(demo)
+    kernels += demo2_kernel_entries(demo2)
     for name, res in results.items():
         print(f"{name}: {res['step_ms']:.4f} ms/step, {res['line']['value']} "
               f"{res['line']['unit']} ({gpu})", flush=True)

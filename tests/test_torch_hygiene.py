@@ -405,29 +405,35 @@ def test_head_to_head_entry_points_raise_without_cuda(tmp_path):
     assert not (tmp_path / "out.json").exists()
 
 
-# the demo twins of ``demo/`` added after the head-to-head's
+# the demo twins of ``demo/`` (and the tutorial's) added after the head-to-head's
 DEMO_TWIN_MODULES = tuple(
-    f"tf_geometric_tpu_torch.demos.demo_{d}"
-    for d in ("sgc", "appnp", "ssgc", "tagcn", "chebynet", "drop_edge_gcn",
-              "sparse_node_features", "gae", "dgi", "device_sampling", "graph_sage",
-              "graph_sage_func", "hetero_rgcn", "asap", "set2set", "topk_pool"))
-# the scripts whose twins are still to be written: seven of ``demo/`` and
-# the tutorial at the repository's root
-PENDING_DEMOS = ("demo_checkpoint", "demo_save_and_load_model", "demo_sample_neighbors",
-                 "demo_elegant_api", "tutorial_intro", "demo_model_net_dataset",
-                 "demo_distributed_gcn", "demo_distributed_mean_pool")
+    f"tf_geometric_tpu_torch.demos.{d}"
+    for d in ("demo_sgc", "demo_appnp", "demo_ssgc", "demo_tagcn", "demo_chebynet",
+              "demo_drop_edge_gcn", "demo_sparse_node_features", "demo_gae", "demo_dgi",
+              "demo_device_sampling", "demo_graph_sage", "demo_graph_sage_func",
+              "demo_hetero_rgcn", "demo_asap", "demo_set2set", "demo_topk_pool",
+              "demo_checkpoint", "demo_save_and_load_model", "demo_sample_neighbors",
+              "demo_elegant_api", "tutorial_intro", "demo_model_net_dataset",
+              "demo_distributed_gcn", "demo_distributed_mean_pool"))
+# the scripts whose twins are still to be written: none
+PENDING_DEMOS = ()
+# the twins run no module of JAX's libraries (flax, optax and orbax among them)
+TWIN_FORBIDDEN = HOST_FORBIDDEN + ("orbax",)
+# twins that run on the host only (no card to ask for)
+HOST_ONLY_TWINS = ("tf_geometric_tpu_torch.demos.demo_sample_neighbors",)
 
 
 def test_demo_twin_modules_load_no_jax_sklearn_or_networkx():
     """Each demo twin, imported in turn in one process, brings in no JAX,
-    no JAX package, no sklearn and no networkx (the card's machine has
-    neither of the last two); the first module that would is named."""
+    no JAX package, no flax, optax or orbax, no sklearn and no networkx
+    (the card's machine has neither of the last two); the first module that
+    would is named."""
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {DEMO_TWIN_MODULES!r}:
             importlib.import_module(name)
             bad = sorted(m for m in sys.modules if m.split(".")[0].startswith("jax")
-                         or m.split(".")[0] in {HOST_FORBIDDEN!r})
+                         or m.split(".")[0] in {TWIN_FORBIDDEN!r})
             if bad:
                 print(name, bad)
                 sys.exit(1)
@@ -438,7 +444,7 @@ def test_demo_twin_modules_load_no_jax_sklearn_or_networkx():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("module", DEMO_TWIN_MODULES)
+@pytest.mark.parametrize("module", [m for m in DEMO_TWIN_MODULES if m not in HOST_ONLY_TWINS])
 def test_demo_twin_mains_raise_without_cuda(module, tmp_path, monkeypatch):
     """Each twin's ``main``, called without a device, asks for the card and
     raises here instead of running on the CPU."""
@@ -456,13 +462,13 @@ def test_demo_twin_mains_raise_without_cuda(module, tmp_path, monkeypatch):
 def test_every_demo_script_has_a_twin_or_is_pending():
     """``demo/demo_*.py`` (``demo_utils`` aside) and ``tutorial_intro.py``:
     each script has a twin of the same name under
-    ``tf_geometric_tpu_torch/demos/`` or is one of the eight in
-    ``PENDING_DEMOS``; no pending script has a twin yet."""
+    ``tf_geometric_tpu_torch/demos/``, and no script is pending
+    (``PENDING_DEMOS`` is empty); every twin is a module of the import
+    check or one of the head-to-head's."""
     scripts = ({p.stem for p in (REPO / "demo").glob("demo_*.py")} - {"demo_utils"}
                | {p.stem for p in REPO.glob("tutorial_intro.py")})
     twins = {p.stem for p in (PORT / "demos").glob("*.py")} - {"demo_utils", "__init__"}
-    pending = set(PENDING_DEMOS)
-    assert len(pending) == len(PENDING_DEMOS) == 8
-    assert pending <= scripts and not pending & twins
-    assert scripts - pending == twins, sorted((scripts - pending) ^ twins)
+    assert PENDING_DEMOS == ()
+    assert "tutorial_intro" in scripts and len(scripts) == 32
+    assert scripts == twins, sorted(scripts ^ twins)
     assert {f"tf_geometric_tpu_torch.demos.{t}" for t in twins} >= set(DEMO_TWIN_MODULES)

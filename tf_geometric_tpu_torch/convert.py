@@ -18,7 +18,7 @@ __all__ = ["bench_params_from_numpy", "gcn_state_dict_from_flax", "gat_state_dic
            "tagcn_model_state_dict_from_flax", "chebynet_state_dict_from_flax",
            "dgi_state_dict_from_flax", "gae_encoder_state_dict_from_flax",
            "topk_pool_model_state_dict_from_flax",
-           "numpy_params_state_dict",
+           "numpy_params_state_dict", "adam_state_from_optax",
            "BENCH_PARAM_NAMES", "GAT_BENCH_PARAM_NAMES", "SAGE_BENCH_PARAM_NAMES"]
 
 BENCH_PARAM_NAMES = ("w0", "b0", "w1", "b1")
@@ -260,3 +260,45 @@ def numpy_params_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torc
     keyed ``prefix + name`` (``"params."`` for the hetero twin's
     ``ParameterDict``)."""
     return {prefix + k: torch.tensor(np.asarray(v, np.float32)) for k, v in params.items()}
+
+
+def _adam_leaves(state):
+    """``(count, mu, nu)`` of an optax Adam state: a ``ScaleByAdamState``,
+    a mapping with those keys (an orbax restore without a target), or a
+    sequence holding one (``optax.adam``'s chain state)."""
+    if isinstance(state, Mapping) and "mu" in state:
+        return state["count"], state["mu"], state["nu"]
+    if hasattr(state, "mu"):
+        return state.count, state.mu, state.nu
+    if isinstance(state, (list, tuple)):
+        for item in state:
+            found = _adam_leaves(item)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, module: torch.nn.Module, learning_rate: float) -> dict:
+    """An ``optax.adam(learning_rate)`` state (``count``, ``mu``, ``nu``:
+    numpy, or anything with ``__array__``; see ``_adam_leaves`` for the
+    forms taken) as a ``torch.optim.Adam(module.parameters(),
+    lr=learning_rate)`` ``state_dict`` (the same β and ε defaults), ready
+    for its ``load_state_dict``. ``mu``
+    and ``nu`` are trees of ``module``'s parameters under the flax names
+    (``GCN_0/kernel`` is ``GCN_0.kernel``), mapped by name. optax's
+    ``count`` is the number of updates made, and each parameter's ``step``
+    is the same number: both increment it before the bias correction
+    ``1 - β^t``, so a restored run continues with the same step sizes."""
+    found = _adam_leaves(opt_state)
+    if found is None:
+        raise ValueError("no Adam state (count, mu, nu) in opt_state")
+    count, mu, nu = found
+    mu, nu = _flatten_params(mu), _flatten_params(nu)
+    names = [k for k, _ in module.named_parameters()]
+    if sorted(names) != sorted(mu) or sorted(mu) != sorted(nu):
+        raise KeyError(f"Adam moments {sorted(mu)} do not name the parameters {sorted(names)}")
+    step = float(np.asarray(count))
+    state = {i: {"step": torch.tensor(step), "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+             for i, k in enumerate(names)}
+    group = torch.optim.Adam(module.parameters(), lr=learning_rate).state_dict()["param_groups"]
+    return {"state": state, "param_groups": group}

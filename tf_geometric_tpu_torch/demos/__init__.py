@@ -11,5 +11,11 @@ and link prediction: ``demo_gae``, ``demo_dgi``; sampling:
 ``demo_hetero_rgcn``; graph classification: ``demo_mean_pool``,
 ``demo_gin``, ``demo_sag_pool_h``, ``demo_sort_pool``, ``demo_diff_pool``,
 ``demo_min_cut_pool``, ``demo_asap``, ``demo_set2set``,
-``demo_topk_pool``. Each ``main`` runs on the card unless it is given
-``device="cpu"`` (``--cpu`` on the command line)."""
+``demo_topk_pool``, ``demo_model_net_dataset``; serialization:
+``demo_checkpoint``, ``demo_save_and_load_model``; the host sampling
+walkthrough ``demo_sample_neighbors``; the API tours ``demo_elegant_api``
+and ``tutorial_intro`` (the repository root's tutorial); parallel training
+on ``torch.distributed`` ranks: ``demo_distributed_gcn`` (graph-parallel),
+``demo_distributed_mean_pool`` (data-parallel). Each ``main`` runs on the
+card unless it is given ``device="cpu"`` (``--cpu`` on the command line;
+the parallel twins take the rank count after it)."""

@@ -273,7 +273,7 @@ class GraphClassifier(torch.nn.Module):
 def run_graph_classification(make_model: Callable, batch_size: int = 32, num_steps: int = 300,
                              learning_rate: float = 5e-3, dataset: str = "NCI1", seed: int = 0,
                              extra_loss_from_state: Optional[Callable] = None, split=None,
-                             device="cuda", stats: Optional[dict] = None):
+                             device="cuda", stats: Optional[dict] = None, data=None):
     """The padded-batch graph-classification loop; returns the test accuracy.
 
     ``make_model(num_classes, num_graphs)`` returns a module called as
@@ -282,12 +282,16 @@ def run_graph_classification(make_model: Callable, batch_size: int = 32, num_ste
     ``extra_loss_from_state(state)`` is added to the loss: MinCutPool's
     losses); the module draws its own dropout. ``split`` is a given
     ``(train_graphs, test_graphs)``; by default a 90/10 split
-    (``train_test_split``). Batches of ``batch_size`` graphs are padded to
-    one spec (``data.padding``), so every step has the same shapes.
+    (``train_test_split``). ``data``, a given ``(graphs, num_classes)``,
+    stands in for ``load_graph_classification_data(dataset)`` (the JAX
+    ModelNet demo swaps that loader out for the run). Batches of
+    ``batch_size`` graphs are padded to one spec (``data.padding``), so
+    every step has the same shapes.
     ``stats``, when given, receives ``losses`` (each step's loss, a
     tensor), ``steps`` and ``evals`` (the padded test batches evaluated)."""
     num_steps = demo_steps(num_steps)
-    graphs, num_classes = load_graph_classification_data(dataset, seed=seed)
+    graphs, num_classes = (load_graph_classification_data(dataset, seed=seed) if data is None
+                           else data)
     if split is not None:
         train_graphs, test_graphs = split
     else:

@@ -14,6 +14,7 @@ from .partition import (EdgePartition, apply_node_permutation, bandwidth_reducti
 from .runner import ShardJob, run_ranks
 from .sampled_sage import build_csr_shards, make_sampled_sage_step, set_exchange_dtype
 from .sharded import (GraphMesh, RankAdjacency, build_mesh, make_batch_2d_step,
+                      make_data_parallel_step,
                       make_graph_parallel_gat_fused_step, make_graph_parallel_gat_step,
                       make_graph_parallel_gcn_step, make_graph_parallel_mincut_step,
                       pack_batch_2d, rank_adjacency, rank_aggregate, sharded_spmm_local)
@@ -27,6 +28,7 @@ __all__ = ["EdgePartition", "nodes_per_part", "partition_edges_by_row",
            "RankAdjacency", "rank_adjacency", "rank_aggregate",
            "make_graph_parallel_gcn_step", "make_graph_parallel_gat_step",
            "make_graph_parallel_gat_fused_step", "make_graph_parallel_mincut_step",
-           "make_batch_2d_step", "pack_batch_2d", "ShardJob", "run_ranks", "build_csr_shards",
+           "make_batch_2d_step", "make_data_parallel_step", "pack_batch_2d", "ShardJob",
+           "run_ranks", "build_csr_shards",
            "make_sampled_sage_step", "set_exchange_dtype", "initialize", "build_multihost_mesh",
            "distribute", "distribute_halo_plan", "run_halo_gcn", "launch_local"]

@@ -52,12 +52,17 @@ class ShardJob(NamedTuple):
     ``(rows, cols, vals)`` shard, built into one once: MinCut's
     ``partition_edges_by_row`` shard, the 2-D cell's ``pack_batch_2d``
     edges; for the 2-D step ``x`` is the cell's rows and ``y``/``mask`` its
-    data shard's labels and label mask). ``params``:
-    the initial weights as numpy, in the step's structure. ``x``, ``y``,
-    ``mask``: this rank's rows. ``options``: the step's keyword arguments
-    (``learning_rate``, ``num_heads``, ``units``, ``layer_dims``,
-    ``edge_drop_rate``, ``feat_drop_rate``; ``k`` for the sampled SAGE,
-    whose widths come from ``params``; ``variant``, ``cut_coef``,
+    data shard's labels and label mask), ``"data"`` (the data-parallel
+    step, ``make_data_parallel_step``, over every rank: ``plan`` a tuple of
+    this rank's per-step arrays, each stacked over the steps (the local
+    batch ``forward`` takes, then labels and label mask), step i taking
+    entry ``i`` modulo their number; ``x``, ``y``, ``mask`` unused).
+    ``params``: the initial weights as numpy, in the step's structure.
+    ``x``, ``y``, ``mask``: this rank's rows. ``options``: the step's
+    keyword arguments (``learning_rate``, ``forward`` for the data-parallel
+    step, ``num_heads``, ``units``, ``layer_dims``, ``edge_drop_rate``,
+    ``feat_drop_rate``; ``k`` for the sampled SAGE, whose widths come from
+    ``params``; ``variant``, ``cut_coef``,
     ``orth_coef`` for MinCut, whose C comes from ``params``), ``valid``
     (MinCut: this rank's rows flagged real, numpy; default ``mask``),
     ``ngi`` (2-D: the cell's rows' graph ids, numpy), ``data`` (2-D: the
@@ -154,7 +159,8 @@ def run_job(job: ShardJob, mesh, device) -> dict:
     from ..convert import sharded_params_from_numpy
     from ..ops import config as kernel_config
     from . import sampled_sage
-    from .sharded import (make_batch_2d_step, make_graph_parallel_gat_fused_step,
+    from .sharded import (make_batch_2d_step, make_data_parallel_step,
+                          make_graph_parallel_gat_fused_step,
                           make_graph_parallel_gat_step, make_graph_parallel_gcn_step,
                           make_graph_parallel_mincut_step, param_leaves, RankAdjacency,
                           rank_adjacency)
@@ -198,6 +204,14 @@ def run_job(job: ShardJob, mesh, device) -> dict:
         step, make_opt = make_batch_2d_step(mesh, plan, graphs_per_data_shard=len(job.y),
                                             **opts)
         args = (x, torch.as_tensor(ngi, dtype=torch.int32, device=device), y, mask)
+    elif job.kind == "data":
+        data_step, make_opt = make_data_parallel_step(mesh, **opts)
+        count = iter(range(1 << 62))
+
+        def step(params, optimizer):
+            i = next(count) % plan[0].shape[0]
+            return data_step(params, optimizer, *(a[i] for a in plan))
+        args = ()
     else:
         raise ValueError(f"unknown job kind {job.kind!r}")
 
@@ -267,6 +281,8 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str, device: st
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
         jobs = torch.load(os.path.join(work_dir, f"jobs{rank}.pt"), weights_only=False)
         def data_axis(job):
+            if job.kind == "data":
+                return world
             return job.options.get("data", 1) if job.kind == "batch_2d" else 1
         meshes = {1: build_mesh({"graph": world})}
         for data in sorted({data_axis(job) for job in jobs} - {1}):

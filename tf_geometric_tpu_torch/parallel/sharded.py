@@ -50,7 +50,7 @@ from .halo import (RankGatPlan, RankHaloPlan, halo_exchange, halo_gat_attention,
 __all__ = ["GraphMesh", "build_mesh", "sharded_spmm_local", "RankAdjacency", "rank_adjacency",
            "rank_aggregate", "make_graph_parallel_gcn_step", "make_graph_parallel_gat_step",
            "make_graph_parallel_gat_fused_step", "make_graph_parallel_mincut_step",
-           "make_batch_2d_step", "pack_batch_2d", "param_leaves"]
+           "make_batch_2d_step", "make_data_parallel_step", "pack_batch_2d", "param_leaves"]
 
 
 class GraphMesh(NamedTuple):
@@ -225,18 +225,22 @@ def _apply_gradients(params, optimizer, objective, groups):
     optimizer.step()
 
 
-def _finish_step(mesh: GraphMesh, params, optimizer, local_sum, mask_local, replicated=None):
+def _finish_step(mesh: GraphMesh, params, optimizer, local_sum, mask_local, replicated=None,
+                 axis: str = "graph"):
     """Backward of ``local_sum / global_count`` (plus ``replicated / P``,
-    a term every rank of the graph group computes alike), one all-reduce of
-    the flattened gradients, the Adam update; returns the global masked
-    mean of ``local_sum``."""
+    a term every rank of the group computes alike), one all-reduce of the
+    flattened gradients, the Adam update; returns the global masked mean of
+    ``local_sum``. The group is the mesh's ``axis``: ``"graph"`` (row
+    blocks of one graph) or ``"data"`` (disjoint sub-batches)."""
+    group, size = ((mesh.group, mesh.size) if axis == "graph"
+                   else (mesh.data_group, mesh.data_size))
     stats = torch.stack([local_sum.detach().float(), mask_local.sum().float()])
-    dist.all_reduce(stats, group=mesh.group)
+    dist.all_reduce(stats, group=group)
     count = stats[1].clamp(min=1.0)
     objective = local_sum / count
     if replicated is not None:
-        objective = objective + replicated / mesh.size
-    _apply_gradients(params, optimizer, objective, (mesh.group,))
+        objective = objective + replicated / size
+    _apply_gradients(params, optimizer, objective, (group,))
     return stats[0] / count
 
 
@@ -460,6 +464,27 @@ def make_graph_parallel_mincut_step(mesh: GraphMesh, adj: RankAdjacency, num_clu
         ce = _finish_step(mesh, params, optimizer, _masked_ce_sum(logits, y_local, mask_local),
                           mask_local, replicated if variant == "min_cut" else None)
         return ce + replicated.detach(), ce, cut.detach(), orth.detach()
+
+    return step, _adam(learning_rate)
+
+
+def make_data_parallel_step(mesh: GraphMesh, forward: Callable, learning_rate: float = 5e-3):
+    """A data-parallel classification step over the mesh's ``data`` axis:
+    each rank holds its own sub-batch, ``forward(params, *batch_local) ->
+    logits`` runs on it alone, and the step is ``_finish_step``'s over the
+    data group (the masked cross-entropy summed locally, over the
+    all-reduced label count; one all-reduce of the gradients). Returns
+    ``(step, make_optimizer)``; ``step(params, optimizer, *batch_local,
+    y_local, mask_local)`` returns the global masked mean loss. ``forward``
+    is a module-level function (``run_ranks`` pickles it by name)."""
+    if mesh.data_size > 1 and mesh.data_group is None:
+        raise ValueError("the mesh has a data axis but no data group")
+
+    def step(params, optimizer, *args):
+        *batch, y_local, mask_local = args
+        logits = forward(params, *batch)
+        return _finish_step(mesh, params, optimizer, _masked_ce_sum(logits, y_local, mask_local),
+                            mask_local, axis="data")
 
     return step, _adam(learning_rate)
 
