@@ -382,6 +382,10 @@ import subprocess
 import sys
 import time
 
+# every kernel wrapper of the main path, in the order of the counts below
+from tf_geometric_tpu_torch.parallel.runner import LAUNCH_FAMILIES as _KERNELS
+from tf_geometric_tpu_torch.parallel.runner import kernel_launch_counts
+
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 F32_GRAD_TOL = dict(rtol=1e-3, atol=1e-3)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -3687,34 +3691,14 @@ def pool_kernel_entries(pool_rows, results):
     return entries
 
 
-# every kernel wrapper of the main path, in the order of the counts below
-_KERNELS = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
-            "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward",
-            "spmm_heads", "sddmm_heads", "tiled_spmm")
-
-
-def _wrappers():
-    from tf_geometric_tpu_torch.ops import fixed_k as fk
-    from tf_geometric_tpu_torch.ops import gat_attention as ga
-    from tf_geometric_tpu_torch.ops import spmm_heads as sh
-    from tf_geometric_tpu_torch.ops.csr_spmm import launch_csr_spmm
-    from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
-    from tf_geometric_tpu_torch.ops.tiled_spmm import launch_tiled_spmm
-    return (launch_csr_spmm, launch_sorted_segment_sum, ga.launch_gat_forward,
-            ga.launch_gat_backward_dst, ga.launch_gat_backward_src, fk.launch_draw_fixed_k,
-            fk.launch_fixed_k_forward, fk.launch_fixed_k_backward, sh.launch_spmm_heads,
-            sh.launch_sddmm_heads, launch_tiled_spmm)
-
-
 def _launch_counts():
-    return [w.launches for w in _wrappers()]
+    """Every kernel wrapper's launch count, in the order of ``_KERNELS``."""
+    return list(kernel_launch_counts().values())
 
 
 def _zero_launch_counts():
-    from tf_geometric_tpu_torch.ops import fixed_k as fk
-    for w in _wrappers():
-        w.launches = 0
-    fk.launch_fixed_k_backward.calls = 0
+    from tf_geometric_tpu_torch.utils.profiling import reset
+    reset()
 
 
 def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
@@ -3727,6 +3711,7 @@ def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
     from tf_geometric_tpu_torch import bench
     from tf_geometric_tpu_torch.ops import fixed_k as fk
     from tf_geometric_tpu_torch.ops import spmm_heads as sh
+    from tf_geometric_tpu_torch.utils.profiling import counters
     _zero_launch_counts()
     problem = bench.build_problem(device="cuda")
     adj = problem.adj
@@ -3782,7 +3767,7 @@ def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
             per_call = fk.fixed_k_backward_launches(host_sage_problem.x.shape[0])
             expected.update(fixed_k_forward=steps * layers,
                             fixed_k_backward=steps * layers * per_call)
-            calls = fk.launch_fixed_k_backward.calls
+            calls = counters().get("calls.fixed_k_backward", 0)
             _check(calls == steps * layers,
                    f"{name}: {calls} backward calls != expected {steps * layers}")
         else:
@@ -3792,7 +3777,7 @@ def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
             per_call = fk.fixed_k_backward_launches(sage_problem.sampler.num_nodes)
             expected.update(fixed_k_draw=steps * layers, fixed_k_forward=steps * layers,
                             fixed_k_backward=steps * layers * per_call)
-            calls = fk.launch_fixed_k_backward.calls
+            calls = counters().get("calls.fixed_k_backward", 0)
             _check(calls == steps * layers,
                    f"{name}: {calls} backward calls != expected {steps * layers}")
         expected = list(expected.values())

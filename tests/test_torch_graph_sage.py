@@ -27,6 +27,7 @@ from tf_geometric_tpu_torch.convert import sage_state_dict_from_flax
 from tf_geometric_tpu_torch.ops.fixed_k import (fixed_k_aggregate, fixed_k_backward_launches,
                                                 fixed_k_backward_plain, fixed_k_forward_plain,
                                                 launch_fixed_k_forward)
+from tf_geometric_tpu_torch.utils.profiling import counters
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "fixtures", "golden_reference")
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -131,10 +132,10 @@ def test_fixed_k_weights_are_constants():
     src = torch.ones((3, 4))
     with pytest.raises(ValueError, match="weights"):
         fixed_k_aggregate(src, idx, w)
-    before = launch_fixed_k_forward.launches
+    before = counters()
     with pytest.raises(ValueError, match="CUDA"):
         launch_fixed_k_forward(src, idx, w.detach())
-    assert launch_fixed_k_forward.launches == before
+    assert counters() == before
 
 
 @pytest.mark.parametrize("num_src,launches", [(1, 6), (512, 6), (513, 6), (232_965, 6),

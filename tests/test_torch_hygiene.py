@@ -129,15 +129,16 @@ def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
 def test_kernel_wrappers_refuse_cpu_tensors():
     from tf_geometric_tpu_torch.ops.csr_spmm import CsrAdj, launch_csr_spmm
     from tf_geometric_tpu_torch.ops.sorted_segment import launch_sorted_segment_sum
+    from tf_geometric_tpu_torch.utils.profiling import counters
     adj = CsrAdj.from_coo([[0, 1], [1, 0]], None, (2, 2), device="cpu")
     side, h = adj.fwd, torch.ones(2, 3)
-    before = launch_csr_spmm.launches
+    before = counters()
     with pytest.raises(ValueError, match="CUDA"):
         launch_csr_spmm(side.row_ptr, side.col, side.val, h, None, 2)
     with pytest.raises(ValueError, match="CUDA"):
         launch_sorted_segment_sum(h, torch.tensor([0, 1, 2], dtype=torch.int32),
                                   torch.empty(2, 3), True)
-    assert launch_csr_spmm.launches == before
+    assert counters() == before
 
 
 def test_build_is_keyed_by_source_and_raises_without_nvcc(tmp_path, monkeypatch):
@@ -169,8 +170,8 @@ def test_gat_kernel_wrappers_refuse_cpu_tensors():
     layout = ga.CsrGatLayout.build([[0, 1, 1], [1, 0, 1]], 2, device="cpu")
     q = torch.ones(2, 8)
     stats = torch.zeros(2, 2)
-    wrappers = (ga.launch_gat_forward, ga.launch_gat_backward_dst, ga.launch_gat_backward_src)
-    before = [w.launches for w in wrappers]
+    from tf_geometric_tpu_torch.utils.profiling import counters
+    before = counters()
     with pytest.raises(ValueError, match="CUDA"):
         ga.launch_gat_forward(layout.dst, q, q, q, 2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -183,7 +184,7 @@ def test_gat_kernel_wrappers_refuse_cpu_tensors():
         ga.launch_gat_backward_src(layout.src, q, q, torch.zeros(layout.num_edges - 1, 4), 2)
     with pytest.raises(ValueError, match=r"keep must be float32 \[3, 2\]"):
         ga.launch_gat_forward(layout.dst, q, q, q, 2, keep=torch.ones(layout.num_edges - 1, 2))
-    assert [w.launches for w in wrappers] == before
+    assert counters() == before
 
 
 def test_gat_unequal_head_widths_raise_off_the_cpu():
@@ -233,8 +234,8 @@ def test_host_sampled_sage_and_gae_ask_for_the_card_by_default():
 
 def test_fixed_k_kernel_wrappers_refuse_cpu_tensors():
     from tf_geometric_tpu_torch.ops import fixed_k as fk
-    wrappers = (fk.launch_draw_fixed_k, fk.launch_fixed_k_forward, fk.launch_fixed_k_backward)
-    before = [w.launches for w in wrappers]
+    from tf_geometric_tpu_torch.utils.profiling import counters
+    before = counters()
     ints = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         fk.launch_draw_fixed_k(ints, ints[0], ints[0], ints[0])
@@ -242,7 +243,7 @@ def test_fixed_k_kernel_wrappers_refuse_cpu_tensors():
         fk.launch_fixed_k_forward(torch.ones(3, 4), ints, torch.ones(2, 3))
     with pytest.raises(ValueError, match="CUDA"):
         fk.launch_fixed_k_backward(torch.ones(3, 4), ints, torch.ones(2, 3), 3)
-    assert [w.launches for w in wrappers] == before
+    assert counters() == before
 
 
 def test_fixed_k_ops_raise_off_the_cpu():
@@ -304,11 +305,12 @@ def test_tiled_spmm_wrapper_refuses_cpu_tensors_and_raises_off_the_cpu():
     ``tiled_spmm`` on a device with no kernel (meta tensors stand in for
     one) raises instead of running the plain pass there."""
     from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
+    from tf_geometric_tpu_torch.utils.profiling import counters
     ts = tsp.build_tiled_spmm([[0, 1], [1, 0]], None, (2, 2), tile=16, device="cpu")
-    before = tsp.launch_tiled_spmm.launches
+    before = counters()
     with pytest.raises(ValueError, match="CUDA"):
         tsp.launch_tiled_spmm(ts.row_ptr, ts.col_tile, ts.a_tiles, torch.ones(2, 3), 2)
-    assert tsp.launch_tiled_spmm.launches == before
+    assert counters() == before
     meta = ts._replace(**{f: getattr(ts, f).to("meta") for f in (
         "row_tile", "col_tile", "a_tiles", "row_ptr", "t_row_tile", "t_col_tile", "t_a_tiles",
         "t_row_ptr")})
@@ -352,10 +354,12 @@ def test_tiled_spmm_wrapper_refusals_count_no_launch(case, match):
     and tiles that are not a multiple of 16 up to 256 before anything runs,
     and counts no launch."""
     from tf_geometric_tpu_torch.ops import tiled_spmm as tsp
-    before = tsp.launch_tiled_spmm.launches
+    from tf_geometric_tpu_torch.utils.profiling import counters
+    args = _refused_pass(case)
+    before = counters()
     with pytest.raises(ValueError, match=match):
-        tsp.launch_tiled_spmm(*_refused_pass(case))
-    assert tsp.launch_tiled_spmm.launches == before
+        tsp.launch_tiled_spmm(*args)
+    assert counters() == before
 
 
 # the accuracy head-to-head's modules (bench twins, harnesses, graph demo twins)

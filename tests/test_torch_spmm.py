@@ -23,6 +23,7 @@ from tf_geometric_tpu_torch.ops.spmm_heads import (build_csr_view, launch_sddmm_
                                                    launch_spmm_heads, spmm_heads_plain,
                                                    spmm_multihead)
 from tf_geometric_tpu_torch.sparse import SparseMatrix as TSparse
+from tf_geometric_tpu_torch.utils.profiling import counters
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -239,12 +240,12 @@ def test_spmm_heads_plain_handles_wide_heads_and_empty_rows():
 def test_spmm_heads_wrappers_refuse_cpu_tensors():
     view = build_csr_view(torch.tensor([0, 1]), torch.tensor([1, 0]), 2, 2)
     w, h, out = torch.ones(2, 1), torch.ones(2, 4), torch.zeros(2, 1)
-    before = (launch_spmm_heads.launches, launch_sddmm_heads.launches)
+    before = counters()
     with pytest.raises(ValueError, match="CUDA"):
         launch_spmm_heads(view, w, h, 1)
     with pytest.raises(ValueError, match="CUDA"):
         launch_sddmm_heads(view, h, h, 1, out)
-    assert (launch_spmm_heads.launches, launch_sddmm_heads.launches) == before
+    assert counters() == before
 
 
 def test_spmm_ops_raise_off_the_cpu():

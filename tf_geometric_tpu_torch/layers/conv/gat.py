@@ -7,6 +7,7 @@ import torch
 from torch import nn
 
 from ...nn.conv.gat import gat
+from ...utils.profiling import span
 from ..base import glorot_uniform, unpack_edge_inputs
 
 __all__ = ["GAT"]
@@ -57,6 +58,7 @@ class GAT(nn.Module):
         self.kernel = kernel(value_units)
         self.bias = zeros(units) if use_bias else None
 
+    @span("tfg.layers.GAT")
     def forward(self, inputs, cache: Optional[dict] = None, generator=None, keep_mask=None):
         x, edge_index, _ = unpack_edge_inputs(inputs)
         return gat(x, edge_index,

@@ -7,6 +7,7 @@ import torch
 from torch import nn
 
 from ...nn.conv.gcn import gcn, gcn_build_cache_by_adj, gcn_build_cache_for_graph
+from ...utils.profiling import span
 from ..base import glorot_uniform, unpack_inputs
 
 __all__ = ["GCN"]
@@ -55,6 +56,7 @@ class GCN(nn.Module):
             sym=self.sym, renorm=self.renorm, improved=self.improved,
             override=override, device=device)
 
+    @span("tfg.layers.GCN")
     def forward(self, inputs, cache: Optional[dict] = None, generator=None,
                 keep_mask=None):
         x, sparse_adj = unpack_inputs(inputs)

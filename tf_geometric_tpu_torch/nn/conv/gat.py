@@ -15,7 +15,9 @@ widths the merged-head branch (the JAX package's, ``nn/conv/gat.py:162-183``):
 per-head scores, a segment softmax per head and the keep mask in PyTorch,
 then the multi-head SpMM ``ops/spmm_heads.spmm_multihead`` (the counterpart
 of ``ell_spmm_multihead``). CPU tensors without a layout take the segment
-path, as the JAX package does without a cache.
+path, as the JAX package does without a cache. The counters
+``cache.hit.gat_layout`` and ``cache.miss.gat_layout`` count the cache's
+lookups (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ...ops.gat_attention import CsrGatLayout, gat_attention_csr
 from ...ops.spmm_heads import spmm_multihead
 from ...sparse.matrix import SparseMatrix
 from ...utils.graph_utils import add_self_loop_edge
+from ...utils.profiling import count, span
 from ...utils.union_utils import convert_union_to_numpy
 from ..kernel.segment import segment_softmax, segment_sum
 
@@ -38,17 +41,21 @@ def _gat_edge_cache(edge_index, num_nodes: int, cache: Optional[dict], device="c
     """``(self-looped edge list, is_sorted, layout)``: with a cache, the list
     sorted by destination (stable) and its ``CsrGatLayout``, both on
     ``device``, kept under ``gat_edges_{num_nodes}``; without one, the
-    self-looped list as given and no layout."""
+    self-looped list as given and no layout. A miss's sort and build is the
+    span ``tfg.setup.gat_layout`` (``CsrGatLayout.build``'s own nests in it)."""
     key = f"gat_edges_{num_nodes}"
     if cache is not None and key in cache:
+        count("cache.hit.gat_layout")
         return cache[key]
     ei_sl, _ = add_self_loop_edge(edge_index, num_nodes)
     if cache is None:
         return ei_sl, False, None
-    ei_np = convert_union_to_numpy(ei_sl, np.int64)
-    sorted_ei = ei_np[:, np.argsort(ei_np[0], kind="stable")]
-    layout = CsrGatLayout.build(sorted_ei, num_nodes, device=device)
-    entry = (torch.as_tensor(sorted_ei, device=device), True, layout)
+    count("cache.miss.gat_layout")
+    with span("tfg.setup.gat_layout"):
+        ei_np = convert_union_to_numpy(ei_sl, np.int64)
+        sorted_ei = ei_np[:, np.argsort(ei_np[0], kind="stable")]
+        layout = CsrGatLayout.build(sorted_ei, num_nodes, device=device)
+        entry = (torch.as_tensor(sorted_ei, device=device), True, layout)
     cache[key] = entry
     return entry
 
@@ -76,6 +83,7 @@ def _segment_attention(Q, K, V, row, col, num_nodes, num_heads, keep):
         num_nodes, num_heads, d_v)
 
 
+@span("tfg.nn.conv.gat")
 def gat(x, edge_index,
         query_kernel, query_bias, query_activation,
         key_kernel, key_bias, key_activation,

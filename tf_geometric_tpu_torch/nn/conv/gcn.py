@@ -5,7 +5,9 @@ The forward is dense ``x @ W`` then one SpMM ``Â @ h``. Normalization
 (``gcn_norm_adj``) is a precompute producing a new SparseMatrix, stored in the
 per-graph ``cache`` dict under a key over the full normalization config; the
 CSR twin of the normalized matrix (``maybe_compile_ell``) and the propagated
-features are derived entries of the same cache.
+features are derived entries of the same cache. The normalization's build is
+the span ``tfg.setup.norm_adj``; the counters ``cache.hit.<kind>`` and
+``cache.miss.<kind>`` count the lookups of ``norm_adj`` and ``csr_layout``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from ...ops.csr_spmm import CsrAdj
 from ...sparse.matrix import SparseMatrix
+from ...utils.profiling import count, span
 from ..kernel.map_reduce import gcn_mapper
 
 __all__ = [
@@ -71,39 +74,42 @@ def gcn_norm_adj(sparse_adj: SparseMatrix, norm: str = "both", add_self_loop: bo
     if cache is not None:
         cached = cache.get(cache_key, None)
         if cached is not None:
+            count("cache.hit.norm_adj")
             return SparseMatrix(cached[0], cached[1], cached[2])
+        count("cache.miss.norm_adj")
 
-    fill_weight = 2.0 if improved else 1.0
+    with span("tfg.setup.norm_adj"):
+        fill_weight = 2.0 if improved else 1.0
 
-    if sparse_adj.shape[0] != sparse_adj.shape[1]:
-        if add_self_loop:
-            raise ValueError("add_self_loop=True requires a square adjacency")
-        if sym:
-            raise ValueError("sym=True requires a square adjacency")
+        if sparse_adj.shape[0] != sparse_adj.shape[1]:
+            if add_self_loop:
+                raise ValueError("add_self_loop=True requires a square adjacency")
+            if sym:
+                raise ValueError("sym=True requires a square adjacency")
 
-    if add_self_loop and norm != "both":
-        sparse_adj = sparse_adj.add_diag(fill_weight)
-
-    if norm == "both":
-        if add_self_loop and renorm:
+        if add_self_loop and norm != "both":
             sparse_adj = sparse_adj.add_diag(fill_weight)
-        row_scale = _inv_pow_no_nan(sparse_adj.segment_sum(axis=-1), -0.5)
-        if sym:
-            col_scale = row_scale
+
+        if norm == "both":
+            if add_self_loop and renorm:
+                sparse_adj = sparse_adj.add_diag(fill_weight)
+            row_scale = _inv_pow_no_nan(sparse_adj.segment_sum(axis=-1), -0.5)
+            if sym:
+                col_scale = row_scale
+            else:
+                col_scale = _inv_pow_no_nan(sparse_adj.segment_sum(axis=0), -0.5)
+            normed = _scale_rows_cols(sparse_adj, row_scale, col_scale)
+            if add_self_loop and not renorm:
+                normed = normed.add_diag(fill_weight)
+        elif norm == "left":
+            row_deg = sparse_adj.segment_sum(axis=-1)
+            normed = _scale_rows_cols(sparse_adj, _inv_pow_no_nan(row_deg, -1.0), None)
+        elif norm == "right":
+            # the reference computes the axis=-1 degree here too (gcn.py:113)
+            col_deg = sparse_adj.segment_sum(axis=-1)
+            normed = _scale_rows_cols(sparse_adj, None, _inv_pow_no_nan(col_deg, -1.0))
         else:
-            col_scale = _inv_pow_no_nan(sparse_adj.segment_sum(axis=0), -0.5)
-        normed = _scale_rows_cols(sparse_adj, row_scale, col_scale)
-        if add_self_loop and not renorm:
-            normed = normed.add_diag(fill_weight)
-    elif norm == "left":
-        row_deg = sparse_adj.segment_sum(axis=-1)
-        normed = _scale_rows_cols(sparse_adj, _inv_pow_no_nan(row_deg, -1.0), None)
-    elif norm == "right":
-        # the reference computes the axis=-1 degree here too (gcn.py:113)
-        col_deg = sparse_adj.segment_sum(axis=-1)
-        normed = _scale_rows_cols(sparse_adj, None, _inv_pow_no_nan(col_deg, -1.0))
-    else:
-        raise ValueError(f"wrong GCN norm type: {norm}")
+            raise ValueError(f"wrong GCN norm type: {norm}")
 
     if cache is not None:
         cache[cache_key] = (normed.index.detach(), normed.value.detach(), normed.shape)
@@ -225,7 +231,9 @@ def maybe_compile_ell(normed_adj, cache: Optional[dict], cache_key: str):
     ell_key = cache_key + ":ell"
     csr = cache.get(ell_key, None)
     if csr is not None:
+        count("cache.hit.csr_layout")
         return csr
+    count("cache.miss.csr_layout")
     square = normed_adj.shape[0] == normed_adj.shape[1]
     csr = CsrAdj.from_coo(normed_adj.index, normed_adj.value, normed_adj.shape,
                           split_diag=square, device=normed_adj.device)
@@ -233,6 +241,7 @@ def maybe_compile_ell(normed_adj, cache: Optional[dict], cache_key: str):
     return csr
 
 
+@span("tfg.nn.conv.gcn")
 def gcn(x, sparse_adj: SparseMatrix, kernel, bias=None, activation=None,
         norm: str = "both", add_self_loop: bool = True, sym: bool = True,
         renorm: bool = True, improved: bool = False, edge_drop_rate: float = 0.0,

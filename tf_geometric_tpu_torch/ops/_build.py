@@ -9,7 +9,10 @@ the package (listed in ``.gitignore``), keyed by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 A failed build raises ``RuntimeError`` with nvcc's output. Nothing here
-falls back to another implementation.
+falls back to another implementation. The first use of a source is the span
+``tfg.setup.kernel_load`` (the build and the load); the counters
+``kernels.built`` and ``kernels.found`` count the libraries nvcc compiled
+and those loaded as found (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+from ..utils.profiling import count, span
 
 __all__ = ["SOURCES", "build_all", "kernel_function", "header_constant"]
 
@@ -37,6 +42,7 @@ _BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
+_compiled = set()  # the sources this process compiled
 build_logs: Dict[str, str] = {}
 
 
@@ -100,6 +106,8 @@ def build_all() -> Dict[str, Path]:
                 failures.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
             else:
                 os.replace(tmp, paths[src])
+                _compiled.add(src)
+                count("kernels.built")
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
         return paths
@@ -122,7 +130,10 @@ def kernel_function(source: str, symbol: str, argtypes: Sequence, restype=ctypes
     and, by default, an int return (the ``cudaError_t`` of the launch)."""
     lib = _libraries.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all()[source]))
+        with span("tfg.setup.kernel_load"):
+            lib = ctypes.CDLL(str(build_all()[source]))
+        if source not in _compiled:
+            count("kernels.found")
         _libraries[source] = lib
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)

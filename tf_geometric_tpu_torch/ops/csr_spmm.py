@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from .sorted_segment import sorted_segment_sum_plain
@@ -102,6 +103,8 @@ def _build_side(rows, cols, vals, eids, num_rows: int, split_width: int,
     owner_rows = owner_ptr = tickets = None
     if num_virtual:
         hubs = np.nonzero(chunks)[0]
+        count("hubs.split", len(hubs))
+        count("hubs.virtual_rows", num_virtual)
         owner_rows = torch.as_tensor(hubs.astype(np.int32), device=device)
         owner_ptr = torch.as_tensor(
             np.concatenate([[0], np.cumsum(chunks[hubs])]).astype(np.int32), device=device)
@@ -162,7 +165,8 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None):
     tickets)`` of the side (int32; tickets all 0, and no other launch using
     them meanwhile) the launch also merges each hub's partials into its row
     of ``out``, as ``side_matmul_plain`` does; without, a hub row holds
-    ``diag·h`` only. Counts each launch in ``.launches``."""
+    ``diag·h`` only. Counts each launch (``launches.csr_spmm``) and the
+    hubs it merges (``hubs.merged``)."""
     tensors = [("row_ptr", row_ptr), ("col", col), ("val", val), ("h", h)]
     if diag is not None:
         tensors.append(("diag", diag))
@@ -223,11 +227,10 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None):
                 _vec_elements(num_features, [h], [out, partial]), stream)
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: cudaError {rc}")
-    launch_csr_spmm.launches += 1
+    count("launches.csr_spmm")
+    if hubs is not None:
+        count("hubs.merged", num_hubs)
     return out, partial
-
-
-launch_csr_spmm.launches = 0
 
 
 def side_matmul(side: CsrSide, h, diag):
@@ -259,11 +262,13 @@ class _CsrSpmm(torch.autograd.Function):
     side with the same diagonal. Edge values are constants: no value grad."""
 
     @staticmethod
+    @span("tfg.ops.csr_spmm.forward")
     def forward(ctx, h, adj, side_fn):
         ctx.adj, ctx.side_fn = adj, side_fn
         return side_fn(adj.fwd, h, adj.diag_val)
 
     @staticmethod
+    @span("tfg.ops.csr_spmm.backward")
     def backward(ctx, dy):
         return ctx.side_fn(ctx.adj.bwd, dy.contiguous(), ctx.adj.diag_val), None, None
 
@@ -322,6 +327,7 @@ class CsrAdj:
         return self._num_edges
 
     @classmethod
+    @span("tfg.setup.csr_layout")
     def from_coo(cls, index, value, shape, split_diag: bool = False,
                  split_width: int = SPLIT_WIDTH, device="cuda") -> "CsrAdj":
         """Host-side build from COO ``index`` [2, E] (row = destination) and

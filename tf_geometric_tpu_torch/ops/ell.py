@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import config as _config
 from .csr_spmm import CsrAdj, CsrSide, csr_spmm, side_matmul, side_matmul_plain
 from .spmm_heads import CsrView, sddmm_heads, spmm_multihead
@@ -76,12 +77,14 @@ class _EllSpmmValues(torch.autograd.Function):
     gradient."""
 
     @staticmethod
+    @span("tfg.ops.ell.forward")
     def forward(ctx, h, values, adj, plain):
         ctx.save_for_backward(h)
         ctx.adj, ctx.plain = adj, plain
         return (side_matmul_plain if plain else side_matmul)(adj.fwd, h, adj.diag_val)
 
     @staticmethod
+    @span("tfg.ops.ell.backward")
     def backward(ctx, dy):
         (h,) = ctx.saved_tensors
         adj, plain = ctx.adj, ctx.plain

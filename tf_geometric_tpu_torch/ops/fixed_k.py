@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from . import _build
 from . import config as _config
 
@@ -143,7 +144,7 @@ def _check_cuda(tensors, device):
 
 def launch_draw_fixed_k(r, row_start, degree, sorted_col, sorted_weight=None, self_ids=None):
     """Launch the draw kernel; returns ``(idx, weight)`` as
-    ``draw_fixed_k_plain`` does. Counts each launch in ``.launches``."""
+    ``draw_fixed_k_plain`` does. Counts each launch (``launches.fixed_k_draw``)."""
     tensors = [("r", r), ("row_start", row_start), ("degree", degree),
                ("sorted_col", sorted_col)]
     if sorted_weight is not None:
@@ -175,11 +176,10 @@ def launch_draw_fixed_k(r, row_start, degree, sorted_col, sorted_weight=None, se
                 idx.data_ptr(), weight.data_ptr(), k, n, sorted_col.shape[0], stream)
     if rc != 0:
         raise RuntimeError(f"fixed_k draw kernel launch failed: cudaError {rc}")
-    launch_draw_fixed_k.launches += 1
+    count("launches.fixed_k_draw")
     return idx, weight
 
 
-launch_draw_fixed_k.launches = 0
 
 
 def draw_fixed_k_from_ints(r, csr, self_ids=None):
@@ -370,7 +370,7 @@ def _launch_aggregate(symbol: str, dense, idx, w, out, num_src: int, extra=None)
 
 def launch_fixed_k_forward(src, idx, w):
     """Launch the forward kernel; returns ``out`` as ``fixed_k_forward_plain``
-    does. Counts each launch in ``.launches``."""
+    does. Counts each launch (``launches.fixed_k_forward``)."""
     _check_aggregate(("src", src), idx, w)
     n, S = src.shape[0], idx.shape[1]
     out = torch.empty((S, src.shape[1]), dtype=src.dtype, device=src.device)
@@ -379,7 +379,7 @@ def launch_fixed_k_forward(src, idx, w):
     if n == 0:
         raise ValueError("src has no rows to gather")
     _launch_aggregate("tfg_fixed_k_forward", src, idx, w, out, n)
-    launch_fixed_k_forward.launches += 1
+    count("launches.fixed_k_forward")
     return out
 
 
@@ -388,9 +388,9 @@ def launch_fixed_k_backward(dy, idx, w, num_src: int):
     radix pass: a digit count, a three-launch scan and a scatter), then the
     tile kernel's gather of the tiles' runs (``backward_plan`` sizes it).
     Returns ``d_src`` float32 [num_src, F] as ``fixed_k_backward_plain``
-    does. Adds each kernel it launches to ``.launches``
+    does. Adds each kernel it launches to ``launches.fixed_k_backward``
     (``fixed_k_backward_launches(num_src)`` per call) and each call to
-    ``.calls``."""
+    ``calls.fixed_k_backward``."""
     _check_aggregate(("dy", dy), idx, w)
     if dy.shape[0] != idx.shape[1]:
         raise ValueError(f"dy must have {idx.shape[1]} rows, got {dy.shape[0]}")
@@ -409,8 +409,8 @@ def launch_fixed_k_backward(dy, idx, w, num_src: int):
         return [(_I, plan.tile), (_I, plan.cap), (_I, plan.part_groups),
                 (_P, scratch.data_ptr()), (_P, ctypes.addressof(launched))]
     _launch_aggregate("tfg_fixed_k_backward", dy, idx, w, d_src, num_src, extra)
-    launch_fixed_k_backward.launches += launched.value
-    launch_fixed_k_backward.calls += 1
+    count("launches.fixed_k_backward", launched.value)
+    count("calls.fixed_k_backward")
     return d_src
 
 
@@ -423,9 +423,6 @@ def fixed_k_backward_launches(num_src: int) -> int:
     return 5 * passes + (passes > 1) + 1
 
 
-launch_fixed_k_forward.launches = 0
-launch_fixed_k_backward.launches = 0
-launch_fixed_k_backward.calls = 0
 
 
 def _run(backward: bool, plain: bool, dense, *args):
@@ -441,12 +438,14 @@ class _FixedKAggregate(torch.autograd.Function):
     ``idx`` and ``w`` are the sampler's constants."""
 
     @staticmethod
+    @span("tfg.ops.fixed_k.forward")
     def forward(ctx, src, idx, w, plain):
         ctx.save_for_backward(idx, w)
         ctx.num_src, ctx.src_dtype, ctx.plain = src.shape[0], src.dtype, plain
         return _run(False, plain, src, idx, w)
 
     @staticmethod
+    @span("tfg.ops.fixed_k.backward")
     def backward(ctx, dy):
         idx, w = ctx.saved_tensors
         d_src = _run(True, ctx.plain, dy.contiguous(), idx, w, ctx.num_src)

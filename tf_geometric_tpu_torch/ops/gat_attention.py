@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from . import config as _config
@@ -111,6 +112,7 @@ class CsrGatLayout(NamedTuple):
     num_src: int
 
     @classmethod
+    @span("tfg.setup.gat_layout")
     def build(cls, edge_index, num_nodes: int, hub_degree: int = HUB_DEGREE,
               device="cuda", num_src: Optional[int] = None) -> "CsrGatLayout":
         """Host-side build from ``edge_index`` [2, E] (row = destination,
@@ -341,21 +343,21 @@ def _launch(kind: int, symbol: str, side: GatSide, num_heads: int, d: int, keep,
 
 def launch_gat_forward(side: GatSide, Q, K, V, num_heads: int, keep=None):
     """Launch the forward kernel over the destination side; returns
-    ``(out, lse)`` as ``gat_forward_plain`` does. Counts each launch in
-    ``.launches``."""
+    ``(out, lse)`` as ``gat_forward_plain`` does. Counts each launch
+    (``launches.gat_forward``)."""
     n, H, d = _check_launch(side, num_heads, [("Q", Q)], [("K", K), ("V", V)], keep=keep)
     out = torch.empty_like(Q)
     lse = torch.empty((n, H), dtype=torch.float32, device=Q.device)
     if _launch(0, "tfg_gat_forward", side, H, d, keep, [Q, K, V, out, lse], [_P] * 5):
-        launch_gat_forward.launches += 1
+        count("launches.gat_forward")
     return out, lse
 
 
 def launch_gat_backward_dst(side: GatSide, Q, K, V, out, lse, dy, num_heads: int, keep=None):
     """Launch the destination-side backward kernel; returns ``(dQ, D, w)`` as
     ``gat_backward_dst_plain`` does, except that the rows of ``w`` of edges
-    outside the side (padding) are left unwritten. Counts each launch in
-    ``.launches``."""
+    outside the side (padding) are left unwritten. Counts each launch
+    (``launches.gat_backward_dst``)."""
     n, H, d = _check_launch(side, num_heads, [("Q", Q), ("out", out), ("dy", dy)],
                             [("K", K), ("V", V)], [("lse", lse)], keep)
     dQ = torch.empty_like(Q)
@@ -363,14 +365,15 @@ def launch_gat_backward_dst(side: GatSide, Q, K, V, out, lse, dy, num_heads: int
     w = torch.empty((side.num_edges, 2 * H), dtype=torch.float32, device=Q.device)
     if _launch(1, "tfg_gat_backward_dst", side, H, d, keep, [Q, K, V, out, dy, lse, dQ, D, w],
                [_P] * 9):
-        launch_gat_backward_dst.launches += 1
+        count("launches.gat_backward_dst")
     return dQ, D, w
 
 
 def launch_gat_backward_src(side: GatSide, Q, dy, w, num_heads: int):
     """Launch the source-side backward kernel, the weighted gather of Q and
     dy by the destination pass's ``w``; returns ``(dK, dV)`` as
-    ``gat_backward_src_plain`` does. Counts each launch in ``.launches``."""
+    ``gat_backward_src_plain`` does. Counts each launch
+    (``launches.gat_backward_src``)."""
     _, H, d = _check_launch(side, num_heads, [("Q", Q), ("dy", dy)], weights=w)
     if side.hub_degree != CHUNK:
         raise ValueError(f"the source side's hubs must be its rows of more than {CHUNK} "
@@ -379,13 +382,8 @@ def launch_gat_backward_src(side: GatSide, Q, dy, w, num_heads: int):
     dK = torch.empty(shape, dtype=Q.dtype, device=Q.device)
     dV = torch.empty(shape, dtype=Q.dtype, device=Q.device)
     if _launch(2, "tfg_gat_backward_src", side, H, d, None, [Q, dy, w, dK, dV], [_P] * 5):
-        launch_gat_backward_src.launches += 1
+        count("launches.gat_backward_src")
     return dK, dV
-
-
-launch_gat_forward.launches = 0
-launch_gat_backward_dst.launches = 0
-launch_gat_backward_src.launches = 0
 
 
 def kernel_info(kind: int, num_heads: int, head_width: int, dtype,
@@ -423,6 +421,7 @@ def _run_pass(kind: int, plain: bool, side: GatSide, Q, *args):
 
 class _GatAttention(torch.autograd.Function):
     @staticmethod
+    @span("tfg.ops.gat_attention.forward")
     def forward(ctx, Q, K, V, layout, num_heads, keep, plain):
         out, lse = _run_pass(0, plain, layout.dst, Q, K, V, num_heads, keep)
         ctx.save_for_backward(Q, K, V, out, lse, keep)
@@ -430,6 +429,7 @@ class _GatAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @span("tfg.ops.gat_attention.backward")
     def backward(ctx, dy):
         Q, K, V, out, lse, keep = ctx.saved_tensors
         layout, H, plain = ctx.layout, ctx.num_heads, ctx.plain

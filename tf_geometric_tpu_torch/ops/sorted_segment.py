@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count, span
 from . import _build
 
 __all__ = ["sorted_segment_sum", "segment_sum_csr", "sorted_segment_sum_plain",
@@ -88,7 +89,7 @@ def launch_sorted_segment_sum(msg, seg_ptr, out, accumulate: bool, rows=None):
     [S + 1] int32, ``out`` [R, F] (float32 or bfloat16) and, optionally,
     ``rows`` [S] int32 (distinct rows of ``out``, in ``[0, R)``; without
     them R = S and segment s writes row s). All are contiguous CUDA tensors
-    on one device. Counts each launch in ``.launches``."""
+    on one device. Counts each launch (``launches.sorted_segment_sum``)."""
     tensors = [("msg", msg), ("seg_ptr", seg_ptr), ("out", out)]
     if rows is not None:
         tensors.append(("rows", rows))
@@ -121,13 +122,11 @@ def launch_sorted_segment_sum(msg, seg_ptr, out, accumulate: bool, rows=None):
                 int(accumulate), stream)
     if rc != 0:
         raise RuntimeError(f"sorted_segment_sum kernel launch failed: cudaError {rc}")
-    launch_sorted_segment_sum.launches += 1
+    count("launches.sorted_segment_sum")
     return out
 
 
-launch_sorted_segment_sum.launches = 0
-
-
+@span("tfg.ops.sorted_segment.forward")
 def segment_sum_csr(msg, seg_ptr, out=None, rows=None):
     """``out[r_s] (+)= Σ msg[seg_ptr[s]:seg_ptr[s + 1]]`` (``r_s = rows[s]``,
     or ``s``): Kernel B for CUDA tensors, the plain version for CPU tensors.

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import config as _config
 from .spmm_heads import CsrView, build_csr_view, sddmm_heads, spmm_heads
 
@@ -57,6 +58,7 @@ def sddmm_xla(index, a, b):
 
 class _Spmm(torch.autograd.Function):
     @staticmethod
+    @span("tfg.ops.spmm.forward")
     def forward(ctx, index, value, h, num_rows, plain):
         view = build_csr_view(index[0], index[1], num_rows, h.shape[0])
         w = value.float()[:, None].contiguous()
@@ -66,6 +68,7 @@ class _Spmm(torch.autograd.Function):
         return out
 
     @staticmethod
+    @span("tfg.ops.spmm.backward")
     def backward(ctx, dy):
         index, w, h, *fwd_view = ctx.saved_tensors
         dy = dy.contiguous()

@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import count, span
 from . import _build
 from . import config as _config
 
@@ -232,7 +233,7 @@ def _vec_elements(head_width: int, loaded, stored=()) -> int:
 def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
     """Launch the SpMM kernels; returns ``out`` as ``spmm_heads_plain`` does
     (``out_dtype``: ``src``'s, or float32 for a bfloat16 ``src``). ``w``
-    float32 [E, H]. Counts each launch in ``.launches``: two a call (the
+    float32 [E, H]. Counts each launch (``launches.spmm_heads``): two a call (the
     chunks', then the rows'; ``spmm_heads_launches``), one for a view of at
     most ``CHUNK`` entries."""
     _check_view(view, src.device)
@@ -268,7 +269,7 @@ def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
                 chunks, stream)
     if rc != 0:
         raise RuntimeError(f"spmm_heads kernel launch failed: cudaError {rc}")
-    launch_spmm_heads.launches += 1 + (chunks > 0)
+    count("launches.spmm_heads", 1 + (chunks > 0))
     return out
 
 
@@ -277,7 +278,7 @@ def launch_sddmm_heads(view, a, b, num_heads: int, out):
     consecutive entries of the view, each entry's row from
     ``sddmm_entry_rows``); writes ``out`` (float32 [E, H], contiguous) as
     ``sddmm_heads_plain`` does and returns it. ``a`` and ``b`` share one
-    dtype. Counts each launch in ``.launches``."""
+    dtype. Counts each launch (``launches.sddmm_heads``)."""
     _check_view(view, a.device)
     _check_dense("a", a, a.device, num_heads)
     _check_dense("b", b, a.device, num_heads)
@@ -306,12 +307,8 @@ def launch_sddmm_heads(view, a, b, num_heads: int, out):
                 rows, view.nbr.shape[0], vec, stream)
     if rc != 0:
         raise RuntimeError(f"sddmm_heads kernel launch failed: cudaError {rc}")
-    launch_sddmm_heads.launches += 1
+    count("launches.sddmm_heads")
     return out
-
-
-launch_spmm_heads.launches = 0
-launch_sddmm_heads.launches = 0
 
 
 def _use_kernel(t, plain: bool, what: str) -> bool:
@@ -352,6 +349,7 @@ class _MultiheadSpmm(torch.autograd.Function):
     (SpMM on the source side) with the forward's weights."""
 
     @staticmethod
+    @span("tfg.ops.spmm_heads.forward")
     def forward(ctx, att, v, layout, plain):
         w = att.to(v.dtype).float().contiguous()  # the weights in v's dtype, as ell.py:246
         ctx.save_for_backward(w, v)
@@ -359,6 +357,7 @@ class _MultiheadSpmm(torch.autograd.Function):
         return spmm_heads(layout.dst, w, v, att.shape[1], plain=plain)
 
     @staticmethod
+    @span("tfg.ops.spmm_heads.backward")
     def backward(ctx, dy):
         w, v = ctx.saved_tensors
         layout, plain, H = ctx.layout, ctx.plain, w.shape[1]

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count, span
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from . import config as _config
@@ -266,7 +267,7 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
     multiple of 16 up to ``MAX_TILE``, ``h`` [n_src, F] float32 or bfloat16;
     all contiguous CUDA tensors on one device. Allocates and returns ``out``
     [num_out_rows, F] in ``h``'s dtype; with bf16 tiles, ``h`` is first cast
-    (``cast_operand``). Counts each launch in ``.launches``. Refuses, before
+    (``cast_operand``). Counts each launch (``launches.tiled_spmm``). Refuses, before
     anything runs: a non-contiguous tensor, a tile that is not a multiple of
     16 up to ``MAX_TILE``, wrong dtypes or shapes, then CPU tensors."""
     tensors = (("row_ptr", row_ptr), ("col_tile", col_tile), ("a_tiles", a_tiles), ("h", h))
@@ -323,11 +324,8 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
                     num_out_rows, width, stream)
     if rc != 0:
         raise RuntimeError(f"tiled_spmm kernel launch failed: cudaError {rc}")
-    launch_tiled_spmm.launches += 1
+    count("launches.tiled_spmm")
     return out
-
-
-launch_tiled_spmm.launches = 0
 
 
 def kernel_info(tile: int, width: int, a_dtype, h_dtype) -> dict:
@@ -372,11 +370,13 @@ class _TiledSpmm(torch.autograd.Function):
     are constants and get no gradient."""
 
     @staticmethod
+    @span("tfg.ops.tiled_spmm.forward")
     def forward(ctx, h, ts):
         ctx.ts = ts
         return tiled_pass(ts, h)
 
     @staticmethod
+    @span("tfg.ops.tiled_spmm.backward")
     def backward(ctx, dy):
         return tiled_pass(ctx.ts, dy, transpose=True), None
 

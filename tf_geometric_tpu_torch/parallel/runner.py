@@ -35,8 +35,10 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["ShardJob", "run_ranks", "run_job", "kernel_launch_counts", "rank_seed",
-           "params_to_numpy"]
+from ..utils.profiling import counters
+
+__all__ = ["ShardJob", "run_ranks", "run_job", "kernel_launch_counts", "LAUNCH_FAMILIES",
+           "rank_seed", "params_to_numpy"]
 
 
 class ShardJob(NamedTuple):
@@ -91,25 +93,16 @@ class ShardJob(NamedTuple):
     timed: bool = False
 
 
-def _wrappers():
-    from ..ops import fixed_k as fk
-    from ..ops import gat_attention as ga
-    from ..ops import spmm_heads as sh
-    from ..ops.csr_spmm import launch_csr_spmm
-    from ..ops.sorted_segment import launch_sorted_segment_sum
-    from ..ops.tiled_spmm import launch_tiled_spmm
-    return {"csr_spmm": launch_csr_spmm, "sorted_segment_sum": launch_sorted_segment_sum,
-            "gat_forward": ga.launch_gat_forward, "gat_backward_dst": ga.launch_gat_backward_dst,
-            "gat_backward_src": ga.launch_gat_backward_src,
-            "fixed_k_draw": fk.launch_draw_fixed_k, "fixed_k_forward": fk.launch_fixed_k_forward,
-            "fixed_k_backward": fk.launch_fixed_k_backward,
-            "spmm_heads": sh.launch_spmm_heads, "sddmm_heads": sh.launch_sddmm_heads,
-            "tiled_spmm": launch_tiled_spmm}
+# the kernel wrappers' launch counters, ``launches.<family>`` (``utils.profiling``)
+LAUNCH_FAMILIES = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
+                   "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward",
+                   "spmm_heads", "sddmm_heads", "tiled_spmm")
 
 
 def kernel_launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count in this process."""
-    return {name: w.launches for name, w in _wrappers().items()}
+    found = counters()
+    return {name: found.get(f"launches.{name}", 0) for name in LAUNCH_FAMILIES}
 
 
 def rank_seed(seed: int, rank: int) -> int:
