@@ -8,6 +8,14 @@ are glorot-uniform from ``generator`` in the flax creation order, biases
 zeros. ``LSTMGraphSage`` runs a ``torch.nn.LSTM`` over the neighbour axis,
 the counterpart of the flax ``OptimizedLSTMCell``
 (``convert.sage_state_dict_from_flax`` maps one onto the other).
+
+``MeanGraphSage`` and ``SumGraphSage`` also take ``[x, draw]`` with a
+fixed-k draw (``nn.sampling.FixedKDraw``, as ``DeviceNeighborSampler.sample``
+returns it): they then run ``nn.conv.mean_graph_sage_fixed_k`` /
+``sum_graph_sage_fixed_k`` (the fixed-k kernels on CUDA tensors) in place of
+the segment path over an edge list. Their forwards are the spans
+``tfg.layers.MeanGraphSage`` and ``tfg.layers.SumGraphSage``. The other
+layers take an edge list alone and refuse a draw.
 """
 from __future__ import annotations
 
@@ -17,7 +25,10 @@ import torch
 from torch import nn
 
 from ...nn.conv.graph_sage import (gcn_graph_sage, lstm_graph_sage, max_pool_graph_sage,
-                                   mean_graph_sage, mean_pool_graph_sage, sum_graph_sage)
+                                   mean_graph_sage, mean_graph_sage_fixed_k,
+                                   mean_pool_graph_sage, sum_graph_sage, sum_graph_sage_fixed_k)
+from ...ops.fixed_k import FixedKDraw
+from ...utils.profiling import span
 from ..base import glorot_uniform, unpack_edge_inputs
 
 __all__ = ["MeanGraphSage", "SumGraphSage", "GCNGraphSage", "MeanPoolGraphSage",
@@ -45,12 +56,23 @@ class _SageBase(nn.Module):
         self.activation = activation
         self.normalize = normalize
 
+    def _edge_inputs(self, inputs):
+        """``unpack_edge_inputs``, refusing a ``FixedKDraw``."""
+        x, edge_index, edge_weight = unpack_edge_inputs(inputs)
+        if isinstance(edge_index, FixedKDraw):
+            raise TypeError(f"{type(self).__name__} takes an edge list, not a FixedKDraw "
+                            "(MeanGraphSage and SumGraphSage take one)")
+        return x, edge_index, edge_weight
+
 
 class _PairKernelSage(_SageBase):
     """Self and neighbour kernels [in_features, kernel_units], then ``bias``
-    [units] (mean and sum variants)."""
+    [units] (mean and sum variants). ``inputs`` is ``[x, edge_index(,
+    edge_weight)]``, ``[x, SparseMatrix]`` or ``[x, FixedKDraw]``; a draw
+    has one row per row of ``x``."""
 
     _op = None
+    _fixed_k_op = None
 
     def __init__(self, in_features: int, units: int, activation: Optional[Callable] = torch.relu,
                  use_bias: bool = True, concat: bool = True, normalize: bool = False,
@@ -63,20 +85,30 @@ class _PairKernelSage(_SageBase):
         self.bias = _zeros(units, device) if use_bias else None
 
     def forward(self, inputs, cache=None):
-        x, edge_index, edge_weight = unpack_edge_inputs(inputs)
-        return type(self)._op(x, edge_index, edge_weight, self.self_kernel,
-                              self.neighbor_kernel, bias=self.bias, activation=self.activation,
-                              concat=self.concat, normalize=self.normalize)
+        x, edges, edge_weight = unpack_edge_inputs(inputs)
+        kwargs = dict(bias=self.bias, activation=self.activation, concat=self.concat,
+                      normalize=self.normalize)
+        if isinstance(edges, FixedKDraw):
+            if edges.idx.shape[1] != x.shape[0]:
+                raise ValueError(f"the draw has {edges.idx.shape[1]} rows, x has {x.shape[0]}")
+            return type(self)._fixed_k_op(x, edges.idx, edges.weight, self.self_kernel,
+                                          self.neighbor_kernel, **kwargs)
+        return type(self)._op(x, edges, edge_weight, self.self_kernel, self.neighbor_kernel,
+                              **kwargs)
 
 
 class MeanGraphSage(_PairKernelSage):
     """Mean aggregator layer."""
     _op = staticmethod(mean_graph_sage)
+    _fixed_k_op = staticmethod(mean_graph_sage_fixed_k)
+    forward = span("tfg.layers.MeanGraphSage")(_PairKernelSage.forward)
 
 
 class SumGraphSage(_PairKernelSage):
     """Sum aggregator layer."""
     _op = staticmethod(sum_graph_sage)
+    _fixed_k_op = staticmethod(sum_graph_sage_fixed_k)
+    forward = span("tfg.layers.SumGraphSage")(_PairKernelSage.forward)
 
 
 class GCNGraphSage(_SageBase):
@@ -90,7 +122,7 @@ class GCNGraphSage(_SageBase):
         self.bias = _zeros(units, device) if use_bias else None
 
     def forward(self, inputs, cache=None):
-        x, edge_index, edge_weight = unpack_edge_inputs(inputs)
+        x, edge_index, edge_weight = self._edge_inputs(inputs)
         return gcn_graph_sage(x, edge_index, edge_weight, self.kernel, self.bias,
                               self.activation, self.normalize, cache=cache)
 
@@ -115,7 +147,7 @@ class _PoolSage(_SageBase):
         self.bias = _zeros(units, device) if use_bias else None
 
     def forward(self, inputs, cache=None):
-        x, edge_index, edge_weight = unpack_edge_inputs(inputs)
+        x, edge_index, edge_weight = self._edge_inputs(inputs)
         return type(self)._op(x, edge_index, edge_weight, self.self_kernel,
                               self.neighbor_mlp_kernel, self.neighbor_kernel,
                               neighbor_mlp_bias=self.neighbor_mlp_bias, bias=self.bias,
@@ -153,7 +185,7 @@ class LSTMGraphSage(_SageBase):
         self.lstm = nn.LSTM(in_features, ku, batch_first=True, device=device)
 
     def forward(self, inputs, cache=None):
-        x, edge_index, _ = unpack_edge_inputs(inputs)
+        x, edge_index, _ = self._edge_inputs(inputs)
         return lstm_graph_sage(x, edge_index, lambda seq: self.lstm(seq)[0], self.self_kernel,
                                self.neighbor_kernel, bias=self.bias,
                                activation=self.activation, concat=self.concat,

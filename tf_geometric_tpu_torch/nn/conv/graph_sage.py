@@ -11,7 +11,8 @@ reference overwrites them with ones in the gcn and pool variants).
 
 The fixed-k variants aggregate a slot-major ``[k, S]`` draw
 (``nn/sampling/device_sampler.py``) through ``ops.fixed_k`` (a hand-written
-kernel on CUDA tensors); the others run on the segment ops.
+kernel on CUDA tensors); the others run on the segment ops. The two
+fixed-k functions are the span ``tfg.nn.conv.graph_sage``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from ...ops.fixed_k import fixed_k_aggregate
+from ...utils.profiling import span
 from ..kernel.map_reduce import gcn_mapper
 from ..kernel.segment import segment_max, segment_mean, segment_sum
 from .gcn import gcn_norm_edge
@@ -94,6 +96,7 @@ def _fixed_k_reduce(x, neighbor_idx, neighbor_weight, neighbor_kernel, compute_d
     return (acc if matmul_first else acc @ neighbor_kernel), neighbor_idx.shape[0]
 
 
+@span("tfg.nn.conv.graph_sage")
 def mean_graph_sage_fixed_k(x, neighbor_idx, neighbor_weight, self_kernel, neighbor_kernel,
                             bias=None, activation=None, concat=True, normalize=False,
                             compute_dtype=None):
@@ -105,6 +108,7 @@ def mean_graph_sage_fixed_k(x, neighbor_idx, neighbor_weight, self_kernel, neigh
     return _finish(x @ self_kernel, summed / k, bias, activation, concat, normalize)
 
 
+@span("tfg.nn.conv.graph_sage")
 def sum_graph_sage_fixed_k(x, neighbor_idx, neighbor_weight, self_kernel, neighbor_kernel,
                            bias=None, activation=None, concat=True, normalize=False,
                            compute_dtype=None):

@@ -1,4 +1,4 @@
-from .device_sampler import DeviceNeighborSampler, draw_fixed_k
+from .device_sampler import DeviceNeighborSampler, FixedKDraw, draw_fixed_k
 from .drop_edge import drop_edge
 
-__all__ = ["DeviceNeighborSampler", "draw_fixed_k", "drop_edge"]
+__all__ = ["DeviceNeighborSampler", "FixedKDraw", "draw_fixed_k", "drop_edge"]

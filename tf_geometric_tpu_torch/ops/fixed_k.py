@@ -52,7 +52,7 @@ from ..utils.profiling import count, span
 from . import _build
 from . import config as _config
 
-__all__ = ["draw_fixed_k_plain", "launch_draw_fixed_k", "draw_fixed_k_from_ints",
+__all__ = ["FixedKDraw", "draw_fixed_k_plain", "launch_draw_fixed_k", "draw_fixed_k_from_ints",
            "row_divisor", "reciprocal_remainder",
            "fixed_k_aggregate", "fixed_k_forward_plain", "fixed_k_backward_plain",
            "fixed_k_backward_order_plain",
@@ -79,6 +79,16 @@ PART_FLOATS = 4096            # shared floats for a round of hub partials
 # ---------------------------------------------------------------------------
 # the draw
 # ---------------------------------------------------------------------------
+
+class FixedKDraw(NamedTuple):
+    """One fixed-k draw, slot-major: ``idx`` int32 [k, S], the drawn
+    neighbour of row ``s`` in slot ``j``, and ``weight`` float32 [k, S],
+    its edge weight (1 unweighted; 0 on the self-slots of rows without
+    edges). ``nn.sampling`` draws it; ``layers.MeanGraphSage`` and
+    ``SumGraphSage`` take it in place of an edge list."""
+    idx: torch.Tensor
+    weight: torch.Tensor
+
 
 def draw_fixed_k_plain(r, row_start, degree, sorted_col, sorted_weight=None, self_ids=None):
     """Plain version of the draw kernel: ``(idx int32 [k, S], weight
