@@ -19,7 +19,9 @@ Phases, each of which raises (non-zero exit) on failure:
    rtol = atol = 1e-4, order of summation only; bfloat16: rtol = atol =
    2e-2, one bf16 rounding of differently ordered float32 sums), and the
    composed product against ``torch.sparse.mm`` in float32, and Kernel A
-   against a second run of the same call, bit for bit. Print each side's
+   against a second run of the same call and against itself forced to one
+   column slice (its plan cuts the F = 256 float32 table,
+   ``ops.csr_spmm.slice_width``), bit for bit. Print each side's
    longest row beside the longest serial walks (the most edges one lane
    group of Kernel A reads, the most partials Kernel B adds into one row).
    Time each kernel, its plain version and ``torch.sparse.mm`` (the library
@@ -35,7 +37,8 @@ Phases, each of which raises (non-zero exit) on failure:
    rows, at F = 40 and 256 (halo: 64 and 40), float32 and bfloat16, the
    merged launch against Kernel A without the merge followed by Kernel B
    (float32 bit for bit, bfloat16 2e-2), against the plain version and
-   against a second run (bit for bit), the tickets all 0 after. Then time
+   against a second run and the launch forced to one column slice (bit for
+   bit), the tickets all 0 after. Then time
    ``side_matmul`` on the forward side at hub split widths 32, 64
    (``SPLIT_WIDTH``), 128 and 256, at F = 40 float32 and F = 256 bfloat16
    (events and device time), each held against its plain version.
@@ -156,7 +159,8 @@ Phases, each of which raises (non-zero exit) on failure:
     (square, split diagonal) and remote block (rectangular, mostly empty
     rows), at F = 64 and 40, float32 and bfloat16: Kernel A and Kernel B
     forward and ``dh`` against their plain versions (float32 1e-4, bfloat16
-    2e-2), Kernel A against a second run of the same call, bit for bit, and,
+    2e-2), Kernel A against a second run of the same call and against itself
+    forced to one column slice (merged too), bit for bit, and,
     in float32, the product against ``torch.sparse.mm`` on the same block;
     each block side's longest serial walks beside its longest row; Kernel A
     and ``torch.sparse.mm`` in float32 also by device time; the
@@ -368,14 +372,15 @@ Kernel A's launch); the last is
 ``{"ok": true, "device": {...}}``.
 
 With ``--against DIR`` (or ``--trial DIR``) the script instead times another
-checkout's GAT source pass (X4's ``gat_backward_src``) beside this one's, in
-turns on one card, through each tree's own wrapper
-(``DIR/tf_geometric_tpu_torch``, built from its own ``csrc/``): on the
-Reddit-shaped graph at the GAT benchmark cell's two layers' widths, on the
-arxiv layout and its transpose (H = 8, d = 32, float32 and bfloat16) and on the
-graph-parallel GAT's rank-0 block (X5) at its two layers' widths;
-``--against`` also holds the two trees' dK and dV equal (bit for bit),
-``--trial`` does not.
+checkout's Kernel A (``side_matmul``) beside this one's, in turns on one
+card, through each tree's own wrapper (``DIR/tf_geometric_tpu_torch``,
+built from its own ``csrc/``): on the GCN cells' Reddit-shaped adjacency,
+forward and ``dh`` at F = 256 and 41 float32 and F = 256 bfloat16, on the
+arxiv adjacency at F = 256 and 40, and on hard Pubmed's TAGCN adjacency at
+F = 500; each case also against this tree forced to one column slice, bit
+for bit. Then this tree's slice widths are swept (h row-major, and copied
+slice-major first) on Reddit and arxiv. ``--against`` also holds the two
+trees' outputs equal (bit for bit), ``--trial`` does not.
 """
 import contextlib
 import hashlib
@@ -530,6 +535,7 @@ def kernel_phase(problem, normed):
                 torch.cuda.synchronize()
                 tag = f"{side_name} F={width} {str(dtype)[6:]}"
                 _check_same_bits(launch_csr_spmm, args, (out_k, part_k), f"csr_spmm {tag}")
+                _check_one_slice(args, None, (out_k, part_k), f"csr_spmm {tag}")
                 err_a = max(_max_err(out_k, out_p, tol, f"csr_spmm out {tag}"),
                             _max_err(part_k, part_p, F32_TOL, f"csr_spmm partial {tag}"))
                 nnz = int(side.col.shape[0])
@@ -632,6 +638,7 @@ def _merge_case(side, h, diag, tag):
     two = launch_sorted_segment_sum(part, side.owner_ptr, out, True, side.owner_rows)
     again = launch_csr_spmm(*args, hubs=hubs)[0]
     torch.cuda.synchronize()
+    _check_one_slice(args, hubs, (merged,), tag)
     _check(not bool(side.tickets.any()), f"{tag}: tickets left non-zero after the launch")
     _check(torch.equal(merged, again), f"{tag}: two runs of the merged launch differ")
     if h.dtype == torch.float32:
@@ -685,6 +692,19 @@ def _check_same_bits(launch, args, first, what):
     torch.cuda.synchronize()
     _check(all(torch.equal(a, b) for a, b in zip(first, again)),
            f"{what}: two runs on the same inputs differ")
+
+
+def _check_one_slice(args, hubs, first, what):
+    """Kernel A at its slice plan (``first``: its ``(out, partial)``) gives
+    the bits of Kernel A forced to one column slice: the same sums in the
+    same order, whatever columns a block gathers."""
+    import torch
+    from tf_geometric_tpu_torch.ops import csr_spmm as cs
+    one = cs.launch_csr_spmm(*args, hubs, width=args[3].shape[1])
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(first, one)),
+           f"{what}: the sliced launch differs from one slice")
+    _check(_slice_tickets_clear(cs), f"{what}: slice tickets left nonzero")
 
 
 def _gather_ms(nnz, width, elt):
@@ -3704,6 +3724,9 @@ def _zero_launch_counts():
     reset()
 
 
+SLICE_COUNTERS = ("csr_spmm.sliced", "csr_spmm.slices")
+
+
 def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
     """Workloads 1, 1b, 3, 5 and 10-12 (SGC, APPNP, SSGC) at full arxiv
     size, 4 (SAGE) and 18 (SAGE on host draws) at full Reddit size, 6 and 7
@@ -3729,8 +3752,11 @@ def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
                 "reddit_host": host_sage_problem}
     for name, wl in bench.WORKLOADS.items():
         _zero_launch_counts()
+        before = counters()
         res = bench.run_workload(problems[wl.problem], name)
         counts = _launch_counts()
+        # Kernel A's launches cut into column slices, and their slices
+        sliced = {k: counters().get(k, 0) - before.get(k, 0) for k in SLICE_COUNTERS}
         steps = res["steps_taken"]
         expected = dict.fromkeys(_KERNELS, 0)
         if name in bench.SPMM_PAIRS:
@@ -3802,7 +3828,8 @@ def main_path_phase(gpu, sage_problem, graph_problem, host_sage_problem):
         print(f"{name}: step {res['step_ms']:.4f} ms, {res['line']['value']} "
               f"{res['line']['unit']}, "
               f"vs_baseline {res['line']['vs_baseline']}, loss {losses[0]:.5f} -> "
-              f"{losses[-1]:.5f}, launches {dict(zip(_KERNELS, counts))} on {gpu}", flush=True)
+              f"{losses[-1]:.5f}, launches {dict(zip(_KERNELS, counts))}, {sliced} on {gpu}",
+              flush=True)
         print(json.dumps(res["line"]), flush=True)
     return totals, results
 
@@ -4222,6 +4249,10 @@ def x2_kernel_phase(halo):
                         case = "forward" if side_name == "fwd" else "dh"
                         _check_same_bits(launch_csr_spmm, args, (out_k, part_k),
                                          f"x2 Kernel A {case} {tag}")
+                        _check_one_slice(args, None, (out_k, part_k), f"x2 Kernel A {case} {tag}")
+                        if side.num_virtual:
+                            _check_one_slice(args, (side.owner_rows, side.owner_ptr, side.tickets),
+                                             (full,), f"x2 Kernel A merged {case} {tag}")
                         err = max(_max_err(out_k, out_p, tol, f"x2 Kernel A {case} {tag}"),
                                   _max_err(part_k, part_p, F32_TOL, f"x2 partial {case} {tag}"),
                                   _max_err(full, side_matmul_plain(side, h, adj.diag_val), tol,
@@ -4947,7 +4978,7 @@ def x7_kernel_entry(x7_rows, ab_launches):
 
 
 # ---------------------------------------------------------------------------
-# another checkout's GAT source pass beside this one's, in turns on one card:
+# another checkout's Kernel A beside this one's, in turns on one card:
 #   python3 chip_smoke.py --against DIR   (outputs held equal: a parent tree)
 #   python3 chip_smoke.py --trial DIR     (outputs not held: a throwaway trial)
 # DIR holds a copy of the port package (``DIR/tf_geometric_tpu_torch``),
@@ -5007,151 +5038,201 @@ def _in_turns(fns, what):
     return times
 
 
-# (heads, head width) of the GAT benchmark cell's two layers (float32)
-SRC_CASES = ((8, 8), (1, 41))
-
-
-def _reddit_gat_edges(seed):
-    """The Reddit-shaped graph's edge list [2, E] and node count, drawn on
-    the card from ``seed``: 232,965 nodes, 11,606,919 edges with squared-uniform
-    destinations and uniform sources (the benchmark's reddit-full rule),
-    each edge both ways, then a self-loop on every node."""
+def _reddit_gcn_coo(seed):
+    """The GCN benchmark cell's Reddit-shaped adjacency, normalized as its
+    layers normalize it (self-loops, D^-1/2 (A + I) D^-1/2), as (index [2, E],
+    value [E], n), drawn on the card from ``seed`` by the cell's rule: 232,965
+    nodes, 11,606,919 edges with squared-uniform destinations and uniform
+    sources, each edge both ways."""
     import torch
     from tf_geometric_tpu_torch.datasets.synthetic_reddit import REDDIT_EDGES, REDDIT_NODES
+    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
     n, e = REDDIT_NODES, REDDIT_EDGES
     gen = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.rand(e, generator=gen, device="cuda", dtype=torch.float64)
     dst = (u * u * n).long().clamp_(max=n - 1)
     src = torch.randint(0, n, (e,), generator=gen, device="cuda")
-    loops = torch.arange(n, device="cuda")
-    edges = torch.stack([torch.cat([dst, src, loops]), torch.cat([src, dst, loops])])
-    return edges, n
+    edges = torch.stack([torch.cat([dst, src]), torch.cat([src, dst])])
+    normed = gcn_norm_adj(SparseMatrix(edges, None, (n, n), device="cuda"))
+    return normed.index, normed.value, n
 
 
-def _edges_of(layout):
-    """A ``CsrGatLayout``'s edge list [2, E] from its destination side, -1
-    at the edge ids it holds no entry for (padding, which a build drops)."""
+def _arxiv_gcn_coo():
+    """The arxiv-shaped graph's normalized adjacency (index, value, n)."""
+    from tf_geometric_tpu_torch.datasets import synthetic_ogbn_arxiv_like
+    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    from tf_geometric_tpu_torch.sparse import SparseMatrix
+    graph = synthetic_ogbn_arxiv_like()
+    n = graph.num_nodes
+    normed = gcn_norm_adj(SparseMatrix(graph.edge_index, graph.edge_weight, (n, n),
+                                       device="cuda"))
+    return normed.index, normed.value, n
+
+
+def _pubmed_tagcn_coo():
+    """Hard Pubmed's ``renorm=False`` adjacency, TAGCN's (index, value, n)."""
+    from tf_geometric_tpu_torch.datasets.synthetic_citation import HardCitationDataset
+    from tf_geometric_tpu_torch.nn.conv.gcn import gcn_norm_adj
+    graph, _ = HardCitationDataset(PLANETOID_NAME, seed=PLANETOID_SEED,
+                                   model="gcn").load_data()
+    graph.convert_data_to_tensor(device="cuda")
+    normed = gcn_norm_adj(graph.adj(device="cuda"), renorm=False)
+    return normed.index, normed.value, graph.num_nodes
+
+
+def _mincut_block_pair(cs, o_cs):
+    """Workload 17's rank 1 block (``mincut_kernel_phase``'s), rebuilt by
+    each tree from its entries: rows local, columns global, no diagonal."""
     import torch
-    d = layout.dst
-    ei = torch.full((2, layout.num_edges), -1, dtype=torch.long, device=d.eid.device)
-    ei[0, d.eid.long()] = torch.repeat_interleave(
-        torch.arange(layout.num_nodes, device=d.eid.device), d.row_ptr.diff().long())
-    ei[1, d.eid.long()] = d.nbr.long()
-    return ei
+    from tf_geometric_tpu_torch import bench
+    block = bench.build_mincut_problem().adjs[1].csr.to("cuda")
+    index = torch.stack([_side_rows(block.fwd), block.fwd.col.long()])
+    return tuple(m.CsrAdj.from_coo(index, block.fwd.val, block.shape, device="cuda")
+                 for m in (cs, o_cs))
 
 
-def _src_case(ga, o_ga, lay, o_lay, heads, width, dtype, gen, what, hold_outputs):
-    """One source-pass case beside the other tree's (``o_ga``, on its own
-    build ``o_lay`` of the same edges): Q and dy [N, H·d] of ``dtype`` and w
-    [E, 2H] float32 from ``gen``; this tree's dK and dV against the plain
-    version (float32 1e-3, bfloat16 2e-2), both trees' bits compared (held
-    equal with ``hold_outputs``), then both timed in turns (other, this,
-    this, other) beside every gathered row (Q, dy and w per entry) read from
-    device memory; the side's tickets all 0 after this tree's launches."""
+def _slice_tickets_clear(csr):
+    """Every side's slice tickets (``ops.csr_spmm``) all 0."""
+    return not any(bool(t.any()) for t in csr._SLICE_TICKETS.values())
+
+
+def _spmm_case(cs, o_cs, adj, o_adj, side_name, width, dtype, gen, what, hold_outputs):
+    """One Kernel A case beside the other tree's (``o_cs``, on its own build
+    ``o_adj`` of the same matrix), as ``side_matmul`` calls it (one launch,
+    the hub merge in it): this tree's output against the plain version
+    (float32 1e-4, bfloat16 2e-2), against itself forced to one slice (bit
+    for bit) and against the other tree's (held equal with
+    ``hold_outputs``); both timed in turns (other, this, this, other)
+    beside every gathered row read from device memory; the tickets all 0
+    after. Returns this tree's slice width."""
     import torch
-    F = heads * width
-    side = lay.src
-    tag = f"gat_backward_src {what} H={heads} d={width} {str(dtype)[6:]}"
-    Q, dy = (torch.randn(lay.num_nodes, F, generator=gen, device="cuda").to(dtype)
-             for _ in range(2))
-    w = torch.randn(lay.num_edges, 2 * heads, generator=gen, device="cuda")
-    args, o_args = (side, Q, dy, w, heads), (o_lay.src, Q, dy, w, heads)
-    mine, theirs = ga.launch_gat_backward_src(*args), o_ga.launch_gat_backward_src(*o_args)
+    from tf_geometric_tpu_torch.utils.profiling import counters
+    side, o_side = getattr(adj, side_name), getattr(o_adj, side_name)
+    n_src = adj.shape[1] if side_name == "fwd" else adj.shape[0]
+    diag, o_diag = adj.diag_val, o_adj.diag_val
+    h = torch.randn(n_src, width, generator=gen, device="cuda").to(dtype)
+    elt = h.element_size()
+    plan = cs.slice_width(n_src, width, elt, cs._l2_bytes(h.device.index))
+    tag = (f"csr_spmm {what} {'forward' if side_name == 'fwd' else 'dh'} F={width} "
+           f"{str(dtype)[6:]}")
+    hubs = (side.owner_rows, side.owner_ptr, side.tickets) if side.num_virtual else None
+    before = counters()
+    mine = cs.side_matmul(side, h, diag)
+    sliced = {k: counters().get(k, 0) - before.get(k, 0) for k in SLICE_COUNTERS}
+    one = cs.launch_csr_spmm(side.row_ptr, side.col, side.val, h, diag, side.num_rows, hubs,
+                             width=width)[0]
+    theirs = o_cs.side_matmul(o_side, h, o_diag)
     torch.cuda.synchronize()
-    _check(not side.tickets.any(), f"{tag}: tickets left nonzero")
-    same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
-    plain = ga.gat_backward_src_plain(*args)
-    tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_TOL
-    err = max(_max_err(a, b, tol, f"{tag} against the plain version")
-              for a, b in zip(mine, plain))
-    del plain
-    nnz = int(side.nbr.shape[0])
-    regs, warps = ga.kernel_info(2, heads, width, dtype)
-    print(f"{tag}: dK and dV equal the other tree's bit for bit: {same}; against the plain "
+    _check(torch.equal(mine, one), f"{tag}: {plan}-column slices differ from one slice")
+    same = torch.equal(mine, theirs)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    err = _max_err(mine, cs.side_matmul_plain(side, h, diag), tol, f"{tag} against plain")
+    print(f"{tag}: {-(-width // plan)} slice(s) of {plan} columns (counters {sliced}), equal "
+          f"to one slice bit for bit; equal to the other tree's: {same}; against the plain "
           f"version max abs err {err:.3e}; every gathered row from HBM "
-          f"{_gather_ms(nnz, 2 * F, Q.element_size()) + _gather_ms(nnz, 2 * heads, 4):.4f} ms; "
-          f"this tree's instance {regs} regs, {warps} warps/SM", flush=True)
+          f"{_gather_ms(int(side.col.shape[0]), width, elt):.4f} ms", flush=True)
     if hold_outputs:
         _check(same, f"{tag}: this tree differs from the other")
-    _in_turns({"other": lambda: o_ga.launch_gat_backward_src(*o_args),
-               "this": lambda: ga.launch_gat_backward_src(*args)}, tag)
+    _in_turns({"other": lambda: o_cs.side_matmul(o_side, h, o_diag),
+               "this": lambda: cs.side_matmul(side, h, diag)}, tag)
     torch.cuda.synchronize()
-    _check(not side.tickets.any(), f"{tag}: tickets left nonzero after the timing")
-    del Q, dy, w, args, o_args, mine, theirs
-    torch.cuda.empty_cache()
+    _check(side.tickets is None or not side.tickets.any(), f"{tag}: tickets left nonzero")
+    _check(_slice_tickets_clear(cs), f"{tag}: slice tickets left nonzero")
+    return plan
 
 
-def _long_rows_line(what, side, counted=None):
-    """``what``, then the source side's long rows and the entries they hold."""
-    rows = int(side.row_ptr.shape[0]) - 1
-    return (f"{what}: {int(side.hubs.shape[0])} of {rows} source rows long (> 64 entries), "
-            f"holding {int(side.row_ptr.diff()[side.hubs.long()].sum())} of "
-            f"{int(side.nbr.shape[0])} entries, longest {int(side.row_ptr.diff().max())}"
-            + ("" if counted is None else f"; counters {counted}"))
+def _slice_sweep(cs, adj, side_name, width, dtype, gen, what, widths):
+    """This tree's Kernel A on one side at each slice width of ``widths``,
+    events and device time, each held to the one-slice launch's bits: the
+    numbers behind ``slice_width``."""
+    import torch
+    side = getattr(adj, side_name)
+    n_src = adj.shape[1] if side_name == "fwd" else adj.shape[0]
+    h = torch.randn(n_src, width, generator=gen, device="cuda").to(dtype)
+    hubs = (side.owner_rows, side.owner_ptr, side.tickets) if side.num_virtual else None
+    args = (side.row_ptr, side.col, side.val, h, adj.diag_val, side.num_rows, hubs)
+    base = cs.launch_csr_spmm(*args, width=width)[0]
+    tag = f"slice sweep {what} {side_name} F={width} {str(dtype)[6:]}"
+    row_bytes = width * h.element_size()
+    for w in widths:
+        call = lambda w=w: cs.launch_csr_spmm(*args, width=w)
+        got = call()[0]
+        torch.cuda.synchronize()
+        _check(torch.equal(got, base), f"{tag}: width {w} differs")
+        ms, dev = _cuda_ms(call), _device_ms(call)
+        lines = -(-w * h.element_size() // 128) + (w < width and row_bytes % 128 != 0)
+        print(f"  {tag} width {w} ({-(-width // w)} slices, {n_src * lines * 128 / 1e6:.1f} MB "
+              f"of lines a slice): {ms:.4f} ms (device {_ms_text(dev)})", flush=True)
+    _check(_slice_tickets_clear(cs), f"{tag}: slice tickets left nonzero")
 
 
 def compare_phase(other_dir, hold_outputs):
-    """The GAT source pass beside another tree's, each through its own
-    wrapper on its own build of the same edges (``_src_case``): on the
-    Reddit-shaped graph (``_reddit_gat_edges``, almost every source row
-    long) at ``SRC_CASES``, float32; on the main path's arxiv layout and its
-    transpose (518 long source rows) at H = 8, d = 32, float32 and bfloat16;
-    and on rank 0's block of the graph-parallel GAT (X5, no long source row)
-    at the fused GAT's two layers, float32. Prints each tree's source-pass
-    instances (ptxas) and each layout's long rows."""
+    """Kernel A beside another tree's, each through its own wrapper on its
+    own build of the same matrix (``_spmm_case``): on the GCN cells'
+    Reddit-shaped adjacency (``_reddit_gcn_coo``) forward and ``dh`` at
+    F = 256 and 41 float32 and F = 256 bfloat16, on the arxiv adjacency at
+    F = 256, 64 and 40, on hard Pubmed's TAGCN adjacency forward at F = 500
+    and on workload 17's MinCut rank block at F = 96 and 32, float32; after
+    each graph's cases, this tree's slice widths swept on it
+    (``_slice_sweep``). Prints each tree's Kernel A instances (ptxas)."""
     import importlib
     import torch
     from tf_geometric_tpu_torch import bench
-    from tf_geometric_tpu_torch.datasets import synthetic_ogbn_arxiv_like
-    from tf_geometric_tpu_torch.nn.conv.gat import _gat_edge_cache
     from tf_geometric_tpu_torch.ops import _build
-    from tf_geometric_tpu_torch.ops import gat_attention as ga
-    from tf_geometric_tpu_torch.utils.profiling import counters
+    from tf_geometric_tpu_torch.ops import csr_spmm as cs
     _load_tree(other_dir, "other_tfg")
     o_build = importlib.import_module("other_tfg.ops._build")
-    o_ga = importlib.import_module("other_tfg.ops.gat_attention")
+    o_cs = importlib.import_module("other_tfg.ops.csr_spmm")
     t0 = time.perf_counter()
     _build.build_all()
     o_build.build_all()
     print(f"build (this tree and {other_dir}): {time.perf_counter() - t0:.1f} s", flush=True)
     for label, logs in (("this", _build.build_logs), ("other", o_build.build_logs)):
-        for entry, usage in _ptxas_lines(logs.get("gat_attention.cu", ""),
-                                         ("gat_backward_src",)):
+        for entry, usage in _ptxas_lines(logs.get("csr_spmm.cu", ""), ("csr_spmm_kernel",)):
             print(f"  {label} {entry}: {usage}; {_blocks_per_sm(usage, 256)} blocks/SM "
                   f"at 256 threads", flush=True)
+    print(f"L2: {cs._l2_bytes(0)} bytes, share {cs.L2_SHARE}", flush=True)
 
-    def both(edges, n, num_src=None):
-        return tuple(m.CsrGatLayout.build(edges, n, device="cuda", num_src=num_src)
-                     for m in (ga, o_ga))
+    def both(index, value, n):
+        return tuple(m.CsrAdj.from_coo(index, value, (n, n), split_diag=True, device="cuda")
+                     for m in (cs, o_cs))
 
-    gen = torch.Generator(device="cuda").manual_seed(18)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    f32, bf16 = torch.float32, torch.bfloat16
     t0 = time.perf_counter()
-    before = counters()
-    edges, n = _reddit_gat_edges(17)
-    lay, o_lay = both(edges, n)
-    built = {k: v - before.get(k, 0) for k, v in counters().items() if k.startswith("gat_src.")}
-    print(_long_rows_line(f"reddit gat layouts in {time.perf_counter() - t0:.1f} s: {lay}",
-                          lay.src, built), flush=True)
-    for heads, width in SRC_CASES:
-        _src_case(ga, o_ga, lay, o_lay, heads, width, torch.float32, gen, "reddit",
-                  hold_outputs)
-    del lay, o_lay, edges
+    adj, o_adj = both(*_reddit_gcn_coo(17))
+    print(f"reddit gcn adjacency in {time.perf_counter() - t0:.1f} s: {adj}; fwd "
+          f"{_walk_line(adj.fwd)}; bwd {_walk_line(adj.bwd)}", flush=True)
+    for side_name in ("fwd", "bwd"):
+        for width, dtype in ((256, f32), (41, f32), (256, bf16)):
+            _spmm_case(cs, o_cs, adj, o_adj, side_name, width, dtype, gen, "reddit",
+                       hold_outputs)
+    del o_adj
+    _slice_sweep(cs, adj, "fwd", 256, f32, gen, "reddit", (256, 128, 64, 32, 16))
+    _slice_sweep(cs, adj, "fwd", 256, bf16, gen, "reddit", (256, 128, 64))
+    _slice_sweep(cs, adj, "fwd", 41, f32, gen, "reddit", (41, 32))
+    del adj
     torch.cuda.empty_cache()
-    graph = synthetic_ogbn_arxiv_like()
-    n = graph.num_nodes
-    edges = _gat_edge_cache(graph.edge_index, n, {}, "cuda")[0]
-    for what, e in (("arxiv", edges), ("arxiv transposed", edges.flip(0))):
-        lay, o_lay = both(e, n)
-        print(_long_rows_line(f"{what} gat layout: {lay}", lay.src), flush=True)
-        for dtype in (torch.float32, torch.bfloat16):
-            _src_case(ga, o_ga, lay, o_lay, 8, 32, dtype, gen, what, hold_outputs)
-    del lay, o_lay, edges
-    block = bench.build_halo_problem().gat_spec.layouts[0]
-    lay, o_lay = both(_edges_of(block), block.num_nodes, block.num_src)
-    print(_long_rows_line(f"x5 rank 0 block: {lay}", lay.src), flush=True)
-    for heads, width in X5_SHAPES[:2]:
-        _src_case(ga, o_ga, lay, o_lay, heads, width, torch.float32, gen, "x5 rank 0",
-                  hold_outputs)
+    adj, o_adj = both(*_arxiv_gcn_coo())
+    print(f"arxiv gcn adjacency: {adj}", flush=True)
+    for side_name in ("fwd", "bwd"):
+        for width in (256, 64, 40):
+            _spmm_case(cs, o_cs, adj, o_adj, side_name, width, f32, gen, "arxiv", hold_outputs)
+    _slice_sweep(cs, adj, "fwd", 256, f32, gen, "arxiv", (256, 128, 64, 32, 16))
+    _slice_sweep(cs, adj, "fwd", 64, f32, gen, "arxiv", (64, 32))
+    del adj, o_adj
+    adj, o_adj = both(*_pubmed_tagcn_coo())
+    print(f"pubmed tagcn adjacency: {adj}", flush=True)
+    _spmm_case(cs, o_cs, adj, o_adj, "fwd", 500, f32, gen, "pubmed tagcn", hold_outputs)
+    _slice_sweep(cs, adj, "fwd", 500, f32, gen, "pubmed tagcn", (500, 128, 64, 32))
+    del adj, o_adj
+    adj, o_adj = _mincut_block_pair(cs, o_cs)
+    print(f"mincut rank 1 block: {adj}", flush=True)
+    for side_name in ("fwd", "bwd"):
+        for width in (bench.MINCUT_HIDDEN + bench.MINCUT_CLUSTERS, bench.MINCUT_CLUSTERS):
+            _spmm_case(cs, o_cs, adj, o_adj, side_name, width, f32, gen, "mincut rank 1",
+                       hold_outputs)
 
 
 def compare_main(argv):

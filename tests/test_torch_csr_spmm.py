@@ -19,8 +19,9 @@ import pytest
 import torch
 
 from tf_geometric_tpu.ops.ell_bucketed import BucketedEllAdj, bucketed_spmm
-from tf_geometric_tpu_torch.ops.csr_spmm import (CsrAdj, csr_spmm, side_matmul,
-                                                 side_matmul_plain)
+from tf_geometric_tpu_torch.ops.csr_spmm import (L2_LINE, L2_SHARE, L2_SLICE_ABOVE, CsrAdj,
+                                                 _csr_spmm_plain_f32, csr_spmm, side_matmul,
+                                                 side_matmul_plain, slice_width)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 WIDTH = 4
@@ -252,3 +253,173 @@ def test_dropout_contract_and_dispatch():
         side_matmul(tadj.fwd, h.to("meta"), None)
     with pytest.raises(ValueError):
         csr_spmm(tadj, torch.randn(29, 2))
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's column slices: the plan (``slice_width``) and the launch's
+# ticket plan, emulated as the grid runs it
+# ---------------------------------------------------------------------------
+
+H100_L2 = 50 * 2 ** 20  # torch.cuda.get_device_properties(...).L2_cache_size on the H100
+
+
+def _lane_vectors(num_features, elt_bytes):
+    """Every lane vector the kernel may take at this width: powers of two
+    dividing F, at most 16 bytes (``ops.spmm_heads._vec_elements``)."""
+    vec, out = 1, [1]
+    while 2 * vec * elt_bytes <= 16 and num_features % (2 * vec) == 0:
+        vec *= 2
+        out.append(vec)
+    return out
+
+
+@pytest.mark.parametrize("n_src,num_features,elt", [
+    (2_708, 16, 4),      # the tutorial's cora
+    (2_708, 7, 4),
+    (19_717, 16, 4),     # the GCN demo's Pubmed
+    (19_717, 3, 4),
+    (169_343, 40, 4),    # arxiv at the classes' width (workloads 10-12, the GCN cell's last layer)
+    (42_336, 64, 4),     # a halo block's local side (X2, rank 0)
+    (42_336, 40, 2),
+    (169_343, 64, 4),    # the hard arxiv twins' hidden width: 43 MB, under twice the L2
+    (169_343, 256, 2),   # the arxiv cell's hidden width in bfloat16: 87 MB
+    (169_344, 96, 4),    # workload 17's MinCut rank block, forward (65 MB)
+    (19_717, 500, 4),    # TAGCN's first hops on Pubmed (39 MB)
+    (232_965, 41, 4),    # Reddit at the classes' width: rows off the 128-byte lines
+])
+def test_small_tables_take_one_slice(n_src, num_features, elt):
+    assert slice_width(n_src, num_features, elt, H100_L2) == num_features
+
+
+@pytest.mark.parametrize("n_src,num_features,elt,width", [
+    (232_965, 256, 4, 32),   # the Reddit GCN cell's hidden passes: 8 slices of 29.8 MB
+    (232_965, 256, 2, 64),   # in bfloat16: half as many
+    (169_343, 256, 4, 32),   # the arxiv GCN cell's: 8 slices of 21.7 MB
+    (232_965, 128, 4, 32),
+])
+def test_large_tables_are_cut_to_l2_lines(n_src, num_features, elt, width):
+    got = slice_width(n_src, num_features, elt, H100_L2)
+    assert got == width
+    assert got * elt % L2_LINE == 0
+    assert n_src * got * elt <= L2_SHARE * H100_L2
+
+
+def test_f41_takes_one_slice_of_one_element_vectors():
+    """F = 41 loads one-element vectors (41 is odd). Its Reddit table (38 MB)
+    is gathered whole, and so would be one of four times the rows: its
+    164-byte rows start off the lines, so a slice of one line would touch
+    two lines of every row, more than the L2's share."""
+    assert _lane_vectors(41, 4) == [1]
+    assert slice_width(232_965, 41, 4, H100_L2) == 41
+    assert slice_width(4 * 232_965, 41, 4, H100_L2) == 41
+    assert 232_965 * 2 * L2_LINE > L2_SHARE * H100_L2
+
+
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("num_features", [1, 3, 41, 64, 96, 128, 256, 500, 602, 1000, 4096])
+@pytest.mark.parametrize("n_src", [1, 1_000, 19_717, 100_000, 232_965, 400_000, 2_000_000])
+def test_slices_are_lane_vector_multiples_covering_f_once(n_src, num_features, elt):
+    width = slice_width(n_src, num_features, elt, H100_L2)
+    assert 1 <= width <= num_features
+    for vec in _lane_vectors(num_features, elt):
+        assert width % vec == 0 or width == num_features
+    slices = -(-num_features // width)
+    covered = np.zeros(num_features, np.int64)
+    for s in range(slices):
+        covered[s * width:min(num_features, (s + 1) * width)] += 1
+    assert np.all(covered == 1)
+    if slices > 1:
+        # only a table over twice the L2 is cut, into slices that hold no
+        # more of the L2 than its share (one extra line a row where rows
+        # start off the lines), a power-of-two number of lines wide
+        assert n_src * num_features * elt > L2_SLICE_ABOVE * H100_L2
+        lines = -(-width * elt // L2_LINE)
+        assert lines & (lines - 1) == 0 and width * elt == lines * L2_LINE
+        lines += num_features * elt % L2_LINE != 0
+        assert n_src * lines * L2_LINE <= L2_SHARE * H100_L2
+
+
+def _emulated_sliced_launch(side, h, diag, width, seed):
+    """Kernel A's launch over ``width``-column slices as its grid runs it,
+    on the CPU: the blocks of every slice in a shuffled order (the card
+    keeps none), each lane group storing its row or its virtual row's
+    partial for its slice's columns, a virtual row's group taking a ticket
+    of (its hub, its slice) at ``slice * H + hub`` and, with the last one,
+    merging that slice of the hub row from the partials stored so far.
+    Unwritten output and partials are NaN, so a merge that ran early, or a
+    row that nobody wrote, shows. Returns the output in h's dtype and the
+    tickets after the launch."""
+    num_rows, num_virtual, num_features = side.num_rows, side.num_virtual, h.shape[1]
+    slices = -(-num_features // width)
+    owner_rows, owner_ptr = side.owner_rows.tolist(), side.owner_ptr.tolist()
+    hubs = len(owner_rows)
+    tickets = np.zeros(slices * hubs, np.int64)
+    out = torch.full((num_rows, num_features), float("nan"))
+    partial = torch.full((num_virtual, num_features), float("nan"))
+    sums = [_csr_spmm_plain_f32(side.row_ptr, side.col, side.val,
+                                h[:, s * width:(s + 1) * width], diag, num_rows)
+            for s in range(slices)]
+    hub_of = np.searchsorted(np.asarray(owner_ptr), np.arange(num_virtual), side="right") - 1
+    items = [(s, g) for s in range(slices) for g in range(num_rows + num_virtual)]
+    order = np.random.default_rng(seed).permutation(len(items))
+    for s, g in (items[i] for i in order):
+        cols = slice(s * width, min(num_features, (s + 1) * width))
+        if g >= num_virtual:  # an ordinary row; a hub row waits for its merge
+            r = g - num_virtual
+            if r not in owner_rows:
+                out[r, cols] = sums[s][0][r]
+            continue
+        partial[g, cols] = sums[s][1][g]
+        hub = int(hub_of[g])
+        t = s * hubs + hub
+        tickets[t] += 1
+        first, last = owner_ptr[hub], owner_ptr[hub + 1]
+        if tickets[t] != last - first:
+            continue
+        tickets[t] = 0
+        row = owner_rows[hub]
+        total = torch.zeros(cols.stop - cols.start)
+        for i in range(first, last):
+            total = total + partial[i, cols]
+        own = torch.zeros_like(total) if diag is None else 0 + diag[row] * h[row, cols].float()
+        out[row, cols] = total + own
+    return out.to(h.dtype), tickets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,seed", [(1, 0), (2, 1), (3, 2), (4, 3), (8, 4)])
+@pytest.mark.parametrize("split_diag", [False, True])
+def test_sliced_ticket_plan_merges_each_hub_slice_once(dtype, width, seed, split_diag):
+    """Each (hub, slice) is merged once, by the group that takes its last
+    ticket, after every partial of that slice is stored; every ticket is
+    back at 0; and the output is ``side_matmul_plain``'s, bit for bit."""
+    ei, ew, rng = _skewed(11, self_loops=split_diag)
+    _, tadj = _pair(ei, ew, (30, 30), split_diag=split_diag)
+    side = tadj.fwd
+    assert side.num_virtual > 0
+    h = torch.as_tensor(rng.normal(size=(30, 8)).astype(np.float32)).to(dtype)
+    got, tickets = _emulated_sliced_launch(side, h, tadj.diag_val, width, seed)
+    assert not tickets.any()
+    assert torch.equal(got, side_matmul_plain(side, h, tadj.diag_val))
+
+
+def test_slice_tickets_are_kept_per_side_and_zeroed():
+    """A side's slice tickets: zeros, [slices * H], one buffer per side
+    reused by its later launches (grown for more slices), dropped with the
+    side's own tickets."""
+    import gc
+    from tf_geometric_tpu_torch.ops import csr_spmm as cs
+    ei, ew, _ = _skewed(12, n_rows=20, n_cols=45, e=160)
+    tadj = CsrAdj.from_coo(ei, ew, (20, 45), split_width=WIDTH, device="cpu")
+    hubs = tadj.fwd.tickets.shape[0]
+    first = cs._slice_tickets(tadj.fwd.tickets, 3)
+    assert first.shape == (3 * hubs,) and first.dtype == torch.int32 and not first.any()
+    assert cs._slice_tickets(tadj.fwd.tickets, 2).data_ptr() == first.data_ptr()
+    assert cs._slice_tickets(tadj.fwd.tickets, 5).shape == (5 * hubs,)
+    other = cs._slice_tickets(tadj.bwd.tickets, 3)
+    assert other.data_ptr() != first.data_ptr()
+    keys = {id(tadj.fwd.tickets), id(tadj.bwd.tickets)}
+    assert keys <= set(cs._SLICE_TICKETS)
+    del tadj, first, other
+    gc.collect()
+    assert not keys & set(cs._SLICE_TICKETS)

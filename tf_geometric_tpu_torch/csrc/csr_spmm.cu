@@ -53,6 +53,23 @@
 //   hub's last ticket reads the hub's partials from L2 (past L1, which may
 //   hold stale lines) with several rows' loads in flight, and writes the hub
 //   row. Hubs' groups come first, so their merges overlap ordinary rows.
+// - Column slices, where h is over twice the L2. Uniform sources make the
+//   gathers land all over h, so a table the L2 cannot hold is read from
+//   device memory about once per edge (at F = 256 float32 on a Reddit-sized graph,
+//   a 239 MB table and 23.8 GB of gathers a pass). The launch then cuts F
+//   into slices of S columns (ops/csr_spmm.py slice_width sizes them from
+//   h's shape, its dtype and the card's L2) and covers every slice in one
+//   grid, in slice-major order: block b serves slice b / blocks_per_slice,
+//   so the blocks resident at any moment gather from one slice of h, which
+//   the L2 holds. Within a slice nothing changes (virtual rows first, lane
+//   groups sized to the slice's vectors, U gathers in flight, the stored
+//   edge order), so each output element sums the same terms in the same
+//   order and has the same bits; what a slice costs is one more read of
+//   row_ptr, col and val. Hubs merge per (hub, slice): tickets
+//   [slices * H], and each hub row's slice has one writer. A launch of
+//   several slices runs csr_spmm_kernel_sliced (slices of at most 32 lane
+//   vectors, held to 32 registers); a launch of one runs csr_spmm_kernel,
+//   whose code the slices leave as it was.
 // No float atomics: the sums run in a fixed order, so two runs give the
 // same bits (which group merges a hub changes, the sum it computes does
 // not).
@@ -93,9 +110,17 @@ __device__ __forceinline__ int hub_of(const int* owner_ptr, int n, int v) {
   return lo;
 }
 
+// One launch's column slices: slice s covers columns s * width .. of h,
+// out and partial, with a run of `blocks` consecutive blocks of its own.
+struct Slices {
+  int width;        // columns of every slice but the last, a multiple of VEC
+  unsigned blocks;  // blocks per slice
+};
+
 // The merge of one hub: out[row] = S + (0 + diag[row] * h[row]) over the
 // partials first .. last - 1, S summed in their order; each lane of the
-// group takes every L-th lane vector.
+// group takes every L-th lane vector of the slice (h, out and partial start
+// at the slice's first column, rows F apart).
 template <typename T, int VEC>
 __device__ __forceinline__ void merge_hub(const T* __restrict__ h, const float* __restrict__ diag,
                                           T* __restrict__ out, const float* partial,
@@ -141,20 +166,32 @@ __device__ __forceinline__ void merge_hub(const T* __restrict__ h, const float* 
   }
 }
 
-// MERGE: the launch merges the hubs (tickets non-null). Without it the
-// kernel is the plain SpMM, so a side without hubs pays nothing for them.
-template <typename T, int VEC, int NV, int U, bool MERGE>
-__global__ void __launch_bounds__(kBlock)
-csr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-                const float* __restrict__ val, const T* __restrict__ h,
-                const float* __restrict__ diag, T* __restrict__ out,
-                float* __restrict__ partial, const int* __restrict__ owner_rows,
-                const int* __restrict__ owner_ptr, int* __restrict__ tickets, int num_hubs,
-                int num_rows, int num_virtual, int F, int lanes_log2) {
+// in-flight gathers per lane for NV vectors per lane
+constexpr int unroll_for(int nv) { return nv == 1 ? 8 : nv == 2 ? 4 : 2; }
+
+// The work of one launch's lane group: its row's (or virtual row's) columns
+// of its block's slice. MERGE: the launch merges the hubs (tickets
+// non-null); without it the kernel is the plain SpMM, so a side without hubs
+// pays nothing for them. SLICED: the launch covers more than one slice;
+// without it the slice arithmetic folds away.
+template <typename T, int VEC, int NV, int U, bool MERGE, bool SLICED>
+__device__ __forceinline__ void spmm_group(
+    const int* __restrict__ row_ptr, const int* __restrict__ col, const float* __restrict__ val,
+    const T* __restrict__ h, const float* __restrict__ diag, T* __restrict__ out,
+    float* __restrict__ partial, const int* __restrict__ owner_rows,
+    const int* __restrict__ owner_ptr, int* __restrict__ tickets, int num_hubs, int num_rows,
+    int num_virtual, int F, Slices sl, int lanes_log2) {
+  // this block's slice: columns c0 .. c0 + nvec * VEC
+  const unsigned slice = SLICED ? blockIdx.x / sl.blocks : 0;
+  const int c0 = SLICED ? static_cast<int>(slice) * sl.width : 0;
+  const int nvec = (SLICED ? min(sl.width, F - c0) : F) / VEC;
+  h += c0;
+  out += c0;
   const int L = 1 << lanes_log2;
   const int lig = threadIdx.x & (L - 1);
   const long long g =
-      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> lanes_log2;
+      (static_cast<long long>(blockIdx.x - slice * sl.blocks) * kBlock + threadIdx.x) >>
+      lanes_log2;
   const long long total = static_cast<long long>(num_rows) + num_virtual;
   // lanes of a missing row still join the shuffles
   const bool valid = g < total;
@@ -165,7 +202,6 @@ csr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
     count = row_ptr[r + 1] - start;
   }
   const int most = __reduce_max_sync(kFull, count);  // the warp's loop bound
-  const int nvec = F / VEC;
   for (int v0 = 0; v0 < nvec; v0 += L * NV) {
     float acc[NV * VEC];
 #pragma unroll
@@ -230,7 +266,7 @@ csr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
         store_vec<T, VEC>(orow + v * VEC, acc + q * VEC);
       }
     } else {
-      float* prow = partial + static_cast<size_t>(r - num_rows) * F;
+      float* prow = partial + static_cast<size_t>(r - num_rows) * F + c0;
 #pragma unroll
       for (int q = 0; q < NV; ++q) {
         const int v = v0 + q * L + lig;
@@ -243,25 +279,70 @@ csr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   // the hub merge: the group that stores its hub's last partial merges it
   const int hub = hub_of(owner_ptr, num_hubs, static_cast<int>(r - num_rows));
   const int first = owner_ptr[hub], last = owner_ptr[hub + 1];
-  if (!take_last_ticket(tickets, hub, last - first, lig, L)) return;
-  merge_hub<T, VEC>(h, diag, out, partial, owner_rows[hub], first, last, F, nvec, lig, L);
+  if (!take_last_ticket(tickets, slice * num_hubs + hub, last - first, lig, L)) return;
+  merge_hub<T, VEC>(h, diag, out, partial + c0, owner_rows[hub], first, last, F, nvec, lig, L);
+}
+
+// A launch of one slice, the whole row.
+template <typename T, int VEC, int NV, int U, bool MERGE>
+__global__ void __launch_bounds__(kBlock)
+csr_spmm_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                const float* __restrict__ val, const T* __restrict__ h,
+                const float* __restrict__ diag, T* __restrict__ out,
+                float* __restrict__ partial, const int* __restrict__ owner_rows,
+                const int* __restrict__ owner_ptr, int* __restrict__ tickets, int num_hubs,
+                int num_rows, int num_virtual, int F, int lanes_log2) {
+  spmm_group<T, VEC, NV, U, MERGE, false>(row_ptr, col, val, h, diag, out, partial, owner_rows,
+                                          owner_ptr, tickets, num_hubs, num_rows, num_virtual,
+                                          F, Slices{F, gridDim.x}, lanes_log2);
+}
+
+// A launch of several slices: a slice is at most 32 lane vectors wide (one
+// vector a lane, NV = 1), and ptxas is held to 32 registers, so an SM holds
+// 8 blocks (64 warps) and gathers from the L2 with more loads in flight (on
+// the H100, 9-12% off the Reddit and arxiv F = 256 passes against the 40
+// registers and 6 blocks ptxas picks unbounded).
+constexpr int kSlicedBlocksPerSM = 8;
+constexpr int kSlicedUnroll = unroll_for(1);
+
+template <typename T, int VEC, bool MERGE>
+__global__ void __launch_bounds__(kBlock, kSlicedBlocksPerSM)
+csr_spmm_kernel_sliced(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                       const float* __restrict__ val, const T* __restrict__ h,
+                       const float* __restrict__ diag, T* __restrict__ out,
+                       float* __restrict__ partial, const int* __restrict__ owner_rows,
+                       const int* __restrict__ owner_ptr, int* __restrict__ tickets,
+                       int num_hubs, int num_rows, int num_virtual, int F, Slices sl,
+                       int lanes_log2) {
+  spmm_group<T, VEC, 1, kSlicedUnroll, MERGE, true>(row_ptr, col, val, h, diag, out, partial,
+                                                    owner_rows, owner_ptr, tickets, num_hubs,
+                                                    num_rows, num_virtual, F, sl, lanes_log2);
 }
 
 struct Hubs {
   const int* owner_rows;
   const int* owner_ptr;
-  int* tickets;  // null: no merge
+  int* tickets;  // [slices * count], null: no merge
   int count;
 };
-
-// in-flight gathers per lane for NV vectors per lane
-constexpr int unroll_for(int nv) { return nv == 1 ? 8 : nv == 2 ? 4 : 2; }
 
 template <typename T, int VEC, int NV>
 void launch_merge(unsigned grid, cudaStream_t st, const int* row_ptr, const int* col,
                   const float* val, const T* h, const float* diag, T* out, float* partial,
-                  const Hubs& hubs, int num_rows, int num_virtual, int F, int ll) {
-  if (hubs.tickets != nullptr)
+                  const Hubs& hubs, int num_rows, int num_virtual, int F, const Slices& sl,
+                  int ll) {
+  const bool merge = hubs.tickets != nullptr;
+  if constexpr (NV == 1) {
+    if (grid != sl.blocks) {
+      auto kernel = merge ? csr_spmm_kernel_sliced<T, VEC, true>
+                          : csr_spmm_kernel_sliced<T, VEC, false>;
+      kernel<<<grid, kBlock, 0, st>>>(row_ptr, col, val, h, diag, out, partial, hubs.owner_rows,
+                                      hubs.owner_ptr, hubs.tickets, hubs.count, num_rows,
+                                      num_virtual, F, sl, ll);
+      return;
+    }
+  }
+  if (merge)
     csr_spmm_kernel<T, VEC, NV, unroll_for(NV), true><<<grid, kBlock, 0, st>>>(
         row_ptr, col, val, h, diag, out, partial, hubs.owner_rows, hubs.owner_ptr,
         hubs.tickets, hubs.count, num_rows, num_virtual, F, ll);
@@ -274,32 +355,33 @@ void launch_merge(unsigned grid, cudaStream_t st, const int* row_ptr, const int*
 template <typename T, int VEC>
 void launch_nv(int nv, unsigned grid, cudaStream_t st, const int* row_ptr, const int* col,
                const float* val, const T* h, const float* diag, T* out, float* partial,
-               const Hubs& hubs, int num_rows, int num_virtual, int F, int ll) {
+               const Hubs& hubs, int num_rows, int num_virtual, int F, const Slices& sl,
+               int ll) {
   if (nv == 1)
     launch_merge<T, VEC, 1>(grid, st, row_ptr, col, val, h, diag, out, partial, hubs, num_rows,
-                            num_virtual, F, ll);
+                            num_virtual, F, sl, ll);
   else if (nv == 2)
     launch_merge<T, VEC, 2>(grid, st, row_ptr, col, val, h, diag, out, partial, hubs, num_rows,
-                            num_virtual, F, ll);
+                            num_virtual, F, sl, ll);
   else
     launch_merge<T, VEC, 4>(grid, st, row_ptr, col, val, h, diag, out, partial, hubs, num_rows,
-                            num_virtual, F, ll);
+                            num_virtual, F, sl, ll);
 }
 
 template <typename T>
 void launch_vec(int vec, int nv, unsigned grid, cudaStream_t st, const int* row_ptr,
                 const int* col, const float* val, const void* h, const float* diag, void* out,
                 float* partial, const Hubs& hubs, int num_rows, int num_virtual, int F,
-                int ll) {
+                const Slices& sl, int ll) {
   auto hh = static_cast<const T*>(h);
   auto o = static_cast<T*>(out);
   switch (vec) {
-    case 1: launch_nv<T, 1>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, ll); break;
-    case 2: launch_nv<T, 2>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, ll); break;
-    case 4: launch_nv<T, 4>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, ll); break;
+    case 1: launch_nv<T, 1>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, sl, ll); break;
+    case 2: launch_nv<T, 2>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, sl, ll); break;
+    case 4: launch_nv<T, 4>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, sl, ll); break;
     default:
       if constexpr (sizeof(T) == 2)
-        launch_nv<T, 8>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, ll);
+        launch_nv<T, 8>(nv, grid, st, row_ptr, col, val, hh, diag, o, partial, hubs, num_rows, num_virtual, F, sl, ll);
   }
 }
 
@@ -308,28 +390,37 @@ void launch_vec(int vec, int nv, unsigned grid, cudaStream_t st, const int* row_
 // Returns cudaGetLastError() after the launch (0 on success). diag may be
 // null; partial may be null when num_virtual == 0. vec: elements per lane
 // vector, a power of two dividing F, at most 16 bytes of h's dtype, with h,
-// out and partial aligned to it. tickets null: no merge (owner_rows,
-// owner_ptr and num_hubs unread); otherwise owner_rows [num_hubs] (sorted),
-// owner_ptr [num_hubs + 1] and tickets [num_hubs] (all 0) describe every
-// virtual row, and no other launch may use the same tickets meanwhile.
+// out and partial aligned to it. width: columns per slice, a multiple of vec
+// and, below F, at most 32 vectors (width >= F: one slice, the whole row).
+// tickets null: no merge
+// (owner_rows, owner_ptr and num_hubs unread); otherwise owner_rows
+// [num_hubs] (sorted), owner_ptr [num_hubs + 1] and tickets
+// [slices * num_hubs] (all 0) describe every virtual row, and no other
+// launch may use the same tickets meanwhile.
 extern "C" int tfg_csr_spmm(const void* row_ptr, const void* col, const void* val,
                             const void* h, int dtype, const void* diag, void* out,
                             void* partial, const void* owner_rows, const void* owner_ptr,
                             void* tickets, int num_hubs, int num_rows, int num_virtual, int F,
-                            int vec, void* stream) {
+                            int vec, int width, void* stream) {
   const long long rows = static_cast<long long>(num_rows) + num_virtual;
   const int max_vec = dtype == kFloat32 ? 4 : dtype == kBFloat16 ? 8 : 0;
   if (num_rows < 0 || num_virtual < 0 || F < 0 || vec <= 0 || vec > max_vec ||
-      (vec & (vec - 1)) || (F > 0 && F % vec != 0))
+      (vec & (vec - 1)) || (F > 0 && F % vec != 0) || width <= 0 || width % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tickets != nullptr && (owner_rows == nullptr || owner_ptr == nullptr || num_hubs <= 0 ||
                              num_virtual == 0 || partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || F == 0) return static_cast<int>(cudaSuccess);
-  const int nvec = F / vec;
+  width = width < F ? width : F;
+  const long long slices = (F + width - 1) / width;
+  const int nvec = width / vec;
   const int ll = pick_lanes_log2(nvec);
   const int nv = pick_nv(nvec, 1 << ll);
-  const unsigned grid = grid_for_groups(rows, ll);
+  const unsigned blocks = grid_for_groups(rows, ll);
+  if (slices > 1 && nv != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (slices * blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(slices * blocks);
+  const Slices sl{width, blocks};
   auto s = static_cast<cudaStream_t>(stream);
   auto rp = static_cast<const int*>(row_ptr);
   auto c = static_cast<const int*>(col);
@@ -340,9 +431,9 @@ extern "C" int tfg_csr_spmm(const void* row_ptr, const void* col, const void* va
                   static_cast<int*>(tickets), num_hubs};
   if (dtype == kFloat32)
     launch_vec<float>(vec, nv, grid, s, rp, c, v, h, d, out, p, hubs, num_rows, num_virtual, F,
-                      ll);
+                      sl, ll);
   else
     launch_vec<__nv_bfloat16>(vec, nv, grid, s, rp, c, v, h, d, out, p, hubs, num_rows,
-                              num_virtual, F, ll);
+                              num_virtual, F, sl, ll);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,10 @@ the same.
 
 Bound on the H100: bytes. Per call the kernel must read h, row_ptr, col,
 val (and the diagonal) and write the output once; it does 2 flops per
-gathered element.
+gathered element. The gathers read a row of h per edge, which the L2
+absorbs only while the rows being read fit in it: where h is larger, one
+launch covers h in column slices that do (``slice_width``), one slice after
+another across its grid, each with the same sums in the same order.
 
 ``side_matmul`` dispatches on the device of ``h``: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the kernel, and a failed
@@ -33,6 +36,8 @@ launches share its tickets.
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -45,7 +50,7 @@ from .sorted_segment import sorted_segment_sum_plain
 from .spmm_heads import _vec_elements
 
 __all__ = ["CsrSide", "CsrAdj", "csr_spmm", "side_matmul", "side_matmul_plain",
-           "csr_spmm_plain", "launch_csr_spmm", "serial_walks", "SPLIT_WIDTH"]
+           "csr_spmm_plain", "launch_csr_spmm", "serial_walks", "slice_width", "SPLIT_WIDTH"]
 
 # The longest row one lane group of Kernel A walks; a longer row is cut into
 # virtual rows whose float32 partials the launch then adds into it. A group keeps 8
@@ -58,6 +63,67 @@ __all__ = ["CsrSide", "CsrAdj", "csr_spmm", "side_matmul", "side_matmul_plain",
 SPLIT_WIDTH = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The L2 keeps whole lines of 128 bytes, so a column slice of a row-major
+# table fills every line of each row that it touches.
+L2_LINE = 128
+# A table of up to twice the L2 is gathered whole: a good part of its rows'
+# lines stay in the L2, and a slice would read row_ptr, col and val once
+# more for little (on the H100, slices lost 7% on a 65 MB table whose rows
+# are gathered 1.5 times each, and gained 21-37% from 119 MB up).
+L2_SLICE_ABOVE = 2
+# The share of the card's L2 that the slice of h being gathered may fill;
+# the rest holds what streams past it (row_ptr, col, val, the partials, out).
+L2_SHARE = 0.625
+
+
+def slice_width(n_src: int, num_features: int, elt_bytes: int, l2_bytes: int) -> int:
+    """Columns per slice of Kernel A's launch over an ``h`` of ``n_src`` rows
+    of ``num_features`` elements of ``elt_bytes`` each, on a card with an L2
+    of ``l2_bytes``; ``num_features`` (one slice) where h is at most
+    ``L2_SLICE_ABOVE`` times the L2, or where no slice of whole lines fits
+    the L2's share, ``L2_SHARE``.
+
+    A slice is a power-of-two number of 128-byte lines wide (32 float32 or
+    64 bfloat16 columns a line, so a multiple of any lane vector, and whole
+    lane groups: a slice of 11 lines would leave 5 of the 32 lanes' 16
+    vectors idle), as wide as the share allows. Its footprint is ``n_src``
+    rows of its lines, one more line a row where rows do not start on a
+    line (a width that is no multiple of 128 bytes): there a slice also
+    reaches into its neighbours' lines. Narrower slices hold less of the L2
+    but read ``row_ptr``, ``col`` and ``val`` once more each."""
+    row_bytes = num_features * elt_bytes
+    if n_src * row_bytes <= L2_SLICE_ABOVE * l2_bytes:
+        return num_features
+    lines = int(l2_bytes * L2_SHARE) // (n_src * L2_LINE) - (row_bytes % L2_LINE != 0)
+    if lines < 1:
+        return num_features
+    return min(num_features, (1 << (lines.bit_length() - 1)) * L2_LINE // elt_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).L2_cache_size
+
+
+# A side's tickets for more than one slice, [slices * H], kept while the
+# side's own tickets live (``_slice_tickets``).
+_SLICE_TICKETS = {}
+
+
+def _slice_tickets(tickets, slices: int):
+    """Zeroed tickets for ``slices`` slices of each hub, one buffer per
+    side (keyed by the side's own tickets), allocated at its first sliced
+    launch and grown as needed; every launch leaves them at 0 as it found
+    them."""
+    key = id(tickets)
+    buf = _SLICE_TICKETS.get(key)
+    need = slices * tickets.shape[0]
+    if buf is None:
+        weakref.finalize(tickets, _SLICE_TICKETS.pop, key, None)
+    if buf is None or buf.shape[0] < need:
+        buf = _SLICE_TICKETS[key] = torch.zeros(need, dtype=torch.int32, device=tickets.device)
+    return buf[:need]
 
 
 class CsrSide(NamedTuple):
@@ -156,7 +222,7 @@ def serial_walks(side: CsrSide):
     return edges, partials
 
 
-def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None):
+def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None, width=None):
     """Launch Kernel A. ``row_ptr`` int32 [R' + 1], ``col`` int32 and ``val``
     float32 [nnz], ``h`` [n_src, F] float32 or bfloat16, ``diag`` float32
     [num_rows] or None; all contiguous CUDA tensors on one device. Allocates
@@ -165,8 +231,12 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None):
     tickets)`` of the side (int32; tickets all 0, and no other launch using
     them meanwhile) the launch also merges each hub's partials into its row
     of ``out``, as ``side_matmul_plain`` does; without, a hub row holds
-    ``diag·h`` only. Counts each launch (``launches.csr_spmm``) and the
-    hubs it merges (``hubs.merged``)."""
+    ``diag·h`` only. The launch covers F in column slices of ``width``
+    columns (default ``slice_width`` of h's shape, dtype and the card's L2;
+    below F at most 32 lane vectors; the same bits at any width). Counts
+    each launch (``launches.csr_spmm``), the hubs it merges
+    (``hubs.merged``), a launch cut into slices (``csr_spmm.sliced``) and
+    its slices (``csr_spmm.slices``)."""
     tensors = [("row_ptr", row_ptr), ("col", col), ("val", val), ("h", h)]
     if diag is not None:
         tensors.append(("diag", diag))
@@ -204,32 +274,48 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None):
                 or owner_ptr.shape != (num_hubs + 1,) or tickets.shape != (num_hubs,)):
             raise ValueError("hubs must be owner_rows [H], owner_ptr [H + 1] and tickets [H] "
                              "of a side with virtual rows")
-    num_features = h.shape[1]
+    num_src, num_features = h.shape
     out = torch.empty((num_rows, num_features), dtype=h.dtype, device=h.device)
     partial = torch.empty((num_virtual, num_features), dtype=torch.float32,
                           device=h.device)
     if total_rows == 0 or num_features == 0:
         return out, partial
+    vec = _vec_elements(num_features, [h], [out, partial])
+    if width is None:
+        width = slice_width(num_src, num_features, h.element_size(),
+                            _l2_bytes(h.device.index))
+    width = min(int(width), num_features)
+    if width < num_features:
+        # the sliced kernel gives each of a group's lanes one vector
+        width = min(width, 32 * vec)
+    if width < 1 or width % vec:
+        raise ValueError(f"a slice of {width} columns is no multiple of the lane vector ({vec})")
+    slices = -(-num_features // width)
     fn = _build.kernel_function(
         "csr_spmm.cu", "tfg_csr_spmm",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    hub_ptrs = (None, None, None, 0) if hubs is None else (
-        *(t.data_ptr() for t in hubs), hubs[0].shape[0])
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p])
+    hub_ptrs = (None, None, None, 0)
+    if hubs is not None:
+        tickets = hubs[2] if slices == 1 else _slice_tickets(hubs[2], slices)
+        hub_ptrs = (hubs[0].data_ptr(), hubs[1].data_ptr(), tickets.data_ptr(), num_hubs)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = fn(row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), h.data_ptr(),
                 _DTYPE_CODES[h.dtype], None if diag is None else diag.data_ptr(),
                 out.data_ptr(), partial.data_ptr() if num_virtual else None,
-                *hub_ptrs, num_rows, num_virtual, num_features,
-                _vec_elements(num_features, [h], [out, partial]), stream)
+                *hub_ptrs, num_rows, num_virtual, num_features, vec, width, stream)
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: cudaError {rc}")
     count("launches.csr_spmm")
     if hubs is not None:
         count("hubs.merged", num_hubs)
+    if slices > 1:
+        count("csr_spmm.sliced")
+        count("csr_spmm.slices", slices)
     return out, partial
 
 
