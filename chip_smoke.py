@@ -3960,8 +3960,7 @@ def _x7_check(ts, h, dy, tag):
     for case, x, transpose, ptr in (("forward", h, False, ts.row_ptr),
                                     ("dh", dy, True, ts.t_row_ptr)):
         got = tsp.tiled_pass(ts, x, transpose)
-        with _plain():
-            want = tsp.tiled_pass(ts, x, transpose)
+        want = tsp.tiled_pass(ts, x, transpose, plain=True)
         torch.cuda.synchronize()
         err = max(err, _max_err(got, want, tol, f"x7 {case} {tag}"))
         _check(torch.equal(got, tsp.tiled_pass(ts, x, transpose)),
@@ -4079,7 +4078,8 @@ def x7_kernel_phase(small_err):
                 device_ms=_device_ms(lambda: tsp.tiled_pass(ts, x, transpose)) if bf16 else None,
                 # the wrapper's cast of the operand, inside ms, apart
                 cast_ms=_cuda_ms(lambda: tsp.cast_operand(x, ts.tile)) if bf16 else None,
-                plain_ms=_plain_ms(lambda: tsp.tiled_pass(ts, x, transpose)) if timed else None,
+                plain_ms=(_cuda_ms(lambda: tsp.tiled_pass(ts, x, transpose, plain=True),
+                                   iters=3, warmup=1) if timed else None),
                 library_ms=_cuda_ms(lambda: torch.sparse.mm(lib[case], x32)) if timed else None,
                 kernel_a_ms=_cuda_ms(lambda: side_matmul(sides[case], x32, adj.diag_val))
                 if timed else None,
@@ -4101,11 +4101,6 @@ def x7_kernel_phase(small_err):
               f"{r['max_abs_err']:.3e}, {r['ms']:.4f}, {extra}, {r['bound_ms']:.4f} "
               f"({r['bound_by']}){cast}", flush=True)
     return rows
-
-
-def _plain_ms(fn):
-    with _plain():
-        return _cuda_ms(fn, iters=3, warmup=1)
 
 
 def x7_main_path_phase(gpu):
@@ -5235,10 +5230,173 @@ def compare_phase(other_dir, hold_outputs):
                        hold_outputs)
 
 
+def _counter_delta(before, after):
+    return {k: after.get(k, 0) - before.get(k, 0) for k in set(before) | set(after)
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def _seam_case(trees, tag, run, hold_outputs):
+    """``run(tree)`` (the tree's package) through this tree and the other on
+    the same inputs: its outputs and gradients (a list of tensors) held
+    equal bit for bit (with ``hold_outputs``) and every counter's change
+    (kernel launches, hub merges, slices) held equal."""
+    import torch
+    got = {}
+    for label, tree in trees.items():
+        profiling = sys.modules[f"{tree.__name__}.utils.profiling"]
+        torch.cuda.synchronize()
+        before = profiling.counters()
+        outs = [t.detach() for t in run(tree)]
+        torch.cuda.synchronize()
+        got[label] = (outs, _counter_delta(before, profiling.counters()))
+    (mine, counted), (theirs, o_counted) = got["this"], got["other"]
+    same = len(mine) == len(theirs) and all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    print(f"seam {tag}: {len(mine)} tensors equal to the other tree's bit for bit: {same}; "
+          f"counters {dict(sorted(counted.items()))}", flush=True)
+    _check(counted == o_counted, f"seam {tag}: counters {counted} against the other's {o_counted}")
+    if hold_outputs:
+        _check(same, f"seam {tag}: this tree differs from the other")
+
+
+def _with_grads(out, dy, *inputs):
+    """``out`` and the gradients of ``<out, dy>`` by ``inputs``."""
+    import torch
+    return [out, *torch.autograd.grad(out, inputs, dy)]
+
+
+def seam_phase(other_dir, hold_outputs):
+    """Every kernel wrapper of this tree beside the other tree's, each
+    through its public op (forward and, where it has one, backward), on the
+    same inputs and layouts, at the benchmark cells' shapes: Kernel A on
+    the GCN cells' Reddit-shaped adjacency at F = 256 and 41 float32 and 256
+    bfloat16 and on arxiv at F = 256 and 40; X4 on the Reddit graph at
+    (8, 8) with a keep mask and (1, 41); X8 and S1 on its CSR at k = 25 and
+    10, F = 128; then X2's value gradient, X3, X6 (forward, ``dh``, ``dv``
+    and ``sddmm``), Kernel B and X7 (float32 and bf16 tiles) on the arxiv
+    graph or a small one, and the kernel attribute queries
+    (``_seam_case``)."""
+    import importlib
+    import numpy as np
+    import torch
+    import tf_geometric_tpu_torch as this
+    other = _load_tree(other_dir, "other_tfg")
+    for tree in (this, other):
+        for name in ("ops.csr_spmm", "ops.ell", "ops.gat_attention", "ops.fixed_k", "ops.spmm",
+                     "ops.spmm_heads", "ops.sorted_segment", "ops.tiled_spmm", "ops._build",
+                     "utils.profiling"):
+            importlib.import_module(f"{tree.__name__}.{name}")
+    trees = {"this": this, "other": other}
+    t0 = time.perf_counter()
+    this.ops._build.build_all()
+    other.ops._build.build_all()
+    print(f"build (this tree and {other_dir}): {time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def case(tag, run):
+        _seam_case(trees, tag, run, hold_outputs)
+
+    def spmm_cases(what, adj, cases):
+        for width, dtype in cases:
+            h = randn(adj.shape[1], width, dtype=dtype).requires_grad_()
+            dy = randn(adj.shape[0], width, dtype=dtype)
+            case(f"csr_spmm {what} F={width} {str(dtype)[6:]}", lambda m: _with_grads(
+                m.ops.csr_spmm.csr_spmm(adj, h), dy, h))
+
+    index, value, n = _reddit_gcn_coo(17)
+    adj = this.ops.csr_spmm.CsrAdj.from_coo(index, value, (n, n), split_diag=True,
+                                             device="cuda")
+    spmm_cases("reddit", adj, ((256, f32), (41, f32), (256, bf16)))
+    del adj
+    t0 = time.perf_counter()
+    layout = this.ops.gat_attention.CsrGatLayout.build(index, n, device="cuda")
+    print(f"reddit attention layout in {time.perf_counter() - t0:.1f} s: {layout}", flush=True)
+    for heads, width, keep_rate in ((8, 8, GAT_KEEP_RATE), (1, 41, 0.0)):
+        F = heads * width
+        qkv = [randn(n, F).requires_grad_() for _ in range(3)]
+        dy = randn(n, F)
+        keep = None
+        if keep_rate:
+            keep = ((torch.rand(layout.num_edges, heads, generator=gen, device="cuda")
+                     >= keep_rate).float() / (1 - keep_rate))
+        case(f"gat_attention reddit ({heads}, {width})", lambda m: _with_grads(
+            m.ops.gat_attention.gat_attention_csr(layout, *qkv, heads, edge_drop_rate=keep_rate,
+                                                  training=True, keep_mask=keep), dy, *qkv))
+    del layout, qkv
+    order = torch.argsort(index[0], stable=True)
+    degree = torch.bincount(index[0], minlength=n).int()
+    csr = {"row_start": (torch.cumsum(degree, 0) - degree).int(), "degree": degree,
+           "sorted_col": index[1][order].int().contiguous()}
+    del index, value, order
+    src = randn(n, 128).requires_grad_()
+    for k in (25, 10):
+        ints = torch.randint(0, 2 ** 31 - 1, (k, n), dtype=torch.int32, generator=gen,
+                             device="cuda")
+        dy = randn(n, 128)
+
+        def sage(m, ints=ints, dy=dy):
+            idx, w = m.ops.fixed_k.draw_fixed_k_from_ints(ints, csr)
+            return [idx, w, *_with_grads(m.ops.fixed_k.fixed_k_aggregate(src, idx, w), dy, src)]
+        case(f"fixed_k draw and aggregation reddit k={k} F=128", sage)
+    del csr, src
+    torch.cuda.empty_cache()
+
+    index, value, n = _arxiv_gcn_coo()
+    adj = this.ops.csr_spmm.CsrAdj.from_coo(index, value, (n, n), split_diag=True,
+                                             device="cuda")
+    spmm_cases("arxiv", adj, ((256, f32), (40, f32)))
+    edge_values = value.clone().requires_grad_()
+    h = randn(n, 64).requires_grad_()
+    dy = randn(n, 64)
+    case("ell_spmm diff_values arxiv F=64", lambda m: _with_grads(
+        m.ops.ell.ell_spmm(m.ops.ell.with_edge_values(adj, edge_values), h, diff_values=True),
+        dy, h, edge_values))
+    case("spmm (COO) arxiv F=64", lambda m: _with_grads(
+        m.ops.spmm.spmm(index, edge_values, h, n), dy, h, edge_values))
+    case("sddmm (COO) arxiv F=64", lambda m: [m.ops.spmm.sddmm(index, h, dy)])
+    side = adj.fwd
+    _, partial = this.ops.csr_spmm.launch_csr_spmm(side.row_ptr, side.col, side.val,
+                                                  h.detach().contiguous(), adj.diag_val, n)
+    base = randn(n, 64)
+    case("segment_sum_csr arxiv hub partials F=64", lambda m: [
+        m.ops.sorted_segment.segment_sum_csr(partial, side.owner_ptr, base.clone(),
+                                             side.owner_rows),
+        m.ops.sorted_segment.segment_sum_csr(partial, side.owner_ptr)])
+    del adj
+    layout = this.ops.gat_attention.CsrGatLayout.build(index, n, device="cuda")
+    att = torch.rand(layout.num_edges, 8, generator=gen, device="cuda").requires_grad_()
+    v = randn(n, 64).requires_grad_()
+    case("spmm_multihead arxiv (8, 8)", lambda m: _with_grads(
+        m.ops.spmm_heads.spmm_multihead(layout, att, v, 8), dy, att, v))
+    del layout
+    rng = np.random.default_rng(26)
+    m_nodes = 4096
+    ei = rng.integers(0, m_nodes, size=(2, 65536))
+    for a_dtype in (f32, bf16):
+        ts = this.ops.tiled_spmm.build_tiled_spmm(ei, None, (m_nodes, m_nodes), tile=128,
+                                                  dtype=a_dtype, device="cuda")
+        x = randn(m_nodes, 128).requires_grad_()
+        dx = randn(m_nodes, 128)
+        case(f"tiled_spmm t=128 F=128 tiles {str(a_dtype)[6:]}", lambda m: _with_grads(
+            m.ops.tiled_spmm.tiled_spmm(ts, x), dx, x))
+    info = {label: (tree.ops.gat_attention.kernel_info(1, 8, 8, f32),
+                    tree.ops.tiled_spmm.kernel_info(128, 128, bf16, f32))
+            for label, tree in trees.items()}
+    print(f"seam kernel_info (X4's destination pass at (8, 8), X7 at t=128 F=128): {info}",
+          flush=True)
+    _check(info["this"] == info["other"], "seam kernel_info: the trees' attributes differ")
+
+
 def compare_main(argv):
     import torch
-    if len(argv) != 2 or argv[0] not in ("--against", "--trial"):
-        print("usage: chip_smoke.py [--against DIR | --trial DIR]", file=sys.stderr)
+    cases = {"kernel_a": compare_phase, "seam": seam_phase}
+    if (len(argv) < 2 or argv[0] not in ("--against", "--trial")
+            or not set(argv[2:]) <= set(cases)):
+        print(f"usage: chip_smoke.py [--against DIR | --trial DIR] [{' | '.join(cases)} ...]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -5248,7 +5406,8 @@ def compare_main(argv):
     gpu = _gpu_line()
     print(f"gpu: {gpu}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    _phase(f"compare with {argv[1]}", compare_phase, argv[1], argv[0] == "--against")
+    for name in argv[2:] or cases:
+        _phase(f"compare {name} with {argv[1]}", cases[name], argv[1], argv[0] == "--against")
     return 0
 
 

@@ -230,9 +230,9 @@ def count_launches():
     side, spmm, sddmm = (csr_spmm.side_matmul, spmm_heads.spmm_heads_plain,
                          spmm_heads.sddmm_heads_plain)
 
-    def counted_side(s, h, diag):
+    def counted_side(s, h, diag, *plain):
         counts["csr_spmm"] += 1
-        return side(s, h, diag)
+        return side(s, h, diag, *plain)
 
     def counted_spmm(view, *args, **kwargs):
         if view.row_ptr.shape[0] > 1:

@@ -28,10 +28,10 @@ absorbs only while the rows being read fit in it: where h is larger, one
 launch covers h in column slices that do (``slice_width``), one slice after
 another across its grid, each with the same sums in the same order.
 
-``side_matmul`` dispatches on the device of ``h``: a CPU tensor takes the
-plain PyTorch version, a CUDA tensor launches the kernel, and a failed
-launch raises. One side must not be multiplied on two streams at once: the
-launches share its tickets.
+``side_matmul`` dispatches on the device of ``h`` (``_launch.use_kernel``):
+a CPU tensor takes the plain PyTorch version, a CUDA tensor launches the
+kernel, and a failed launch raises. One side must not be multiplied on two
+streams at once: the launches share its tickets.
 """
 from __future__ import annotations
 
@@ -45,9 +45,8 @@ import torch
 
 from ..utils.profiling import count, span
 from ..utils.union_utils import convert_union_to_numpy
-from . import _build
+from ._launch import DTYPE_CODES, launch, require_cuda, use_kernel, vec_elements
 from .sorted_segment import sorted_segment_sum_plain
-from .spmm_heads import _vec_elements
 
 __all__ = ["CsrSide", "CsrAdj", "csr_spmm", "side_matmul", "side_matmul_plain",
            "csr_spmm_plain", "launch_csr_spmm", "serial_walks", "slice_width", "SPLIT_WIDTH"]
@@ -61,8 +60,6 @@ __all__ = ["CsrSide", "CsrAdj", "csr_spmm", "side_matmul", "side_matmul_plain",
 # ops/ell_bucketed.py), is 40% slower at F = 40; 64 keeps every walk short,
 # the hub merge's too (45 partials for the largest arxiv hub).
 SPLIT_WIDTH = 64
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The L2 keeps whole lines of 128 bytes, so a column slice of a row-major
 # table fills every line of each row that it touches.
@@ -222,6 +219,12 @@ def serial_walks(side: CsrSide):
     return edges, partials
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# row_ptr, col, val, h, dtype, diag, out, partial, the hubs (owner_rows,
+# owner_ptr, tickets, count), num_rows, num_virtual, F, vec, slice width
+_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+
+
 def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None, width=None):
     """Launch Kernel A. ``row_ptr`` int32 [R' + 1], ``col`` int32 and ``val``
     float32 [nnz], ``h`` [n_src, F] float32 or bfloat16, ``diag`` float32
@@ -242,14 +245,8 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None, width=
         tensors.append(("diag", diag))
     if hubs is not None:
         tensors += list(zip(("owner_rows", "owner_ptr", "tickets"), hubs))
-    for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != h.device:
-            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if h.dtype not in _DTYPE_CODES:
+    require_cuda(tensors, h.device)
+    if h.dtype not in DTYPE_CODES:
         raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
     if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError("row_ptr and col must be int32")
@@ -280,7 +277,7 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None, width=
                           device=h.device)
     if total_rows == 0 or num_features == 0:
         return out, partial
-    vec = _vec_elements(num_features, [h], [out, partial])
+    vec = vec_elements(num_features, [h], [out, partial])
     if width is None:
         width = slice_width(num_src, num_features, h.element_size(),
                             _l2_bytes(h.device.index))
@@ -291,26 +288,15 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None, width=
     if width < 1 or width % vec:
         raise ValueError(f"a slice of {width} columns is no multiple of the lane vector ({vec})")
     slices = -(-num_features // width)
-    fn = _build.kernel_function(
-        "csr_spmm.cu", "tfg_csr_spmm",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p])
     hub_ptrs = (None, None, None, 0)
     if hubs is not None:
         tickets = hubs[2] if slices == 1 else _slice_tickets(hubs[2], slices)
         hub_ptrs = (hubs[0].data_ptr(), hubs[1].data_ptr(), tickets.data_ptr(), num_hubs)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = fn(row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), h.data_ptr(),
-                _DTYPE_CODES[h.dtype], None if diag is None else diag.data_ptr(),
-                out.data_ptr(), partial.data_ptr() if num_virtual else None,
-                *hub_ptrs, num_rows, num_virtual, num_features, vec, width, stream)
-    if rc != 0:
-        raise RuntimeError(f"csr_spmm kernel launch failed: cudaError {rc}")
-    count("launches.csr_spmm")
+    launch("csr_spmm.cu", "tfg_csr_spmm", _ARGTYPES,
+           (row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), h.data_ptr(),
+            DTYPE_CODES[h.dtype], None if diag is None else diag.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if num_virtual else None, *hub_ptrs, num_rows, num_virtual,
+            num_features, vec, width), h.device, "csr_spmm")
     if hubs is not None:
         count("hubs.merged", num_hubs)
     if slices > 1:
@@ -319,15 +305,14 @@ def launch_csr_spmm(row_ptr, col, val, h, diag, num_rows: int, hubs=None, width=
     return out, partial
 
 
-def side_matmul(side: CsrSide, h, diag):
+def side_matmul(side: CsrSide, h, diag, plain: bool = False):
     """``A_side · h`` (+ ``diag·h``): one launch of Kernel A, hub merge
-    included, on a CUDA ``h``; the plain version on a CPU ``h``."""
-    if h.is_cuda:
+    included, on a CUDA ``h``; the plain version on a CPU ``h`` or under
+    ``plain``."""
+    if use_kernel(h, plain, "CSR SpMM"):
         hubs = (side.owner_rows, side.owner_ptr, side.tickets) if side.num_virtual else None
         return launch_csr_spmm(side.row_ptr, side.col, side.val, h.contiguous(), diag,
                                side.num_rows, hubs)[0]
-    if h.device.type != "cpu":
-        raise NotImplementedError(f"no CSR SpMM for device {h.device}")
     return side_matmul_plain(side, h, diag)
 
 
@@ -349,14 +334,14 @@ class _CsrSpmm(torch.autograd.Function):
 
     @staticmethod
     @span("tfg.ops.csr_spmm.forward")
-    def forward(ctx, h, adj, side_fn):
-        ctx.adj, ctx.side_fn = adj, side_fn
-        return side_fn(adj.fwd, h, adj.diag_val)
+    def forward(ctx, h, adj, plain):
+        ctx.adj, ctx.plain = adj, plain
+        return side_matmul(adj.fwd, h, adj.diag_val, plain)
 
     @staticmethod
     @span("tfg.ops.csr_spmm.backward")
     def backward(ctx, dy):
-        return ctx.side_fn(ctx.adj.bwd, dy.contiguous(), ctx.adj.diag_val), None, None
+        return side_matmul(ctx.adj.bwd, dy.contiguous(), ctx.adj.diag_val, ctx.plain), None, None
 
 
 def csr_spmm(adj: "CsrAdj", h, compute_dtype=None):
@@ -375,8 +360,7 @@ def csr_spmm(adj: "CsrAdj", h, compute_dtype=None):
     orig_dtype = h.dtype
     if cd is not None and orig_dtype != cd:
         h = h.to(cd)
-    side_fn = side_matmul_plain if _config.plain_versions else side_matmul
-    out = _CsrSpmm.apply(h, adj, side_fn)
+    out = _CsrSpmm.apply(h, adj, _config.plain_versions)
     if cd is not None and orig_dtype != cd:
         out = out.to(orig_dtype)
     return out

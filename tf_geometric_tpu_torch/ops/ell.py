@@ -26,7 +26,7 @@ import torch
 
 from ..utils.profiling import span
 from . import config as _config
-from .csr_spmm import CsrAdj, CsrSide, csr_spmm, side_matmul, side_matmul_plain
+from .csr_spmm import CsrAdj, CsrSide, csr_spmm, side_matmul
 from .spmm_heads import CsrView, sddmm_heads, spmm_multihead
 
 __all__ = ["ell_spmm", "ell_spmm_multihead", "with_edge_values", "side_value_grad"]
@@ -81,7 +81,7 @@ class _EllSpmmValues(torch.autograd.Function):
     def forward(ctx, h, values, adj, plain):
         ctx.save_for_backward(h)
         ctx.adj, ctx.plain = adj, plain
-        return (side_matmul_plain if plain else side_matmul)(adj.fwd, h, adj.diag_val)
+        return side_matmul(adj.fwd, h, adj.diag_val, plain)
 
     @staticmethod
     @span("tfg.ops.ell.backward")
@@ -91,7 +91,7 @@ class _EllSpmmValues(torch.autograd.Function):
         dy = dy.contiguous()
         dh = dv = None
         if ctx.needs_input_grad[0]:
-            dh = (side_matmul_plain if plain else side_matmul)(adj.bwd, dy, adj.diag_val)
+            dh = side_matmul(adj.bwd, dy, adj.diag_val, plain)
         if ctx.needs_input_grad[1]:
             dv = side_value_grad(adj, h, dy, plain).to(adj.edge_values.dtype)
         return dh, dv, None, None

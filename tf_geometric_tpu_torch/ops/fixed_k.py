@@ -23,8 +23,9 @@ requires grad rather than drop that gradient.
 
 Each op has a plain PyTorch version with the same contract. A CPU tensor
 takes the plain version, a CUDA tensor launches the kernel, and a failed
-launch raises; inside ``ops.config.use_plain_versions()`` the plain
-versions run on any device (the on-card reference of ``chip_smoke.py``).
+launch raises (``_launch.use_kernel``); inside
+``ops.config.use_plain_versions()`` the plain versions run on any device
+(the on-card reference of ``chip_smoke.py``).
 
 The backward gathers too (no float atomics): on the card it buckets the
 draw's slots by source tile (source ``c`` in tile ``c % tiles``) in one
@@ -49,8 +50,8 @@ import numpy as np
 import torch
 
 from ..utils.profiling import count, span
-from . import _build
 from . import config as _config
+from ._launch import DTYPE_CODES, entry, launch, require_cuda, use_kernel, vec_elements
 
 __all__ = ["FixedKDraw", "draw_fixed_k_plain", "launch_draw_fixed_k", "draw_fixed_k_from_ints",
            "row_divisor", "reciprocal_remainder",
@@ -61,7 +62,6 @@ __all__ = ["FixedKDraw", "draw_fixed_k_plain", "launch_draw_fixed_k", "draw_fixe
            "BackwardPlan", "backward_plan", "serial_walks",
            "SPLIT"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # the backward (csrc/fixed_k.cu): slots one lane group sums before a hub's
@@ -142,16 +142,6 @@ def reciprocal_remainder(r, degree):
     return np.where(r < 0, d - 1 - rho, rho).astype(np.int32)
 
 
-def _check_cuda(tensors, device):
-    for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def launch_draw_fixed_k(r, row_start, degree, sorted_col, sorted_weight=None, self_ids=None):
     """Launch the draw kernel; returns ``(idx, weight)`` as
     ``draw_fixed_k_plain`` does. Counts each launch (``launches.fixed_k_draw``)."""
@@ -161,7 +151,7 @@ def launch_draw_fixed_k(r, row_start, degree, sorted_col, sorted_weight=None, se
         tensors.append(("sorted_weight", sorted_weight))
     if self_ids is not None:
         tensors.append(("self_ids", self_ids))
-    _check_cuda(tensors, r.device)
+    require_cuda(tensors, r.device)
     for name, t in tensors:
         want = torch.float32 if name == "sorted_weight" else torch.int32
         if t.dtype != want:
@@ -177,19 +167,12 @@ def launch_draw_fixed_k(r, row_start, degree, sorted_col, sorted_weight=None, se
     weight = torch.empty((k, n), dtype=torch.float32, device=r.device)
     if k == 0 or n == 0:
         return idx, weight
-    fn = _build.kernel_function("fixed_k.cu", "tfg_fixed_k_draw", [_P] * 8 + [_I] * 3 + [_P])
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = fn(r.data_ptr(), row_start.data_ptr(), degree.data_ptr(), sorted_col.data_ptr(),
-                None if sorted_weight is None else sorted_weight.data_ptr(),
-                None if self_ids is None else self_ids.data_ptr(),
-                idx.data_ptr(), weight.data_ptr(), k, n, sorted_col.shape[0], stream)
-    if rc != 0:
-        raise RuntimeError(f"fixed_k draw kernel launch failed: cudaError {rc}")
-    count("launches.fixed_k_draw")
+    launch("fixed_k.cu", "tfg_fixed_k_draw", [_P] * 8 + [_I] * 3,
+           (r.data_ptr(), row_start.data_ptr(), degree.data_ptr(), sorted_col.data_ptr(),
+            None if sorted_weight is None else sorted_weight.data_ptr(),
+            None if self_ids is None else self_ids.data_ptr(), idx.data_ptr(), weight.data_ptr(),
+            k, n, sorted_col.shape[0]), r.device, "fixed_k_draw")
     return idx, weight
-
-
 
 
 def draw_fixed_k_from_ints(r, csr, self_ids=None):
@@ -199,10 +182,8 @@ def draw_fixed_k_from_ints(r, csr, self_ids=None):
     ``use_plain_versions()``."""
     args = (r, csr["row_start"], csr["degree"], csr["sorted_col"], csr.get("sorted_weight"),
             self_ids)
-    if r.is_cuda and not _config.plain_versions:
+    if use_kernel(r, _config.plain_versions, "fixed-k draw"):
         return launch_draw_fixed_k(*args)
-    if not _config.plain_versions and r.device.type != "cpu":
-        raise NotImplementedError(f"no fixed-k draw kernel for device {r.device}")
     return draw_fixed_k_plain(*args)
 
 
@@ -330,20 +311,10 @@ def serial_walks(idx, num_src: int):
     return min(most, SPLIT), (-(-most // SPLIT) if most > SPLIT else 0)
 
 
-def _vec_elements(width: int, elt_bytes: int, tensors) -> int:
-    """Elements per lane vector: the largest power of two that divides
-    ``width``, spans at most 16 bytes and keeps every base address aligned."""
-    vec = 1
-    while 2 * vec * elt_bytes <= 16 and width % (2 * vec) == 0 and all(
-            t.data_ptr() % (2 * vec * t.element_size()) == 0 for t in tensors):
-        vec *= 2
-    return vec
-
-
 def _check_aggregate(dense, idx, w):
-    _check_cuda([dense, ("idx", idx), ("w", w)], dense[1].device)
+    require_cuda([dense, ("idx", idx), ("w", w)], dense[1].device)
     name, t = dense
-    if t.dtype not in _DTYPE_CODES:
+    if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if t.dim() != 2 or t.shape[1] < 1:
         raise ValueError(f"{name} must be [rows, F] with F >= 1, got {tuple(t.shape)}")
@@ -359,23 +330,20 @@ def _check_aggregate(dense, idx, w):
         raise ValueError(f"the fixed-k kernels index the {tuple(idx.shape)} draw with int32")
 
 
-def _launch_aggregate(symbol: str, dense, idx, w, out, num_src: int, extra=None):
-    """Call ``symbol`` with the arguments every aggregation entry takes, then
-    ``extra(vec)`` where given: the entry's own ``(ctypes type, value)``
-    pairs for the lane-vector width ``vec``."""
+def _launch_aggregate(symbol: str, dense, idx, w, out, num_src: int, family: str, extra=None,
+                      n=1):
+    """Launch ``symbol`` with the arguments every aggregation entry takes,
+    then ``extra(vec)`` where given: the entry's own ``(ctypes type,
+    value)`` pairs for the lane-vector width ``vec``; ``n`` as ``launch``
+    counts it."""
     k, S = idx.shape
     F = dense.shape[1]
-    vec = _vec_elements(F, dense.element_size(), [dense, out])
+    vec = vec_elements(F, [dense], [out])
     pairs = extra(vec) if extra is not None else []
     types, values = [t for t, _ in pairs], [v for _, v in pairs]
-    fn = _build.kernel_function("fixed_k.cu", symbol,
-                                [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, *types, _P])
-    with torch.cuda.device(dense.device):
-        stream = torch.cuda.current_stream(dense.device).cuda_stream
-        rc = fn(dense.data_ptr(), _DTYPE_CODES[dense.dtype], vec, idx.data_ptr(), w.data_ptr(),
-                out.data_ptr(), num_src, S, k, F, *values, stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
+    launch("fixed_k.cu", symbol, [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, *types],
+           (dense.data_ptr(), DTYPE_CODES[dense.dtype], vec, idx.data_ptr(), w.data_ptr(),
+            out.data_ptr(), num_src, S, k, F, *values), dense.device, family, n)
 
 
 def launch_fixed_k_forward(src, idx, w):
@@ -388,8 +356,7 @@ def launch_fixed_k_forward(src, idx, w):
         return out
     if n == 0:
         raise ValueError("src has no rows to gather")
-    _launch_aggregate("tfg_fixed_k_forward", src, idx, w, out, n)
-    count("launches.fixed_k_forward")
+    _launch_aggregate("tfg_fixed_k_forward", src, idx, w, out, n, "fixed_k_forward")
     return out
 
 
@@ -409,8 +376,8 @@ def launch_fixed_k_backward(dy, idx, w, num_src: int):
     if num_src == 0:
         raise ValueError("no source rows to scatter into")
     d_src = torch.empty((num_src, dy.shape[1]), dtype=torch.float32, device=dy.device)
-    nbytes = _build.kernel_function("fixed_k.cu", "tfg_fixed_k_backward_scratch_bytes",
-                                    [_I, ctypes.c_longlong], restype=ctypes.c_longlong)
+    nbytes = entry("fixed_k.cu", "tfg_fixed_k_backward_scratch_bytes", [_I, ctypes.c_longlong],
+                   restype=ctypes.c_longlong)
     scratch = torch.empty(nbytes(num_src, idx.numel()), dtype=torch.uint8, device=dy.device)
     launched = ctypes.c_int(0)
 
@@ -418,8 +385,8 @@ def launch_fixed_k_backward(dy, idx, w, num_src: int):
         plan = backward_plan(num_src, dy.shape[1], dy.element_size(), vec)
         return [(_I, plan.tile), (_I, plan.cap), (_I, plan.part_groups),
                 (_P, scratch.data_ptr()), (_P, ctypes.addressof(launched))]
-    _launch_aggregate("tfg_fixed_k_backward", dy, idx, w, d_src, num_src, extra)
-    count("launches.fixed_k_backward", launched.value)
+    _launch_aggregate("tfg_fixed_k_backward", dy, idx, w, d_src, num_src, "fixed_k_backward",
+                      extra, lambda: launched.value)
     count("calls.fixed_k_backward")
     return d_src
 
@@ -433,16 +400,6 @@ def fixed_k_backward_launches(num_src: int) -> int:
     return 5 * passes + (passes > 1) + 1
 
 
-
-
-def _run(backward: bool, plain: bool, dense, *args):
-    if dense.is_cuda and not plain:
-        return (launch_fixed_k_backward if backward else launch_fixed_k_forward)(dense, *args)
-    if not plain and dense.device.type != "cpu":
-        raise NotImplementedError(f"no fixed-k aggregation kernel for device {dense.device}")
-    return (fixed_k_backward_plain if backward else fixed_k_forward_plain)(dense, *args)
-
-
 class _FixedKAggregate(torch.autograd.Function):
     """``out = Σ_j w[j]·src[idx[j]]``; the backward gives ``d_src`` only:
     ``idx`` and ``w`` are the sampler's constants."""
@@ -451,14 +408,16 @@ class _FixedKAggregate(torch.autograd.Function):
     @span("tfg.ops.fixed_k.forward")
     def forward(ctx, src, idx, w, plain):
         ctx.save_for_backward(idx, w)
-        ctx.num_src, ctx.src_dtype, ctx.plain = src.shape[0], src.dtype, plain
-        return _run(False, plain, src, idx, w)
+        ctx.num_src, ctx.src_dtype = src.shape[0], src.dtype
+        ctx.kernel = use_kernel(src, plain, "fixed-k aggregation")
+        return (launch_fixed_k_forward if ctx.kernel else fixed_k_forward_plain)(src, idx, w)
 
     @staticmethod
     @span("tfg.ops.fixed_k.backward")
     def backward(ctx, dy):
         idx, w = ctx.saved_tensors
-        d_src = _run(True, ctx.plain, dy.contiguous(), idx, w, ctx.num_src)
+        d_src = (launch_fixed_k_backward if ctx.kernel else fixed_k_backward_plain)(
+            dy.contiguous(), idx, w, ctx.num_src)
         return d_src.to(ctx.src_dtype), None, None, None
 
 

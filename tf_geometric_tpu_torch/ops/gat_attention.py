@@ -28,9 +28,10 @@ and dy, with no K, V, lse, D or mask reads.
 The three passes and their kernels (``csrc/gat_attention.cu``):
 forward (destination side, online softmax; out and lse), backward on the
 destination side (dQ, D and w) and backward on the source side (dK and dV
-from w). Each has a plain PyTorch version with the same contract;
-``_run_pass`` dispatches on the device of Q: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel, and a failed launch raises.
+from w). Each has a plain PyTorch version with the same contract; each
+pass dispatches on the device of Q (``_launch.use_kernel``): a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel, and a failed
+launch raises.
 Every pass writes every row of its outputs, rows without entries included
 (out, lse, dQ, D, dK and dV are 0 there), so the wrappers allocate them
 uninitialized; the kernel writes the rows of ``w`` of the side's edges
@@ -50,8 +51,8 @@ import torch
 
 from ..utils.profiling import count, span
 from ..utils.union_utils import convert_union_to_numpy
-from . import _build
 from . import config as _config
+from ._launch import DTYPE_CODES, entry, launch, max_vec_bytes, query, require_cuda, use_kernel
 from .spmm_heads import CHUNK
 
 __all__ = ["GatSide", "CsrGatLayout", "gat_attention_csr", "gat_attention_ell", "HUB_DEGREE",
@@ -66,7 +67,6 @@ __all__ = ["GatSide", "CsrGatLayout", "gat_attention_csr", "gat_attention_ell", 
 # from csrc/lane_gather.cuh)
 HUB_DEGREE = 256
 _EPS = 1e-16  # added to the softmax denominator, as the JAX kernel does
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class GatSide(NamedTuple):
@@ -291,7 +291,7 @@ def _check_launch(side: GatSide, num_heads: int, dense, source=(), stats=(), kee
     ``side.num_edges`` (the kernels index them by edge id), and a
     destination side with Q's rows; returns (N_Q, H, d)."""
     q = dense[0][1]
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"Q must be float32 or bfloat16, got {q.dtype}")
     n, width = q.shape if q.dim() == 2 else (None, None)
     if n is None or num_heads < 1 or width % num_heads:
@@ -322,28 +322,12 @@ def _check_launch(side: GatSide, num_heads: int, dense, source=(), stats=(), kee
     tensors = list(dense) + list(source) + list(stats) + [
         ("row_ptr", side.row_ptr), ("nbr", side.nbr), ("eid", side.eid), ("hubs", side.hubs)]
     tensors += [(name, t) for name, t in (("keep", keep), ("w", weights)) if t is not None]
-    for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, Q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    require_cuda(tensors, q.device)
     return n, num_heads, width // num_heads
 
 
-def _max_vec_bytes(tensors) -> int:
-    """The widest vector load (16 bytes at most) that every tensor's base
-    address allows."""
-    width = 16
-    for t in tensors:
-        while t.data_ptr() % width:
-            width //= 2
-    return width
-
-
-def _launch(kind: int, symbol: str, side: GatSide, num_heads: int, d: int, keep,
-            tensors, extra_argtypes, extra=()) -> bool:
+def _launch_pass(kind: int, symbol: str, side: GatSide, num_heads: int, d: int, keep,
+                 tensors, extra_argtypes, family: str, extra=()) -> bool:
     """Allocate the hub scratch and launch pass ``kind`` (0 forward, 1 and
     2 the two backward sides) with the side and head arguments first;
     ``tensors`` are the dense inputs and outputs, then the statistics, then
@@ -353,26 +337,19 @@ def _launch(kind: int, symbol: str, side: GatSide, num_heads: int, d: int, keep,
     if side.row_ptr.shape[0] == 1:
         return False
     num_hubs = int(side.hubs.shape[0])
-    vec_bytes = _max_vec_bytes([t for t in tensors if t.dtype == q.dtype])
-    floats = _build.kernel_function(
-        "gat_attention.cu", "tfg_gat_scratch_floats", [_I] * 7,
-        restype=ctypes.c_longlong)(kind, num_hubs, num_heads, d, q.element_size(), vec_bytes,
-                                   side.nbr.shape[0])
+    vec_bytes = max_vec_bytes([t for t in tensors if t.dtype == q.dtype])
+    floats = entry("gat_attention.cu", "tfg_gat_scratch_floats", [_I] * 7,
+                   restype=ctypes.c_longlong)(kind, num_hubs, num_heads, d, q.element_size(),
+                                              vec_bytes, side.nbr.shape[0])
     if floats < 0:
         raise ValueError(f"head width {d} is wider than the kernels' 32 vectors per head")
     scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
-    fn = _build.kernel_function("gat_attention.cu", symbol,
-                                _SIDE_ARGTYPES + extra_argtypes + [_P, _P])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(side.row_ptr.data_ptr(), side.nbr.data_ptr(), side.eid.data_ptr(),
-                side.hubs.data_ptr() if num_hubs else None, num_hubs,
-                side.row_ptr.shape[0] - 1, side.hub_degree, num_heads, d, _scale(d),
-                None if keep is None else keep.data_ptr(), _DTYPE_CODES[q.dtype], vec_bytes,
-                *[t.data_ptr() for t in tensors], *extra,
-                None if scratch is None else scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
+    launch("gat_attention.cu", symbol, _SIDE_ARGTYPES + extra_argtypes + [_P],
+           (side.row_ptr.data_ptr(), side.nbr.data_ptr(), side.eid.data_ptr(),
+            side.hubs.data_ptr() if num_hubs else None, num_hubs, side.row_ptr.shape[0] - 1,
+            side.hub_degree, num_heads, d, _scale(d), None if keep is None else keep.data_ptr(),
+            DTYPE_CODES[q.dtype], vec_bytes, *[t.data_ptr() for t in tensors], *extra,
+            None if scratch is None else scratch.data_ptr()), q.device, family)
     return True
 
 
@@ -383,8 +360,8 @@ def launch_gat_forward(side: GatSide, Q, K, V, num_heads: int, keep=None):
     n, H, d = _check_launch(side, num_heads, [("Q", Q)], [("K", K), ("V", V)], keep=keep)
     out = torch.empty_like(Q)
     lse = torch.empty((n, H), dtype=torch.float32, device=Q.device)
-    if _launch(0, "tfg_gat_forward", side, H, d, keep, [Q, K, V, out, lse], [_P] * 5):
-        count("launches.gat_forward")
+    _launch_pass(0, "tfg_gat_forward", side, H, d, keep, [Q, K, V, out, lse], [_P] * 5,
+                 "gat_forward")
     return out, lse
 
 
@@ -398,9 +375,8 @@ def launch_gat_backward_dst(side: GatSide, Q, K, V, out, lse, dy, num_heads: int
     dQ = torch.empty_like(Q)
     D = torch.empty((n, H), dtype=torch.float32, device=Q.device)
     w = torch.empty((side.num_edges, 2 * H), dtype=torch.float32, device=Q.device)
-    if _launch(1, "tfg_gat_backward_dst", side, H, d, keep, [Q, K, V, out, dy, lse, dQ, D, w],
-               [_P] * 9):
-        count("launches.gat_backward_dst")
+    _launch_pass(1, "tfg_gat_backward_dst", side, H, d, keep,
+                 [Q, K, V, out, dy, lse, dQ, D, w], [_P] * 9, "gat_backward_dst")
     return dQ, D, w
 
 
@@ -425,12 +401,10 @@ def launch_gat_backward_src(side: GatSide, Q, dy, w, num_heads: int):
     shape = (side.row_ptr.shape[0] - 1, Q.shape[1])
     dK = torch.empty(shape, dtype=Q.dtype, device=Q.device)
     dV = torch.empty(shape, dtype=Q.dtype, device=Q.device)
-    if _launch(2, "tfg_gat_backward_src", side, H, d, None,
-               [Q, dy, w, dK, dV, side.chunk_hub, side.tickets], [_P] * 7 + [_I],
-               (num_chunks,)):
-        count("launches.gat_backward_src")
-        if num_hubs:
-            count("gat_src.merged", num_hubs)
+    if _launch_pass(2, "tfg_gat_backward_src", side, H, d, None,
+                    [Q, dy, w, dK, dV, side.chunk_hub, side.tickets], [_P] * 7 + [_I],
+                    "gat_backward_src", (num_chunks,)) and num_hubs:
+        count("gat_src.merged", num_hubs)
     return dK, dV
 
 
@@ -441,26 +415,15 @@ def kernel_info(kind: int, num_heads: int, head_width: int, dtype,
     these heads and dtype on the card, from ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     regs, warps = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _build.kernel_function("gat_attention.cu", "tfg_gat_kernel_info", [_I] * 5 + [_P, _P])(
-        kind, num_heads, head_width, _DTYPE_CODES[dtype], vec_bytes, ctypes.byref(regs),
-        ctypes.byref(warps))
-    if rc != 0:
-        raise RuntimeError(f"tfg_gat_kernel_info failed: cudaError {rc}")
+    query("gat_attention.cu", "tfg_gat_kernel_info", [_I] * 5 + [_P, _P],
+          (kind, num_heads, head_width, DTYPE_CODES[dtype], vec_bytes, ctypes.byref(regs),
+           ctypes.byref(warps)))
     return regs.value, warps.value
 
 
+# the three passes (0 forward, 1 and 2 the backward sides): kernels, plain versions
 _KERNELS = (launch_gat_forward, launch_gat_backward_dst, launch_gat_backward_src)
 _PLAIN = (gat_forward_plain, gat_backward_dst_plain, gat_backward_src_plain)
-
-
-def _run_pass(kind: int, plain: bool, side: GatSide, Q, *args):
-    """Pass ``kind`` (0 forward, 1 and 2 the backward sides): its plain
-    version for CPU tensors or under ``plain``, else its kernel."""
-    if Q.is_cuda and not plain:
-        return _KERNELS[kind](side, Q, *args)
-    if not plain and Q.device.type != "cpu":
-        raise NotImplementedError(f"no GAT attention kernel for device {Q.device}")
-    return _PLAIN[kind](side, Q, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -471,19 +434,20 @@ class _GatAttention(torch.autograd.Function):
     @staticmethod
     @span("tfg.ops.gat_attention.forward")
     def forward(ctx, Q, K, V, layout, num_heads, keep, plain):
-        out, lse = _run_pass(0, plain, layout.dst, Q, K, V, num_heads, keep)
+        passes = _KERNELS if use_kernel(Q, plain, "GAT attention") else _PLAIN
+        out, lse = passes[0](layout.dst, Q, K, V, num_heads, keep)
         ctx.save_for_backward(Q, K, V, out, lse, keep)
-        ctx.layout, ctx.num_heads, ctx.plain = layout, num_heads, plain
+        ctx.layout, ctx.num_heads, ctx.passes = layout, num_heads, passes
         return out
 
     @staticmethod
     @span("tfg.ops.gat_attention.backward")
     def backward(ctx, dy):
         Q, K, V, out, lse, keep = ctx.saved_tensors
-        layout, H, plain = ctx.layout, ctx.num_heads, ctx.plain
+        layout, H, passes = ctx.layout, ctx.num_heads, ctx.passes
         dy = dy.contiguous()
-        dQ, _, w = _run_pass(1, plain, layout.dst, Q, K, V, out, lse, dy, H, keep)
-        dK, dV = _run_pass(2, plain, layout.src, Q, dy, w, H)
+        dQ, _, w = passes[1](layout.dst, Q, K, V, out, lse, dy, H, keep)
+        dK, dV = passes[2](layout.src, Q, dy, w, H)
         return dQ, dK, dV, None, None, None, None
 
 

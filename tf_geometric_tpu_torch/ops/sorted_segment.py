@@ -17,9 +17,10 @@ atomic. The kernel is bound by bytes: each message element is read once for
 one add. Segments that name their output rows (``rows``) need a grid of
 only as many warps as segments, however many rows the output has.
 
-``segment_sum_csr`` dispatches on the device of its input: a CPU tensor takes
-the plain PyTorch version, a CUDA tensor launches the kernel, and a failed
-launch raises.
+``segment_sum_csr`` dispatches on the device of its input
+(``_launch.use_kernel``): a CPU tensor takes the plain PyTorch version, a
+CUDA tensor launches the kernel, and a failed launch raises; inside
+``ops.config.use_plain_versions()`` the plain version runs on any device.
 """
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ import ctypes
 
 import torch
 
-from ..utils.profiling import count, span
-from . import _build
+from ..utils.profiling import span
+from . import config as _config
+from ._launch import DTYPE_CODES, launch, require_cuda, use_kernel
 
 __all__ = ["sorted_segment_sum", "segment_sum_csr", "sorted_segment_sum_plain",
            "launch_sorted_segment_sum"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _check_seg_ptr(msg, seg_ptr, out, rows):
@@ -93,14 +95,8 @@ def launch_sorted_segment_sum(msg, seg_ptr, out, accumulate: bool, rows=None):
     tensors = [("msg", msg), ("seg_ptr", seg_ptr), ("out", out)]
     if rows is not None:
         tensors.append(("rows", rows))
-    for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != msg.device:
-            raise ValueError(f"{name} is on {t.device}, msg on {msg.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if msg.dtype not in _DTYPE_CODES or out.dtype not in _DTYPE_CODES:
+    require_cuda(tensors, msg.device)
+    if msg.dtype not in DTYPE_CODES or out.dtype not in DTYPE_CODES:
         raise TypeError(f"msg/out dtypes must be float32 or bfloat16, got "
                         f"{msg.dtype}/{out.dtype}")
     if seg_ptr.dtype != torch.int32 or (rows is not None and rows.dtype != torch.int32):
@@ -109,40 +105,28 @@ def launch_sorted_segment_sum(msg, seg_ptr, out, accumulate: bool, rows=None):
     num_segments, num_features = seg_ptr.shape[0] - 1, out.shape[1]
     if num_segments == 0 or num_features == 0:
         return out
-    fn = _build.kernel_function(
-        "sorted_segment.cu", "tfg_sorted_segment_sum",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p])
-    with torch.cuda.device(msg.device):
-        stream = torch.cuda.current_stream(msg.device).cuda_stream
-        rc = fn(msg.data_ptr(), _DTYPE_CODES[msg.dtype], seg_ptr.data_ptr(),
-                None if rows is None else rows.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[out.dtype], num_segments, num_features,
-                int(accumulate), stream)
-    if rc != 0:
-        raise RuntimeError(f"sorted_segment_sum kernel launch failed: cudaError {rc}")
-    count("launches.sorted_segment_sum")
+    launch("sorted_segment.cu", "tfg_sorted_segment_sum", [_P, _I, _P, _P, _P, _I, _I, _I, _I],
+           (msg.data_ptr(), DTYPE_CODES[msg.dtype], seg_ptr.data_ptr(),
+            None if rows is None else rows.data_ptr(), out.data_ptr(), DTYPE_CODES[out.dtype],
+            num_segments, num_features, int(accumulate)), msg.device, "sorted_segment_sum")
     return out
 
 
 @span("tfg.ops.sorted_segment.forward")
 def segment_sum_csr(msg, seg_ptr, out=None, rows=None):
     """``out[r_s] (+)= Σ msg[seg_ptr[s]:seg_ptr[s + 1]]`` (``r_s = rows[s]``,
-    or ``s``): Kernel B for CUDA tensors, the plain version for CPU tensors.
-    ``out`` given: accumulate into it in place; otherwise return a new
-    tensor of ``msg``'s dtype."""
-    if msg.is_cuda:
-        if out is None:
-            if rows is not None:
-                raise ValueError("rows needs out")
-            out = torch.empty((seg_ptr.shape[0] - 1, msg.shape[1]),
-                              dtype=msg.dtype, device=msg.device)
-            return launch_sorted_segment_sum(msg.contiguous(), seg_ptr, out, False)
-        return launch_sorted_segment_sum(msg.contiguous(), seg_ptr, out, True, rows)
-    if msg.device.type != "cpu":
-        raise NotImplementedError(f"no sorted segment sum for device {msg.device}")
-    return sorted_segment_sum_plain(msg, seg_ptr, out, rows)
+    or ``s``): Kernel B for CUDA tensors, the plain version for CPU tensors
+    or inside ``use_plain_versions()``. ``out`` given: accumulate into it in
+    place; otherwise return a new tensor of ``msg``'s dtype."""
+    if not use_kernel(msg, _config.plain_versions, "sorted segment sum"):
+        return sorted_segment_sum_plain(msg, seg_ptr, out, rows)
+    if out is None:
+        if rows is not None:
+            raise ValueError("rows needs out")
+        out = torch.empty((seg_ptr.shape[0] - 1, msg.shape[1]), dtype=msg.dtype,
+                          device=msg.device)
+        return launch_sorted_segment_sum(msg.contiguous(), seg_ptr, out, False)
+    return launch_sorted_segment_sum(msg.contiguous(), seg_ptr, out, True, rows)
 
 
 def sorted_segment_sum(msg, rows_sorted, num_rows: int):

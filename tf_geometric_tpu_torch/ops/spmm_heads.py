@@ -34,8 +34,9 @@ without one).
 
 Each op has a plain PyTorch version with the same contract. A CPU tensor
 takes the plain version, a CUDA tensor launches the kernel, and a failed
-launch raises; inside ``ops.config.use_plain_versions()`` the plain versions
-run on any device (the on-card reference of ``chip_smoke.py``).
+launch raises (``_launch.use_kernel``); inside
+``ops.config.use_plain_versions()`` the plain versions run on any device
+(the on-card reference of ``chip_smoke.py``).
 
 Bound on the H100: bytes (``spmm_pass_bytes``, ``sddmm_pass_bytes``).
 """
@@ -46,16 +47,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 from . import _build
 from . import config as _config
+from ._launch import DTYPE_CODES, launch, require_cuda, use_kernel, vec_elements
 
 __all__ = ["CsrView", "build_csr_view", "spmm_heads", "sddmm_heads", "spmm_heads_plain",
            "sddmm_heads_plain", "launch_spmm_heads", "launch_sddmm_heads", "spmm_multihead",
            "view_entries", "spmm_pass_bytes", "sddmm_pass_bytes", "pass_flops", "CHUNK",
            "RowSplit", "row_split", "spmm_heads_launches", "sddmm_entry_rows"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # Entries per chunk of the lane-group gather (kChunk in csrc/lane_gather.cuh,
@@ -192,42 +193,25 @@ def sddmm_heads_plain(view, a, b, num_heads: int, out):
 def _check_view(view, device):
     for name in ("row_ptr", "nbr", "eid"):
         t = getattr(view, name)
-        if not t.is_cuda or t.device != device:
-            raise ValueError(f"view.{name} must be a CUDA tensor on {device}, got {t.device}")
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        require_cuda([(f"view.{name}", t)], device)
+        if t.dtype != torch.int32 or t.dim() != 1:
             raise TypeError(f"view.{name} must be a contiguous 1-D int32 tensor")
     if view.nbr.shape != view.eid.shape:
         raise ValueError("view.nbr and view.eid must have one length")
 
 
 def _check_entry_rows(row, view, device):
-    if (row.shape != view.nbr.shape or row.dtype != torch.int32 or row.device != device
-            or not row.is_contiguous()):
+    require_cuda([("view.row", row)], device)
+    if row.shape != view.nbr.shape or row.dtype != torch.int32:
         raise ValueError("view.row must be contiguous int32, one per entry, on the device")
 
 
 def _check_dense(name, t, device, num_heads):
-    if not t.is_cuda or t.device != device:
-        raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.dtype not in _DTYPE_CODES:
+    require_cuda([(name, t)], device)
+    if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if t.dim() != 2 or t.shape[1] < 1 or num_heads < 1 or t.shape[1] % num_heads:
         raise ValueError(f"{name} must be [rows, H·d] with H = {num_heads}, got {tuple(t.shape)}")
-
-
-def _vec_elements(head_width: int, loaded, stored=()) -> int:
-    """Elements per lane vector: the largest power of two that divides the
-    head width, spans at most 16 bytes of the ``loaded`` tensors (one dtype)
-    and keeps every tensor's base address aligned to its vector (to 16
-    bytes for a wider stored vector, which the kernel writes in halves)."""
-    vec, elt = 1, loaded[0].element_size()
-    while 2 * vec * elt <= 16 and head_width % (2 * vec) == 0 and all(
-            t.data_ptr() % min(2 * vec * t.element_size(), 16) == 0
-            for t in (*loaded, *stored)):
-        vec *= 2
-    return vec
 
 
 def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
@@ -241,8 +225,8 @@ def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
     out_dtype = src.dtype if out_dtype is None else out_dtype
     if out_dtype not in (src.dtype, torch.float32):
         raise TypeError(f"out_dtype must be {src.dtype} or float32, got {out_dtype}")
-    if (w.dtype != torch.float32 or w.dim() != 2 or w.shape[1] != num_heads or not w.is_cuda
-            or w.device != src.device or not w.is_contiguous()):
+    require_cuda([("w", w)], src.device)
+    if w.dtype != torch.float32 or w.dim() != 2 or w.shape[1] != num_heads:
         raise ValueError(f"w must be a contiguous float32 CUDA tensor [E, {num_heads}]")
     rows, width = view.row_ptr.shape[0] - 1, src.shape[1]
     out = torch.empty((rows, width), dtype=out_dtype, device=src.device)
@@ -251,25 +235,20 @@ def launch_spmm_heads(view, w, src, num_heads: int, out_dtype=None):
     if src.shape[0] == 0:
         raise ValueError("src has no rows to gather")
     d = width // num_heads
-    vec = _vec_elements(d, [src], [out])
+    vec = vec_elements(d, [src], [out])
     chunks = _num_chunks(view.nbr.shape[0])
     if chunks:
         if view.row is None:
             raise ValueError("the SpMM's chunks need view.row")
         _check_entry_rows(view.row, view, src.device)
     partial = torch.empty((chunks, width), dtype=torch.float32, device=src.device)
-    fn = _build.kernel_function("spmm_heads.cu", "tfg_spmm_heads", [_P] * 5 + [_I, _I, _P]
-                                + [_I] * 2 + [_P] + [_I] * 3 + [_P, _I, _P])
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = fn(view.row_ptr.data_ptr(), view.row.data_ptr() if chunks else None,
-                view.nbr.data_ptr(), view.eid.data_ptr(), w.data_ptr(), num_heads, d,
-                src.data_ptr(), _DTYPE_CODES[src.dtype], src.shape[0], out.data_ptr(),
-                _DTYPE_CODES[out_dtype], rows, vec, partial.data_ptr() if chunks else None,
-                chunks, stream)
-    if rc != 0:
-        raise RuntimeError(f"spmm_heads kernel launch failed: cudaError {rc}")
-    count("launches.spmm_heads", 1 + (chunks > 0))
+    launch("spmm_heads.cu", "tfg_spmm_heads",
+           [_P] * 5 + [_I, _I, _P] + [_I] * 2 + [_P] + [_I] * 3 + [_P, _I],
+           (view.row_ptr.data_ptr(), view.row.data_ptr() if chunks else None,
+            view.nbr.data_ptr(), view.eid.data_ptr(), w.data_ptr(), num_heads, d,
+            src.data_ptr(), DTYPE_CODES[src.dtype], src.shape[0], out.data_ptr(),
+            DTYPE_CODES[out_dtype], rows, vec, partial.data_ptr() if chunks else None, chunks),
+           src.device, "spmm_heads", 1 + (chunks > 0))
     return out
 
 
@@ -287,42 +266,28 @@ def launch_sddmm_heads(view, a, b, num_heads: int, out):
     rows = view.row_ptr.shape[0] - 1
     if a.shape[0] != rows:
         raise ValueError(f"a must have the view's {rows} rows, got {a.shape[0]}")
-    if (out.dtype != torch.float32 or out.dim() != 2 or out.shape[1] != num_heads
-            or out.device != a.device or not out.is_contiguous()):
+    require_cuda([("out", out)], a.device)
+    if out.dtype != torch.float32 or out.dim() != 2 or out.shape[1] != num_heads:
         raise ValueError(f"out must be a contiguous float32 tensor [E, {num_heads}] on {a.device}")
     if rows == 0:
         return out
     if b.shape[0] == 0:
         raise ValueError("b has no rows to gather")
     d = a.shape[1] // num_heads
-    vec = _vec_elements(d, [a, b])
+    vec = vec_elements(d, [a, b])
     entry_row = sddmm_entry_rows(view)
     _check_entry_rows(entry_row, view, a.device)
-    fn = _build.kernel_function("spmm_heads.cu", "tfg_sddmm_heads",
-                                [_P] * 5 + [_I] * 4 + [_P] + [_I] * 3 + [_P])
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(entry_row.data_ptr(), view.nbr.data_ptr(), view.eid.data_ptr(), a.data_ptr(),
-                b.data_ptr(), _DTYPE_CODES[a.dtype], b.shape[0], num_heads, d, out.data_ptr(),
-                rows, view.nbr.shape[0], vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"sddmm_heads kernel launch failed: cudaError {rc}")
-    count("launches.sddmm_heads")
+    launch("spmm_heads.cu", "tfg_sddmm_heads", [_P] * 5 + [_I] * 4 + [_P] + [_I] * 3,
+           (entry_row.data_ptr(), view.nbr.data_ptr(), view.eid.data_ptr(), a.data_ptr(),
+            b.data_ptr(), DTYPE_CODES[a.dtype], b.shape[0], num_heads, d, out.data_ptr(), rows,
+            view.nbr.shape[0], vec), a.device, "sddmm_heads")
     return out
-
-
-def _use_kernel(t, plain: bool, what: str) -> bool:
-    if t.is_cuda and not plain:
-        return True
-    if not plain and t.device.type != "cpu":
-        raise NotImplementedError(f"no {what} kernel for device {t.device}")
-    return False
 
 
 def spmm_heads(view, w, src, num_heads: int, out_dtype=None, plain: bool = False):
     """The H-head SpMM: its kernel on a CUDA ``src``, its plain version on a
     CPU one or under ``plain``."""
-    if _use_kernel(src, plain, "H-head SpMM"):
+    if use_kernel(src, plain, "H-head SpMM"):
         return launch_spmm_heads(view, w.float().contiguous(), src.contiguous(), num_heads,
                                  out_dtype)
     return spmm_heads_plain(view, w.float(), src, num_heads, out_dtype)
@@ -334,7 +299,7 @@ def sddmm_heads(view, a, b, num_heads: int, out, plain: bool = False):
     go in at their common dtype."""
     common = torch.promote_types(a.dtype, b.dtype)
     a, b = a.to(common), b.to(common)
-    if _use_kernel(a, plain, "H-head SDDMM"):
+    if use_kernel(a, plain, "H-head SDDMM"):
         return launch_sddmm_heads(view, a.contiguous(), b.contiguous(), num_heads, out)
     return sddmm_heads_plain(view, a, b, num_heads, out)
 

@@ -17,10 +17,11 @@ Per pass (B occupied tiles, tile t, width F) the least traffic is the tiles
 (B·t² elements), the operand rows and the output: bytes bound it on the
 H100 (see ``csrc/tiled_spmm.cu``).
 
-``tiled_pass`` dispatches on the device of ``h``: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel, and a failed launch
-raises; inside ``ops.config.use_plain_versions()`` the plain version runs
-on any device.
+``tiled_pass`` dispatches on the device of ``h`` (``_launch.use_kernel``):
+a CPU tensor takes the plain version, a CUDA tensor launches the kernel,
+and a failed launch raises; ``tiled_spmm`` reads
+``ops.config.use_plain_versions()`` once a call, and both its passes then
+run the plain version on any device inside it.
 
 bf16 tiles run on the tensor cores: the wrapper casts ``h`` to bf16 once
 per call (padded to whole tiles of rows and a multiple of 8 columns), and
@@ -36,16 +37,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 from ..utils.union_utils import convert_union_to_numpy
 from . import _build
 from . import config as _config
+from ._launch import DTYPE_CODES, launch, query, require_cuda, use_kernel
 
 __all__ = ["TiledSpmm", "build_tiled_spmm", "tiled_spmm", "tiled_pass", "tiled_spmm_plain",
            "launch_tiled_spmm", "count_occupied_tiles", "tiled_pass_bytes", "MAX_TILE",
            "MmaPlan", "mma_plan", "cast_operand", "launch_order", "kernel_info"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_TILE = 256  # the kernel's largest tile; t must also be a multiple of 16
 
@@ -276,7 +277,7 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
             raise ValueError(f"{name} must be contiguous")
     if row_ptr.dtype != torch.int32 or col_tile.dtype != torch.int32:
         raise TypeError("row_ptr and col_tile must be int32")
-    if a_tiles.dtype not in _DTYPE_CODES or h.dtype not in _DTYPE_CODES:
+    if a_tiles.dtype not in DTYPE_CODES or h.dtype not in DTYPE_CODES:
         raise TypeError(f"a_tiles and h must be float32 or bfloat16, got {a_tiles.dtype} "
                         f"and {h.dtype}")
     if a_tiles.dim() != 3 or a_tiles.shape[1] != a_tiles.shape[2]:
@@ -292,39 +293,28 @@ def launch_tiled_spmm(row_ptr, col_tile, a_tiles, h, num_out_rows: int):
     num_out_tiles = row_ptr.shape[0] - 1
     if num_out_rows > num_out_tiles * tile or num_out_rows < 0:
         raise ValueError(f"{num_out_rows} output rows do not fit {num_out_tiles} tiles of {tile}")
-    for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != h.device:
-            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    require_cuda(tensors, h.device)
     if a_tiles.data_ptr() % 16:
         raise ValueError("a_tiles must be 16-byte aligned")
     out = torch.empty((num_out_rows, h.shape[1]), dtype=h.dtype, device=h.device)
     if num_out_rows == 0 or h.shape[1] == 0:
         return out
     n_src, width = h.shape
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        if a_tiles.dtype == torch.bfloat16:
-            plan = mma_plan(tile, width)
-            hc = cast_operand(h, tile)
-            order = launch_order(row_ptr)
-            fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm_tma",
-                                        [_P, _P, _P, _P, _I, _P, _I, _I, _P] + [_I] * 10 + [_P])
-            rc = fn(order.data_ptr(), row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(),
-                    a_tiles.shape[0], hc.data_ptr(), hc.shape[0] // tile, plan.f_pad,
-                    out.data_ptr(), _DTYPE_CODES[h.dtype], num_out_tiles, tile, num_out_rows,
-                    width, plan.slices_per_wg, plan.atoms, plan.chunks, plan.wgs, plan.stages,
-                    stream)
-        else:
-            fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm_fma",
-                                        [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P])
-            rc = fn(row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(), h.data_ptr(),
-                    _DTYPE_CODES[h.dtype], out.data_ptr(), num_out_tiles, tile, n_src,
-                    num_out_rows, width, stream)
-    if rc != 0:
-        raise RuntimeError(f"tiled_spmm kernel launch failed: cudaError {rc}")
-    count("launches.tiled_spmm")
+    if a_tiles.dtype == torch.bfloat16:
+        plan = mma_plan(tile, width)
+        hc = cast_operand(h, tile)
+        order = launch_order(row_ptr)
+        launch("tiled_spmm.cu", "tfg_tiled_spmm_tma",
+               [_P, _P, _P, _P, _I, _P, _I, _I, _P] + [_I] * 10,
+               (order.data_ptr(), row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(),
+                a_tiles.shape[0], hc.data_ptr(), hc.shape[0] // tile, plan.f_pad, out.data_ptr(),
+                DTYPE_CODES[h.dtype], num_out_tiles, tile, num_out_rows, width, plan.slices_per_wg,
+                plan.atoms, plan.chunks, plan.wgs, plan.stages), h.device, "tiled_spmm")
+    else:
+        launch("tiled_spmm.cu", "tfg_tiled_spmm_fma", [_P, _P, _P, _P, _I, _P] + [_I] * 5,
+               (row_ptr.data_ptr(), col_tile.data_ptr(), a_tiles.data_ptr(), h.data_ptr(),
+                DTYPE_CODES[h.dtype], out.data_ptr(), num_out_tiles, tile, n_src, num_out_rows,
+                width), h.device, "tiled_spmm")
     return out
 
 
@@ -336,33 +326,28 @@ def kernel_info(tile: int, width: int, a_dtype, h_dtype) -> dict:
         return {"kernel": "tiled_spmm_fma_kernel", "threads": 256}
     plan = mma_plan(tile, width)
     regs, static, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    fn = _build.kernel_function("tiled_spmm.cu", "tfg_tiled_spmm_tma_info",
-                                [_I] * 6 + [_P] * 3)
-    rc = fn(_DTYPE_CODES[h_dtype], plan.slices_per_wg, plan.atoms, tile, plan.wgs, plan.stages,
-            ctypes.byref(regs), ctypes.byref(static), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"tiled_spmm kernel attributes: cudaError {rc}")
+    query("tiled_spmm.cu", "tfg_tiled_spmm_tma_info", [_I] * 6 + [_P] * 3,
+          (DTYPE_CODES[h_dtype], plan.slices_per_wg, plan.atoms, tile, plan.wgs, plan.stages,
+           ctypes.byref(regs), ctypes.byref(static), ctypes.byref(blocks)))
     return {"kernel": "tiled_spmm_tma_kernel", "threads": plan.threads, "registers": regs.value,
             "static_smem": static.value, "dynamic_smem": plan.smem_bytes,
             "stages": plan.stages, "atoms": plan.atoms, "chunks": plan.chunks,
             "blocks_per_sm": blocks.value}
 
 
-def tiled_pass(ts: TiledSpmm, h, transpose: bool = False):
+def tiled_pass(ts: TiledSpmm, h, transpose: bool = False, plain: bool = False):
     """``A·h`` (or ``Aᵀ·h`` with ``transpose``) over the packing: the
-    kernel on a CUDA ``h``, the plain version on a CPU ``h`` or inside
-    ``use_plain_versions()``."""
+    kernel on a CUDA ``h``, the plain version on a CPU ``h`` or under
+    ``plain``."""
     if transpose:
         rt, ct, a, ptr, n_tiles, n_rows = (ts.t_row_tile, ts.t_col_tile, ts.t_a_tiles,
                                            ts.t_row_ptr, ts.num_col_tiles, ts.shape[1])
     else:
         rt, ct, a, ptr, n_tiles, n_rows = (ts.row_tile, ts.col_tile, ts.a_tiles, ts.row_ptr,
                                            ts.num_row_tiles, ts.shape[0])
-    if _config.plain_versions or h.device.type == "cpu":
-        return tiled_spmm_plain(rt, ct, a, h, n_tiles, n_rows, ts.tile)
-    if h.is_cuda:
+    if use_kernel(h, plain, "tiled SpMM"):
         return launch_tiled_spmm(ptr, ct, a, h.contiguous(), n_rows)
-    raise NotImplementedError(f"no tiled SpMM for device {h.device}")
+    return tiled_spmm_plain(rt, ct, a, h, n_tiles, n_rows, ts.tile)
 
 
 class _TiledSpmm(torch.autograd.Function):
@@ -371,14 +356,14 @@ class _TiledSpmm(torch.autograd.Function):
 
     @staticmethod
     @span("tfg.ops.tiled_spmm.forward")
-    def forward(ctx, h, ts):
-        ctx.ts = ts
-        return tiled_pass(ts, h)
+    def forward(ctx, h, ts, plain):
+        ctx.ts, ctx.plain = ts, plain
+        return tiled_pass(ts, h, plain=plain)
 
     @staticmethod
     @span("tfg.ops.tiled_spmm.backward")
     def backward(ctx, dy):
-        return tiled_pass(ctx.ts, dy, transpose=True), None
+        return tiled_pass(ctx.ts, dy, transpose=True, plain=ctx.plain), None, None
 
 
 def tiled_spmm(ts: TiledSpmm, h):
@@ -389,7 +374,7 @@ def tiled_spmm(ts: TiledSpmm, h):
         raise ValueError("the tiles are constants: tiled_spmm gives no gradient to a_tiles")
     if h.dim() != 2 or h.shape[0] != ts.shape[1]:
         raise ValueError(f"h must be [{ts.shape[1]}, F], got {tuple(h.shape)}")
-    return _TiledSpmm.apply(h, ts)
+    return _TiledSpmm.apply(h, ts, _config.plain_versions)
 
 
 def tiled_pass_bytes(ts: TiledSpmm, width: int, h_bytes: int, transpose: bool = False) -> int:

@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..utils.profiling import counters
+from ..ops._launch import LAUNCH_FAMILIES, kernel_launch_counts
 
 __all__ = ["ShardJob", "run_ranks", "run_job", "kernel_launch_counts", "LAUNCH_FAMILIES",
            "rank_seed", "params_to_numpy"]
@@ -91,18 +91,6 @@ class ShardJob(NamedTuple):
     steps: int
     warmup: int = 0
     timed: bool = False
-
-
-# the kernel wrappers' launch counters, ``launches.<family>`` (``utils.profiling``)
-LAUNCH_FAMILIES = ("csr_spmm", "sorted_segment_sum", "gat_forward", "gat_backward_dst",
-                   "gat_backward_src", "fixed_k_draw", "fixed_k_forward", "fixed_k_backward",
-                   "spmm_heads", "sddmm_heads", "tiled_spmm")
-
-
-def kernel_launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count in this process."""
-    found = counters()
-    return {name: found.get(f"launches.{name}", 0) for name in LAUNCH_FAMILIES}
 
 
 def rank_seed(seed: int, rank: int) -> int:
